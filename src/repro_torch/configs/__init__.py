@@ -1,0 +1,26 @@
+"""Architecture registry of the port: ``get_config("<arch-id>")``.
+
+Only the dense family is here so far; the other six configs arrive with
+the slices that port their families (see ROADMAP.md Queue 1).
+"""
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import (  # noqa: E402
+    chatglm3_6b,
+    glm4_9b,
+    qwen2p5_3b,
+    smollm_135m,
+)
+
+ARCHITECTURES = {
+    m.CONFIG.name: m.CONFIG
+    for m in (glm4_9b, smollm_135m, chatglm3_6b, qwen2p5_3b)
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHITECTURES:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHITECTURES)}")
+    return ARCHITECTURES[name]
+
+
+__all__ = ["ARCHITECTURES", "ModelConfig", "get_config"]
