@@ -1,11 +1,13 @@
 """Parameter bridge: the JAX package's params, as numpy arrays, into the port.
 
 The reference keeps per-layer leaves stacked along a leading ``(L, ...)``
-axis under ``params["layers"]``; the port keeps a list of per-layer
-dicts. Every leaf keeps its layout (``wq`` ``(d, H, Dh)``, ``wo``
-``(H, Dh, d)``, ``embed.out`` ``(d, Vp)``), so no weight is transposed.
-This module imports neither JAX nor the JAX package: callers hand it
-``jax.tree.map(np.asarray, params)``.
+axis under ``params["layers"]`` (nested dicts included: the SSM family's
+``{"ssm": {...}, "ln"}``); the port keeps a list of per-layer dicts.
+Every other top-level entry (``embed``, the hybrid's unstacked
+``shared`` block) crosses as it is. Every leaf keeps its layout (``wq``
+``(d, H, Dh)``, ``wo`` ``(H, Dh, d)``, ``embed.out`` ``(d, Vp)``), so no
+weight is transposed. This module imports neither JAX nor the JAX
+package: callers hand it ``jax.tree.map(np.asarray, params)``.
 """
 from __future__ import annotations
 
@@ -28,14 +30,20 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def from_jax(params_np: dict, *, device="cpu", dtype=None) -> dict:
-    """``{"embed": {...}, "layers": {stacked (L, ...) leaves}}`` (numpy) ->
-    ``{"embed": {...}, "layers": [per-layer dict] * L}`` (torch)."""
+    """``{"layers": {stacked (L, ...) leaves}, **rest}`` (numpy) ->
+    ``{"layers": [per-layer dict] * L, **rest}`` (torch)."""
     stacked = params_np["layers"]
-    nl = len(stacked["ln1"])
-    return {
-        "embed": _map(params_np["embed"], lambda a: _tensor(a, device, dtype)),
-        "layers": [_map(stacked, lambda a, i=i: _tensor(np.asarray(a)[i],
-                                                        device, dtype))
-                   for i in range(nl)],
-    }
+    nl = len(_first_leaf(stacked))
+    out = {k: _map(v, lambda a: _tensor(a, device, dtype))
+           for k, v in params_np.items() if k != "layers"}
+    out["layers"] = [_map(stacked, lambda a, i=i: _tensor(np.asarray(a)[i],
+                                                          device, dtype))
+                     for i in range(nl)]
+    return out

@@ -1,19 +1,23 @@
 """Architecture registry of the port: ``get_config("<arch-id>")``.
 
-Only the dense family is here so far; the other six configs arrive with
-the slices that port their families (see ROADMAP.md Queue 1).
+The dense, SSM and hybrid families are here so far; the other four
+configs arrive with the slices that port their families (see
+ROADMAP.md Queue 1).
 """
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs import (  # noqa: E402
     chatglm3_6b,
     glm4_9b,
+    mamba2_130m,
     qwen2p5_3b,
     smollm_135m,
+    zamba2_2p7b,
 )
 
 ARCHITECTURES = {
     m.CONFIG.name: m.CONFIG
-    for m in (glm4_9b, smollm_135m, chatglm3_6b, qwen2p5_3b)
+    for m in (glm4_9b, smollm_135m, zamba2_2p7b, chatglm3_6b, mamba2_130m,
+              qwen2p5_3b)
 }
 
 

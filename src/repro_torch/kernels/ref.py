@@ -1,8 +1,8 @@
-"""Plain PyTorch oracles (the port of ``repro.kernels.ref``'s attention).
+"""Plain PyTorch oracles (the port of ``repro.kernels.ref``'s attention
+and SSD).
 
 These are the reference semantics the kernels and the model are held
-to. Only attention is here so far; ``ssd`` and ``segment_combine`` come
-with the slices that port their kernels.
+to. ``segment_combine`` comes with the slice that ports its kernel.
 """
 from __future__ import annotations
 
@@ -64,3 +64,89 @@ def attention_xla_chunked(
                       window=window, q_offset=q_offset + c0, scale=scale)
             for c0 in range(0, S, chunk)]
     return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) — quadratic masked oracle
+# ---------------------------------------------------------------------------
+def ssd(
+    x: torch.Tensor,         # (B, S, H, P)  head inputs
+    dt: torch.Tensor,        # (B, S, H)     softplus'd step sizes (>0)
+    A: torch.Tensor,         # (H,)          negative decay rates (A < 0)
+    Bm: torch.Tensor,        # (B, S, N)     input projection (shared across heads)
+    Cm: torch.Tensor,        # (B, S, N)     output projection
+    D: torch.Tensor,         # (H,)          skip connection
+) -> torch.Tensor:
+    """y[t] = sum_{s<=t} C_t^T (prod_{r=s+1..t} e^{dt_r A}) dt_s B_s x_s + D x_t.
+
+    O(S^2) masked form — the oracle for the chunked kernel.
+    """
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    a = dtf * Af[None, None, :]                      # (B,S,H) log-decay per step
+    cum = torch.cumsum(a, dim=1)                     # (B,S,H)
+    diff = cum[:, :, None, :] - cum[:, None, :, :]   # (B,S,S,H) t,s
+    S_len = x.shape[1]
+    tri = torch.tril(torch.ones((S_len, S_len), dtype=torch.bool,
+                                device=x.device))
+    # mask the upper triangle BEFORE exp: it holds large positive
+    # differences whose exp overflows
+    diff = diff.masked_fill(~tri[None, :, :, None], float("-inf"))
+    decay = torch.exp(diff)
+    scores = torch.einsum("btn,bsn->bts", Cf, Bf)[..., None] * decay
+    scores = scores * dtf[:, None, :, :]             # weight by dt_s
+    y = torch.einsum("btsh,bshp->bthp", scores, xf)
+    y = y + xf * D.float()[None, None, :, None]
+    return y.to(x.dtype)
+
+
+def ssd_chunked(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, D: torch.Tensor, *, chunk: int = 128,
+) -> torch.Tensor:
+    """Chunked linear-time SSD in plain PyTorch (the reference's XLA path)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"seq {S} not divisible by chunk {chunk}")
+    nc = S // chunk
+
+    xf = x.float().reshape(Bsz, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bsz, nc, chunk, H)
+    Bf = Bm.float().reshape(Bsz, nc, chunk, N)
+    Cf = Cm.float().reshape(Bsz, nc, chunk, N)
+    Af = A.float()
+
+    a = dtf * Af[None, None, None, :]                # (B,nc,Q,H)
+    cum = torch.cumsum(a, dim=2)                     # within-chunk cumulative
+    total = cum[:, :, -1, :]                         # (B,nc,H)
+
+    # --- intra-chunk (quadratic within chunk) ---
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,nc,Q,Q,H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    diff = diff.masked_fill(~tri[None, None, :, :, None], float("-inf"))
+    decay = torch.exp(diff)
+    scores = torch.einsum("bctn,bcsn->bcts", Cf, Bf)[..., None] * decay
+    scores = scores * dtf[:, :, None, :, :]
+    y_intra = torch.einsum("bctsh,bcshp->bcthp", scores, xf)
+
+    # --- chunk states: contribution of chunk c to the running state ---
+    w = torch.exp(total[:, :, None, :] - cum) * dtf          # (B,nc,Q,H)
+    chunk_states = torch.einsum("bcsh,bcsn,bcshp->bchnp", w, Bf, xf)
+
+    # --- inter-chunk recurrence (tiny loop over nc), state BEFORE chunk ---
+    gamma = torch.exp(total)                                 # (B,nc,H)
+    state = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(state)
+        state = state * gamma[:, c, :, None, None] + chunk_states[:, c]
+    states_before = torch.stack(before, dim=1)               # (B,nc,H,N,P)
+
+    # --- inter-chunk output: y_inter[t] = exp(cum[t]) C_t . state_before ---
+    y_inter = torch.einsum("bcth,bctn,bchnp->bcthp", torch.exp(cum), Cf,
+                           states_before)
+    y = y_intra + y_inter
+    y = y + xf * D.float()[None, None, None, :, None]
+    return y.reshape(Bsz, S, H, P).to(x.dtype)

@@ -1,16 +1,21 @@
 """Serving launcher of the port: fixed-batch oracle + continuous batching.
 
   * default (oracle) — one fixed batch prefilled in a single batched pass
-    (``api.prefill``, attention through the hand-written flash-attention
-    kernel on the card) and greedily decoded to completion.
+    (``api.prefill``: attention through the hand-written flash-attention
+    kernel and the SSM families' chunk scan through the hand-written
+    SSD kernel on the card) and greedily decoded to completion.
   * ``--continuous`` — the ``repro_torch.serve`` subsystem: a request
     trace (``--request-trace`` JSONL or synthetic Poisson arrivals),
-    paged KV blocks, token-budget + SLO admission, per-step join/retire.
+    paged KV blocks and per-request SSM state, token-budget + SLO
+    admission, per-step join/retire.
 
 Runs on the GPU (``--device cuda``, the default; no GPU is an error) or,
-when asked, on the CPU, where attention takes the kernel's plain
-PyTorch version. Weights are random, from ``torch.Generator`` seed 0.
-The reference's ``--tuning-table``/``--tensor-parallel``/``--tp-collective``
+when asked, on the CPU, where the kernels take their plain PyTorch
+versions. Weights are random, drawn by a ``torch.Generator`` with seed 0
+on the serving device. For the SSM and hybrid families (mamba2-130m,
+zamba2-2.7b) a prompt longer than the scan's chunk (``ssm_chunk``, 128;
+32 with ``--reduced``) must be a multiple of it. The reference's
+``--tuning-table``/``--tensor-parallel``/``--tp-collective``
 /``--probe-fabric`` arrive with the collectives slice.
 
 Examples:
@@ -19,6 +24,10 @@ Examples:
     python -m repro_torch.launch.serve --arch smollm-135m --continuous \\
         --num-requests 32 --poisson-rate 20 --prompt-len 512 --gen 64 \\
         --max-active 8 --block-size 16 --slo-ms 200
+    python -m repro_torch.launch.serve --arch mamba2-130m \\
+        --batch 8 --prompt-len 512 --gen 64
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --continuous \\
+        --num-requests 8 --poisson-rate 20 --prompt-len 512 --gen 16
     python -m repro_torch.launch.serve --arch smollm-135m --reduced \\
         --device cpu --batch 2 --prompt-len 8 --gen 4
 """
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHITECTURES
+from repro_torch.models import ssm
 from repro_torch.models.registry import build_model
 
 
@@ -55,6 +65,7 @@ def _serve_continuous(args, cfg, api, params):
                          max(args.prompt_len // 2, 1), args.prompt_len),
             max_new=args.gen, seed=0)
 
+    _check_prompt_lens(cfg, [r.prompt_len for r in trace])
     bs = args.block_size
     longest = max(r.prompt_len + r.max_new for r in trace)
     view_len = -(-longest // bs) * bs
@@ -89,6 +100,14 @@ def _serve_continuous(args, cfg, api, params):
     out["generated"] = {r.rid: list(r.generated) for r in sched.finished}
     out["max_new"] = {r.rid: r.max_new for r in trace}
     return out
+
+
+def _check_prompt_lens(cfg, lens) -> None:
+    """The SSM families' chunked scan: a prompt longer than the chunk must
+    be a multiple of it. Raises before any prompt is served."""
+    if cfg.family in ("ssm", "hybrid"):
+        for n in sorted(set(lens)):
+            ssm.check_prompt_len(cfg, n)
 
 
 def _serve_fixed(args, cfg, api, params):
@@ -193,7 +212,7 @@ def main(argv=None):
     api = build_model(cfg, window=args.window, attn_impl="auto",
                       device=args.device)
     with torch.inference_mode():
-        params = api.init(torch.Generator().manual_seed(0))
+        params = api.init(torch.Generator(device=api.device).manual_seed(0))
         if args.continuous:
             return _serve_continuous(args, cfg, api, params)
         return _serve_fixed(args, cfg, api, params)

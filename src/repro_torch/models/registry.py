@@ -1,4 +1,5 @@
-"""Uniform model API (port of ``repro/models/registry.py``), dense family only."""
+"""Uniform model API (port of ``repro/models/registry.py``): the dense,
+SSM and hybrid families."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,13 +9,13 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer
+
+_FAMILY = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
 
 # families the port does not have yet, and the ROADMAP.md Queue 1 slice
 # that brings each
 _LATER = {
-    "ssm": "slice (c): SSM/hybrid families + the ssd kernel",
-    "hybrid": "slice (c): SSM/hybrid families + the ssd kernel",
     "moe": "slice (e): the remaining families",
     "encdec": "slice (e): the remaining families",
     "vlm": "slice (e): the remaining families",
@@ -50,23 +51,31 @@ def build_model(
     compute_dtype=torch.bfloat16,
     param_dtype=torch.float32,
     attn_impl: str = "auto",
+    ssd_impl: str = "auto",
     device="cuda",
 ) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILY:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: it comes with "
             f"{_LATER.get(cfg.family, 'a later slice')} (ROADMAP.md Queue 1)")
     dev = resolve_device(device)
-    mod = transformer
+    mod = _FAMILY[cfg.family]
+    # the per-family keywords, as the reference passes them
+    dkw: dict = {"compute_dtype": compute_dtype}
+    if cfg.family in ("dense", "hybrid"):
+        dkw["window"] = window
+    pkw = dict(dkw)
+    if cfg.family in ("dense", "hybrid"):
+        pkw["attn_impl"] = attn_impl
+    if cfg.family in ("ssm", "hybrid"):
+        pkw["ssd_impl"] = ssd_impl
     return ModelAPI(
         cfg=cfg,
         device=dev,
         init=functools.partial(mod.init_params, cfg=cfg, dtype=param_dtype,
                                device=dev),
         init_cache=functools.partial(mod.init_cache, cfg, device=dev),
-        decode_step=functools.partial(mod.decode_step, cfg=cfg, window=window,
-                                      compute_dtype=compute_dtype),
+        decode_step=functools.partial(mod.decode_step, cfg=cfg, **dkw),
         prefill=lambda params, tokens, cache_len: mod.prefill(
-            params, tokens, cfg, cache_len, window=window,
-            compute_dtype=compute_dtype, attn_impl=attn_impl),
+            params, tokens, cfg, cache_len, **pkw),
     )

@@ -2,21 +2,36 @@
 
 Execution model
 ---------------
-The engine owns ``max_active`` fixed request *slots*. The dense
-family's cache from ``api.init_cache(batch=1, view_len)`` gives the
-paged leaves, the attention ``k``/``v`` tensors, stored in a
-:class:`~repro_torch.serve.paged_kv.PagedKV` block pool; the engine owns
-one ``(max_active,)`` vector of lengths in place of the cache's scalar.
+The engine owns ``max_active`` fixed request *slots*. The family cache
+from ``api.init_cache(batch=1, view_len)`` is split, as in the
+reference, into:
+
+  * paged leaves — the top-level attention ``k``/``v`` tensors, where the
+    family has them, stored in a :class:`~repro_torch.serve.paged_kv.PagedKV`
+    block pool (the SSM family has none: ``self.paged`` is ``None``);
+  * opaque per-request state — every other leaf, nested dicts included
+    (the SSM conv/ssd state), one batched tensor per leaf with the slot
+    on axis 1, after the layer axis, where every family's cache keeps
+    its batch;
+  * lengths — one engine-owned ``(max_active,)`` vector, passed as the
+    cache's ``length`` where the template has one.
 
 The reference vmaps a batch-1 ``decode_step`` over the slots. Here one
 step gathers every slot's dense view through the block tables into a
 ``(L, max_active, view_len, KV, Dh)`` cache, runs ONE batched
-``decode_step`` with the per-slot lengths, scatters each slot's newly
-written token back into its blocks, and argmaxes the next token.
-Inactive slots read and write the null block and keep their length. A
+``decode_step`` with the per-slot lengths and opaque state, scatters
+each slot's newly written token back into its blocks, keeps the new
+opaque state of the active slots, and argmaxes the next token. Inactive
+slots read and write the null block and keep their length and state. A
 slot's row of the batched step depends only on its own data, so the
 paged engine gives exactly the tokens of the same batched decode over
 dense caches (the tests' oracle).
+
+Opaque state is written at admit in the store's dtype (as the
+reference's ``.at[slot].set`` casts), and after each step the store
+takes ``decode_step``'s output dtype, as the reference's
+``self.opaque = new_opq`` does: at fp32 compute the bf16 conv history
+of the template becomes fp32 after the first step in both.
 
 Timing is injected: with ``cost_model=None`` the run loop uses the wall
 clock; a ``cost_model(kind, n) -> seconds`` callable switches every
@@ -36,6 +51,19 @@ import torch
 from repro_torch.serve.paged_kv import PagedKV, gather_views, scatter_tokens
 
 PAGED_LEAVES = ("k", "v")
+
+
+def _map(tree, fn, *rest):
+    """``fn`` over the leaves of ``tree`` (nested dicts), zipped with the
+    same-shaped ``rest`` trees."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _rows(mask, leaf):
+    """``(R,)`` mask broadcast over a leaf whose slot axis is axis 1."""
+    return mask.view((1, -1) + (1,) * (leaf.dim() - 2))
 
 
 @dataclasses.dataclass
@@ -59,10 +87,17 @@ class ServeEngine:
         self.device = api.device
 
         tmpl = api.init_cache(1, view_len)
-        self.paged = PagedKV({n: tmpl[n] for n in PAGED_LEAVES},
-                             block_size=block_size, max_requests=max_active,
-                             num_blocks=num_blocks)
+        self._has_length = "length" in tmpl
+        paged_tmpl = {n: tmpl[n] for n in PAGED_LEAVES if n in tmpl}
+        self.paged_names = tuple(paged_tmpl)
+        self.paged = PagedKV(paged_tmpl, block_size=block_size,
+                             max_requests=max_active,
+                             num_blocks=num_blocks) if paged_tmpl else None
         R = max_active
+        self.opaque = _map(
+            {n: v for n, v in tmpl.items()
+             if n not in self.paged_names and n != "length"},
+            lambda a: a.new_zeros((a.shape[0], R) + tuple(a.shape[2:])))
         self.lengths = torch.zeros((R,), dtype=torch.long, device=self.device)
         self.cur_tokens = torch.zeros((R,), dtype=torch.long,
                                       device=self.device)
@@ -82,13 +117,19 @@ class ServeEngine:
             raise ValueError(f"prompt {req.prompt_len} exceeds KV view "
                              f"{self.view_len}")
         slot = self._free_slots[-1]
-        if not self.paged.admit(slot):
+        if self.paged is not None and not self.paged.admit(slot):
             raise RuntimeError("KV block pool exhausted")
         self._free_slots.pop()
         tokens = torch.tensor(np.asarray(req.prompt, np.int64),
                               device=self.device)[None]
         logits, cache = self.api.prefill(self.params, tokens, self.view_len)
-        self.paged.write_view(slot, {n: cache[n] for n in PAGED_LEAVES})
+        if self.paged is not None:
+            self.paged.write_view(slot, {n: cache[n]
+                                         for n in self.paged_names})
+
+        def put(store, leaf):               # casts to the store's dtype
+            store[:, slot] = leaf[:, 0]
+        _map(self.opaque, put, {n: cache[n] for n in self.opaque})
         self.lengths[slot] = req.prompt_len
         self.cur_tokens[slot] = torch.argmax(logits[0, -1])
         self._active_mask[slot] = True
@@ -97,7 +138,8 @@ class ServeEngine:
 
     def release(self, slot: int) -> None:
         """Free a slot (retire or preempt): blocks back to the pool."""
-        self.paged.release(slot)
+        if self.paged is not None:
+            self.paged.release(slot)
         self._active_mask[slot] = False
         self._slot_req.pop(slot, None)
         self._free_slots.append(slot)
@@ -105,16 +147,26 @@ class ServeEngine:
     @torch.inference_mode()
     def step(self):
         """One decode step for every active slot. Returns {slot: token}."""
-        tables = self.paged.tables
-        views = gather_views(self.paged.pools, tables, self.block_size)
-        cache = {**views, "length": self.lengths}
+        cache = dict(self.opaque)
+        if self.paged is not None:
+            tables = self.paged.tables
+            cache.update(gather_views(self.paged.pools, tables,
+                                      self.block_size))
+        if self._has_length:
+            cache["length"] = self.lengths
         logits, nc = self.api.decode_step(self.params, cache,
                                           self.cur_tokens[:, None])
-        scatter_tokens(self.paged.pools, tables,
-                       {n: nc[n] for n in PAGED_LEAVES},
-                       self.lengths % self.view_len, self.block_size)
+        if self.paged is not None:
+            scatter_tokens(self.paged.pools, tables,
+                           {n: nc[n] for n in self.paged_names},
+                           self.lengths % self.view_len, self.block_size)
         active = torch.from_numpy(self._active_mask).to(self.device)
-        self.lengths = torch.where(active, nc["length"], self.lengths)
+        self.opaque = _map(
+            self.opaque, lambda old, new: torch.where(_rows(active, new),
+                                                      new, old),
+            {n: nc[n] for n in self.opaque})
+        new_len = nc["length"] if self._has_length else self.lengths + 1
+        self.lengths = torch.where(active, new_len, self.lengths)
         next_tok = torch.argmax(logits, -1)
         self.cur_tokens = torch.where(active, next_tok, self.cur_tokens)
         toks = next_tok.cpu()            # sync point: honest token latency

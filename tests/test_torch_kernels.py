@@ -146,6 +146,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
         "('jax.', 'jaxlib')) or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "for m in ('kernels.ssd_scan', 'models.ssm', 'models.hybrid', "
+        "'configs.mamba2_130m', 'configs.zamba2_2p7b'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('imported', sum(n.startswith('repro_torch') for n in sys.modules))\n")
     root = os.path.join(HERE, "..")
     env = dict(os.environ)
@@ -153,4 +156,4 @@ def test_import_loads_no_jax_and_no_reference_package():
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    assert int(r.stdout.split()[-1]) >= 20
