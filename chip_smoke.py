@@ -20,6 +20,12 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       Q=100, Q=7 and both models' serving shapes; times kernel and plain
       at mamba2's serving shape beside the bound (no single PyTorch call
       computes this function, so there is no library time);
+   c. the segment-combine kernel against ``segment_combine_plain`` over
+      the reference's sweep (n in 7, 128, 1000, 65536), 16M elements and
+      misaligned row slices, f32 and bf16, add/max/min, at the
+      reference's 1e-6 (it is expected bit-equal; the count of bit-equal
+      cases is printed); times kernel, plain and ``torch.add`` (the
+      yardstick) at 16M elements f32 and bf16 beside the bound;
 3. the kernels inside the models, fp32: full-width smollm-135m prefill
    logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``, and
    full-width, full-depth mamba2-130m and zamba2-2.7b prefill logits
@@ -35,7 +41,20 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    path;
 5. where the time goes: torch.profiler over one full-width prefill and
    over decode steps of each model (device busy share, top kernels);
-6. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
+6. tuned collectives through ``repro_torch.launch.measure_collectives``
+   at 4 ranks on the card (processes under a gloo group, payloads staged
+   through the host, every reduce step in the segment-combine kernel):
+   every algorithm and synthesized program held against the oracle at
+   4 MB and an odd size; every (algorithm, segments) candidate of
+   all_reduce and broadcast timed at 4 KB, 256 KB, 4 MB and 64 MB over 3
+   trials, the exhaustive tuner's table printed, saved and loaded back,
+   with the launch counts gathered from the ranks (zeroed just before the
+   tuning run, read just after: every reducing algorithm launches the
+   kernel exactly as its schedule says); then smollm-135m's whole fp32
+   gradient, counted from the port's model, all-reduced through the
+   tuned choice and through ``"xla"`` (gloo's all-reduce), each held
+   against the oracle sum and timed;
+7. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
 the port is not beside this file, or when any phase fails.
@@ -58,6 +77,9 @@ FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}   # tests/test_kernels.py
 MODEL_TOL = 1e-3                 # phase 3: 24-54 layers of the kernel tolerance
+COMBINE_TOL = 1e-6               # tests/test_kernels.py (expected bit-equal)
+COMBINE_N = 1 << 24              # 16M elements: 64 MB of fp32 per operand
+RANKS = 4                        # processes on the card for the collectives
 SERVE_SHAPE = dict(B=8, S=512, H=9, KV=3, D=64)
 # mamba2-130m's SSD call at the fixed-batch serving shape (8 x 512 prompts)
 SSD_SERVE_SHAPE = dict(B=8, S=512, H=24, P=64, N=128, Q=128)
@@ -326,6 +348,84 @@ def phase_ssd_kernel():
             "shape": f"B={B} S={S} H={H} P={P} N={N} Q={Q} bf16"}
 
 
+def combine_bound_ms(n, itemsize):
+    """Least time for the call: acc and part read once and out written
+    once over the memory rate, or the n fp32 operations over the fp32
+    rate outside the tensor cores."""
+    nbytes = 3 * n * itemsize
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes
+
+
+def phase_combine_kernel():
+    from repro_torch.kernels import segment_reduce as sr
+    # (n, element offset of acc): the reference's sweep, 16M elements,
+    # and row slices that start off a 16-byte boundary, as a ring's
+    # segments do
+    shapes = [(7, 0), (128, 0), (1000, 0), (65536, 0), (4099, 0),
+              (COMBINE_N, 0), (1000, 1), (65536, 3), (4099, 5),
+              ((1 << 20) + 1, 2)]
+    cases = [(n, off, dt, op) for n, off in shapes
+             for dt in (torch.float32, torch.bfloat16)
+             for op in ("add", "max", "min")]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    max_err, equal = 0.0, 0
+    for n, off, dt, op in cases:
+        acc = torch.randn((n + off,), generator=g, device="cuda").to(dt)[off:]
+        part = torch.randn((n,), generator=g, device="cuda").to(dt)
+        before = sr.launches
+        got = sr.segment_combine(acc, part, op)
+        torch.cuda.synchronize()
+        if sr.launches != before + 1:
+            raise AssertionError("the wrapper did not count its launch")
+        want = sr.segment_combine_plain(acc, part, op)
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype != dt or not torch.isfinite(got).all() \
+                or not err <= COMBINE_TOL:
+            raise AssertionError(f"segment_combine disagrees with plain at "
+                                 f"n={n} offset={off} {dt} {op}: {err}")
+        max_err = max(max_err, err)
+        equal += bool(torch.equal(got, want))
+    log(f"[2c] segment_combine: {len(cases)} cases (n 7..{COMBINE_N}, "
+        f"offsets 0-5, f32/bf16, add/max/min), max|err| {max_err:.3g} "
+        f"(tol {COMBINE_TOL}), bit-equal {equal}/{len(cases)}")
+
+    out = {"name": "segment_combine", "route": "cuda",
+           "source": "src/repro_torch/csrc/segment_combine.cu",
+           "replaces": "src/repro/kernels/segment_reduce.py:63",
+           "max_abs_err": max_err, "bit_equal_cases": equal,
+           "cases": len(cases)}
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.randn((COMBINE_N,), generator=g, device="cuda").to(dt)
+        b = torch.randn((COMBINE_N,), generator=g, device="cuda").to(dt)
+        kern = lambda: sr.segment_combine(a, b, "add")  # noqa: E731
+        plain = lambda: sr.segment_combine_plain(a, b, "add")  # noqa: E731
+        lib = lambda: torch.add(a, b)  # noqa: E731
+        # in turns (kernel, plain, library, kernel, plain): one card
+        k1, p1, l1 = time_calls(kern), time_calls(plain), time_calls(lib)
+        k2, p2 = time_calls(kern), time_calls(plain)
+        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        library_ms = statistics.median(l1)
+        bound_ms, bound_by, nbytes = combine_bound_ms(COMBINE_N,
+                                                      a.element_size())
+        name = str(dt)[6:]
+        log(f"    n={COMBINE_N} {name} add: kernel {ms:.4f} ms (turns "
+            f"{statistics.median(k1):.4f}, {statistics.median(k2):.4f}), "
+            f"plain {plain_ms:.4f} ms, torch.add {library_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB)")
+        if dt == torch.float32:
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms,
+                       shape=f"n={COMBINE_N} f32 add")
+        else:
+            out.update(ms_bf16=ms, plain_ms_bf16=plain_ms,
+                       bound_ms_bf16=bound_ms, library_ms_bf16=library_ms)
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_ssm_model(arch: str, batch: int):
     """Full-width, full-depth fp32 prefill logits of an SSM-family model
     through the kernels (``"auto"``) against the plain chunked SSD oracle
@@ -378,8 +478,9 @@ def phase_ssm_model(arch: str, batch: int):
 
 
 def _counters():
-    from repro_torch.kernels import attention, ssd_scan
-    return {"flash_attention": attention, "ssd_chunk": ssd_scan}
+    from repro_torch.kernels import attention, segment_reduce, ssd_scan
+    return {"flash_attention": attention, "ssd_chunk": ssd_scan,
+            "segment_combine": segment_reduce}
 
 
 def serve_path(label, argv, expect):
@@ -509,6 +610,136 @@ def phase_breakdown(arch, B, S):
     return out
 
 
+def expected_combines(op, key, p):
+    """segment_combine launches of one run of ``key`` summed over the p
+    ranks, from its schedule: ring g(p-1) per rank and segment count g,
+    recursive doubling and Rabenseifner log2(p) per rank, the binomial
+    reduce of reduce_bcast p-1 (the receiving ranks only), a synthesized
+    program its reduce steps per rank, allgather_reduce none (it sums
+    with an add of its own)."""
+    from repro_torch.core.collectives import synth
+    algo, segs = key.rsplit("/", 1)
+    k = p.bit_length() - 1
+    if op != "all_reduce" or algo == "allgather_reduce":
+        return 0
+    if algo == "ring":
+        return p * int(segs) * (p - 1)
+    if algo in ("recursive_doubling", "rabenseifner"):
+        return p * k
+    if algo == "reduce_bcast":
+        return p - 1
+    if algo.startswith("synth:"):
+        prog = synth.get_program(op, algo[len("synth:"):], p)
+        return p * sum(1 for st in prog.steps if st.reduce)
+    raise AssertionError(f"no launch count for {op} {algo}")
+
+
+def gradient_elems():
+    """smollm-135m's parameter count, from the port's model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    api = build_model(get_config("smollm-135m"))
+    with torch.inference_mode():
+        params = api.init(torch.Generator(device="cuda").manual_seed(0))
+
+    def count(t):
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        if isinstance(t, (list, tuple)):
+            return sum(count(v) for v in t)
+        return t.numel()
+    n = count(params)
+    del params
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_collectives(ranks=RANKS):
+    """measure_collectives at ``ranks`` processes on the card, with the
+    oracle check and the gradient all-reduce; returns the result and the
+    launch counts by path."""
+    from repro_torch.core.tuning import DecisionTable
+    from repro_torch.launch import measure_collectives as mc
+    n_grad = gradient_elems()
+    out_path = os.path.join(ROOT, "device_measured_decision.json")
+    argv = ["--ranks", str(ranks), "--check", "--grad-elems", str(n_grad),
+            "--out", out_path]
+    log(f"[6] measure_collectives {' '.join(argv)}")
+    t0 = time.perf_counter()
+    res = mc.main(argv)
+    wall = time.perf_counter() - t0
+    chk = res["check"]
+    worst = max(chk["max_abs_err"].items(), key=lambda kv: kv[1])
+    log(f"    check: {len(chk['max_abs_err'])} cases (every algorithm and "
+        f"synthesized program, n {mc.CHECK_ELEMS}), max|err| vs oracle "
+        f"{worst[1]:.3g} ({worst[0]}; tol {mc.TOL}); launches "
+        f"{chk['launches']}")
+    if res["device"] != "cuda:0" or res["ranks"] != ranks:
+        raise AssertionError(f"ran on {res['device']} x {res['ranks']}")
+
+    # launches of the tuning run, zeroed just before it and read after
+    got, runs = res["launches_by_method"], res["runs_by_method"]
+    for key, n_runs in sorted(runs.items()):
+        op, k = key.split("/", 1)
+        want = n_runs // ranks * expected_combines(op, k, ranks)
+        if got.get(key, 0) != want:
+            raise AssertionError(f"{key}: {got.get(key)} segment_combine "
+                                 f"launches over {n_runs} rank-runs, "
+                                 f"expected {want}")
+    reducing = [k for k in runs if expected_combines(
+        k.split("/", 1)[0], k.split("/", 1)[1], ranks)]
+    if not reducing or any(got[k] <= 0 for k in reducing):
+        raise AssertionError("a reducing algorithm never launched the "
+                             "kernel")
+    if res["launches"]["segment_combine"] != sum(got.values()) or \
+            res["launches"]["flash_attention"] or res["launches"]["ssd_chunk"]:
+        raise AssertionError(f"tuning run launches {res['launches']}")
+    by_point = {}
+    for key, t in res["means"].items():
+        op, _, m, algo, segs = key.split("/")
+        by_point.setdefault((op, int(m)), []).append((t, f"{algo}/s{segs}"))
+    for (op, m), row in sorted(by_point.items()):
+        log(f"    {op} {m} B, ms (mean of the trials, each the slowest "
+            f"rank's): "
+            + ", ".join(f"{a} {1e3 * t:.3f}" for t, a in sorted(row)))
+    log(f"    tuning: {res['samples']} samples in "
+        f"{res['tune_seconds']:.1f}s; segment_combine launches "
+        f"{res['launches']['segment_combine']} over {len(reducing)} "
+        f"reducing candidates, each as its schedule says")
+
+    # the artifact, loaded back: the measured argmin at every point
+    table = DecisionTable.load(out_path)
+    if table.meta.backend != "DeviceBackend" or len(table.table) != \
+            len(res["best"]):
+        raise AssertionError(f"artifact {out_path}: {table.meta}")
+    for op, m, algo, segs, _ in res["best"]:
+        meth = table.decide(op, ranks, m)
+        if (meth.algorithm, meth.segments) != (algo, segs):
+            raise AssertionError(f"artifact row {op} {m}: {meth}")
+    log(f"    {out_path} loaded back: {len(table.table)} rows, backend "
+        f"{table.meta.backend}, {len(table.meta.programs or ())} programs")
+
+    gs = res["grad_sync"]
+    for label in ("tuned", "xla"):
+        g = gs[label]
+        log(f"    gradient all-reduce {label} ({g['algorithm']}/s"
+            f"{g['segments']}), {gs['elems']} fp32 elements "
+            f"({gs['bytes'] / 1e6:.1f} MB): "
+            f"{' '.join(f'{t:.4f}' for t in g['seconds'])} s, max|err| "
+            f"vs oracle {g['max_abs_err']:.3g}; launches {g['launches']}")
+    if gs["tuned"]["launches"]["segment_combine"] != gs["tuned"]["runs"] \
+            * expected_combines("all_reduce", f"{gs['tuned']['algorithm']}/"
+                                f"{gs['tuned']['segments']}", ranks):
+        raise AssertionError(f"gradient launches {gs['tuned']['launches']}")
+    log(f"    {wall:.1f}s with set-up")
+    res["wall_s"] = wall
+    paths = {"measure_collectives_tune": res["launches"],
+             "measure_collectives_check": chk["launches"],
+             "grad_sync_tuned": gs["tuned"]["launches"],
+             "grad_sync_xla": gs["xla"]["launches"]}
+    return res, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -521,7 +752,8 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     kernels = {"flash_attention": phase_kernel(),
-               "ssd_chunk": phase_ssd_kernel()}
+               "ssd_chunk": phase_ssd_kernel(),
+               "segment_combine": phase_combine_kernel()}
     diffs = {"smollm-135m": phase_model(),
              "mamba2-130m": phase_ssm_model("mamba2-130m", 2),
              "zamba2-2.7b": phase_ssm_model("zamba2-2.7b", 2)}
@@ -542,9 +774,20 @@ def main() -> int:
     breakdown = {"smollm-135m": phase_breakdown("smollm-135m", 8, 512),
                  "mamba2-130m": phase_breakdown("mamba2-130m", 8, 512),
                  "zamba2-2.7b": phase_breakdown("zamba2-2.7b", 4, 512)}
+    coll, coll_paths = phase_collectives()
+    for path, counts in coll_paths.items():
+        for name, n in counts.items():
+            if n:
+                kernels[name]["launches_by_path"][path] = n
+    # the collectives path's launches: its tuning run
+    kernels["segment_combine"]["launches"] = \
+        coll_paths["measure_collectives_tune"]["segment_combine"]
     log(f"    total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"card": smi, "model_logit_diff_fp32": diffs,
-                      "breakdown": breakdown, "serving": serving}))
+                      "breakdown": breakdown, "serving": serving,
+                      "collectives": {k: coll[k] for k in (
+                          "best", "grad_sync", "tune_seconds", "wall_s",
+                          "samples", "penalty", "fronts")}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,15 @@ Each ``csrc/<name>.cu`` is compiled on first use into
 builds anew and an unchanged one loads at once. The sources expose a
 plain ``extern "C"`` launcher (no PyTorch headers), which keeps a build
 to seconds. Nothing is compiled when this module is imported.
+
+Processes that build at once (the ranks of a collective run) take turns
+under an exclusive ``flock`` on ``<hash>/lock``, so one source is compiled
+once; the lock dies with its holder, so a cut run leaves none behind.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -53,6 +58,12 @@ def build_all() -> dict[str, Path]:
     output (register and shared-memory use) lands in ``<name>.log``."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_missing(out_dir)
+
+
+def _build_missing(out_dir: Path) -> dict[str, Path]:
     libs = {src.stem: out_dir / f"lib{src.stem}.so" for src in _sources()}
     procs = []
     for src in _sources():

@@ -3,19 +3,18 @@
 ``impl``:
   "auto" — the hand-written CUDA kernel for a CUDA tensor, its plain
            PyTorch version for a CPU tensor (``attention.flash_attention``,
-           ``ssd_scan.ssd_chunked``).
-  "ref"  — the quadratic plain oracle (``ref.attention``, ``ref.ssd``).
+           ``ssd_scan.ssd_chunked``, ``segment_reduce.segment_combine``).
+  "ref"  — the plain oracle (``ref.attention``, ``ref.ssd``,
+           ``ref.segment_combine``).
   "xla"  — the chunked plain oracle (``ref.attention_xla_chunked``,
            ``ref.ssd_chunked``), named after the reference's non-TPU
            production path.
-
-``segment_combine`` arrives with the slice that ports its kernel
-(ROADMAP.md Queue 2).
 """
 from __future__ import annotations
 
 from repro_torch.kernels import attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import segment_reduce as _sr
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -42,3 +41,11 @@ def ssd(x, dt, A, B, C, D, *, chunk=128, impl="auto"):
     if impl == "ref":
         return ref.ssd(x, dt, A, B, C, D)
     raise ValueError(f"unknown ssd impl {impl!r}")
+
+
+def segment_combine(acc, part, op="add", *, impl="auto"):
+    if impl == "auto":
+        return _sr.segment_combine(acc, part, op)
+    if impl == "ref":
+        return ref.segment_combine(acc, part, op)
+    raise ValueError(f"unknown segment_combine impl {impl!r}")

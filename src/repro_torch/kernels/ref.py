@@ -1,8 +1,7 @@
-"""Plain PyTorch oracles (the port of ``repro.kernels.ref``'s attention
-and SSD).
+"""Plain PyTorch oracles (the port of ``repro.kernels.ref``).
 
 These are the reference semantics the kernels and the model are held
-to. ``segment_combine`` comes with the slice that ports its kernel.
+to: attention, the SSD scan and the segment combine.
 """
 from __future__ import annotations
 
@@ -150,3 +149,23 @@ def ssd_chunked(
     y = y_intra + y_inter
     y = y + xf * D.float()[None, None, None, :, None]
     return y.reshape(Bsz, S, H, P).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# segment combine (the ring-pipeline reduction step)
+# ---------------------------------------------------------------------------
+def segment_combine(acc: torch.Tensor, part: torch.Tensor,
+                    op: str = "add") -> torch.Tensor:
+    """Fused accumulate of an incoming ring segment into the local shard:
+    fp32 math, cast back to ``acc``'s dtype."""
+    a = acc.float()
+    p = part.float()
+    if op == "add":
+        r = a + p
+    elif op == "max":
+        r = torch.maximum(a, p)
+    elif op == "min":
+        r = torch.minimum(a, p)
+    else:
+        raise ValueError(f"unknown op {op!r}")
+    return r.to(acc.dtype)

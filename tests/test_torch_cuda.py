@@ -4,14 +4,16 @@ These imports hold no JAX, so the file also runs on a machine with a GPU
 and no JAX: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Elsewhere every test skips: a CUDA kernel
 has no CPU mode (its arithmetic is held against the reference on the CPU
-through ``flash_attention_plain`` and ``ssd_chunked_plain``, in
-``tests/test_torch_kernels.py`` and ``tests/test_torch_ssm.py``).
+through ``flash_attention_plain``, ``ssd_chunked_plain`` and
+``segment_combine_plain``, in ``tests/test_torch_kernels.py``,
+``tests/test_torch_ssm.py`` and ``tests/test_torch_collectives.py``).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import attention as fa  # noqa: E402
+from repro_torch.kernels import segment_reduce  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -139,3 +141,81 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda, case, err):
     with pytest.raises(err):
         ssd_scan.ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk)
     assert ssd_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the segment-combine kernel and a host-staged collective on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("n,offset", [
+    (7, 0), (128, 0), (1000, 0), (65536, 0),      # the reference's sweep
+    (4099, 0),                                    # vector body + scalar tail
+    (1000, 1), (65536, 3), (4099, 5),             # misaligned: scalar loop
+    (1 << 20, 2),
+])
+def test_segment_combine_matches_plain(cuda, dtype, op, n, offset):
+    g = torch.Generator().manual_seed(n + offset)
+    acc = torch.randn((n + offset,), generator=g).to(dtype).cuda()[offset:]
+    part = torch.randn((n,), generator=g).to(dtype).cuda()
+    before = segment_reduce.launches
+    got = segment_reduce.segment_combine(acc, part, op)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + 1
+    want = segment_reduce.segment_combine_plain(acc, part, op)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_segment_combine_propagates_nan(cuda):
+    acc = torch.tensor([float("nan"), 1.0, 2.0, float("nan")], device="cuda")
+    part = torch.tensor([1.0, float("nan"), 3.0, float("nan")], device="cuda")
+    for op in ("add", "max", "min"):
+        got = segment_reduce.segment_combine(acc, part, op)
+        want = segment_reduce.segment_combine_plain(acc, part, op)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got[2:3], want[2:3])
+
+
+@pytest.mark.parametrize("case,err", [
+    ("float16", TypeError), ("strided", ValueError), ("op", ValueError),
+    ("shape", ValueError)])
+def test_segment_combine_refuses_what_it_does_not_take(cuda, case, err):
+    acc = torch.zeros((64,), device="cuda")
+    part = torch.zeros((64,), device="cuda")
+    op = "add"
+    if case == "float16":
+        acc, part = acc.half(), part.half()
+    elif case == "strided":
+        acc = torch.zeros((128,), device="cuda")[::2]
+    elif case == "op":
+        op = "prod"
+    else:
+        part = part[:63]
+    before = segment_reduce.launches
+    with pytest.raises(err):
+        segment_reduce.segment_combine(acc, part, op)
+    assert segment_reduce.launches == before
+
+
+def _ring_on_card(n):
+    from repro_torch.core.collectives import algorithms as alg
+    from repro_torch.core.collectives import group as grp
+    dev = grp.device_of("cuda")
+    p, r = grp.size(), grp.rank()
+    xs = [torch.randn((n,), generator=torch.Generator().manual_seed(i))
+          .to(dev) for i in range(p)]
+    segment_reduce.launches = 0
+    got = alg.allreduce_ring(xs[r], None, p, segments=2)
+    torch.cuda.synchronize()
+    want = xs[0] + xs[1]
+    return {"equal": bool(torch.equal(got, want)), "device": got.device.type,
+            "launches": segment_reduce.launches}
+
+
+def test_two_rank_host_staged_ring_all_reduce_on_the_card(cuda):
+    """Two processes on one card (gloo, payloads staged through the host):
+    the ring's reduce steps run in the kernel, and with two ranks each
+    combine is the one fp32 add of the oracle, so the result is exact."""
+    from repro_torch.core.collectives import group as grp
+    res = grp.spawn(_ring_on_card, 2, (4099,))
+    assert res == {"equal": True, "device": "cuda", "launches": 2}

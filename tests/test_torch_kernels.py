@@ -147,7 +147,11 @@ def test_import_loads_no_jax_and_no_reference_package():
         "('jax.', 'jaxlib')) or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "for m in ('kernels.ssd_scan', 'models.ssm', 'models.hybrid', "
-        "'configs.mamba2_130m', 'configs.zamba2_2p7b'):\n"
+        "'configs.mamba2_130m', 'configs.zamba2_2p7b', "
+        "'kernels.segment_reduce', 'core.collectives.group', "
+        "'core.collectives.algorithms', 'core.collectives.program', "
+        "'core.collectives.synth', 'core.tuning.executor', "
+        "'core.tuning.tuners', 'launch.measure_collectives'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('imported', sum(n.startswith('repro_torch') for n in sys.modules))\n")
     root = os.path.join(HERE, "..")
