@@ -26,19 +26,35 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       reference's 1e-6 (it is expected bit-equal; the count of bit-equal
       cases is printed); times kernel, plain and ``torch.add`` (the
       yardstick) at 16M elements f32 and bf16 beside the bound;
+   d. the paged decode attention kernel against ``ref.paged_attention_ref``
+      (the gather path) over the reference's sweep (partial, full,
+      wrapped and several-wraps-deep views, windows 0 and 6, shuffled
+      tables) at head dims 64, 80 and 128 and the three serving shapes
+      (smollm, zamba2, olmoe), f32 at 2e-5 and bf16 at 2e-2; times the
+      kernel and the plain version at each serving shape beside the
+      bound (no single PyTorch call computes this function);
 3. the kernels inside the models, fp32: full-width smollm-135m prefill
-   logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``, and
+   logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``;
    full-width, full-depth mamba2-130m and zamba2-2.7b prefill logits
    with ``ssd_impl``/``attn_impl="auto"`` (kernels) vs ``"xla"``/``"ref"``
    (the plain chunked SSD oracle, plain attention), with both launch
-   counts read from the kernel prefill;
+   counts read from the kernel prefill; olmoe-1b-7b at full width and
+   depth: prefill logits through the flash kernel vs plain attention,
+   then the continuous engine decoding through the paged kernel vs the
+   engine decoding through the gather path, the same requests on a
+   simulated clock: tokens equal and logits within 1e-3 over fp32
+   pools, the launches one per layer per decode step (and, printed
+   only, the same comparison over the serving dtype's bf16 pools, where
+   the two round q and the probabilities differently);
 4. serving through ``repro_torch.launch.serve`` at full width, bf16, each
    path with every launch count zeroed just before it and read just
-   after: smollm-135m, mamba2-130m and zamba2-2.7b (full depth: 54 SSM
-   layers, 9 shared-attention applications), each in the fixed-batch
-   and the continuous mode; the counts must be one launch per layer
-   (attention or SSM) for every prefill, and zero for a kernel off the
-   path;
+   after: smollm-135m, mamba2-130m, zamba2-2.7b (full depth: 54 SSM
+   layers, 9 shared-attention applications) and olmoe-1b-7b (full
+   depth: 16 layers of 64 experts), each in the fixed-batch and the
+   continuous mode; the counts must be one flash or SSD launch per layer
+   for every prefill, one paged-attention launch per attention layer for
+   every decode step of a continuous path (none on a fixed path), and
+   zero for a kernel off the path;
 5. where the time goes: torch.profiler over one full-width prefill and
    over decode steps of each model (device busy share, top kernels);
 6. tuned collectives through ``repro_torch.launch.measure_collectives``
@@ -83,6 +99,13 @@ RANKS = 4                        # processes on the card for the collectives
 SERVE_SHAPE = dict(B=8, S=512, H=9, KV=3, D=64)
 # mamba2-130m's SSD call at the fixed-batch serving shape (8 x 512 prompts)
 SSD_SERVE_SHAPE = dict(B=8, S=512, H=24, P=64, N=128, Q=128)
+# the paged decode attention at each continuous path's shape: requests
+# (slots), query heads, KV heads, head dim, block size, view length
+PAGED_SERVE_SHAPES = {
+    "smollm-135m": dict(R=8, H=9, KV=3, D=64, bs=16, T=576),
+    "zamba2-2.7b": dict(R=4, H=32, KV=32, D=80, bs=16, T=528),
+    "olmoe-1b-7b": dict(R=4, H=16, KV=16, D=128, bs=16, T=528),
+}
 
 
 def log(msg: str) -> None:
@@ -426,6 +449,216 @@ def phase_combine_kernel():
     return out
 
 
+def rand_paged(R, H, KV, D, bs, nb, dtype, seed):
+    """q, pools with a null block 0, and shuffled int32 tables on the
+    card, as the engine lays them out."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    NB = 1 + R * nb
+    kp = torch.randn((NB, bs, KV, D), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((NB, bs, KV, D), generator=g, device="cuda").to(dtype)
+    perm = torch.randperm(R * nb, generator=g, device="cuda")
+    tables = (1 + perm).reshape(R, nb).to(torch.int32)
+    q = torch.randn((R, 1, H, D), generator=g, device="cuda").to(dtype)
+    return q, kp, vp, tables
+
+
+def paged_bound_ms(R, H, KV, D, T, itemsize):
+    """Least time for a call over full views (every slot valid): each
+    request's K and V view read once, q, the tables and lengths read
+    and the output written once over the memory rate, or the QK and PV
+    products of every (query head, slot) over the peak rate of the
+    input type."""
+    nbytes = (itemsize * (2 * R * T * KV * D + 2 * R * H * D)
+              + 4 * (R * T // 16 + R))
+    flops = 4 * D * H * T * R
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes, flops
+
+
+def phase_paged_kernel():
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    # tests/test_paged_attention.py's setup (3 requests of 3 blocks of 4
+    # slots, 2 KV heads, 4 query heads) at each built head dim, windows 0
+    # and 6, partial/full/wrapped and several-wraps-deep views
+    cases = []
+    for D in (64, 80, 128):
+        for window in (0, 6):
+            for lens in ((5, 12, 17), (27, 36, 13)):
+                for dt in (torch.float32, torch.bfloat16):
+                    cases.append((dict(R=3, H=4, KV=2, D=D, bs=4, T=12),
+                                  lens, window, dt))
+    for arch, s in PAGED_SERVE_SHAPES.items():
+        T = s["T"]
+        lens = tuple(([T - 64, T, T + 100, 3 * T + 5, 1, 200] * 2)[:s["R"]])
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((s, lens, 0, dt))
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (s, lens, window, dt) in enumerate(cases):
+        q, kp, vp, tables = rand_paged(s["R"], s["H"], s["KV"], s["D"],
+                                       s["bs"], s["T"] // s["bs"], dt,
+                                       seed=300 + i)
+        lengths = torch.tensor(lens, device="cuda")
+        before = pa.launches
+        got = pa.paged_attention(q, kp, vp, tables, lengths, window=window)
+        torch.cuda.synchronize()
+        if pa.launches != before + 1:
+            raise AssertionError("the wrapper did not count its launch")
+        want = ref.paged_attention_ref(q, kp, vp, tables, lengths,
+                                       window=window)
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        if got.dtype != dt or not torch.isfinite(got).all() or \
+                (diff > TOL[dt] * (1 + want.float().abs())).any():
+            raise AssertionError(f"paged_attention disagrees with plain at "
+                                 f"{s} lengths {lens} window {window} {dt}: "
+                                 f"max err {err}")
+        max_err[dt] = max(max_err[dt], err)
+    log(f"[2d] paged_attention: {len(cases)} cases (head dims 64/80/128, "
+        f"windows 0/6, partial/full/wrapped views, the 3 serving shapes), "
+        f"max|err| f32 {max_err[torch.float32]:.3g} (tol 2e-5), bf16 "
+        f"{max_err[torch.bfloat16]:.3g} (tol 2e-2)")
+
+    out = {"name": "paged_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention.py:179",
+           "max_abs_err": max_err[torch.bfloat16],
+           "max_err_f32": max_err[torch.float32],
+           "max_err_bf16": max_err[torch.bfloat16], "library_ms": None,
+           "by_shape": {}}
+    for arch, s in PAGED_SERVE_SHAPES.items():
+        R, H, KV, D, bs, T = (s[k] for k in ("R", "H", "KV", "D", "bs", "T"))
+        q, kp, vp, tables = rand_paged(R, H, KV, D, bs, T // bs,
+                                       torch.bfloat16, seed=99)
+        lengths = torch.full((R,), T, device="cuda")     # full views
+        kern = lambda: pa.paged_attention(  # noqa: E731
+            q, kp, vp, tables, lengths)
+        plain = lambda: ref.paged_attention_ref(  # noqa: E731
+            q, kp, vp, tables, lengths)
+        # in turns (kernel, plain, kernel, plain): one card, one call
+        k1, p1 = time_calls(kern), time_calls(plain)
+        k2, p2 = time_calls(kern), time_calls(plain)
+        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        bound_ms, bound_by, nbytes, flops = paged_bound_ms(R, H, KV, D, T, 2)
+        log(f"    {arch} R={R} H={H} KV={KV} D={D} block {bs} view {T} "
+            f"bf16: kernel {ms:.4f} ms (turns {statistics.median(k1):.4f}, "
+            f"{statistics.median(k2):.4f}), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.3f} MB, "
+            f"{flops / 1e9:.4f} GFLOP); no single library call")
+        out["by_shape"][arch] = {"ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms}
+        if arch == "smollm-135m":
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by,
+                       shape=f"R={R} H={H} KV={KV} D={D} bs={bs} view={T} "
+                             f"bf16")
+    return out
+
+
+def moe_engine_run(api, params, attn_impl, pool_dtype):
+    """The continuous engine on a simulated clock (so admission is the
+    same in every run) over 6 requests; returns the tokens, the logits
+    of the active rows of every decode step, the decode steps and the
+    paged-attention launches."""
+    import dataclasses
+    import functools
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve import Scheduler, ServeEngine, synthetic_trace
+    logits, step = [], api.decode_step
+
+    def record(params_, cache, tokens, **kw):
+        out = step(params_, cache, tokens, **kw)
+        active = cache["block_tables"][:, 0] != 0       # live slots own blocks
+        logits.append(out[0][active].float())
+        return out
+    api = dataclasses.replace(
+        api, decode_step=record,
+        init_cache=functools.partial(api.init_cache, dtype=pool_dtype))
+    trace = synthetic_trace(6, rate_rps=20.0, vocab=api.cfg.vocab_size,
+                            prompt_lens=(128, 256, 512), max_new=8, seed=0)
+    engine = ServeEngine(api, params, max_active=4, view_len=528,
+                         block_size=16, attn_impl=attn_impl)
+    sched = Scheduler(trace, max_active=4, token_budget=4 * 528)
+    pa.launches = 0
+    engine.run(sched, cost_model=lambda kind, n: 1e-3)
+    tokens = {r.rid: list(r.generated) for r in sched.finished}
+    return tokens, logits, engine.decode_steps, pa.launches
+
+
+def phase_moe_model():
+    """olmoe-1b-7b at full width and depth, fp32: prefill logits through
+    the flash kernel vs plain attention (one flash launch per layer),
+    then the continuous engine through the paged kernel vs through the
+    gather path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models.registry import build_model
+    cfg = get_config("olmoe-1b-7b")
+    kern = build_model(cfg, compute_dtype=torch.float32, attn_impl="auto")
+    plain = build_model(cfg, compute_dtype=torch.float32, attn_impl="ref")
+    out = {}
+    with torch.inference_mode():
+        params = kern.init(torch.Generator(device="cuda").manual_seed(0))
+        g = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=g)
+        tokens = tokens.cuda()
+        attention.launches = 0
+        lk, _ = kern.prefill(params, tokens, 256)
+        fa = attention.launches
+        lp, _ = plain.prefill(params, tokens, 256)
+        torch.cuda.synchronize()
+        valid = slice(0, cfg.vocab_size)
+        diff = (lk[..., valid] - lp[..., valid]).abs().max().item()
+        scale = lp[..., valid].abs().max().item()
+        log(f"[3c] olmoe-1b-7b full width/depth fp32 prefill (2x256): logits "
+            f"kernel vs plain max|diff| {diff:.3g} (max|logit| {scale:.3g}, "
+            f"tol {MODEL_TOL}); flash_attention launches {fa}")
+        if not (torch.isfinite(lk).all() and diff <= MODEL_TOL):
+            raise AssertionError(f"olmoe logits through the kernel differ by "
+                                 f"{diff} > {MODEL_TOL}")
+        if fa != cfg.num_layers:
+            raise AssertionError(f"olmoe prefill launched flash_attention "
+                                 f"{fa} times, expected {cfg.num_layers}")
+        out["prefill_logit_diff"] = diff
+        del lk, lp
+        for pool_dtype in (torch.float32, torch.bfloat16):
+            t0 = time.perf_counter()
+            kt, kl, steps, launches = moe_engine_run(kern, params, "auto",
+                                                     pool_dtype)
+            xt, xl, xsteps, xlaunches = moe_engine_run(kern, params, "xla",
+                                                       pool_dtype)
+            same = kt == xt
+            n = min(len(kl), len(xl))
+            ldiff = max(((a - b)[:, valid].abs().max().item()
+                         for a, b in zip(kl[:n], xl[:n])
+                         if a.shape == b.shape), default=float("inf"))
+            name = str(pool_dtype)[6:]
+            log(f"    engine over {name} pools, 6 requests, 8 new tokens: "
+                f"paged kernel vs gather path tokens "
+                f"{'equal' if same else 'DIFFER'}, active-row logits "
+                f"max|diff| {ldiff:.3g} over {n} steps; decode steps "
+                f"{steps}/{xsteps}, paged launches {launches}/{xlaunches} "
+                f"({time.perf_counter() - t0:.1f}s)")
+            out[f"engine_{name}"] = {"tokens_equal": same, "logit_diff": ldiff,
+                                     "decode_steps": steps,
+                                     "launches": launches}
+            if launches != steps * cfg.num_layers or xlaunches != 0:
+                raise AssertionError(f"paged launches {launches}/{xlaunches} "
+                                     f"over {steps} steps, expected "
+                                     f"{steps * cfg.num_layers}/0")
+            if pool_dtype == torch.float32 and not (
+                    same and len(kl) == len(xl) and ldiff <= MODEL_TOL):
+                raise AssertionError(f"olmoe engine through the paged kernel "
+                                     f"differs from the gather path: tokens "
+                                     f"equal {same}, logits {ldiff}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_ssm_model(arch: str, batch: int):
     """Full-width, full-depth fp32 prefill logits of an SSM-family model
     through the kernels (``"auto"``) against the plain chunked SSD oracle
@@ -478,15 +711,19 @@ def phase_ssm_model(arch: str, batch: int):
 
 
 def _counters():
-    from repro_torch.kernels import attention, segment_reduce, ssd_scan
+    from repro_torch.kernels import attention, paged_attention, \
+        segment_reduce, ssd_scan
     return {"flash_attention": attention, "ssd_chunk": ssd_scan,
-            "segment_combine": segment_reduce}
+            "segment_combine": segment_reduce,
+            "paged_attention": paged_attention}
 
 
 def serve_path(label, argv, expect):
     """Serve once through the CLI with every launch count zeroed just
-    before and read just after; ``expect`` is kernel -> launches, and a
-    kernel it does not name must not launch."""
+    before and read just after; ``expect`` is kernel -> launches (a
+    number, or a function of the run's result: the paged kernel's count
+    follows the decode steps), and a kernel it does not name must not
+    launch."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     vocab = get_config(argv[argv.index("--arch") + 1]).vocab_size
@@ -499,6 +736,7 @@ def serve_path(label, argv, expect):
     wall = time.perf_counter() - t0
     got = {name: mod.launches for name, mod in counters.items()}
     want = {name: expect.get(name, 0) for name in counters}
+    want = {name: n(res) if callable(n) else n for name, n in want.items()}
     if "tokens" in res:
         toks = res["tokens"]
         log(f"    prefill {res['prefill_s']:.4f}s, {res['tok_per_s']:.1f} "
@@ -516,8 +754,9 @@ def serve_path(label, argv, expect):
         log(f"    served {len(gen)} requests, {res['new_tokens']} tokens, "
             f"{res['tok_per_s']:.1f} tok/s, per-token p50 "
             f"{res['token_ms_p50']:.3f} p90 {res['token_ms_p90']:.3f} p99 "
-            f"{res['token_ms_p99']:.3f} ms, wall {res['wall_s']:.2f}s; "
-            f"launches {got}; {wall:.1f}s with set-up")
+            f"{res['token_ms_p99']:.3f} ms, wall {res['wall_s']:.2f}s, "
+            f"{res['decode_steps']} decode steps; launches {got}; "
+            f"{wall:.1f}s with set-up")
         n_req = int(argv[argv.index("--num-requests") + 1])
         if len(gen) != n_req or any(len(gen[r]) != max_new[r]
                                     for r in max_new):
@@ -529,10 +768,17 @@ def serve_path(label, argv, expect):
     return got, res
 
 
+def per_step(n_attention):
+    """Expected paged-attention launches of a continuous path: one per
+    attention application for every decode step of the engine."""
+    return lambda res: res["decode_steps"] * n_attention
+
+
 def serving_paths():
     """(label, argv, expected launches) of every serving path: one
     launch per attention layer (flash_attention) or SSM layer
-    (ssd_chunk) for every prefill."""
+    (ssd_chunk) for every prefill, and one paged_attention launch per
+    attention layer for every decode step of the continuous engine."""
     fixed = ["--prompt-len", "512", "--gen", "64", "--batch", "8"]
     cont = ["--continuous", "--num-requests", "32", "--poisson-rate", "20",
             "--prompt-len", "512", "--gen", "64", "--max-active", "8",
@@ -545,7 +791,7 @@ def serving_paths():
         ("smollm_fixed", ["--arch", "smollm-135m", *fixed],
          {"flash_attention": 30}),
         ("smollm_continuous", ["--arch", "smollm-135m", *cont],
-         {"flash_attention": 32 * 30}),
+         {"flash_attention": 32 * 30, "paged_attention": per_step(30)}),
         ("mamba2_fixed", ["--arch", "mamba2-130m", *fixed],
          {"ssd_chunk": 24}),
         ("mamba2_continuous", ["--arch", "mamba2-130m", *cont],
@@ -553,7 +799,13 @@ def serving_paths():
         ("zamba2_fixed", ["--arch", "zamba2-2.7b", *z_fixed],
          {"ssd_chunk": 54, "flash_attention": 9}),
         ("zamba2_continuous", ["--arch", "zamba2-2.7b", *z_cont],
-         {"ssd_chunk": 8 * 54, "flash_attention": 8 * 9}),
+         {"ssd_chunk": 8 * 54, "flash_attention": 8 * 9,
+          "paged_attention": per_step(9)}),
+        # olmoe: 6.92B fp32 parameters; cut like zamba2
+        ("olmoe_fixed", ["--arch", "olmoe-1b-7b", *z_fixed],
+         {"flash_attention": 16}),
+        ("olmoe_continuous", ["--arch", "olmoe-1b-7b", *z_cont],
+         {"flash_attention": 8 * 16, "paged_attention": per_step(16)}),
     ]
 
 
@@ -753,10 +1005,13 @@ def main() -> int:
     smi = phase_device()
     kernels = {"flash_attention": phase_kernel(),
                "ssd_chunk": phase_ssd_kernel(),
-               "segment_combine": phase_combine_kernel()}
+               "segment_combine": phase_combine_kernel(),
+               "paged_attention": phase_paged_kernel()}
     diffs = {"smollm-135m": phase_model(),
              "mamba2-130m": phase_ssm_model("mamba2-130m", 2),
              "zamba2-2.7b": phase_ssm_model("zamba2-2.7b", 2)}
+    moe = phase_moe_model()
+    diffs["olmoe-1b-7b"] = moe["prefill_logit_diff"]
     serving = {}
     for k in kernels.values():
         k["launches"], k["launches_by_path"] = 0, {}
@@ -768,12 +1023,14 @@ def main() -> int:
                 kernels[name]["launches_by_path"][label] = n
         serving[label] = {k: res[k] for k in (
             "prefill_s", "decode_s", "new_tokens", "tok_per_s", "wall_s",
-            "token_ms_p50", "token_ms_p90", "token_ms_p99") if k in res}
+            "token_ms_p50", "token_ms_p90", "token_ms_p99", "decode_steps")
+            if k in res}
         if "generated" in res:
             serving[label]["requests"] = len(res["generated"])
     breakdown = {"smollm-135m": phase_breakdown("smollm-135m", 8, 512),
                  "mamba2-130m": phase_breakdown("mamba2-130m", 8, 512),
-                 "zamba2-2.7b": phase_breakdown("zamba2-2.7b", 4, 512)}
+                 "zamba2-2.7b": phase_breakdown("zamba2-2.7b", 4, 512),
+                 "olmoe-1b-7b": phase_breakdown("olmoe-1b-7b", 4, 512)}
     coll, coll_paths = phase_collectives()
     for path, counts in coll_paths.items():
         for name, n in counts.items():
@@ -784,6 +1041,8 @@ def main() -> int:
         coll_paths["measure_collectives_tune"]["segment_combine"]
     log(f"    total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"card": smi, "model_logit_diff_fp32": diffs,
+                      "olmoe_engine": {k: v for k, v in moe.items()
+                                       if k.startswith("engine")},
                       "breakdown": breakdown, "serving": serving,
                       "collectives": {k: coll[k] for k in (
                           "best", "grad_sync", "tune_seconds", "wall_s",

@@ -1,7 +1,8 @@
 """Plain PyTorch oracles (the port of ``repro.kernels.ref``).
 
 These are the reference semantics the kernels and the model are held
-to: attention, the SSD scan and the segment combine.
+to: attention, the SSD scan, the segment combine and paged decode
+attention.
 """
 from __future__ import annotations
 
@@ -169,3 +170,89 @@ def segment_combine(acc: torch.Tensor, part: torch.Tensor,
     else:
         raise ValueError(f"unknown op {op!r}")
     return r.to(acc.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode attention over a ring-buffered KV cache: dense, and paged through
+# the block tables (the gather path)
+# ---------------------------------------------------------------------------
+NEG_INF = -1e30
+
+
+def ring_slot_positions(length, T: int) -> torch.Tensor:
+    """Absolute position stored in each ring-buffer slot after `length` writes.
+
+    Slot i holds the greatest position p < length with p % T == i, or -1 if
+    slot i has never been written. ``length`` scalar -> (T,); (B,) -> (B, T).
+    """
+    length = torch.as_tensor(length)
+    i = torch.arange(T, device=length.device)
+    ln = length[..., None]
+    last = i + T * torch.div(ln - 1 - i, T, rounding_mode="floor")
+    return torch.where(i < ln, last, torch.full_like(last, -1))
+
+
+def cache_attention(q, ck, cv, q_pos, slot_pos, *, window=0):
+    """Decode attention against a (possibly ring-buffered) KV cache (the
+    reference's ``models/layers.cache_attention``).
+
+    q: (B, 1, H, Dh); ck/cv: (B, T, KV, Dh); q_pos: (1,) or (B, 1)
+    absolute; slot_pos: (T,) or (B, T) absolute position stored in each
+    slot (-1 = empty).
+
+    GQA is expressed by reshaping q to (KV, group); the cache is never
+    repeated. As in the reference, the scaled q is cast to the cache
+    dtype, both products accumulate in fp32, and the probabilities are
+    cast to the cache dtype before the PV product. A bf16 ``matmul`` in
+    PyTorch returns bf16, so both operands are upcast to fp32 for the
+    product: the elementwise products of bf16 values are exact in fp32,
+    which gives the fp32 result JAX's ``preferred_element_type`` does.
+    """
+    B, S, H, Dh = q.shape
+    KV = ck.shape[2]
+    group = H // KV
+    qr = (q * (Dh ** -0.5)).reshape(B, S, KV, group, Dh).to(ck.dtype)
+    logits = torch.einsum("bskgd,btkd->bkgst", qr.float(), ck.float())
+    q_last = q_pos[..., 0]                        # () or (B,)
+    valid = (slot_pos >= 0) & (slot_pos <= q_last[..., None])
+    if window > 0:
+        valid &= slot_pos > q_last[..., None] - window
+    if valid.dim() == 1:
+        valid = valid[None]
+    valid = valid[:, None, None, None, :]         # (B or 1, 1, 1, 1, T)
+    logits = torch.where(valid, logits,
+                         torch.full((), NEG_INF, device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(cv.dtype).float(),
+                       cv.float())
+    return out.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def gather_kv_view(pool: torch.Tensor, block_tables: torch.Tensor):
+    """Dense per-request views through the block table.
+
+    pool: (NB, bs, ...); block_tables: (R, nb) pool-block ids.
+    Returns (R, nb * bs, ...): request r's logical slots in order.
+    """
+    view = pool[block_tables]                    # (R, nb, bs, ...)
+    R, nb, bs = view.shape[:3]
+    return view.reshape(R, nb * bs, *view.shape[3:])
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                        window: int = 0) -> torch.Tensor:
+    """Decode attention through a paged KV pool, by gathering each
+    request's view (the reference's ``_paged_attention_xla``).
+
+    q: (R, 1, H, Dh); k_pool/v_pool: (NB, bs, KV, Dh); block_tables:
+    (R, nb); lengths: (R,) tokens written INCLUDING the current one (the
+    query sits at position ``length - 1``). The contraction is the dense
+    decode's ``cache_attention``, for all rows at once, so this path is
+    bit-identical to the dense-cache decode on the equivalent view.
+    """
+    T = block_tables.shape[1] * k_pool.shape[1]
+    lengths = torch.as_tensor(lengths, device=q.device)
+    return cache_attention(q, gather_kv_view(k_pool, block_tables),
+                           gather_kv_view(v_pool, block_tables),
+                           (lengths - 1)[:, None],
+                           ring_slot_positions(lengths, T), window=window)

@@ -3,11 +3,13 @@
   * default (oracle) — one fixed batch prefilled in a single batched pass
     (``api.prefill``: attention through the hand-written flash-attention
     kernel and the SSM families' chunk scan through the hand-written
-    SSD kernel on the card) and greedily decoded to completion.
+    SSD kernel on the card) and greedily decoded to completion over
+    dense KV caches.
   * ``--continuous`` — the ``repro_torch.serve`` subsystem: a request
     trace (``--request-trace`` JSONL or synthetic Poisson arrivals),
-    paged KV blocks and per-request SSM state, token-budget + SLO
-    admission, per-step join/retire.
+    paged KV blocks read in every decode step by the hand-written
+    paged-attention kernel on the card, per-request SSM state,
+    token-budget + SLO admission, per-step join/retire.
 
 Runs on the GPU (``--device cuda``, the default; no GPU is an error) or,
 when asked, on the CPU, where the kernels take their plain PyTorch
@@ -27,6 +29,8 @@ Examples:
     python -m repro_torch.launch.serve --arch mamba2-130m \\
         --batch 8 --prompt-len 512 --gen 64
     python -m repro_torch.launch.serve --arch zamba2-2.7b --continuous \\
+        --num-requests 8 --poisson-rate 20 --prompt-len 512 --gen 16
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --continuous \\
         --num-requests 8 --poisson-rate 20 --prompt-len 512 --gen 16
     python -m repro_torch.launch.serve --arch smollm-135m --reduced \\
         --device cpu --batch 2 --prompt-len 8 --gen 4
@@ -91,7 +95,8 @@ def _serve_continuous(args, cfg, api, params):
     out = {"arch": cfg.name, "mode": "continuous",
            "max_active": args.max_active, "block_size": bs,
            "view_len": view_len, "slo_ms": args.slo_ms,
-           "wall_s": res.wall_s, **s, "requests": res.records}
+           "wall_s": res.wall_s, "decode_steps": engine.decode_steps, **s,
+           "requests": res.records}
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
         obs_export.write_summary(
@@ -151,7 +156,8 @@ def _serve_fixed(args, cfg, api, params):
     print("sample tokens:", gen[0, :16].tolist())
 
     res = {"arch": cfg.name, "batch": B, "prompt_len": args.prompt_len,
-           "gen": args.gen, "prefill_s": t_prefill, "decode_s": t_gen,
+           "gen": args.gen, "decode_steps": args.gen,
+           "prefill_s": t_prefill, "decode_s": t_gen,
            "tok_per_s": B * args.gen / t_gen,
            "token_ms_p50": float(p50), "token_ms_p90": float(p90),
            "token_ms_p99": float(p99)}

@@ -5,8 +5,9 @@ block applied every ``attn_every`` SSM layers (port of
 The shared block goes through the port's ``layers.attention_block`` and
 ``mlp_block``, so its prefill attention runs the flash-attention kernel
 on the card. ``decode_step`` takes the cache's ``length`` as a scalar or
-a per-row ``(B,)`` tensor, as ``transformer.decode_step`` does, and
-writes the token's k/v into the cache IN PLACE.
+a per-row ``(B,)`` tensor and a dense or paged KV cache, as
+``transformer.decode_step`` does, and writes the token's k/v into the
+cache IN PLACE.
 """
 from __future__ import annotations
 
@@ -86,9 +87,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, *, window=0,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, attn_impl="auto"):
     """tokens: (B, 1); returns (logits (B, V), new cache). ``length`` is a
-    scalar or a ``(B,)`` tensor of per-row lengths."""
+    scalar or a ``(B,)`` tensor of per-row lengths. The KV part of the
+    cache is dense or paged, as in ``transformer.decode_step``, with its
+    layer axis counting shared-attention applications."""
     x = T.embed_tokens(params, tokens, cfg, compute_dtype)
     length = torch.as_tensor(cache["length"], device=x.device)
     positions = length[None] if length.dim() == 0 else length[:, None]
@@ -101,15 +104,13 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *, window=0,
                                          "ssd": cache["ssm"]["ssd"][i]})
             convs.append(ns["conv"])
             ssds.append(ns["ssd"])
-        kv = {"k": cache["k"][g], "v": cache["v"][g], "length": length}
         x, _ = _shared_attn(x, params["shared"], cfg, positions,
-                            window=window, kv=kv,
-                            compute_dtype=compute_dtype, attn_impl="ref")
+                            window=window, kv=L.decode_kv(cache, g, length),
+                            compute_dtype=compute_dtype, attn_impl=attn_impl)
     logits = T.logits_fn(params, x, cfg, compute_dtype)[:, 0]
     new_cache = {
         "ssm": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)},
-        "k": cache["k"],
-        "v": cache["v"],
+        **L.kv_leaves(cache),
         "length": length + 1,
     }
     return logits, new_cache

@@ -16,6 +16,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+# the dense decode's contraction and ring rule are the paged gather path's
+from repro_torch.kernels.ref import cache_attention, ring_slot_positions
 
 Params = dict
 NEG_INF = -1e30
@@ -115,18 +117,28 @@ def attention_block(
     *,
     causal: bool = True,
     window: int = 0,
-    kv_cache=None,                # optional dict(k=(B,T,KV,Dh), v=..., length)
+    kv_cache=None,                # optional decode cache, dense or paged
     return_kv: bool = False,      # prefill: return this block's k/v for caching
     compute_dtype=torch.bfloat16,
     attn_impl: str = "auto",
 ):
     """Returns (out, new_kv) — new_kv is None unless kv_cache/return_kv given.
 
-    Decode (``kv_cache`` given, one new token) takes ``length`` as a
-    scalar, as the reference does, or as a ``(B,)`` tensor: each row then
-    writes its own ring slot ``length[b] % T`` and sees its own valid
-    slots. The token's k/v are written into ``kv_cache``'s tensors IN
-    PLACE; the returned dict holds those same tensors.
+    Decode (``kv_cache`` given, one new token) takes one of two forms:
+
+      * dense, ``{k, v, length}``: ``(B, T, KV, Dh)`` views and
+        ``length`` as a scalar, as the reference does, or as a ``(B,)``
+        tensor: each row then writes its own ring slot ``length[b] % T``
+        and sees its own valid slots (``cache_attention``);
+      * paged, ``{k_pool, v_pool, block_tables, length}``: one layer's
+        ``(NB, bs, KV, Dh)`` pools, the ``(B, nb)`` block tables and
+        ``(B,)`` lengths. Row b's token goes to ring slot
+        ``s = length[b] % (nb * bs)``, i.e. ``pool[tables[b, s // bs],
+        s % bs]``, and ``ops.paged_attention`` (impl ``attn_impl``) then
+        reads the pools through the tables, the token included.
+
+    Either way the token's k/v are written into the cache's tensors IN
+    PLACE; the returned dict holds those same tensors and ``length + 1``.
     """
     cd = compute_dtype
     xc = x.to(cd)
@@ -142,11 +154,16 @@ def attention_block(
         k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
 
     new_kv = None
-    if kv_cache is not None:
+    if kv_cache is not None and x.shape[1] != 1:
+        raise ValueError(f"decode takes one token per row, got {x.shape[1]}")
+    if kv_cache is not None and "block_tables" in kv_cache:
+        new_kv = write_paged_token(kv_cache, k[:, 0], v[:, 0])
+        out = ops.paged_attention(
+            q, new_kv["k_pool"], new_kv["v_pool"], new_kv["block_tables"],
+            new_kv["length"], window=window, impl=attn_impl)
+    elif kv_cache is not None:
         # decode: insert this step's k/v at slot `length % T` (ring-buffer when
         # T < full context, i.e. sliding-window serving)
-        if x.shape[1] != 1:
-            raise ValueError(f"decode takes one token per row, got {x.shape[1]}")
         ck, cv = kv_cache["k"], kv_cache["v"]
         B, T = ck.shape[0], ck.shape[1]
         length = torch.as_tensor(kv_cache["length"], device=ck.device)
@@ -167,52 +184,36 @@ def attention_block(
     return out.to(x.dtype), new_kv
 
 
-def ring_slot_positions(length, T: int):
-    """Absolute position stored in each ring-buffer slot after `length` writes.
+def write_paged_token(kv_cache, k, v):
+    """Write each row's token k/v ``(B, KV, Dh)`` IN PLACE into its ring
+    slot ``length % (nb * bs)`` of the paged cache; returns the cache with
+    ``length + 1``. Rows of inactive slots point at the null block, so
+    their writes land there."""
+    kp, vp, bt = kv_cache["k_pool"], kv_cache["v_pool"], kv_cache["block_tables"]
+    bs = kp.shape[1]
+    length = torch.as_tensor(kv_cache["length"], device=kp.device)
+    s = length % (bt.shape[1] * bs)
+    blk = bt[torch.arange(bt.shape[0], device=bt.device), s // bs]
+    kp[blk, s % bs] = k.to(kp.dtype)
+    vp[blk, s % bs] = v.to(vp.dtype)
+    return {"k_pool": kp, "v_pool": vp, "block_tables": bt,
+            "length": length + 1}
 
-    Slot i holds the greatest position p < length with p % T == i, or -1 if
-    slot i has never been written. ``length`` scalar -> (T,); (B,) -> (B, T).
-    """
-    length = torch.as_tensor(length)
-    i = torch.arange(T, device=length.device)
-    ln = length[..., None]
-    last = i + T * torch.div(ln - 1 - i, T, rounding_mode="floor")
-    return torch.where(i < ln, last, torch.full_like(last, -1))
+
+def decode_kv(cache, i: int, length):
+    """Layer ``i``'s decode cache, dense or paged, from a family cache
+    whose KV leaves are stacked on a leading layer axis (``k``/``v`` or
+    ``k_pool``/``v_pool``; the block tables are shared by the layers)."""
+    if "block_tables" in cache:
+        return {"k_pool": cache["k_pool"][i], "v_pool": cache["v_pool"][i],
+                "block_tables": cache["block_tables"], "length": length}
+    return {"k": cache["k"][i], "v": cache["v"][i], "length": length}
 
 
-def cache_attention(q, ck, cv, q_pos, slot_pos, *, window=0):
-    """Decode attention against a (possibly ring-buffered) KV cache.
-
-    q: (B, 1, H, Dh); ck/cv: (B, T, KV, Dh); q_pos: (1,) or (B, 1)
-    absolute; slot_pos: (T,) or (B, T) absolute position stored in each
-    slot (-1 = empty).
-
-    GQA is expressed by reshaping q to (KV, group); the cache is never
-    repeated. As in the reference, the scaled q is cast to the cache
-    dtype, both products accumulate in fp32, and the probabilities are
-    cast to the cache dtype before the PV product. A bf16 ``matmul`` in
-    PyTorch returns bf16, so both operands are upcast to fp32 for the
-    product: the elementwise products of bf16 values are exact in fp32,
-    which gives the fp32 result JAX's ``preferred_element_type`` does.
-    """
-    B, S, H, Dh = q.shape
-    KV = ck.shape[2]
-    group = H // KV
-    qr = (q * (Dh ** -0.5)).reshape(B, S, KV, group, Dh).to(ck.dtype)
-    logits = torch.einsum("bskgd,btkd->bkgst", qr.float(), ck.float())
-    q_last = q_pos[..., 0]                        # () or (B,)
-    valid = (slot_pos >= 0) & (slot_pos <= q_last[..., None])
-    if window > 0:
-        valid &= slot_pos > q_last[..., None] - window
-    if valid.dim() == 1:
-        valid = valid[None]
-    valid = valid[:, None, None, None, :]         # (B or 1, 1, 1, 1, T)
-    logits = torch.where(valid, logits,
-                         torch.full((), NEG_INF, device=logits.device))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs.to(cv.dtype).float(),
-                       cv.float())
-    return out.reshape(B, S, H, Dh).to(q.dtype)
+def kv_leaves(cache):
+    """The KV entries of a decode cache (written in place by the step)."""
+    return {n: cache[n] for n in ("k", "v", "k_pool", "v_pool",
+                                  "block_tables") if n in cache}
 
 
 # ---------------------------------------------------------------------------

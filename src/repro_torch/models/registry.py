@@ -1,5 +1,5 @@
 """Uniform model API (port of ``repro/models/registry.py``): the dense,
-SSM and hybrid families."""
+MoE, SSM and hybrid families."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,14 +9,14 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import hybrid, moe_model, ssm, transformer
 
-_FAMILY = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+_FAMILY = {"dense": transformer, "moe": moe_model, "ssm": ssm,
+           "hybrid": hybrid}
 
 # families the port does not have yet, and the ROADMAP.md Queue 1 slice
 # that brings each
 _LATER = {
-    "moe": "slice (e): the remaining families",
     "encdec": "slice (e): the remaining families",
     "vlm": "slice (e): the remaining families",
 }
@@ -62,10 +62,10 @@ def build_model(
     mod = _FAMILY[cfg.family]
     # the per-family keywords, as the reference passes them
     dkw: dict = {"compute_dtype": compute_dtype}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid"):
         dkw["window"] = window
     pkw = dict(dkw)
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid"):
         pkw["attn_impl"] = attn_impl
     if cfg.family in ("ssm", "hybrid"):
         pkw["ssd_impl"] = ssd_impl

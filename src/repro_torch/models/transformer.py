@@ -5,7 +5,8 @@ Params are a dict: ``{"embed": {...}, "layers": [per-layer dict, ...]}``;
 the reference's stacked ``(L, ...)`` leaves become a Python list, and its
 ``lax.scan`` over layers a loop. Serving: ``init_cache``, ``prefill`` and
 ``decode_step``, whose ``length`` is a scalar or a per-row ``(B,)``
-tensor.
+tensor and whose cache is dense or paged (block pools read through the
+paged-attention kernel).
 """
 from __future__ import annotations
 
@@ -79,24 +80,31 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
-                window: int = 0, compute_dtype=torch.bfloat16):
+                window: int = 0, compute_dtype=torch.bfloat16,
+                attn_impl: str = "auto"):
     """tokens: (B, 1) next token ids; returns (logits (B, V), new_cache).
 
-    ``cache["length"]`` is a scalar (every row at the same position, as in
-    the reference) or a ``(B,)`` tensor of per-row lengths. The token's
-    k/v are written into ``cache["k"]``/``cache["v"]`` in place; the new
-    cache holds those tensors and ``length + 1``.
+    The cache is dense, ``{k, v, length}`` with ``(L, B, T, KV, Dh)``
+    views, or paged, ``{k_pool, v_pool, block_tables, length}`` with
+    ``(L, NB, bs, KV, Dh)`` pools and ``(B, nb)`` tables (the serving
+    engine's form; see ``layers.attention_block``). ``length`` is a
+    scalar (every row at the same position, as in the reference; dense
+    only) or a ``(B,)`` tensor of per-row lengths. The token's k/v are
+    written into the cache's tensors in place; the new cache holds those
+    tensors and ``length + 1``. ``attn_impl`` picks the paged form's
+    attention (``ops.paged_attention``); the dense form runs
+    ``layers.cache_attention``.
     """
     x = embed_tokens(params, tokens, cfg, compute_dtype)
     length = torch.as_tensor(cache["length"], device=x.device)
     # absolute position of this token: (1,) shared, or (B, 1) per row
     positions = length[None] if length.dim() == 0 else length[:, None]
     for i, lp in enumerate(params["layers"]):
-        kv = {"k": cache["k"][i], "v": cache["v"][i], "length": length}
-        x, _ = _layer(x, lp, cfg, positions, window=window, kv=kv,
-                      compute_dtype=compute_dtype, attn_impl="ref")
+        x, _ = _layer(x, lp, cfg, positions, window=window,
+                      kv=L.decode_kv(cache, i, length),
+                      compute_dtype=compute_dtype, attn_impl=attn_impl)
     logits = logits_fn(params, x, cfg, compute_dtype)[:, 0]
-    return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}
+    return logits, {**L.kv_leaves(cache), "length": length + 1}
 
 
 def prefill(params, tokens, cfg: ModelConfig, cache_len: int, *,

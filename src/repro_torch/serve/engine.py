@@ -16,16 +16,28 @@ reference, into:
   * lengths — one engine-owned ``(max_active,)`` vector, passed as the
     cache's ``length`` where the template has one.
 
-The reference vmaps a batch-1 ``decode_step`` over the slots. Here one
-step gathers every slot's dense view through the block tables into a
-``(L, max_active, view_len, KV, Dh)`` cache, runs ONE batched
-``decode_step`` with the per-slot lengths and opaque state, scatters
-each slot's newly written token back into its blocks, keeps the new
-opaque state of the active slots, and argmaxes the next token. Inactive
-slots read and write the null block and keep their length and state. A
-slot's row of the batched step depends only on its own data, so the
-paged engine gives exactly the tokens of the same batched decode over
-dense caches (the tests' oracle).
+The reference vmaps a batch-1 ``decode_step`` over the slots, each on
+a dense view gathered through its block table, and scatters the new
+token back into the pool. Here one step runs ONE batched
+``decode_step`` over every slot with the per-slot lengths and opaque
+state and the paged cache itself (``k_pool``/``v_pool``, the int32
+block tables, ``length``): in every attention layer the slot's token is
+written IN PLACE into its ring slot ``length % view_len`` of the pool,
+and ``ops.paged_attention`` (``attn_impl``: ``"auto"`` runs the
+hand-written kernel on the card, ``"xla"`` the gather path) reads the
+pool through the tables, that token included, with no dense view in
+between. The step then keeps the new opaque state of the active slots
+and argmaxes the next token. Inactive slots read and write the null
+block and keep their length and state.
+
+A slot's row of the batched step depends only on its own data: the
+attention rows are independent, and the MoE family routes each row as
+its own group (per-row expert capacity, as the reference's vmap of
+batch-1 decodes does; its fixed-batch decode keeps the batched
+capacity). So for the dense, SSM and hybrid families the paged engine
+gives exactly the tokens of the same batched decode over dense caches
+(the tests' oracle; on the CPU the paged attention is the gather path,
+bit for bit the dense one).
 
 Opaque state is written at admit in the store's dtype (as the
 reference's ``.at[slot].set`` casts), and after each step the store
@@ -48,7 +60,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.serve.paged_kv import PagedKV, gather_views, scatter_tokens
+from repro_torch.serve.paged_kv import PagedKV
 
 PAGED_LEAVES = ("k", "v")
 
@@ -78,8 +90,9 @@ class ServeEngine:
     @torch.inference_mode()
     def __init__(self, api, params, *, max_active: int = 4,
                  view_len: int = 64, block_size: int = 8,
-                 num_blocks: Optional[int] = None):
+                 num_blocks: Optional[int] = None, attn_impl: str = "auto"):
         self.api = api
+        self.attn_impl = attn_impl
         self.params = params
         self.max_active = max_active
         self.view_len = view_len
@@ -104,6 +117,7 @@ class ServeEngine:
         self._free_slots = list(range(R - 1, -1, -1))
         self._active_mask = np.zeros((R,), bool)
         self._slot_req: dict[int, object] = {}
+        self.decode_steps = 0               # batched decode steps run
 
     # -- request lifecycle -------------------------------------------------
 
@@ -148,18 +162,17 @@ class ServeEngine:
     def step(self):
         """One decode step for every active slot. Returns {slot: token}."""
         cache = dict(self.opaque)
+        kw = {}
         if self.paged is not None:
-            tables = self.paged.tables
-            cache.update(gather_views(self.paged.pools, tables,
-                                      self.block_size))
+            cache.update({f"{n}_pool": pool
+                          for n, pool in self.paged.pools.items()})
+            cache["block_tables"] = self.paged.tables
+            kw["attn_impl"] = self.attn_impl
         if self._has_length:
             cache["length"] = self.lengths
         logits, nc = self.api.decode_step(self.params, cache,
-                                          self.cur_tokens[:, None])
-        if self.paged is not None:
-            scatter_tokens(self.paged.pools, tables,
-                           {n: nc[n] for n in self.paged_names},
-                           self.lengths % self.view_len, self.block_size)
+                                          self.cur_tokens[:, None], **kw)
+        self.decode_steps += 1
         active = torch.from_numpy(self._active_mask).to(self.device)
         self.opaque = _map(
             self.opaque, lambda old, new: torch.where(_rows(active, new),

@@ -18,8 +18,11 @@ shorter than the longest sequence gives sliding-window serving.
 
 Unlike the reference, whose arrays are immutable, ``write_view``,
 ``scatter_token`` and ``scatter_tokens`` update the pools IN PLACE
-(``index_put_``): a decode step then writes one token per slot instead
-of copying every pool.
+(``index_put_``). The serving engine's decode step uses none of
+``gather_views``/``scatter_tokens``: each layer writes its token into the
+pool in place and reads the pool through the tables
+(``models/layers.attention_block``'s paged form). They stay for the
+tests' dense oracle.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 def gather_views(pools, tables, block_size: int):
     """Dense views of every slot through its block table.
 
-    pools: leaf -> (lead, NB, bs, ...); tables: (R, nb) int64.
+    pools: leaf -> (lead, NB, bs, ...); tables: (R, nb) integer ids.
     Returns leaf -> (lead, R, nb*bs, ...): the layer-stacked batch cache
     that the batched ``decode_step`` takes (the reference returns the
     request axis first, for ``vmap``).
@@ -128,7 +131,7 @@ class PagedKV:
             for n, t in templates.items()
         }
         self._tables = np.zeros((max_requests, self.blocks_per_request),
-                                np.int64)
+                                np.int32)
         self._owned: dict[int, list[int]] = {}
         self._tables_dev = None
 
@@ -161,7 +164,9 @@ class PagedKV:
 
     @property
     def tables(self) -> torch.Tensor:
-        """(max_requests, blocks_per_request) int64 block table, on device."""
+        """(max_requests, blocks_per_request) int32 block table, on device:
+        the dtype the paged-attention kernel reads, so a decode step hands
+        it over without a conversion."""
         if self._tables_dev is None:
             self._tables_dev = torch.from_numpy(self._tables.copy()).to(
                 self.device)

@@ -4,15 +4,19 @@ These imports hold no JAX, so the file also runs on a machine with a GPU
 and no JAX: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Elsewhere every test skips: a CUDA kernel
 has no CPU mode (its arithmetic is held against the reference on the CPU
-through ``flash_attention_plain``, ``ssd_chunked_plain`` and
-``segment_combine_plain``, in ``tests/test_torch_kernels.py``,
-``tests/test_torch_ssm.py`` and ``tests/test_torch_collectives.py``).
+through ``flash_attention_plain``, ``ssd_chunked_plain``,
+``segment_combine_plain`` and ``ref.paged_attention_ref``, in
+``tests/test_torch_kernels.py``, ``tests/test_torch_ssm.py``,
+``tests/test_torch_collectives.py`` and
+``tests/test_torch_paged_attention.py``).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import attention as fa  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import segment_reduce  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 
@@ -219,3 +223,93 @@ def test_two_rank_host_staged_ring_all_reduce_on_the_card(cuda):
     from repro_torch.core.collectives import group as grp
     res = grp.spawn(_ring_on_card, 2, (4099,))
     assert res == {"equal": True, "device": "cuda", "launches": 2}
+
+
+# ---------------------------------------------------------------------------
+# the paged decode attention kernel
+# ---------------------------------------------------------------------------
+def _paged_inputs(R, nb, bs, KV, H, Dh, q_dtype, kv_dtype, seed):
+    """Pools with a null block 0 and shuffled int32 tables, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    NB = 1 + R * nb
+    kp = torch.randn((NB, bs, KV, Dh), generator=g).to(kv_dtype).cuda()
+    vp = torch.randn((NB, bs, KV, Dh), generator=g).to(kv_dtype).cuda()
+    tables = (1 + torch.randperm(R * nb, generator=g)).reshape(R, nb)
+    q = torch.randn((R, 1, H, Dh), generator=g).to(q_dtype).cuda()
+    return q, kp, vp, tables.to(torch.int32).cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("R,nb,bs,KV,H,Dh", [
+    (3, 3, 4, 2, 4, 64),          # the reference's setup at a built head dim
+    (8, 36, 16, 3, 9, 64),        # smollm serving: GQA 3, view 576
+    (4, 33, 16, 32, 32, 80),      # zamba2 serving, view 528
+    (4, 33, 16, 16, 16, 128),     # olmoe serving, view 528
+    (2, 2, 64, 1, 5, 128),        # block size 64, group 5
+])
+def test_paged_kernel_matches_plain(cuda, dtype, window, R, nb, bs, KV, H,
+                                    Dh):
+    q, kp, vp, tables = _paged_inputs(R, nb, bs, KV, H, Dh, dtype, dtype,
+                                      seed=R + nb + Dh)
+    T = nb * bs
+    # partial, full, wrapped and several-wraps-deep views
+    lengths = torch.tensor(([5, T, T + 5, 3 * T + 1] * R)[:R]).cuda()
+    before = pa.launches
+    got = pa.paged_attention(q, kp, vp, tables, lengths, window=window)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    want = ref.paged_attention_ref(q, kp, vp, tables, lengths, window=window)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_paged_kernel_fp32_queries_over_bf16_pools(cuda):
+    """fp32 compute over the engine's bf16 pools: the kernel keeps q and
+    the probabilities in fp32, the gather path rounds both to bf16."""
+    q, kp, vp, tables = _paged_inputs(4, 5, 16, 2, 4, 128, torch.float32,
+                                      torch.bfloat16, seed=3)
+    lengths = torch.tensor([1, 30, 80, 81]).cuda()
+    got = pa.paged_attention(q, kp, vp, tables, lengths)
+    want = ref.paged_attention_ref(q, kp, vp, tables, lengths)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+def test_paged_kernel_empty_row_is_zero_and_strided_q(cuda):
+    """A row with no valid slot gives 0 (the TPU kernel's l == 0 -> 1);
+    q read through its strides."""
+    q, kp, vp, tables = _paged_inputs(2, 2, 8, 1, 2, 64, torch.float32,
+                                      torch.float32, seed=4)
+    qs = torch.zeros((2, 1, 4, 64), device="cuda")[:, :, ::2]
+    qs.copy_(q)
+    got = pa.paged_attention(qs, kp, vp, tables, torch.tensor([0, 9]).cuda())
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = ref.paged_attention_ref(q, kp, vp, tables, torch.tensor([9, 9]))
+    torch.testing.assert_close(got[1], want[1], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("case,err", [
+    ("float16", TypeError), ("head_dim_96", ValueError),
+    ("block_128", ValueError), ("strided_pool", ValueError),
+    ("two_tokens", ValueError)])
+def test_paged_kernel_refuses_what_it_does_not_take(cuda, case, err):
+    q, kp, vp, tables = _paged_inputs(2, 2, 8, 1, 2, 64, torch.float32,
+                                      torch.float32, seed=5)
+    lengths = torch.tensor([3, 9]).cuda()
+    if case == "float16":
+        kp, vp = kp.half(), vp.half()
+    elif case == "head_dim_96":
+        q = torch.zeros((2, 1, 2, 96), device="cuda")
+        kp = vp = torch.zeros((5, 8, 1, 96), device="cuda")
+    elif case == "block_128":
+        kp = vp = torch.zeros((5, 128, 1, 64), device="cuda")
+    elif case == "strided_pool":
+        kp = torch.zeros((5, 8, 2, 64), device="cuda")[:, :, :1]
+    else:
+        q = q.expand(-1, 2, -1, -1)
+    before = pa.launches
+    with pytest.raises(err):
+        pa.paged_attention(q, kp, vp, tables, lengths)
+    assert pa.launches == before

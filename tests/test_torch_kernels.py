@@ -151,7 +151,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "'kernels.segment_reduce', 'core.collectives.group', "
         "'core.collectives.algorithms', 'core.collectives.program', "
         "'core.collectives.synth', 'core.tuning.executor', "
-        "'core.tuning.tuners', 'launch.measure_collectives'):\n"
+        "'core.tuning.tuners', 'launch.measure_collectives', "
+        "'kernels.paged_attention', 'models.moe', 'models.moe_model', "
+        "'configs.olmoe_1b_7b', 'configs.arctic_480b'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('imported', sum(n.startswith('repro_torch') for n in sys.modules))\n")
     root = os.path.join(HERE, "..")

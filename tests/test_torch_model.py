@@ -300,9 +300,9 @@ def test_batched_decode_per_row_lengths_equals_scalar_calls():
 
 def test_non_dense_family_names_its_slice():
     from repro_torch.configs.base import ModelConfig
-    cfg = ModelConfig(name="m", family="moe", num_layers=1, d_model=8,
+    cfg = ModelConfig(name="m", family="vlm", num_layers=1, d_model=8,
                       num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=8,
-                      num_experts=4, experts_per_token=2)
+                      num_patches=4)
     with pytest.raises(NotImplementedError, match="slice"):
         build_model(cfg, device="cpu")
 
