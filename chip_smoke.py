@@ -6,15 +6,22 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
 
 1. device: the card's name and power limit; build every CUDA kernel from
    ``src/repro_torch/csrc`` (nvcc, sm_90a, one process per source, all
-   started together) into ``build/repro_torch/``;
+   started together) into ``build/repro_torch/``; each kernel's
+   registers, static shared memory and spills from ``-Xptxas -v``;
 2. kernels vs plain versions on the card:
    a. flash attention against ``flash_attention_plain`` over the
-      reference's test sweep (f32 at 2e-5, bf16 at 2e-2), the windows,
-      the decode offset, zamba2's shared-attention shapes (D=80,
-      H=KV=32) and smollm's serving shape; times the kernel, the
-      plain version and ``F.scaled_dot_product_attention`` (a yardstick
-      only: the port never calls it) at the serving shape, beside the
-      bound;
+      reference's test sweep (f32 at 2e-5 on the SIMT kernel, bf16 at
+      2e-2 on the tensor-core kernel; the instantiation each call ran is
+      checked and printed), the windows, the decode offset, fully masked
+      rows (before position 0 and past the window), T > S with
+      q_offset, S not a multiple of 64, MQA and GQA, q/k/v as views of
+      one fused projection, zamba2's shared-attention shapes (D=80,
+      H=KV=32) and smollm's serving shape; times the kernel, the plain
+      version and ``F.scaled_dot_product_attention`` (a yardstick only:
+      the port never calls it) in turns at four prefill shapes (smollm's
+      serving batch and one request, olmoe's and zamba2's), on the device
+      alone (torch.profiler) and back to back between CUDA events,
+      beside the bound and the host's time to issue one call;
    b. the SSD chunk kernel against ``ssd_chunked_plain`` (all three
       outputs) over the reference's sweep in f32 (5e-5) and bf16 (5e-2),
       Q=100, Q=7 and both models' serving shapes; times kernel and plain
@@ -24,8 +31,12 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       the reference's sweep (n in 7, 128, 1000, 65536), 16M elements and
       misaligned row slices, f32 and bf16, add/max/min, at the
       reference's 1e-6 (it is expected bit-equal; the count of bit-equal
-      cases is printed); times kernel, plain and ``torch.add`` (the
-      yardstick) at 16M elements f32 and bf16 beside the bound;
+      cases is printed), each case again in place (``out=acc``), which
+      must give the out-of-place bits; times kernel, plain and
+      ``torch.add`` (the yardstick), the in-place call, ``Tensor.add_``
+      and the out-of-place call plus a copy back, at 16M elements f32 and
+      bf16 beside the bound, and the kernel's design alternatives
+      (vectors per thread, grid cap);
    d. the paged decode attention kernel against ``ref.paged_attention_ref``
       (the gather path) over the reference's sweep (partial, full,
       wrapped and several-wraps-deep views, windows 0 and 6, shuffled
@@ -56,7 +67,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    every decode step of a continuous path (none on a fixed path), and
    zero for a kernel off the path;
 5. where the time goes: torch.profiler over one full-width prefill and
-   over decode steps of each model (device busy share, top kernels);
+   over decode steps of each model (device busy share, top kernels, and
+   the port's own kernels wherever they rank);
 6. tuned collectives through ``repro_torch.launch.measure_collectives``
    at 4 ranks on the card (processes under a gloo group, payloads staged
    through the host, every reduce step in the segment-combine kernel):
@@ -97,6 +109,13 @@ COMBINE_TOL = 1e-6               # tests/test_kernels.py (expected bit-equal)
 COMBINE_N = 1 << 24              # 16M elements: 64 MB of fp32 per operand
 RANKS = 4                        # processes on the card for the collectives
 SERVE_SHAPE = dict(B=8, S=512, H=9, KV=3, D=64)
+# the prefill attention calls of the serving paths, (B, S, H, KV, D), bf16
+ATTN_TIMED_SHAPES = {
+    "smollm serving": (8, 512, 9, 3, 64),
+    "olmoe prefill": (4, 512, 16, 16, 128),
+    "zamba2 prefill": (4, 512, 32, 32, 80),
+    "smollm one request": (1, 512, 9, 3, 64),
+}
 # mamba2-130m's SSD call at the fixed-batch serving shape (8 x 512 prompts)
 SSD_SERVE_SHAPE = dict(B=8, S=512, H=24, P=64, N=128, Q=128)
 # the paged decode attention at each continuous path's shape: requests
@@ -131,6 +150,47 @@ def time_calls(fn, reps: int = 20, runs: int = 5, warmup: int = 3) -> list:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return times
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time (ms per call) of the kernels ``fn`` launches, from
+    torch.profiler's CUDA events over ``reps`` calls after a warm-up:
+    the kernels alone, without the host's launch work between them,
+    which the back-to-back timing of ``time_calls`` (every kernel's
+    ``ms``) counts where the host is slower than the device. Every
+    kernel's ``device_ms`` comes from here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    # a trace now and then comes back without its device events: take
+    # the next one, and fail rather than report a time of 0
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if len(kernels) >= reps:
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    raise AssertionError(f"the profiler saw {len(kernels)} device events "
+                         f"over {reps} calls")
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host time (ms per call) to issue ``fn`` back to back, without
+    waiting for the device: where it exceeds the device time, the
+    back-to-back timing measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / reps
 
 
 def attention_bound_ms(B, S, T, H, KV, D, itemsize, causal=True):
@@ -169,21 +229,68 @@ def phase_device():
     for name in libs:
         logf = _build.build_dir() / f"{name}.log"
         if logf.exists():
-            for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"    ptxas {name}: {line.strip()}")
+            for fn, props in ptxas_report(logf.read_text()):
+                log(f"    ptxas {name}: {fn}: {props}")
     return smi
+
+
+def ptxas_report(text):
+    """(kernel, 'N registers, S bytes smem, spills') for every entry
+    function in nvcc's ``-Xptxas -v`` output, names demangled where
+    ``c++filt`` is on the path (dynamic shared memory is not in it: the
+    wrappers size that at launch)."""
+    out, fn, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line and fn:
+            spill = line.split(",", 1)[1].strip()
+        elif "Used" in line and "registers" in line and fn:
+            used = line.split("Used", 1)[1].strip()
+            out.append((fn, f"{used}; {spill}"))
+            fn, spill = None, ""
+    names = [fn for fn, _ in out]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, timeout=30,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if len(names) != len(out):
+        names = [fn for fn, _ in out]
+    return [(n, props) for n, (_, props) in zip(names, out)]
+
+
+def kernel_for(dtype, D):
+    """The instantiation the wrapper must launch for ``dtype``: bf16 on
+    the tensor cores, fp32 on the SIMT kernel."""
+    return (f"fa_fwd_mma<bf16,{D}>" if dtype == torch.bfloat16
+            else f"fa_fwd<f32,{D}>")
 
 
 def phase_kernel():
     from repro_torch.kernels import attention as fa
     sweep = [((1, 128, 128, 4, 4, 64), {}), ((2, 256, 256, 4, 2, 64), {}),
              ((1, 128, 128, 4, 1, 128), {}), ((1, 96, 96, 2, 2, 80), {})]
-    cases = [(shape, dt, kw) for shape, kw in sweep
-             for dt in (torch.float32, torch.bfloat16)]
-    cases += [((1, 256, 256, 2, 2, 64), torch.float32, {"window": w})
-              for w in (1, 17, 64, 256)]
-    cases += [((2, 1, 200, 4, 2, 64), torch.float32, {"q_offset": 199})]
+    both = (torch.float32, torch.bfloat16)
+    cases = [(shape, dt, kw) for shape, kw in sweep for dt in both]
+    cases += [((1, 256, 256, 2, 2, 64), dt, {"window": w})
+              for w in (1, 17, 64, 256) for dt in both]
+    cases += [((2, 1, 200, 4, 2, 64), dt, {"q_offset": 199}) for dt in both]
+    # bf16 edges of the tensor-core kernel: fully masked rows before
+    # position 0; rows fully masked by the window (q_offset past T: whole
+    # warps of them); S not a multiple of 64 with T > S and q_offset; MQA
+    # at S = 200; no causal mask over a ragged T; head dims 80 and 128
+    # with windows
+    cases += [((1, 40, 40, 2, 1, 64), dt, {"q_offset": -5}) for dt in both]
+    cases += [((1, 64, 64, 2, 1, 64), torch.bfloat16,
+               {"window": 16, "q_offset": 50}),
+              ((1, 96, 300, 4, 2, 64), torch.bfloat16, {"q_offset": 204}),
+              ((2, 200, 200, 4, 1, 64), torch.bfloat16, {}),
+              ((2, 70, 300, 3, 1, 64), torch.bfloat16, {"causal": False}),
+              ((1, 200, 200, 4, 2, 80), torch.bfloat16, {"window": 17}),
+              ((1, 200, 264, 2, 1, 128), torch.bfloat16,
+               {"window": 64, "q_offset": 64})]
     # zamba2's shared attention: fixed batch (4 x 512) and the continuous
     # mode's one-request prefills (128 and 512)
     cases += [((4, 512, 512, 32, 32, 80), torch.bfloat16, {}),
@@ -196,55 +303,108 @@ def phase_kernel():
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, ((B, S, T, H, KV, D), dt, kw) in enumerate(cases):
         q, k, v = rand_qkv(B, S, T, H, KV, D, dt, seed=i)
-        before = fa.launches
-        got = fa.flash_attention(q, k, v, causal=True, **kw)
-        torch.cuda.synchronize()
-        if fa.launches != before + 1:
-            raise AssertionError("the wrapper did not count its launch")
-        want = fa.flash_attention_plain(q, k, v, causal=True, **kw)
-        err = (got.float() - want.float()).abs().max().item()
-        bad = (got.float() - want.float()).abs() > \
-            TOL[dt] * (1 + want.float().abs())
-        if not torch.isfinite(got).all() or bad.any():
-            raise AssertionError(f"flash_attention disagrees with plain at "
-                                 f"{(B, S, T, H, KV, D)} {dt} {kw}: "
-                                 f"max err {err}")
+        kw = {"causal": True, **kw}
+        err = check_attention(fa, q, k, v, dt, kw)
         max_err[dt] = max(max_err[dt], err)
-        log(f"[2] {(B, S, T, H, KV, D)} {str(dt)[6:]} {kw}: max|err| {err:.3g}")
+        log(f"[2] {(B, S, T, H, KV, D)} {str(dt)[6:]} {kw}: "
+            f"{fa.last_kernel()}, max|err| {err:.3g}")
     serve_err = err      # the serving shape is the last case
+    # q, k and v as strided views of one fused projection, both dtypes
+    for dt in both:
+        g = torch.Generator(device="cuda").manual_seed(5)
+        qkv = torch.randn((2, 96, 4 + 2 + 2, 64), generator=g,
+                          device="cuda").to(dt)
+        q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+        err = check_attention(fa, q, k, v, dt, {"causal": True})
+        max_err[dt] = max(max_err[dt], err)
+        log(f"[2] fused qkv views (2, 96, 96, 4, 2, 64) {str(dt)[6:]}: "
+            f"{fa.last_kernel()}, max|err| {err:.3g}")
     log(f"    max|err| f32 {max_err[torch.float32]:.3g} (tol 2e-5), "
         f"bf16 {max_err[torch.bfloat16]:.3g} (tol 2e-2)")
 
-    B, S, H, KV, D = s["B"], s["S"], s["H"], s["KV"], s["D"]
-    q, k, v = rand_qkv(B, S, S, H, KV, D, torch.bfloat16, seed=99)
-    import torch.nn.functional as F
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    # in turns (kernel, plain, library, kernel, plain): one card, one call
-    kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: fa.flash_attention_plain(q, k, v, causal=True)  # noqa: E731
-    k1, p1 = time_calls(kern), time_calls(plain)
-    library_ms = statistics.median(time_calls(
-        lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)))
-    k2, p2 = time_calls(kern), time_calls(plain)
-    ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
-    ms_turns = (statistics.median(k1), statistics.median(k2))
-    bound_ms, bound_by, nbytes, flops = attention_bound_ms(
-        B, S, S, H, KV, D, 2)
-    log(f"    serving shape B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
-        f"kernel {ms:.4f} ms (turns {ms_turns[0]:.4f}, {ms_turns[1]:.4f}), "
-        f"plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    by_shape = {name: time_attention(fa, name, shape)
+                for name, shape in ATTN_TIMED_SHAPES.items()}
+    top = by_shape["smollm serving"]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/attention.py:132",
-            "max_abs_err": serve_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "max_abs_err": serve_err, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "device_ms": top["device_ms"],
+            "library_device_ms": top["library_device_ms"],
             "max_err_f32": max_err[torch.float32],
             "max_err_bf16": max_err[torch.bfloat16],
-            "shape": f"B={B} S={S} H={H} KV={KV} D={D} bf16 causal"}
+            "shape": f"B={s['B']} S={s['S']} H={s['H']} KV={s['KV']} "
+                     f"D={s['D']} bf16 causal",
+            "by_shape": by_shape}
+
+
+def check_attention(fa, q, k, v, dt, kw):
+    """One launch against ``flash_attention_plain``: counted once, the
+    dtype's kernel, finite and within the dtype's tolerance; returns the
+    max error."""
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if fa.launches != before + 1:
+        raise AssertionError("the wrapper did not count its launch")
+    D = q.shape[-1]
+    if fa.last_kernel() != kernel_for(dt, D):
+        raise AssertionError(f"{dt} D={D} ran {fa.last_kernel()}, expected "
+                             f"{kernel_for(dt, D)}")
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    bad = (got.float() - want.float()).abs() > \
+        TOL[dt] * (1 + want.float().abs())
+    if not torch.isfinite(got).all() or bad.any():
+        raise AssertionError(f"flash_attention disagrees with plain at "
+                             f"{tuple(q.shape)} k {tuple(k.shape)} {dt} "
+                             f"{kw}: max err {err}")
+    return err
+
+
+def time_attention(fa, name, shape):
+    """Kernel, plain version and SDPA (a yardstick only: the port never
+    calls it) in turns at one bf16 causal shape, beside the bound: back
+    to back between CUDA events (``ms``, ``plain_ms``, ``library_ms``,
+    which count the host's launch work where it is slower than the
+    device), on the device alone from the profiler (``device_ms``,
+    ``library_device_ms``), and the host's time to issue one call."""
+    import torch.nn.functional as F
+    B, S, H, KV, D = shape
+    q, k, v = rand_qkv(B, S, S, H, KV, D, torch.bfloat16, seed=99)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=True)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+    # in turns (kernel, plain, library, kernel, plain, library): one card
+    k1, p1, l1 = time_calls(kern), time_calls(plain), time_calls(lib)
+    dk1, dl1 = device_ms(kern), device_ms(lib)
+    k2, p2, l2 = time_calls(kern), time_calls(plain), time_calls(lib)
+    dk2, dl2 = device_ms(kern), device_ms(lib)
+    ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+    library_ms = statistics.median(l1 + l2)
+    dev, library_dev = (dk1 + dk2) / 2, (dl1 + dl2) / 2
+    host, library_host = host_ms(kern), host_ms(lib)
+    bound_ms, bound_by, nbytes, flops = attention_bound_ms(
+        B, S, S, H, KV, D, 2)
+    log(f"    {name} B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
+        f"{fa.last_kernel()} back to back: kernel {ms:.4f} ms (turns "
+        f"{statistics.median(k1):.4f}, {statistics.median(k2):.4f}), plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; device: kernel "
+        f"{dev:.4f} ms (turns {dk1:.4f}, {dk2:.4f}), sdpa "
+        f"{library_dev:.4f} ms (turns {dl1:.4f}, {dl2:.4f}); host per "
+        f"call: kernel {host:.4f} ms, sdpa {library_host:.4f} ms; bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP); device {dev / bound_ms:.1f}x the "
+        f"bound, {dev / library_dev:.2f}x sdpa")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": dev,
+            "library_device_ms": library_dev, "host_ms": host,
+            "library_host_ms": library_host,
+            "shape": f"B={B} S={S} H={H} KV={KV} D={D}"}
 
 
 def phase_model():
@@ -352,13 +512,15 @@ def phase_ssd_kernel():
     plain = lambda: ssd_scan.ssd_chunked_plain(  # noqa: E731
         x, dts, A, Bm, Cm, chunk=Q)
     # in turns (kernel, plain, kernel, plain): one card, one call
-    k1, p1 = time_calls(kern), time_calls(plain)
-    k2, p2 = time_calls(kern), time_calls(plain)
+    k1, p1, dk1 = time_calls(kern), time_calls(plain), device_ms(kern)
+    k2, p2, dk2 = time_calls(kern), time_calls(plain), device_ms(kern)
     ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+    dev = (dk1 + dk2) / 2
     bound_ms, bound_by, nbytes, flops = ssd_bound_ms(B, S, H, P, N, Q, 2)
     log(f"    serving shape B={B} S={S} H={H} P={P} N={N} Q={Q} bf16: "
         f"kernel {ms:.4f} ms (turns {statistics.median(k1):.4f}, "
-        f"{statistics.median(k2):.4f}), plain {plain_ms:.4f} ms, "
+        f"{statistics.median(k2):.4f}), device {dev:.4f} ms (turns "
+        f"{dk1:.4f}, {dk2:.4f}), plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
         f"{flops / 1e9:.3f} GFLOP); no single library call")
     return {"name": "ssd_chunk", "route": "cuda",
@@ -366,7 +528,7 @@ def phase_ssd_kernel():
             "replaces": "src/repro/kernels/ssd_scan.py:81",
             "max_abs_err": serve_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "max_err_f32": max_err[torch.float32],
+            "device_ms": dev, "max_err_f32": max_err[torch.float32],
             "max_err_bf16": max_err[torch.bfloat16],
             "shape": f"B={B} S={S} H={H} P={P} N={N} Q={Q} bf16"}
 
@@ -393,7 +555,7 @@ def phase_combine_kernel():
              for dt in (torch.float32, torch.bfloat16)
              for op in ("add", "max", "min")]
     g = torch.Generator(device="cuda").manual_seed(7)
-    max_err, equal = 0.0, 0
+    max_err, equal, in_place_equal = 0.0, 0, 0
     for n, off, dt, op in cases:
         acc = torch.randn((n + off,), generator=g, device="cuda").to(dt)[off:]
         part = torch.randn((n,), generator=g, device="cuda").to(dt)
@@ -410,9 +572,26 @@ def phase_combine_kernel():
                                  f"n={n} offset={off} {dt} {op}: {err}")
         max_err = max(max_err, err)
         equal += bool(torch.equal(got, want))
+        # in place into acc: the out-of-place call's bits
+        res = sr.segment_combine(acc, part, op, out=acc)
+        torch.cuda.synchronize()
+        if res.data_ptr() != acc.data_ptr() or \
+                sr.launches != before + 2:
+            raise AssertionError("the in-place call did not write acc")
+        err = (acc.float() - want.float()).abs().max().item()
+        if not err <= COMBINE_TOL:
+            raise AssertionError(f"segment_combine in place disagrees at "
+                                 f"n={n} offset={off} {dt} {op}: {err}")
+        max_err = max(max_err, err)
+        in_place_equal += bool(torch.equal(acc, got))
+    if in_place_equal != len(cases):
+        raise AssertionError(f"in place bit-equal to out of place in only "
+                             f"{in_place_equal}/{len(cases)} cases")
     log(f"[2c] segment_combine: {len(cases)} cases (n 7..{COMBINE_N}, "
-        f"offsets 0-5, f32/bf16, add/max/min), max|err| {max_err:.3g} "
-        f"(tol {COMBINE_TOL}), bit-equal {equal}/{len(cases)}")
+        f"offsets 0-5, f32/bf16, add/max/min), each out of place and in "
+        f"place, max|err| {max_err:.3g} (tol {COMBINE_TOL}), bit-equal to "
+        f"plain {equal}/{len(cases)}, in place bit-equal to out of place "
+        f"{in_place_equal}/{len(cases)}")
 
     out = {"name": "segment_combine", "route": "cuda",
            "source": "src/repro_torch/csrc/segment_combine.cu",
@@ -422,29 +601,50 @@ def phase_combine_kernel():
     for dt in (torch.float32, torch.bfloat16):
         a = torch.randn((COMBINE_N,), generator=g, device="cuda").to(dt)
         b = torch.randn((COMBINE_N,), generator=g, device="cuda").to(dt)
+        c = torch.empty_like(a)
         kern = lambda: sr.segment_combine(a, b, "add")  # noqa: E731
         plain = lambda: sr.segment_combine_plain(a, b, "add")  # noqa: E731
         lib = lambda: torch.add(a, b)  # noqa: E731
-        # in turns (kernel, plain, library, kernel, plain): one card
-        k1, p1, l1 = time_calls(kern), time_calls(plain), time_calls(lib)
-        k2, p2 = time_calls(kern), time_calls(plain)
-        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
-        library_ms = statistics.median(l1)
+        # in place, as the ring calls it, against Tensor.add_ and against
+        # the earlier form: out of place, then copied back
+        inplace = lambda: sr.segment_combine(c, b, "add", out=c)  # noqa: E731
+        lib_inplace = lambda: c.add_(b)  # noqa: E731
+        copy_back = lambda: c.copy_(sr.segment_combine(c, b, "add"))  # noqa: E731
+        # in turns (kernel, plain, library, ..., then again): one card
+        t = {}
+        for rnd in range(2):
+            for key, fn in (("kernel", kern), ("plain", plain),
+                            ("library", lib), ("in_place", inplace),
+                            ("add_", lib_inplace), ("copy_back", copy_back)):
+                c.copy_(a)
+                t.setdefault(key, []).append(time_calls(fn))
+            t.setdefault("device", []).append(device_ms(kern))
+        med = {key: statistics.median(r[0] + r[1]) for key, r in t.items()
+               if key != "device"}
+        dev = sum(t["device"]) / 2
         bound_ms, bound_by, nbytes = combine_bound_ms(COMBINE_N,
                                                       a.element_size())
         name = str(dt)[6:]
-        log(f"    n={COMBINE_N} {name} add: kernel {ms:.4f} ms (turns "
-            f"{statistics.median(k1):.4f}, {statistics.median(k2):.4f}), "
-            f"plain {plain_ms:.4f} ms, torch.add {library_ms:.4f} ms, "
-            f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB)")
+        log(f"    n={COMBINE_N} {name} add: kernel {med['kernel']:.4f} ms "
+            f"(turns {statistics.median(t['kernel'][0]):.4f}, "
+            f"{statistics.median(t['kernel'][1]):.4f}), device {dev:.4f} ms "
+            f"(turns {t['device'][0]:.4f}, {t['device'][1]:.4f}), plain "
+            f"{med['plain']:.4f} ms, torch.add {med['library']:.4f} ms; in "
+            f"place {med['in_place']:.4f} ms, Tensor.add_ {med['add_']:.4f} "
+            f"ms, out of place + copy back {med['copy_back']:.4f} ms; bound "
+            f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB)")
+        suffix = "" if dt == torch.float32 else "_bf16"
+        out.update({f"ms{suffix}": med["kernel"],
+                    f"plain_ms{suffix}": med["plain"],
+                    f"bound_ms{suffix}": bound_ms,
+                    f"library_ms{suffix}": med["library"],
+                    f"in_place_ms{suffix}": med["in_place"],
+                    f"add__ms{suffix}": med["add_"],
+                    f"copy_back_ms{suffix}": med["copy_back"],
+                    f"device_ms{suffix}": dev})
         if dt == torch.float32:
-            out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms,
-                       shape=f"n={COMBINE_N} f32 add")
-        else:
-            out.update(ms_bf16=ms, plain_ms_bf16=plain_ms,
-                       bound_ms_bf16=bound_ms, library_ms_bf16=library_ms)
-    del a, b
+            out.update(bound_by=bound_by, shape=f"n={COMBINE_N} f32 add")
+    del a, b, c
     torch.cuda.empty_cache()
     return out
 
@@ -538,20 +738,22 @@ def phase_paged_kernel():
         plain = lambda: ref.paged_attention_ref(  # noqa: E731
             q, kp, vp, tables, lengths)
         # in turns (kernel, plain, kernel, plain): one card, one call
-        k1, p1 = time_calls(kern), time_calls(plain)
-        k2, p2 = time_calls(kern), time_calls(plain)
+        k1, p1, dk1 = time_calls(kern), time_calls(plain), device_ms(kern)
+        k2, p2, dk2 = time_calls(kern), time_calls(plain), device_ms(kern)
         ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        dev = (dk1 + dk2) / 2
         bound_ms, bound_by, nbytes, flops = paged_bound_ms(R, H, KV, D, T, 2)
         log(f"    {arch} R={R} H={H} KV={KV} D={D} block {bs} view {T} "
             f"bf16: kernel {ms:.4f} ms (turns {statistics.median(k1):.4f}, "
-            f"{statistics.median(k2):.4f}), plain {plain_ms:.4f} ms, bound "
+            f"{statistics.median(k2):.4f}), device {dev:.4f} ms (turns "
+            f"{dk1:.4f}, {dk2:.4f}), plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.3f} MB, "
             f"{flops / 1e9:.4f} GFLOP); no single library call")
         out["by_shape"][arch] = {"ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound_ms}
+                                 "bound_ms": bound_ms, "device_ms": dev}
         if arch == "smollm-135m":
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by,
+                       bound_by=bound_by, device_ms=dev,
                        shape=f"R={R} H={H} KV={KV} D={D} bs={bs} view={T} "
                              f"bf16")
     return out
@@ -809,10 +1011,15 @@ def serving_paths():
     ]
 
 
+# the device-side names of the port's kernels (csrc/*.cu)
+PORT_KERNELS = ("fa_fwd", "ssd_chunk", "combine_kernel", "pa_decode")
+
+
 def phase_breakdown(arch, B, S):
     """Where a fixed-batch path's time goes: torch.profiler over one
     full-width bf16 prefill (B x S) and over 8 decode steps; the device's
-    busy share of the wall time and the kernels that fill it."""
+    busy share of the wall time, the kernels that fill it, and the port's
+    own kernels wherever they rank."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -857,6 +1064,13 @@ def phase_breakdown(arch, B, S):
                 f"(share {share}), {n_kernels} kernels")
             for k, v in top:
                 log(f"      {v:9.4f} ms  {k[:90]}")
+            # the port's own kernels, wherever they rank
+            ours = {k: v for k, v in by_kernel.items()
+                    if any(n in k for n in PORT_KERNELS)}
+            out[name]["port_kernels"] = {k[:60]: v for k, v in ours.items()}
+            for k, v in sorted(ours.items(), key=lambda kv: -kv[1]):
+                if (k[:60], v) not in out[name]["top"]:
+                    log(f"      {v:9.4f} ms  {k[:90]} (a port kernel)")
     del params, cache
     torch.cuda.empty_cache()
     return out

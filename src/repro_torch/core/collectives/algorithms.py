@@ -20,7 +20,9 @@ Conventions (the reference's):
   * ``segments>1`` splits transfers for pipelining (survey "segmentation");
   * every reduce step runs ``kernels.ops.segment_combine``: the
     hand-written CUDA kernel for a CUDA tensor, its plain version for a
-    CPU tensor.
+    CPU tensor. The ring and the ring reduce-scatter own their buffer (a
+    fresh copy, ``_flatten_pad``) and combine into its row views in
+    place; the others combine out of place.
 
 One difference in work, not in result: ``reduce_binomial`` combines only
 on the ranks that receive in a round. The reference's SPMD program also
@@ -38,8 +40,8 @@ from repro_torch.core.collectives import group as grp
 from repro_torch.kernels import ops as kops
 
 
-def _combine(a, b, op):
-    return kops.segment_combine(a, b, op)
+def _combine(a, b, op, out=None):
+    return kops.segment_combine(a, b, op, out=out)
 
 
 def _ring_perm(p, shift=1):
@@ -114,7 +116,8 @@ def allreduce_ring(x, axis, axis_size, *, op="add", segments=1):
             send_idx = (r - s) % p
             recv_idx = (r - s - 1) % p
             recv = grp.ppermute(buf[send_idx, sl], perm, axis)
-            buf[recv_idx, sl] = _combine(buf[recv_idx, sl], recv, op)
+            acc = buf[recv_idx, sl]            # a view: combined in place
+            _combine(acc, recv, op, out=acc)
         # --- allgather ---
         for s in range(p - 1):
             send_idx = (r + 1 - s) % p
@@ -200,7 +203,8 @@ def reduce_scatter_ring(x, axis, axis_size, *, op="add", segments=1):
         send_idx = (r - s - 1) % p
         recv_idx = (r - s - 2) % p
         recv = grp.ppermute(buf[send_idx], perm, axis)
-        buf[recv_idx] = _combine(buf[recv_idx], recv, op)
+        acc = buf[recv_idx]                    # a view: combined in place
+        _combine(acc, recv, op, out=acc)
     # with the shifted schedule, rank r ends owning exactly chunk r
     return buf[r]
 

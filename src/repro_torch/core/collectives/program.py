@@ -197,6 +197,15 @@ def validate(prog: Program) -> Program:
 # ===========================================================================
 # Interpreter (runs inside each rank, same signature as algorithms.py)
 # ===========================================================================
+def _ascending_run(rows):
+    """``rows`` as a slice where they are one ascending run of
+    consecutive rows (a view of the buffer), else None (indexing with a
+    list makes a copy, which an in-place combine would write into)."""
+    if not rows or rows != list(range(rows[0], rows[0] + len(rows))):
+        return None
+    return slice(rows[0], rows[0] + len(rows))
+
+
 def _run_steps(buf, r, prog: Program, axis, op_kind: str):
     p = prog.p
     for st in prog.steps:
@@ -206,7 +215,11 @@ def _run_steps(buf, r, prog: Program, axis, op_kind: str):
         send_rows = [(r + o) % p for o in offs]
         recv = grp.ppermute(buf[send_rows], perm, axis)
         recv_rows = [(r - d + o) % p for o in offs]
-        if st.reduce:
+        run = _ascending_run(recv_rows)
+        if st.reduce and run is not None:
+            acc = buf[run]                     # a view: combined in place
+            _combine(acc, recv, op_kind, out=acc)
+        elif st.reduce:
             buf[recv_rows] = _combine(buf[recv_rows], recv, op_kind)
         else:
             buf[recv_rows] = recv

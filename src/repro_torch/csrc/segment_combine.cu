@@ -10,19 +10,27 @@
 //
 // The TPU kernel pads the flattened buffer to (rows, 128) tiles of
 // block_rows = 256 and walks them in grid order. Here there is no padding:
-// a grid-stride loop over the n elements of three contiguous buffers.
-// Where acc, part and out all start on a 16-byte boundary, the body moves
-// 16 bytes per thread per load (4 fp32 or 8 bf16) and a scalar tail ends
-// it. Where one does not (a ring segment's row slice starts at
-// seg * itemsize bytes, while the received part and the output are fresh
-// allocations), the whole call takes the scalar loop, which is still
-// coalesced: neighbouring threads touch neighbouring elements.
+// one pass over the n elements of three contiguous buffers. Where acc,
+// part and out all start on a 16-byte boundary, each thread moves one
+// 16-byte vector (4 fp32 or 8 bf16) per operand, on a grid sized to the
+// work, and a scalar tail ends it (the first port's grid-stride loop over
+// at most 1,056 blocks was slower on the H100, and 2 or 4 vectors per
+// thread gained nothing: PERF.md). Where one does not (a ring segment's
+// row slice starts at seg * itemsize bytes), the whole call takes the
+// scalar loop, which is still coalesced: neighbouring threads touch
+// neighbouring elements.
+//
+// out may be acc itself (the in-place form the ring and the step programs
+// use): each element of out depends only on the same element of acc and
+// part, and a thread loads both before it stores, so acc and out carry no
+// __restrict__. out must not overlap part (the wrapper checks).
 //
 // Bound on the card: each element of acc and part is read once and out is
 // written once, so the call moves 3 * n * itemsize bytes and does n
 // operations: ~0.060 ms for 16M fp32 elements at 3.35 TB/s, memory bound
 // by a factor of ~500 over the fp32 rate. The design reads and writes each
-// byte once and keeps no intermediate in device memory.
+// byte once and keeps no intermediate in device memory; in place, it also
+// spares the caller the copy back into its buffer (2 * n * itemsize more).
 //
 // Max and min propagate a NaN in either input, as jnp.maximum and
 // torch.maximum do (fmaxf would drop it).
@@ -33,7 +41,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;   // 8 resident blocks on each of 132 SMs
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -60,27 +67,25 @@ __device__ __forceinline__ T combine1(T a, T b) {
   return from_f<T>(apply<OP>(to_f(a), to_f(b)));
 }
 
-// [0, nvec * V) in 16-byte vectors, the rest scalar. nvec == 0 makes the
-// whole call scalar.
+// [0, nvec * V) in 16-byte vectors, one per operand per thread, the rest
+// scalar. nvec == 0 makes the whole call scalar.
 template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
-combine_kernel(const T* __restrict__ acc, const T* __restrict__ part,
-               T* __restrict__ out, long long n, long long nvec) {
+combine_kernel(const T* acc, const T* __restrict__ part, T* out, long long n,
+               long long nvec) {
   constexpr int V = 16 / sizeof(T);
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-
-  const uint4* av = reinterpret_cast<const uint4*>(acc);
-  const uint4* pv = reinterpret_cast<const uint4*>(part);
-  uint4* ov = reinterpret_cast<uint4*>(out);
-  for (long long i = tid; i < nvec; i += stride) {
-    uint4 ua = av[i], up = pv[i], uo;
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  if (tid < nvec) {
+    const uint4 ua = reinterpret_cast<const uint4*>(acc)[tid];
+    const uint4 up = reinterpret_cast<const uint4*>(part)[tid];
+    uint4 uo;
     const T* ea = reinterpret_cast<const T*>(&ua);
     const T* ep = reinterpret_cast<const T*>(&up);
     T* eo = reinterpret_cast<T*>(&uo);
 #pragma unroll
     for (int j = 0; j < V; ++j) eo[j] = combine1<T, OP>(ea[j], ep[j]);
-    ov[i] = uo;
+    reinterpret_cast<uint4*>(out)[tid] = uo;
   }
   for (long long j = nvec * V + tid; j < n; j += stride) {
     out[j] = combine1<T, OP>(acc[j], part[j]);
@@ -95,9 +100,8 @@ cudaError_t launch(const void* acc, const void* part, void* out, long long n,
                             reinterpret_cast<uintptr_t>(part) |
                             reinterpret_cast<uintptr_t>(out);
   const long long nvec = aligned % 16 == 0 ? n / V : 0;
-  const long long work = nvec > 0 ? nvec : n;
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const long long blocks = ((nvec > 0 ? nvec : n) + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   combine_kernel<T, OP><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(acc), static_cast<const T*>(part),
       static_cast<T*>(out), n, nvec);
@@ -115,8 +119,9 @@ cudaError_t dispatch_op(const void* acc, const void* part, void* out,
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16; op: 0 add, 1 max, 2 min. Returns the launch's
-// cudaError_t (0 on success); the kernel runs on `stream`, unsynchronised.
+// dtype: 0 fp32, 1 bf16; op: 0 add, 1 max, 2 min. out may be acc.
+// Returns the launch's cudaError_t (0 on success); the kernel runs on
+// `stream`, unsynchronised.
 extern "C" int repro_segment_combine(const void* acc, const void* part,
                                      void* out, long long n, int dtype,
                                      int op, void* stream) {

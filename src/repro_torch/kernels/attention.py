@@ -1,21 +1,24 @@
-"""Flash attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention forward: the hand-written CUDA kernels, their plain version.
 
 Replaces ``repro/kernels/attention.py::flash_attention`` (the Pallas TPU
-kernel ``_fa_kernel``). The kernel is ``csrc/flash_attention.cu``, built
-by ``_build`` and called through ctypes on PyTorch's current stream.
+kernel ``_fa_kernel``). The kernels are in ``csrc/flash_attention.cu``,
+built by ``_build`` and called through ctypes on PyTorch's current
+stream: bf16 runs ``fa_fwd_mma`` (``mma.sync`` on the tensor cores, K/V
+brought in by ``cp.async``, P kept in registers), fp32 runs ``fa_fwd``
+(scalar fp32 FMAs, held at 2e-5, which TF32 would not meet).
 
 Bound on the card: at the serving shape (B=8, S=512, H=9, KV=3, D=64,
 bf16, causal) the call moves ~12.6 MB and does ~2.4 GFLOP, so its bound
 is ~3.8 us at 3.35 TB/s: memory bound. The design reads each K/V tile
 from device memory once per 64 query rows, keeps scores, probabilities
 and the online-softmax state on the SM, and skips k-tiles that the
-causal mask or the window hides entirely. Its inner products are scalar
-fp32 FMAs from shared memory, so this first version is far from the
-bound; ``PERF.md`` has its time.
+causal mask or the window hides entirely; ``PERF.md`` has its time.
 
 ``flash_attention`` takes a CUDA tensor to the kernel, and only a CPU
 tensor to ``flash_attention_plain``; any other device raises. There is
-no fallback from the kernel to the plain version.
+no fallback from one kernel to the other or to the plain version: what
+the bf16 kernel does not take (a row that does not start on a 16-byte
+boundary) raises.
 """
 from __future__ import annotations
 
@@ -97,13 +100,23 @@ def _check(q, k, v):
             raise ValueError(f"{name}'s last dim must be contiguous")
     if S > 65535 * 64:
         raise ValueError(f"sequence {S} exceeds the kernel's grid")
+    if q.dtype == torch.bfloat16:
+        # cp.async copies whole 16-byte rows: each (b, s, h) row starts
+        # on a 16-byte boundary
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(
+                    st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1):
+                raise ValueError(f"the bf16 kernel reads 16-byte-aligned "
+                                 f"rows; {name} has data_ptr "
+                                 f"{t.data_ptr()} and strides {t.stride()}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     scale=None):
     """GQA flash attention forward. q (B,S,H,D), k/v (B,T,KV,D) -> (B,S,H,D)
-    in q's dtype. CUDA tensors run the hand-written kernel; CPU tensors
-    run ``flash_attention_plain``."""
+    in q's dtype. CUDA tensors run the hand-written kernel of their dtype
+    (one launch either way); CPU tensors run ``flash_attention_plain``."""
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -133,6 +146,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                            f"cudaError {rc}")
     launches += 1
     return out
+
+
+def last_kernel() -> str:
+    """The name of the kernel instantiation the last launch ran, as the
+    library reports it (``fa_fwd_mma<bf16,64>``, ``fa_fwd<f32,80>``...)."""
+    fn = _build.load("flash_attention").repro_flash_attention_last_kernel
+    fn.argtypes, fn.restype = [], ctypes.c_char_p
+    return fn().decode()
 
 
 def _kernel():

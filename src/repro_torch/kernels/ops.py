@@ -46,11 +46,13 @@ def ssd(x, dt, A, B, C, D, *, chunk=128, impl="auto"):
     raise ValueError(f"unknown ssd impl {impl!r}")
 
 
-def segment_combine(acc, part, op="add", *, impl="auto"):
+def segment_combine(acc, part, op="add", *, impl="auto", out=None):
+    """``out`` (which may be ``acc``) takes the result in place."""
     if impl == "auto":
-        return _sr.segment_combine(acc, part, op)
+        return _sr.segment_combine(acc, part, op, out=out)
     if impl == "ref":
-        return ref.segment_combine(acc, part, op)
+        r = ref.segment_combine(acc, part, op)
+        return r if out is None else out.copy_(r)
     raise ValueError(f"unknown segment_combine impl {impl!r}")
 
 

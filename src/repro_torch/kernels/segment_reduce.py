@@ -11,7 +11,9 @@ Bound on the card: the call reads ``acc`` and ``part`` once and writes
 ``out`` once, ``3 * n * itemsize`` bytes for ``n`` operations, so it is
 memory bound (~0.060 ms for 16M fp32 elements at 3.35 TB/s). The kernel
 moves each byte once, in 16-byte vectors where the three buffers share
-an alignment; ``PERF.md`` has its time.
+an alignment, on a grid sized to the work; ``PERF.md`` has its time.
+With ``out=acc`` it combines in place, so a caller that owns the
+accumulator's buffer (the ring, the step programs) needs no copy back.
 
 ``segment_combine`` takes a CUDA tensor to the kernel, and only a CPU
 tensor to ``segment_combine_plain``; any other device raises. There is no
@@ -52,14 +54,50 @@ def _check(acc, part, op):
                          f"{tuple(part.shape)} {part.dtype}")
 
 
+def _overlap(a, b):
+    """Whether the byte ranges of two tensors on one device overlap."""
+    if a.device != b.device or a.numel() == 0 or b.numel() == 0:
+        return False
+
+    def span(t):
+        lo = t.data_ptr()
+        last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+        return lo, lo + (last + 1) * t.element_size()
+    (a0, a1), (b0, b1) = span(a), span(b)
+    return a0 < b1 and b0 < a1
+
+
+def _check_out(acc, part, out):
+    """``out`` takes the result in place: acc's shape, dtype and device,
+    contiguous, either ``acc`` itself or apart from it, and apart from
+    ``part``."""
+    if out.shape != acc.shape or out.dtype != acc.dtype or \
+            out.device != acc.device:
+        raise ValueError(f"segment_combine's out must match acc: "
+                         f"{tuple(out.shape)} {out.dtype} {out.device} vs "
+                         f"{tuple(acc.shape)} {acc.dtype} {acc.device}")
+    if not out.is_contiguous():
+        raise ValueError("segment_combine's out must be contiguous")
+    if _overlap(out, part):
+        raise ValueError("segment_combine's out must not overlap part")
+    if _overlap(out, acc) and not (out.data_ptr() == acc.data_ptr()
+                                   and acc.is_contiguous()):
+        raise ValueError("segment_combine's out must be acc itself or "
+                         "apart from it")
+
+
 def segment_combine(acc: torch.Tensor, part: torch.Tensor,
-                    op: str = "add") -> torch.Tensor:
+                    op: str = "add", *, out=None) -> torch.Tensor:
     """``acc (op) part`` elementwise in fp32, cast to ``acc``'s dtype.
     CUDA tensors run the hand-written kernel; CPU tensors run
-    ``segment_combine_plain``."""
+    ``segment_combine_plain``. With ``out`` (which may be ``acc``) the
+    result is written there and ``out`` returned."""
     global launches
     if acc.device.type == "cpu" and part.device.type == "cpu":
-        return segment_combine_plain(acc, part, op)
+        if out is None:
+            return segment_combine_plain(acc, part, op)
+        _check_out(acc, part, out)
+        return out.copy_(segment_combine_plain(acc, part, op))
     if acc.device.type != "cuda" or part.device != acc.device:
         raise ValueError(f"segment_combine runs on cuda or cpu, both "
                          f"inputs on one device, not {acc.device} and "
@@ -70,7 +108,10 @@ def segment_combine(acc: torch.Tensor, part: torch.Tensor,
                         f"{acc.dtype}")
     if not (acc.is_contiguous() and part.is_contiguous()):
         raise ValueError("segment_combine takes contiguous inputs")
-    out = torch.empty_like(acc, memory_format=torch.contiguous_format)
+    if out is None:
+        out = torch.empty_like(acc, memory_format=torch.contiguous_format)
+    else:
+        _check_out(acc, part, out)
     n = acc.numel()
     if n == 0:
         return out

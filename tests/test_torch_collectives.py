@@ -66,6 +66,56 @@ def test_plain_segment_combine_matches_pallas(n, op, dtype):
         np.testing.assert_array_equal(got, w)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_plain_segment_combine_in_place_matches_pallas(op, dtype):
+    """``out=acc`` writes the out-of-place bits into acc, through the
+    wrapper and through ``ops`` (both impls), on a row view of a buffer
+    as the ring passes it."""
+    rng = np.random.default_rng(11)
+    a, b = (rng.normal(size=(3, 1000)).astype(np.float32) for _ in range(2))
+    want = segment_combine_pallas(jnp.asarray(a[1], JDT[dtype]),
+                                  jnp.asarray(b[1], JDT[dtype]), op,
+                                  interpret=True)
+    want = np.asarray(want, np.float32)
+    for call in (segment_reduce.segment_combine, ops.segment_combine,
+                 lambda x, y, o, out: ops.segment_combine(x, y, o, out=out,
+                                                          impl="ref")):
+        buf = torch.from_numpy(a.copy()).to(TDT[dtype])
+        keep = buf.clone()
+        acc = buf[1]
+        got = call(acc, torch.from_numpy(b[1]).to(TDT[dtype]), op, out=acc)
+        assert got.data_ptr() == acc.data_ptr()
+        np.testing.assert_array_equal(buf[1].float().numpy(), want)
+        assert torch.equal(buf[0], keep[0]) and torch.equal(buf[2], keep[2])
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "strided",
+                                  "overlaps_part", "shifted_acc"])
+def test_segment_combine_refuses_a_bad_out(case):
+    buf = torch.zeros(256)
+    acc, part = buf[:64], torch.zeros(64)
+    out = {"shape": torch.zeros(63),
+           "dtype": torch.zeros(64, dtype=torch.bfloat16),
+           "strided": torch.zeros(128)[::2],
+           "overlaps_part": part[:],
+           "shifted_acc": buf[8:72]}[case]
+    with pytest.raises(ValueError, match="out must"):
+        segment_reduce.segment_combine(acc, part, "add", out=out)
+    assert (buf == 0).all()
+
+
+def test_step_program_rows_combine_in_place_only_as_a_view():
+    """The step interpreter combines in place where the received rows are
+    one ascending run (a slice is a view), and out of place for any other
+    list (a list index copies)."""
+    from repro_torch.core.collectives import program
+    assert program._ascending_run([2]) == slice(2, 3)
+    assert program._ascending_run([1, 2, 3]) == slice(1, 4)
+    for rows in ([3, 0], [0, 2], [2, 1], []):
+        assert program._ascending_run(rows) is None
+
+
 def test_cpu_tensors_never_count_a_launch():
     a = torch.ones(64)
     before = segment_reduce.launches
@@ -90,7 +140,7 @@ def test_other_devices_raise_instead_of_falling_back():
 # every algorithm, port vs reference, on the same numpy inputs
 # ---------------------------------------------------------------------------
 N = 1003                    # pads at every p and segment count
-SEGMENTED = {("all_reduce", "ring"): (1, 3), ("broadcast", "chain"): (1, 4),
+SEGMENTED = {("all_reduce", "ring"): (1, 2, 3), ("broadcast", "chain"): (1, 4),
              ("broadcast", "pipelined_binary"): (1, 4)}
 NON_POW2 = ("ring", "recursive_doubling", "bruck")
 

@@ -49,6 +49,17 @@ def _qkv(B, S, T, H, KV, D, dtype, seed):
     (2, 1, 200, 4, 2, 64, {"q_offset": 199}),
     (1, 40, 40, 2, 1, 64, {"q_offset": -5}),          # fully masked rows
     (2, 70, 300, 3, 1, 64, {"causal": False}),
+    # the edges of the bf16 tensor-core kernel at each head dim
+    (2, 200, 200, 4, 1, 128, {}),                     # MQA, S = 200
+    (2, 200, 200, 6, 2, 80, {}),                      # GQA
+    (1, 96, 300, 4, 2, 64, {"q_offset": 204}),        # T > S, q_offset
+    (1, 200, 264, 2, 1, 128, {"q_offset": 64, "window": 64}),
+    (1, 256, 256, 2, 2, 64, {"window": 1}),
+    (1, 256, 256, 2, 2, 80, {"window": 17}),
+    (1, 256, 256, 2, 2, 128, {"window": 64}),
+    (1, 64, 64, 2, 1, 64, {"q_offset": 50, "window": 16}),  # rows 29+ masked
+    (1, 40, 40, 2, 1, 80, {"q_offset": -5}),
+    (2, 70, 300, 3, 1, 128, {"causal": False}),
 ])
 def test_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, D, kw):
     q, k, v = _qkv(B, S, T, H, KV, D, dtype, seed=S + T)
@@ -57,10 +68,16 @@ def test_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, D, kw):
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    assert fa.last_kernel() == (f"fa_fwd_mma<bf16,{D}>"
+                                if dtype == torch.bfloat16
+                                else f"fa_fwd<f32,{D}>")
     want = fa.flash_attention_plain(q, k, v, **kw)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+    # a query that sees no key gives 0 (its plain row is exactly 0)
+    masked = want.float().abs().amax(dim=(0, 2, 3)) == 0
+    assert (got[:, masked] == 0).all()
 
 
 def test_kernel_reads_strided_inputs(cuda):
@@ -89,6 +106,35 @@ def test_kernel_refuses_what_it_does_not_take(cuda, case, err):
     with pytest.raises(err):
         fa.flash_attention(q, k, v)
     assert fa.launches == before
+
+
+def test_bf16_kernel_reads_views_of_a_fused_projection(cuda):
+    g = torch.Generator().manual_seed(2)
+    qkv = torch.randn((2, 96, 4 + 2 + 2, 80), generator=g).bfloat16().cuda()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = fa.flash_attention(q, k, v, causal=True, window=40)
+    assert fa.last_kernel() == "fa_fwd_mma<bf16,80>"
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=40)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["q_head_stride", "k_base_offset"])
+def test_bf16_kernel_refuses_misaligned_rows_and_never_falls_back(cuda, case):
+    """A row that does not start on a 16-byte boundary raises; neither the
+    SIMT kernel nor the plain version takes the call instead."""
+    q, k, v = _qkv(1, 32, 32, 2, 1, 64, torch.bfloat16, seed=3)
+    if case == "q_head_stride":      # 68 elements between heads
+        q = torch.zeros((1, 32, 2, 68), dtype=torch.bfloat16,
+                        device="cuda")[..., :64]
+    else:                            # every row 2 bytes off
+        k = torch.zeros((1 * 32 * 64 + 1,), dtype=torch.bfloat16,
+                        device="cuda")[1:].reshape(1, 32, 1, 64)
+    fa.flash_attention(*_qkv(1, 16, 16, 2, 1, 64, torch.float32, seed=4))
+    before, ran = fa.launches, fa.last_kernel()
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa.flash_attention(q, k, v)
+    assert fa.launches == before and fa.last_kernel() == ran
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +214,11 @@ def test_segment_combine_matches_plain(cuda, dtype, op, n, offset):
     assert segment_reduce.launches == before + 1
     want = segment_reduce.segment_combine_plain(acc, part, op)
     assert got.dtype == dtype and torch.equal(got, want)
+    # in place into acc: the out-of-place bits, one more launch
+    res = segment_reduce.segment_combine(acc, part, op, out=acc)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + 2
+    assert res.data_ptr() == acc.data_ptr() and torch.equal(acc, want)
 
 
 def test_segment_combine_propagates_nan(cuda):
@@ -178,6 +229,10 @@ def test_segment_combine_propagates_nan(cuda):
         want = segment_reduce.segment_combine_plain(acc, part, op)
         assert torch.equal(got.isnan(), want.isnan())
         assert torch.equal(got[2:3], want[2:3])
+        in_place = acc.clone()
+        segment_reduce.segment_combine(in_place, part, op, out=in_place)
+        assert torch.equal(in_place.isnan(), want.isnan())
+        assert torch.equal(in_place[2:3], want[2:3])
 
 
 @pytest.mark.parametrize("case,err", [
@@ -211,18 +266,25 @@ def _ring_on_card(n):
     segment_reduce.launches = 0
     got = alg.allreduce_ring(xs[r], None, p, segments=2)
     torch.cuda.synchronize()
+    launches = segment_reduce.launches
     want = xs[0] + xs[1]
+    shard = alg.reduce_scatter_ring(xs[r], None, p)
+    want_shard = torch.nn.functional.pad(want, (0, (-n) % p)).reshape(p, -1)[r]
     return {"equal": bool(torch.equal(got, want)), "device": got.device.type,
-            "launches": segment_reduce.launches}
+            "launches": launches,
+            "rs_equal": bool(torch.equal(shard, want_shard)),
+            "rs_launches": segment_reduce.launches - launches}
 
 
 def test_two_rank_host_staged_ring_all_reduce_on_the_card(cuda):
     """Two processes on one card (gloo, payloads staged through the host):
-    the ring's reduce steps run in the kernel, and with two ranks each
-    combine is the one fp32 add of the oracle, so the result is exact."""
+    the ring's and the ring reduce-scatter's reduce steps run in the
+    kernel, in place into their buffers, and with two ranks each combine
+    is the one fp32 add of the oracle, so the result is exact."""
     from repro_torch.core.collectives import group as grp
     res = grp.spawn(_ring_on_card, 2, (4099,))
-    assert res == {"equal": True, "device": "cuda", "launches": 2}
+    assert res == {"equal": True, "device": "cuda", "launches": 2,
+                   "rs_equal": True, "rs_launches": 1}
 
 
 # ---------------------------------------------------------------------------

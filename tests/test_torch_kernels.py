@@ -128,6 +128,35 @@ def test_cpu_tensors_never_count_a_launch():
     assert fa.launches == before == 0
 
 
+def _view(case, dtype):
+    """A (1, 8, 2, 64) q of ``dtype`` whose rows are off 16 bytes (for
+    bf16) in one way."""
+    if case == "seq_stride":         # 2*64 + 4 elements between positions
+        return torch.zeros(2000, dtype=dtype).as_strided(
+            (1, 8, 2, 64), (8 * 132, 132, 64, 1))
+    if case == "head_stride":        # 68 elements between heads
+        return torch.zeros((1, 8, 2, 68), dtype=dtype)[..., :64]
+    buf = torch.zeros(8 * 2 * 64 + 8, dtype=dtype)
+    off = next(o for o in range(8)                   # base 8 bytes off
+               if (buf.data_ptr() + o * buf.element_size()) % 16 == 8)
+    return buf[off:off + 8 * 2 * 64].reshape(1, 8, 2, 64)
+
+
+@pytest.mark.parametrize("case", ["seq_stride", "head_stride", "base_offset"])
+def test_bf16_kernel_check_refuses_rows_off_16_bytes(case):
+    """The wrapper's check before the bf16 tensor-core kernel (its
+    cp.async copies take 16-byte rows): a position stride, a head stride
+    or a base off 16 bytes raises; aligned views of a fused projection
+    pass, and the fp32 (SIMT) kernel takes the same strides."""
+    kv = torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16)
+    fa._check(torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16), kv, kv)
+    fused = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    fa._check(fused[:, :, :2], fused[:, :, 2:3], fused[:, :, 3:])
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa._check(_view(case, torch.bfloat16), kv, kv)
+    fa._check(_view(case, torch.float32), kv.float(), kv.float())
+
+
 def test_other_devices_raise_instead_of_falling_back():
     q = torch.empty((1, 8, 2, 64), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
