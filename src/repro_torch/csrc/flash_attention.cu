@@ -57,6 +57,8 @@
 
 #include <atomic>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 constexpr int BQ = 64;       // query rows per block
@@ -237,58 +239,7 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * 5 * BQ * (D + PAD);   // Q + 2 x (K, V)
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !in
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
-      : "memory");
-}
-
-// c (16x8, fp32) += a (16x16, bf16, row) * b (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (lo) in bits 0-15
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layouts (g = lane / 4, t = lane % 4; PTX ISA, m16n8k16):
-//   accumulator c[0..1]: row g, cols 2t, 2t+1; c[2..3]: row g+8, same cols;
-//   A a[0]: row g, k 2t..2t+1; a[1]: row g+8; a[2]: row g, k 2t+8..; a[3]:
-//   row g+8, k 2t+8..;  B b0: k 2t..2t+1, col g; b1: k 2t+8.., col g.
-// An ldmatrix.x4 takes lanes 8m..8m+7 as the row addresses of matrix m.
+// Fragment layouts and the mma/ldmatrix/cp.async helpers: sm90_common.cuh.
 template <int D>
 __global__ void __launch_bounds__(NT) fa_fwd_mma(const Params p) {
   constexpr int P = D + PAD;   // shared row pitch, elements
@@ -512,24 +463,6 @@ __global__ void __launch_bounds__(NT) fa_fwd_mma(const Params p) {
 
 // the kernel a launch ran last (chip_smoke.py prints it)
 const char* g_last_kernel = "none";
-
-// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
-// device, once per kernel and device (`done` holds a bit per device):
-// cudaFuncSetAttribute on every launch costs host time on a path whose
-// calls are shorter on the device than on the host (PERF.md).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem,
-                       std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (bit != 0 && (done.load(std::memory_order_relaxed) & bit)) return err;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
 
 template <int D>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {

@@ -1,4 +1,4 @@
-"""Paged decode attention: the hand-written CUDA kernel and its plain version.
+"""Paged decode attention: the hand-written CUDA kernel and its plain versions.
 
 Replaces ``repro/kernels/paged_attention.py::_paged_attention_pallas``
 (the Pallas TPU kernel ``_pa_kernel``): one new token per request
@@ -10,22 +10,34 @@ through ctypes on PyTorch's current stream.
 Bound on the card: the call reads each request's K and V view once and
 does 4 * Dh operations per (query head, slot), so it is memory bound
 (smollm's serving shape, 8 requests of 576 slots, 3 KV heads of 64,
-bf16: 3.54 MB of K and V, ~1.06 us at 3.35 TB/s). One thread block per
-(request, KV head) reads only the pool blocks that hold a valid slot
-and keeps scores and the online softmax on the SM; ``PERF.md`` has its
-time.
+bf16: 3.54 MB of K and V, ~1.06 us at 3.35 TB/s). The kernel splits each
+request's table into chunks of pool blocks (``split_plan``: at least four
+thread blocks per SM), reads only the pool blocks that hold a valid
+slot, 16 bytes a copy, and runs as two launches: the scores and each
+split's max and sum, then the normalised probabilities times V per split
+and the partials summed in split order. ``PERF.md`` has its time.
+
+The kernel computes the gather path's function, ``ref.paged_attention_ref``
+(the reference's ``cache_attention``, which its engine decodes with): the
+scaled q rounded to q's dtype and then to the pool dtype, fp32 logits,
+-1e30 for a masked slot, the softmax in fp32 normalised over the whole
+row and then rounded to the pool dtype, P V accumulated in fp32 and cast
+to q's dtype. This departs from ``_pa_kernel``, which keeps q and P in
+fp32; the reference's engine never calls ``_pa_kernel``, and the port's
+engine is held to the dense decode's rounding. A row with no valid slot
+gives 0 (the gather path gives the mean of V there; the engine never
+asks for one). ``paged_attention_split_plain`` is the kernel's split
+algebra in plain PyTorch, for the tests and ``chip_smoke.py``.
 
 ``paged_attention`` takes a CUDA tensor to the kernel, and only a CPU
 tensor to the plain version, ``ref.paged_attention_ref`` (the gather
 path, the reference's non-TPU ``auto``); any other device raises. There
-is no fallback from the kernel to the plain version. The two differ in
-where they round: the gather path casts the scaled q and the
-probabilities to the pool dtype, the kernel keeps both in fp32 as the
-TPU kernel does; with fp32 q and pools they compute the same function.
+is no fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,10 +46,73 @@ from repro_torch.kernels import _build, ref
 HEAD_DIMS = (64, 80, 128)
 MAX_BLOCK_SIZE = 64
 SMEM_LIMIT = 232448          # bytes a block may use on an H100
+H100_SMS = 132               # streaming multiprocessors of an H100
+BLOCKS_PER_SM = 4            # thread blocks per SM the split aims for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py zeroes and reads it)
 launches = 0
+
+
+def split_plan(R: int, KV: int, nb: int, sms: int = H100_SMS):
+    """``(blocks_per_split, splits)`` for ``R`` requests of ``nb`` pool
+    blocks over ``KV`` heads: the most pool blocks per split for which
+    the ``R * KV * splits`` thread blocks are at least ``BLOCKS_PER_SM``
+    per SM (one split when ``R * KV`` alone fills the card)."""
+    want = -(-BLOCKS_PER_SM * sms // max(1, R * KV))
+    bps = max(1, nb // want)
+    return bps, max(1, -(-nb // bps))
+
+
+def paged_attention_split_plain(q, k_pool, v_pool, block_tables, lengths,
+                                *, window: int = 0,
+                                blocks_per_split: int | None = None):
+    """The kernel's two phases in plain PyTorch, split by
+    ``blocks_per_split`` pool blocks (``split_plan``'s by default): each
+    split's max and sum of its valid logits, the row's max and sum merged
+    from them in split order, the normalised probabilities rounded to
+    the pool dtype, P V per split in fp32, and the partials summed in
+    split order. Shapes as ``paged_attention``; a row with no valid slot
+    gives 0."""
+    R, _, H, Dh = q.shape
+    bs, KV = k_pool.shape[1], k_pool.shape[2]
+    nb = block_tables.shape[1]
+    T, group = nb * bs, H // KV
+    if blocks_per_split is None:
+        blocks_per_split = split_plan(R, KV, nb)[0]
+    width = blocks_per_split * bs
+    kv = k_pool.dtype
+    qr = (q * (Dh ** -0.5)).to(kv).float().reshape(R, KV, group, Dh)
+    kf = ref.gather_kv_view(k_pool, block_tables).float()   # (R, T, KV, Dh)
+    vf = ref.gather_kv_view(v_pool, block_tables).float()
+    lengths = torch.as_tensor(lengths, device=q.device)
+    pos = ref.ring_slot_positions(lengths, T)                # (R, T)
+    last = (lengths - 1)[:, None]
+    valid = (pos >= 0) & (pos <= last)
+    if window > 0:
+        valid &= pos > last - window
+    valid = valid[:, None, None, :]                          # (R, 1, 1, T)
+    s = torch.einsum("rkgd,rtkd->rkgt", qr, kf)
+    s = torch.where(valid, s, torch.full((), ref.NEG_INF))
+    starts = range(0, T, width)
+    # phase 1: each split's max and sum
+    ms, ls = [], []
+    for a in starts:
+        m = s[..., a:a + width].amax(-1)
+        e = torch.exp(s[..., a:a + width] - m[..., None])
+        ls.append(torch.where(valid[..., a:a + width], e, 0.0).sum(-1))
+        ms.append(m)
+    # phase 2: the row's max and sum, then P V per split
+    m = torch.stack(ms).amax(0)
+    l = torch.zeros_like(m)
+    for mi, li in zip(ms, ls):
+        l = l + li * torch.exp(mi - m)
+    out = torch.zeros((R, KV, group, Dh), device=q.device)
+    for a in starts:
+        p = torch.exp(s[..., a:a + width] - m[..., None]) / l[..., None]
+        p = torch.where(valid[..., a:a + width], p, 0.0).to(kv).float()
+        out = out + torch.einsum("rkgt,rtkd->rkgd", p, vf[:, a:a + width])
+    return out.reshape(R, 1, H, Dh).to(q.dtype)
 
 
 def _check_shapes(q, k_pool, v_pool, block_tables, lengths):
@@ -72,13 +147,27 @@ def _check_kernel(q, k_pool, v_pool):
         raise ValueError(f"block size {bs} outside 1..{MAX_BLOCK_SIZE}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("paged_attention takes contiguous pools")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        # cp.async copies 16-byte pieces of each pool row
+        raise ValueError(f"paged_attention reads 16-byte-aligned pools; "
+                         f"data_ptr {k_pool.data_ptr()} {v_pool.data_ptr()}")
     if q.stride(3) != 1:
         raise ValueError("q's last dim must be contiguous")
     group = q.shape[2] // k_pool.shape[2]
-    smem = _lib().repro_paged_attention_smem(Dh, group, bs)
+    smem = _smem_bytes(Dh, group, bs, k_pool.element_size())
     if smem > SMEM_LIMIT:
         raise ValueError(f"{group} query heads per kv head at block size "
                          f"{bs} need {smem} bytes of shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(Dh, group, bs, itemsize):
+    return _lib().repro_paged_attention_smem(Dh, group, bs, itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
@@ -89,9 +178,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
     k_pool/v_pool: (NB, bs, KV, Dh), one layer's shared block pool;
     block_tables: (R, nb) pool-block ids; lengths: (R,) tokens written
     per request INCLUDING the current one. Returns (R, 1, H, Dh) in q's
-    dtype. CUDA tensors run the hand-written kernel (tables and lengths
-    taken as contiguous int32, a no-op for int32 inputs); CPU tensors run
-    ``ref.paged_attention_ref``.
+    dtype. CUDA tensors run the hand-written kernel (tables taken as
+    contiguous int32, lengths as contiguous int32 or int64: no-ops for
+    the engine's tensors); CPU tensors run ``ref.paged_attention_ref``.
     """
     global launches
     lengths = torch.as_tensor(lengths, device=q.device)
@@ -109,16 +198,26 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
     R, _, H, Dh = q.shape
     bs, KV = k_pool.shape[1], k_pool.shape[2]
     tables = block_tables.to(torch.int32).contiguous()
-    lens = lengths.to(torch.int32).contiguous()
+    # the engine's int64 lengths are read as they are: no cast launch
+    lens = lengths if lengths.dtype in (torch.int32, torch.int64) \
+        else lengths.to(torch.int32)
+    lens = lens.contiguous()
     out = torch.empty((R, 1, H, Dh), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
+    nb = tables.shape[1]
+    if out.numel() == 0 or nb == 0:        # no slot at all: every row is 0
+        return out.zero_()
+    bps, splits = split_plan(R, KV, nb, _sms(q.device))
+    # ml (float2), partials, scores, arrival counters: see the .cu
+    scratch = torch.empty(4 * (R * H * splits * (2 + Dh) + R * H * nb * bs
+                               + R * KV), dtype=torch.uint8, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().repro_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
-        tables.data_ptr(), lens.data_ptr(), q.stride(0), q.stride(2),
-        R, H, KV, Dh, bs, tables.shape[1], int(window), float(Dh ** -0.5),
-        _DTYPES[q.dtype], _DTYPES[k_pool.dtype], stream)
+        tables.data_ptr(), lens.data_ptr(), int(lens.dtype == torch.int64),
+        scratch.data_ptr(),
+        q.stride(0), q.stride(2), R, H, KV, Dh, bs, nb, int(window), bps,
+        splits, float(Dh ** -0.5), _DTYPES[q.dtype], _DTYPES[k_pool.dtype],
+        stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {rc}")
@@ -131,9 +230,9 @@ def _lib():
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([vp] * 6 + [ll] * 2 + [i] * 7 + [ctypes.c_float]
-                       + [i] * 2 + [vp])
+        fn.argtypes = ([vp] * 6 + [i, vp] + [ll] * 2 + [i] * 9
+                       + [ctypes.c_float] + [i] * 2 + [vp])
         fn.restype = ctypes.c_int
-        lib.repro_paged_attention_smem.argtypes = [i, i, i]
+        lib.repro_paged_attention_smem.argtypes = [i, i, i, i]
         lib.repro_paged_attention_smem.restype = ctypes.c_longlong
     return lib

@@ -5,10 +5,14 @@ package's ``paged_attention`` (its gather path ``impl="xla"`` and its
 Pallas kernel body in interpret mode, as ``tests/test_paged_attention.py``
 runs it on the CPU) and the port's ``ref.paged_attention_ref``, over the
 reference's setups (partial, full and wrapped views, windows 0 and 6)
-plus GQA shapes at the served head dims 64, 80 and 128. The port's layer
-is held to its own dense decode bit for bit. The CUDA kernel runs only on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+plus GQA shapes at the served head dims 64, 80 and 128. The CUDA
+kernel's split algebra, ``paged_attention_split_plain``, is held to both
+at every split size. The port's layer is held to its own dense decode
+bit for bit. The CUDA kernel runs only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -191,3 +195,142 @@ def test_write_paged_token_lands_in_its_ring_slot():
     assert kp[1, 1, 0, 0] == 7.0 and kp[2, 0, 0, 0] == 9.0
     assert int(kp.count_nonzero()) == 2
     assert torch.equal(new["length"], torch.tensor([4, 5]))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's split algebra in plain PyTorch
+# ---------------------------------------------------------------------------
+BF16_ULP = 2 ** -7            # one bf16 ulp at 1: the bf16 tolerance
+# pool blocks per split; "whole": one split over the whole table
+BLOCKS_PER_SPLIT = [1, 2, 3, "whole"]
+
+
+def _bps(bps, nb):
+    return nb if bps == "whole" else bps
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_paged(setup, window, kind):
+    """The JAX package's gather path and its Pallas kernel in interpret
+    mode on one setup, once for every split size."""
+    R, nb, bs, KV, H, Dh = setup
+    q, kp, vp, tables = _setup(*setup, seed=Dh + window)
+    lengths = _lengths(R, nb * bs, kind)
+    j = [jnp.asarray(a) for a in (q, kp, vp, tables, lengths)]
+    return (np.asarray(jpa.paged_attention(*j, window=window, impl="xla")),
+            np.asarray(jpa.paged_attention(*j, window=window,
+                                           impl="interpret")))
+
+
+@pytest.mark.parametrize("bps", BLOCKS_PER_SPLIT)
+@pytest.mark.parametrize("kind", ["mixed", "deep"])
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("setup", SETUPS)
+def test_split_plain_matches_ref_and_jax(setup, window, kind, bps):
+    """fp32: per-split max and sum, their merge, and the partials summed
+    in split order give the gather path's function; the short, windowed
+    and wrapped views leave splits with no valid slot, and split
+    boundaries inside a wrapped window."""
+    R, nb, bs, KV, H, Dh = setup
+    q, kp, vp, tables = _setup(*setup, seed=Dh + window)
+    lengths = _lengths(R, nb * bs, kind)
+    _, t = _both((q, kp, vp, tables, lengths))
+    got = pa.paged_attention_split_plain(
+        *t, window=window, blocks_per_split=_bps(bps, nb)).numpy()
+    want = ref.paged_attention_ref(*t, window=window).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    xla, pallas = _jax_paged(setup, window, kind)
+    np.testing.assert_allclose(got, xla, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=2e-5)
+
+
+def _bf16_setup(setup, seed, scale=1.0):
+    """bf16 q and pools; ``scale`` multiplies q and K, which sharpens the
+    scores."""
+    q, kp, vp, tables = _setup(*setup, seed=seed)
+    _, (q, kp, vp, tables) = _both((q, kp, vp, tables))
+    return ((q * scale).bfloat16(), (kp * scale).bfloat16(), vp.bfloat16(),
+            tables)
+
+
+@pytest.mark.parametrize("bps", BLOCKS_PER_SPLIT)
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("setup", SETUPS[1:])
+def test_split_plain_bf16_within_one_ulp_of_the_gather_path(setup, window,
+                                                            bps):
+    """bf16 q and pools: q rounded to the pool dtype, P normalised over
+    the whole row and then rounded, as the gather path does; only the
+    order of the fp32 sums differs."""
+    R, nb, bs, KV, H, Dh = setup
+    q, kp, vp, tables = _bf16_setup(setup, seed=Dh + window)
+    T = nb * bs
+    lengths = torch.tensor(([5, T, T + 5, 2 * T + 3] * R)[:R])
+    got = pa.paged_attention_split_plain(q, kp, vp, tables, lengths,
+                                         window=window,
+                                         blocks_per_split=_bps(bps, nb))
+    want = ref.paged_attention_ref(q, kp, vp, tables, lengths,
+                                   window=window)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ULP,
+                               rtol=BF16_ULP)
+
+
+def _off_by(got, want, tol):
+    """Some element of ``got`` lies outside ``tol * (1 + |want|)``."""
+    return bool(((got.float() - want.float()).abs()
+                 > tol * (1 + want.float().abs())).any())
+
+
+# (R, blocks per request, block size, KV, H, Dh): many rows, head dims
+# whose scale D**-0.5 is inexact in bf16
+SHARP_SETUPS = [(4, 33, 16, 8, 8, 80), (4, 8, 16, 4, 4, 128)]
+
+
+@pytest.mark.parametrize("setup", SHARP_SETUPS)
+def test_split_plain_bf16_sharp_scores_round_as_the_gather_path(setup):
+    """q and K scaled by 8 give peaked scores, on which fp32 q and P (the
+    gather path on fp32 copies of the same bf16 values) land more than 4
+    ulps from the bf16 gather path: the case tells the two roundings
+    apart, and the split algebra takes the gather path's."""
+    R, nb, bs, KV, H, Dh = setup
+    q, kp, vp, tables = _bf16_setup(setup, seed=7, scale=8.0)
+    T = nb * bs
+    lengths = torch.tensor(([T - 3, T, T + 5] * R)[:R])
+    want = ref.paged_attention_ref(q, kp, vp, tables, lengths)
+    fp32 = ref.paged_attention_ref(q.float(), kp.float(), vp.float(),
+                                   tables, lengths)
+    assert _off_by(fp32, want, 4 * BF16_ULP)
+    for bps in (1, nb):
+        got = pa.paged_attention_split_plain(q, kp, vp, tables, lengths,
+                                             blocks_per_split=bps)
+        assert not _off_by(got, want, BF16_ULP)
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_split_plain_empty_row_is_zero(window):
+    """A row with no valid slot gives 0 (every split's sum is 0); the
+    other rows are the gather path's."""
+    setup = SETUPS[1]
+    R, nb, bs, KV, H, Dh = setup
+    q, kp, vp, tables = _setup(*setup, seed=9)
+    _, (q, kp, vp, tables) = _both((q, kp, vp, tables))
+    lengths = torch.tensor([0, 3, nb * bs + 17, 1])
+    for bps in (1, 2, nb):
+        got = pa.paged_attention_split_plain(q, kp, vp, tables, lengths,
+                                             window=window,
+                                             blocks_per_split=bps)
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        want = ref.paged_attention_ref(q, kp, vp, tables, lengths,
+                                       window=window)
+        torch.testing.assert_close(got[1:], want[1:], atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("R,KV,nb", [(8, 3, 36), (4, 32, 33), (4, 16, 33)])
+def test_split_plan_fills_the_card_at_the_serving_shapes(R, KV, nb):
+    """smollm, zamba2 and olmoe's continuous decode: at least
+    ``BLOCKS_PER_SM`` (four) thread blocks per SM of an H100, and the
+    splits cover the table once."""
+    bps, splits = pa.split_plan(R, KV, nb)
+    assert R * KV * splits >= pa.BLOCKS_PER_SM * 132 >= 4 * 132
+    assert (splits - 1) * bps < nb <= splits * bps
+    assert pa.split_plan(R, KV, nb, sms=1)[1] == 1     # R*KV fills it alone
