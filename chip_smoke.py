@@ -22,11 +22,16 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       serving batch and one request, olmoe's and zamba2's), on the device
       alone (torch.profiler) and back to back between CUDA events,
       beside the bound and the host's time to issue one call;
-   b. the SSD chunk kernel against ``ssd_chunked_plain`` (all three
-      outputs) over the reference's sweep in f32 (5e-5) and bf16 (5e-2),
-      Q=100, Q=7 and both models' serving shapes; times kernel and plain
-      at mamba2's serving shape beside the bound (no single PyTorch call
-      computes this function, so there is no library time);
+   b. the SSD chunk kernels against ``ssd_chunked_plain`` (all three
+      outputs) over the reference's sweep in f32 (5e-5, the SIMT
+      ``ssd_chunk``) and bf16 (5e-2, the tensor-core ``ssd_chunk_mma``;
+      the instantiation each call ran is checked), Q=100, Q=7, P=32,
+      mamba2's one-request shapes (B=1, S=128/256/512) and both models'
+      serving shapes; times kernel and plain at mamba2's serving shape
+      and the one-request shapes, warm (back to back, and on the device
+      from the profiler) and cold (L2 flushed by a 1 GiB write before
+      each call), beside the bound (no single PyTorch call computes this
+      function, so there is no library time);
    c. the segment-combine kernel against ``segment_combine_plain`` over
       the reference's sweep (n in 7, 128, 1000, 65536), 16M elements and
       misaligned row slices, f32 and bf16, add/max/min, at the
@@ -37,13 +42,18 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       and the out-of-place call plus a copy back, at 16M elements f32 and
       bf16 beside the bound, and the kernel's design alternatives
       (vectors per thread, grid cap);
-   d. the paged decode attention kernel against ``ref.paged_attention_ref``
-      (the gather path) over the reference's sweep (partial, full,
-      wrapped and several-wraps-deep views, windows 0 and 6, shuffled
-      tables) at head dims 64, 80 and 128 and the three serving shapes
-      (smollm, zamba2, olmoe), f32 at 2e-5 and bf16 at 2e-2; times the
-      kernel and the plain version at each serving shape beside the
-      bound (no single PyTorch call computes this function);
+   d. the paged decode attention kernel (split over the table, two
+      launches) against ``ref.paged_attention_ref`` (the gather path)
+      over the reference's sweep (partial, full, wrapped and
+      several-wraps-deep views, windows 0 and 6, shuffled tables) at head
+      dims 64, 80 and 128, the three serving shapes (smollm, zamba2,
+      olmoe) and the splits' edges (an empty row, splits with no valid
+      slot, a wrapped window across a split boundary), f32 at 2e-5 and
+      bf16 within one bf16 ulp (2**-7); sharp scores on which fp32 q and
+      P would miss that by 4x; two calls bit-equal; times the kernel
+      (warm back to back and on the device, and cold) and the plain
+      version at each serving shape beside the bound (no single PyTorch
+      call computes this function);
 3. the kernels inside the models, fp32: full-width smollm-135m prefill
    logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``;
    full-width, full-depth mamba2-130m and zamba2-2.7b prefill logits
@@ -54,9 +64,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    then the continuous engine decoding through the paged kernel vs the
    engine decoding through the gather path, the same requests on a
    simulated clock: tokens equal and logits within 1e-3 over fp32
-   pools, the launches one per layer per decode step (and, printed
-   only, the same comparison over the serving dtype's bf16 pools, where
-   the two round q and the probabilities differently);
+   pools, tokens equal over the serving dtype's bf16 pools (their logit
+   difference printed beside PR 14's 0.271; above 0.05 the first decode
+   layer whose MoE input or output departs is traced and printed), the
+   launches one per layer per decode step;
 4. serving through ``repro_torch.launch.serve`` at full width, bf16, each
    path with every launch count zeroed just before it and read just
    after: smollm-135m, mamba2-130m, zamba2-2.7b (full depth: 54 SSM
@@ -67,7 +78,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    every decode step of a continuous path (none on a fixed path), and
    zero for a kernel off the path;
 5. where the time goes: torch.profiler over one full-width prefill and
-   over decode steps of each model (device busy share, top kernels, and
+   over decode steps of each model, dense and, where the model has a KV
+   cache, through the paged kernel (device busy share, top kernels, and
    the port's own kernels wherever they rank);
 6. tuned collectives through ``repro_torch.launch.measure_collectives``
    at 4 ranks on the card (processes under a gloo group, payloads staged
@@ -103,6 +115,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the paged kernel rounds where the gather path does: fp32 summation order
+# only, so within one bf16 ulp at bf16 (tests/test_torch_cuda.py)
+PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+BF16_LOGIT_DIFF_PR14 = 0.271     # olmoe's engine over bf16 pools, PR 14
+L2_FLUSH_BYTES = 1 << 30         # written before each cold call (L2: 50 MB)
 SSD_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}   # tests/test_kernels.py
 MODEL_TOL = 1e-3                 # phase 3: 24-54 layers of the kernel tolerance
 COMBINE_TOL = 1e-6               # tests/test_kernels.py (expected bit-equal)
@@ -118,6 +135,8 @@ ATTN_TIMED_SHAPES = {
 }
 # mamba2-130m's SSD call at the fixed-batch serving shape (8 x 512 prompts)
 SSD_SERVE_SHAPE = dict(B=8, S=512, H=24, P=64, N=128, Q=128)
+# and at the continuous path's one-request prefills
+SSD_ONE_REQUEST_S = (128, 256, 512)
 # the paged decode attention at each continuous path's shape: requests
 # (slots), query heads, KV heads, head dim, block size, view length
 PAGED_SERVE_SHAPES = {
@@ -191,6 +210,29 @@ def host_ms(fn, reps: int = 20) -> float:
     t = time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e3 * t / reps
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Device time (ms per call, median of ``reps``) of ``fn`` with the L2
+    cold: before each call a 1 GiB write evicts the 50 MB L2, then CUDA
+    events around the call alone. The write takes longer on the device
+    than the host takes to queue the call behind it, so the events time
+    the device, not the host."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del flush
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 def attention_bound_ms(B, S, T, H, KV, D, itemsize, causal=True):
@@ -466,8 +508,16 @@ def rand_ssd(B, S, H, P, N, dtype, seed):
     return x, dt, A, xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
 
 
+def ssd_kernel_for(dtype, P):
+    """The instantiation the wrapper must launch for ``dtype``: bf16 on
+    the tensor cores, fp32 on the SIMT kernel."""
+    return (f"ssd_chunk_mma<bf16,{P}>" if dtype == torch.bfloat16
+            else f"ssd_chunk<f32,{P}>")
+
+
 def phase_ssd_kernel():
     from repro_torch.kernels import ssd_scan
+    s = SSD_SERVE_SHAPE
     sweep = [(1, 64, 2, 64, 32, 32), (2, 128, 3, 64, 64, 32),
              (1, 128, 1, 32, 128, 64)]                # tests/test_kernels.py
     cases = [(shape, dt) for shape in sweep
@@ -476,8 +526,10 @@ def phase_ssd_kernel():
               for dt in (torch.float32, torch.bfloat16)]
     cases += [((2, 14, 3, 64, 128, 7), dt)             # Q = 7, two chunks
               for dt in (torch.float32, torch.bfloat16)]
+    # mamba2's continuous path: one request per call
+    cases += [((1, S, s["H"], s["P"], s["N"], s["Q"]), torch.bfloat16)
+              for S in SSD_ONE_REQUEST_S]
     cases.append(((4, 512, 80, 64, 64, 128), torch.bfloat16))  # zamba2 serving
-    s = SSD_SERVE_SHAPE
     cases.append(((s["B"], s["S"], s["H"], s["P"], s["N"], s["Q"]),
                   torch.bfloat16))                     # mamba2 serving, last
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -488,6 +540,9 @@ def phase_ssd_kernel():
         torch.cuda.synchronize()
         if ssd_scan.launches != before + 1:
             raise AssertionError("the wrapper did not count its launch")
+        if ssd_scan.last_kernel() != ssd_kernel_for(dt, P):
+            raise AssertionError(f"{dt} P={P} ran {ssd_scan.last_kernel()}, "
+                                 f"expected {ssd_kernel_for(dt, P)}")
         want = ssd_scan.ssd_chunked_plain(x, dts, A, Bm, Cm, chunk=Q)
         err = 0.0
         for name, g_, w_ in zip(("y_intra", "states", "cum"), got, want):
@@ -501,36 +556,54 @@ def phase_ssd_kernel():
                     f"{diff.max().item()}")
             err = max(err, diff.max().item())
         max_err[dt] = max(max_err[dt], err)
-        log(f"[2b] ssd {(B, S, H, P, N, Q)} {str(dt)[6:]}: max|err| {err:.3g}")
+        log(f"[2b] ssd {(B, S, H, P, N, Q)} {str(dt)[6:]}: "
+            f"{ssd_scan.last_kernel()}, max|err| {err:.3g}")
     serve_err = err      # the mamba2 serving shape is the last case
     log(f"    max|err| f32 {max_err[torch.float32]:.3g} (tol 5e-5), "
         f"bf16 {max_err[torch.bfloat16]:.3g} (tol 5e-2)")
 
-    B, S, H, P, N, Q = (s[k] for k in ("B", "S", "H", "P", "N", "Q"))
-    x, dts, A, Bm, Cm = rand_ssd(B, S, H, P, N, torch.bfloat16, seed=99)
-    kern = lambda: ssd_scan.ssd_chunk(x, dts, A, Bm, Cm, chunk=Q)  # noqa: E731
-    plain = lambda: ssd_scan.ssd_chunked_plain(  # noqa: E731
-        x, dts, A, Bm, Cm, chunk=Q)
-    # in turns (kernel, plain, kernel, plain): one card, one call
-    k1, p1, dk1 = time_calls(kern), time_calls(plain), device_ms(kern)
-    k2, p2, dk2 = time_calls(kern), time_calls(plain), device_ms(kern)
-    ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
-    dev = (dk1 + dk2) / 2
-    bound_ms, bound_by, nbytes, flops = ssd_bound_ms(B, S, H, P, N, Q, 2)
-    log(f"    serving shape B={B} S={S} H={H} P={P} N={N} Q={Q} bf16: "
-        f"kernel {ms:.4f} ms (turns {statistics.median(k1):.4f}, "
-        f"{statistics.median(k2):.4f}), device {dev:.4f} ms (turns "
-        f"{dk1:.4f}, {dk2:.4f}), plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
-        f"{flops / 1e9:.3f} GFLOP); no single library call")
+    by_shape = {}
+    shapes = [("mamba2 serving", s["B"], s["S"])] + [
+        (f"mamba2 one request S={S}", 1, S) for S in SSD_ONE_REQUEST_S]
+    for name, B, S in shapes:
+        H, P, N, Q = (s[k] for k in ("H", "P", "N", "Q"))
+        x, dts, A, Bm, Cm = rand_ssd(B, S, H, P, N, torch.bfloat16, seed=99)
+        kern = lambda: ssd_scan.ssd_chunk(  # noqa: E731
+            x, dts, A, Bm, Cm, chunk=Q)
+        plain = lambda: ssd_scan.ssd_chunked_plain(  # noqa: E731
+            x, dts, A, Bm, Cm, chunk=Q)
+        # in turns (kernel, plain, kernel, plain): one card, one call
+        k1, p1, dk1, c1 = (time_calls(kern), time_calls(plain),
+                           device_ms(kern), cold_ms(kern))
+        k2, p2, dk2, c2 = (time_calls(kern), time_calls(plain),
+                           device_ms(kern), cold_ms(kern))
+        ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
+        dev, cold = (dk1 + dk2) / 2, (c1 + c2) / 2
+        bound_ms, bound_by, nbytes, flops = ssd_bound_ms(B, S, H, P, N, Q, 2)
+        log(f"    {name} B={B} S={S} H={H} P={P} N={N} Q={Q} bf16 "
+            f"({B * H * (S // Q)} blocks): kernel back to back {ms:.4f} ms "
+            f"(turns {statistics.median(k1):.4f}, "
+            f"{statistics.median(k2):.4f}), device warm {dev:.4f} ms (turns "
+            f"{dk1:.4f}, {dk2:.4f}), cold {cold:.4f} ms (turns {c1:.4f}, "
+            f"{c2:.4f}), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); "
+            f"no single library call")
+        by_shape[name] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev,
+                          "cold_ms": cold, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+    top = by_shape["mamba2 serving"]
     return {"name": "ssd_chunk", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:81",
-            "max_abs_err": serve_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "device_ms": dev, "max_err_f32": max_err[torch.float32],
+            "max_abs_err": serve_err, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "device_ms": top["device_ms"], "cold_ms": top["cold_ms"],
+            "max_err_f32": max_err[torch.float32],
             "max_err_bf16": max_err[torch.bfloat16],
-            "shape": f"B={B} S={S} H={H} P={P} N={N} Q={Q} bf16"}
+            "shape": f"B={s['B']} S={s['S']} H={s['H']} P={s['P']} "
+                     f"N={s['N']} Q={s['Q']} bf16",
+            "by_shape": by_shape}
 
 
 def combine_bound_ms(n, itemsize):
@@ -677,6 +750,34 @@ def paged_bound_ms(R, H, KV, D, T, itemsize):
                                        else "operations"), nbytes, flops
 
 
+def off_by(got, want, tol):
+    """Max |got - want| and whether some element lies outside
+    ``tol * (1 + |want|)``."""
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), bool(
+        (diff > tol * (1 + want.float().abs())).any())
+
+
+def check_paged(pa, ref, q, kp, vp, tables, lengths, window, label):
+    """One launch against the gather path at the dtype's tolerance (a row
+    with no valid slot must be 0, where the gather path gives the mean of
+    V); returns the max error over the other rows."""
+    dt = q.dtype
+    before = pa.launches
+    got = pa.paged_attention(q, kp, vp, tables, lengths, window=window)
+    torch.cuda.synchronize()
+    if pa.launches != before + 1:
+        raise AssertionError("the wrapper did not count its launch")
+    want = ref.paged_attention_ref(q, kp, vp, tables, lengths, window=window)
+    empty = lengths == 0
+    err, bad = off_by(got[~empty], want[~empty], PAGED_TOL[dt])
+    if got.dtype != dt or not torch.isfinite(got).all() or bad or \
+            (got[empty] != 0).any():
+        raise AssertionError(f"paged_attention disagrees with plain at "
+                             f"{label} window {window} {dt}: max err {err}")
+    return err
+
+
 def phase_paged_kernel():
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
@@ -695,31 +796,48 @@ def phase_paged_kernel():
         lens = tuple(([T - 64, T, T + 100, 3 * T + 5, 1, 200] * 2)[:s["R"]])
         for dt in (torch.float32, torch.bfloat16):
             cases.append((s, lens, 0, dt))
+            # the splits' edges: an empty row, splits with no valid slot,
+            # a wrapped window across a split and the ring's end
+            edge = tuple(([0, 20, T + 50, T + 3, 1, T, 2 * T + 47, 300]
+                          * 2)[:s["R"]])
+            cases.append((s, edge, 6, dt))
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for i, (s, lens, window, dt) in enumerate(cases):
         q, kp, vp, tables = rand_paged(s["R"], s["H"], s["KV"], s["D"],
                                        s["bs"], s["T"] // s["bs"], dt,
                                        seed=300 + i)
         lengths = torch.tensor(lens, device="cuda")
-        before = pa.launches
-        got = pa.paged_attention(q, kp, vp, tables, lengths, window=window)
-        torch.cuda.synchronize()
-        if pa.launches != before + 1:
-            raise AssertionError("the wrapper did not count its launch")
-        want = ref.paged_attention_ref(q, kp, vp, tables, lengths,
-                                       window=window)
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        if got.dtype != dt or not torch.isfinite(got).all() or \
-                (diff > TOL[dt] * (1 + want.float().abs())).any():
-            raise AssertionError(f"paged_attention disagrees with plain at "
-                                 f"{s} lengths {lens} window {window} {dt}: "
-                                 f"max err {err}")
+        err = check_paged(pa, ref, q, kp, vp, tables, lengths, window,
+                          f"{s} lengths {lens}")
         max_err[dt] = max(max_err[dt], err)
     log(f"[2d] paged_attention: {len(cases)} cases (head dims 64/80/128, "
-        f"windows 0/6, partial/full/wrapped views, the 3 serving shapes), "
-        f"max|err| f32 {max_err[torch.float32]:.3g} (tol 2e-5), bf16 "
-        f"{max_err[torch.bfloat16]:.3g} (tol 2e-2)")
+        f"windows 0/6, partial/full/wrapped views, the 3 serving shapes, "
+        f"the splits' edges), max|err| f32 {max_err[torch.float32]:.3g} "
+        f"(tol 2e-5), bf16 {max_err[torch.bfloat16]:.3g} (tol 2**-7)")
+    # sharp scores (q and K x 8) at the serving shapes: fp32 q and P (the
+    # TPU kernel's rounding) would miss the gather path by 4 tolerances
+    for arch, s in PAGED_SERVE_SHAPES.items():
+        R, T = s["R"], s["T"]
+        q, kp, vp, tables = rand_paged(R, s["H"], s["KV"], s["D"], s["bs"],
+                                       T // s["bs"], torch.float32, seed=7)
+        q, kp, vp = (q * 8).bfloat16(), (kp * 8).bfloat16(), vp.bfloat16()
+        lengths = torch.tensor(([T - 3, T, T + 5] * R)[:R], device="cuda")
+        want = ref.paged_attention_ref(q, kp, vp, tables, lengths)
+        fp32_err, fp32_bad = off_by(
+            ref.paged_attention_ref(q.float(), kp.float(), vp.float(),
+                                    tables, lengths), want,
+            4 * PAGED_TOL[torch.bfloat16])
+        err = check_paged(pa, ref, q, kp, vp, tables, lengths, 0,
+                          f"{arch} sharp")
+        log(f"    {arch} sharp scores bf16: kernel max|err| {err:.3g}; fp32 "
+            f"q and P would be {fp32_err:.3g} off"
+            f"{' (past 4 ulps: the case tells the roundings apart)' if fp32_bad else ''}")
+        # two calls on the same inputs give the same bits
+        again = [pa.paged_attention(q, kp, vp, tables, lengths)
+                 for _ in range(2)]
+        if not torch.equal(again[0], again[1]):
+            raise AssertionError(f"paged_attention at {arch}: two calls "
+                                 f"differ")
 
     out = {"name": "paged_attention", "route": "cuda",
            "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -732,44 +850,63 @@ def phase_paged_kernel():
         R, H, KV, D, bs, T = (s[k] for k in ("R", "H", "KV", "D", "bs", "T"))
         q, kp, vp, tables = rand_paged(R, H, KV, D, bs, T // bs,
                                        torch.bfloat16, seed=99)
-        lengths = torch.full((R,), T, device="cuda")     # full views
+        lengths = torch.full((R,), T, dtype=torch.int32,
+                             device="cuda")                 # full views
         kern = lambda: pa.paged_attention(  # noqa: E731
             q, kp, vp, tables, lengths)
         plain = lambda: ref.paged_attention_ref(  # noqa: E731
             q, kp, vp, tables, lengths)
         # in turns (kernel, plain, kernel, plain): one card, one call
-        k1, p1, dk1 = time_calls(kern), time_calls(plain), device_ms(kern)
-        k2, p2, dk2 = time_calls(kern), time_calls(plain), device_ms(kern)
+        k1, p1, dk1, c1 = (time_calls(kern), time_calls(plain),
+                           device_ms(kern), cold_ms(kern))
+        k2, p2, dk2, c2 = (time_calls(kern), time_calls(plain),
+                           device_ms(kern), cold_ms(kern))
         ms, plain_ms = statistics.median(k1 + k2), statistics.median(p1 + p2)
-        dev = (dk1 + dk2) / 2
+        dev, cold = (dk1 + dk2) / 2, (c1 + c2) / 2
+        host = host_ms(kern)
+        bps, splits = pa.split_plan(R, KV, T // bs, pa._sms(q.device))
         bound_ms, bound_by, nbytes, flops = paged_bound_ms(R, H, KV, D, T, 2)
         log(f"    {arch} R={R} H={H} KV={KV} D={D} block {bs} view {T} "
-            f"bf16: kernel {ms:.4f} ms (turns {statistics.median(k1):.4f}, "
-            f"{statistics.median(k2):.4f}), device {dev:.4f} ms (turns "
-            f"{dk1:.4f}, {dk2:.4f}), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.3f} MB, "
-            f"{flops / 1e9:.4f} GFLOP); no single library call")
+            f"bf16 ({splits} splits of {bps} blocks, {R * KV * splits} "
+            f"blocks a launch): kernel back to back {ms:.4f} ms (turns "
+            f"{statistics.median(k1):.4f}, {statistics.median(k2):.4f}), "
+            f"device warm {dev:.4f} ms (turns {dk1:.4f}, {dk2:.4f}), cold "
+            f"{cold:.4f} ms (turns {c1:.4f}, {c2:.4f}), host per call "
+            f"{host:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} "
+            f"ms ({bound_by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} "
+            f"GFLOP); no single library call")
         out["by_shape"][arch] = {"ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound_ms, "device_ms": dev}
+                                 "bound_ms": bound_ms, "device_ms": dev,
+                                 "cold_ms": cold, "host_ms": host,
+                                 "blocks": R * KV * splits}
         if arch == "smollm-135m":
             out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, device_ms=dev,
+                       bound_by=bound_by, device_ms=dev, cold_ms=cold,
                        shape=f"R={R} H={H} KV={KV} D={D} bs={bs} view={T} "
                              f"bf16")
     return out
 
 
-def moe_engine_run(api, params, attn_impl, pool_dtype):
+def moe_engine_run(api, params, attn_impl, pool_dtype, trace=None):
     """The continuous engine on a simulated clock (so admission is the
     same in every run) over 6 requests; returns the tokens, the logits
     of the active rows of every decode step, the decode steps and the
-    paged-attention launches."""
+    paged-attention launches. With a list as ``trace``, every decode
+    layer's MoE input and output (fp32 copies) are appended to it."""
     import dataclasses
     import functools
 
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import moe_model
     from repro_torch.serve import Scheduler, ServeEngine, synthetic_trace
     logits, step = [], api.decode_step
+    moe_block = moe_model.moe_block
+
+    def traced_moe(h, *args, **kw):
+        y, aux = moe_block(h, *args, **kw)
+        if h.shape[1] == 1:                     # a decode step's rows
+            trace.append((h.float().clone(), y.float().clone()))
+        return y, aux
 
     def record(params_, cache, tokens, **kw):
         out = step(params_, cache, tokens, **kw)
@@ -785,9 +922,44 @@ def moe_engine_run(api, params, attn_impl, pool_dtype):
                          block_size=16, attn_impl=attn_impl)
     sched = Scheduler(trace, max_active=4, token_budget=4 * 528)
     pa.launches = 0
-    engine.run(sched, cost_model=lambda kind, n: 1e-3)
+    if trace is not None:
+        moe_model.moe_block = traced_moe
+    try:
+        engine.run(sched, cost_model=lambda kind, n: 1e-3)
+    finally:
+        moe_model.moe_block = moe_block
     tokens = {r.rid: list(r.generated) for r in sched.finished}
     return tokens, logits, engine.decode_steps, pa.launches
+
+
+def trace_moe_departure(api, params, num_layers):
+    """Where the bf16-pool engine through the paged kernel departs from
+    the one through the gather path: both runs' decode-layer MoE inputs
+    and outputs, compared call by call; prints the first calls whose
+    input or output differs by more than 1e-2 and the per-layer
+    differences of that decode step."""
+    runs = []
+    for impl in ("auto", "xla"):
+        trace = []
+        moe_engine_run(api, params, impl, torch.bfloat16, trace=trace)
+        runs.append(trace)
+    rows = []
+    for i, ((hk, yk), (hx, yx)) in enumerate(zip(*runs)):
+        rows.append((i // num_layers, i % num_layers,
+                     (hk - hx).abs().max().item(),
+                     (yk - yx).abs().max().item()))
+    first = next((r for r in rows if max(r[2], r[3]) > 1e-2), None)
+    log(f"    trace: {len(rows)} decode-layer MoE calls compared; first "
+        f"past 1e-2: "
+        + ("none" if first is None else
+           f"step {first[0]} layer {first[1]} (input {first[2]:.3g}, "
+           f"output {first[3]:.3g})"))
+    if first is not None:
+        for st, layer, dh, dy in rows:
+            if st == first[0]:
+                log(f"      step {st} layer {layer:2d}: MoE input max|diff| "
+                    f"{dh:.3g}, output {dy:.3g}")
+    return first
 
 
 def phase_moe_model():
@@ -856,6 +1028,19 @@ def phase_moe_model():
                 raise AssertionError(f"olmoe engine through the paged kernel "
                                      f"differs from the gather path: tokens "
                                      f"equal {same}, logits {ldiff}")
+            if pool_dtype == torch.bfloat16:
+                # the kernel rounds q and P where the gather path does
+                log(f"    bf16 pools: logits max|diff| {ldiff:.3g} (PR 14, "
+                    f"before the kernel rounded as the gather path: "
+                    f"{BF16_LOGIT_DIFF_PR14})")
+                if ldiff > 0.05:
+                    out["engine_bf16"]["first_departure"] = \
+                        trace_moe_departure(kern, params, cfg.num_layers)
+                if not (same and len(kl) == len(xl)):
+                    raise AssertionError(f"olmoe engine over bf16 pools "
+                                         f"through the paged kernel gives "
+                                         f"other tokens than the gather "
+                                         f"path")
     del params
     torch.cuda.empty_cache()
     return out
@@ -1012,14 +1197,37 @@ def serving_paths():
 
 
 # the device-side names of the port's kernels (csrc/*.cu)
-PORT_KERNELS = ("fa_fwd", "ssd_chunk", "combine_kernel", "pa_decode")
+PORT_KERNELS = ("fa_fwd", "ssd_chunk", "ssd_chunk_mma", "combine_kernel",
+                "pa_scores", "pa_pv")
+
+
+def paged_cache(cache, bs=16):
+    """A dense decode cache in the engine's paged form: each layer's K and
+    V cut into ``bs``-slot pool blocks behind a null block 0, one table
+    row per batch row, per-row lengths; any other state as it is."""
+    k = cache["k"]
+    layers, B, T, KV, D = k.shape
+    nb = T // bs
+
+    def pool(x):
+        blocks = x.reshape(layers, B * nb, bs, KV, D)
+        return torch.cat([torch.zeros_like(blocks[:, :1]), blocks], dim=1)
+    tables = 1 + torch.arange(B * nb, dtype=torch.int32,
+                              device=k.device).reshape(B, nb)
+    rest = {n: x for n, x in cache.items() if n not in ("k", "v", "length")}
+    return {**rest, "k_pool": pool(k), "v_pool": pool(cache["v"]),
+            "block_tables": tables,
+            "length": torch.full((B,), int(cache["length"]),
+                                 dtype=torch.long, device=k.device)}
 
 
 def phase_breakdown(arch, B, S):
     """Where a fixed-batch path's time goes: torch.profiler over one
-    full-width bf16 prefill (B x S) and over 8 decode steps; the device's
-    busy share of the wall time, the kernels that fill it, and the port's
-    own kernels wherever they rank."""
+    full-width bf16 prefill (B x S) and over 8 decode steps, and, for a
+    family with a KV cache, over 8 decode steps through the same cache
+    in the continuous engine's paged form (the paged kernel's path); the
+    device's busy share of the wall time, the kernels that fill it, and
+    the port's own kernels wherever they rank."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1035,10 +1243,15 @@ def phase_breakdown(arch, B, S):
         logits, cache = api.prefill(params, prompt, S + 64)
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         api.decode_step(params, cache, tok)
+        runs = [("prefill", 1, lambda: api.prefill(params, prompt, S + 64)),
+                ("decode", 8, lambda: api.decode_step(params, cache, tok))]
+        if "k" in cache:
+            pcache = paged_cache(cache)
+            api.decode_step(params, pcache, tok)
+            runs.append(("paged decode", 8,
+                         lambda: api.decode_step(params, pcache, tok)))
         torch.cuda.synchronize()
-        for name, reps, fn in (
-                ("prefill", 1, lambda: api.prefill(params, prompt, S + 64)),
-                ("decode", 8, lambda: api.decode_step(params, cache, tok))):
+        for name, reps, fn in runs:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -1071,7 +1284,7 @@ def phase_breakdown(arch, B, S):
             for k, v in sorted(ours.items(), key=lambda kv: -kv[1]):
                 if (k[:60], v) not in out[name]["top"]:
                     log(f"      {v:9.4f} ms  {k[:90]} (a port kernel)")
-    del params, cache
+    del params, cache, runs
     torch.cuda.empty_cache()
     return out
 

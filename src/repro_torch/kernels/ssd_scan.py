@@ -1,21 +1,24 @@
-"""Mamba2 SSD within-chunk pass: the hand-written CUDA kernel and its plain version.
+"""Mamba2 SSD within-chunk pass: the hand-written CUDA kernels and their plain version.
 
 Replaces ``repro/kernels/ssd_scan.py::ssd_chunked_pallas`` (the Pallas TPU
-kernel ``_ssd_chunk_kernel``). The kernel is ``csrc/ssd_chunk.cu``, built
-by ``_build`` and called through ctypes on PyTorch's current stream. Per
-(batch, head, chunk) it computes the three outputs of the TPU kernel:
-``y_intra`` (B,H,nc,Q,P), the chunk ``states`` (B,H,nc,N,P) and ``cum``
-(B,H,nc,Q), all fp32. As in the reference, the inter-chunk recurrence,
-``y_inter`` and the ``D*x`` skip stay outside the kernel, in plain
-PyTorch (``ssd_chunked``).
+kernel ``_ssd_chunk_kernel``). The kernels are in ``csrc/ssd_chunk.cu``,
+built by ``_build`` and called through ctypes on PyTorch's current
+stream. Per (batch, head, chunk) they compute the three outputs of the
+TPU kernel: ``y_intra`` (B,H,nc,Q,P), the chunk ``states`` (B,H,nc,N,P)
+and ``cum`` (B,H,nc,Q), all fp32. As in the reference, the inter-chunk
+recurrence, ``y_inter`` and the ``D*x`` skip stay outside the kernel, in
+plain PyTorch (``ssd_chunked``).
 
 Bound on the card: at the serving shape (B=8, S=512, H=24, P=64, N=128,
 Q=128, bf16) the call moves ~65.8 MB (the two fp32 outputs are 25.2 MB
 each) and needs ~2.5 GFLOP, so its bound is ~20 us at 3.35 TB/s: memory
-bound. The kernel reads every input once, in place through its strides,
-keeps the Q x Q score tile on the SM and writes each output once; its
-products are scalar fp32 FMAs from shared memory, so this first version
-is far from the bound. ``PERF.md`` has its time.
+bound. Both kernels read every input once, in place through its
+strides, keep the Q x Q score tile on the SM and write each output once.
+bf16 inputs run ``ssd_chunk_mma`` (the three products on the tensor
+cores, ``mma.sync``; rows must start on 16 bytes and N <= 128, else
+ValueError), fp32 inputs ``ssd_chunk`` (scalar fp32 FMAs, which keep the
+fp32 engine at 5e-5 of the plain version). ``last_kernel()`` names the
+one that ran; ``PERF.md`` has their times.
 
 ``ssd_chunk`` takes a CUDA tensor to the kernel, and only a CPU tensor to
 ``ssd_chunked_plain``; any other device raises. There is no fallback from
@@ -32,6 +35,7 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 Q_MAX = 128                   # chunk rows one kernel block covers
 HEAD_DIMS = (32, 64)          # P values the kernel is built for
+MMA_MAX_STATE = 128           # state dims the bf16 (tensor-core) kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py zeroes and reads it)
@@ -96,6 +100,19 @@ def _check(x, dt, A, Bm, Cm, chunk):
     for name, t in (("x", x), ("B", Bm), ("C", Cm)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
+    if x.dtype == torch.bfloat16:
+        N = Bm.shape[-1]
+        if N > MMA_MAX_STATE or N % 8:
+            raise ValueError(f"the bf16 kernel takes a state dim that is a "
+                             f"multiple of 8 up to {MMA_MAX_STATE}, not {N}")
+        # cp.async copies whole 16-byte pieces of each x, B and C row
+        for name, t in (("x", x), ("B", Bm), ("C", Cm)):
+            if t.data_ptr() % 16 or any(
+                    st % 8 for st, n in zip(t.stride()[:-1], t.shape[:-1])
+                    if n > 1):
+                raise ValueError(f"the bf16 kernel reads 16-byte-aligned "
+                                 f"rows; {name} has data_ptr "
+                                 f"{t.data_ptr()} and strides {t.stride()}")
 
 
 def ssd_chunk(x, dt, A, Bm, Cm, *, chunk: int):
@@ -158,6 +175,14 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     y = (y_intra + y_inter).reshape(Bsz, H, S, P).transpose(1, 2)
     y = y + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype)
+
+
+def last_kernel() -> str:
+    """The name of the kernel instantiation the last launch ran, as the
+    library reports it (``ssd_chunk_mma<bf16,64>``, ``ssd_chunk<f32,32>``...)."""
+    fn = _build.load("ssd_chunk").repro_ssd_chunk_last_kernel
+    fn.argtypes, fn.restype = [], ctypes.c_char_p
+    return fn().decode()
 
 
 def _kernel():

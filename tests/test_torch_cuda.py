@@ -160,6 +160,12 @@ def _ssd_inputs(B, S, H, P, N, dtype, seed):
     (2, 128, 3, 64, 64, 32),
     (1, 200, 2, 64, 128, 100),          # Q not a power of two
     (1, 128, 1, 32, 16, 128),           # N below one staged slice
+    # mamba2's continuous path: one request of 128, 256 and 512 tokens
+    (1, 128, 24, 64, 128, 128),
+    (1, 256, 24, 64, 128, 128),
+    (1, 512, 24, 64, 128, 128),
+    (2, 14, 3, 32, 64, 7),              # Q = 7: one live warp of rows
+    (4, 512, 80, 64, 64, 128),          # zamba2 serving
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, N, chunk):
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype, seed=S + N)
@@ -168,6 +174,9 @@ def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, N, chunk):
     got = ssd_scan.ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
+    assert ssd_scan.last_kernel() == (f"ssd_chunk_mma<bf16,{P}>"
+                                      if dtype == torch.bfloat16
+                                      else f"ssd_chunk<f32,{P}>")
     want = ssd_scan.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=chunk)
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.isfinite(g).all()
@@ -177,7 +186,8 @@ def test_ssd_kernel_matches_plain(cuda, dtype, B, S, H, P, N, chunk):
 
 @pytest.mark.parametrize("case,err", [
     ("float16", TypeError), ("head_dim_48", ValueError),
-    ("chunk_129", ValueError), ("ragged_chunk", ValueError)])
+    ("chunk_129", ValueError), ("ragged_chunk", ValueError),
+    ("bf16_state_136", ValueError), ("bf16_misaligned_rows", ValueError)])
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda, case, err):
     x, dt, A, Bm, Cm = _ssd_inputs(1, 258, 2, 64, 16, torch.float32, seed=1)
     chunk = 129 if case == "chunk_129" else 43
@@ -187,6 +197,13 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda, case, err):
         x = torch.zeros((1, 258, 2, 48), device="cuda")
     elif case == "ragged_chunk":
         chunk = 100
+    elif case == "bf16_state_136":       # more state dims than the tile
+        x, dt, A, Bm, Cm = _ssd_inputs(1, 258, 2, 64, 136, torch.bfloat16,
+                                       seed=1)
+    elif case == "bf16_misaligned_rows":  # x rows 2 bytes off 16
+        x, Bm, Cm = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+        x = torch.zeros((1, 258, 2 * 64 + 1), dtype=torch.bfloat16,
+                        device="cuda")[..., 1:].reshape(1, 258, 2, 64)
     before = ssd_scan.launches
     with pytest.raises(err):
         ssd_scan.ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk)
@@ -301,6 +318,17 @@ def _paged_inputs(R, nb, bs, KV, H, Dh, q_dtype, kv_dtype, seed):
     return q, kp, vp, tables.to(torch.int32).cuda()
 
 
+# the gather path's rounding: fp32 summation order only, so fp32 at 2e-5
+# and bf16 within one bf16 ulp
+PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+
+
+def _off_by(got, want, tol):
+    """Some element of ``got`` lies outside ``tol * (1 + |want|)``."""
+    return bool(((got.float() - want.float()).abs()
+                 > tol * (1 + want.float().abs())).any())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 6])
 @pytest.mark.parametrize("R,nb,bs,KV,H,Dh", [
@@ -323,20 +351,92 @@ def test_paged_kernel_matches_plain(cuda, dtype, window, R, nb, bs, KV, H,
     assert pa.launches == before + 1
     want = ref.paged_attention_ref(q, kp, vp, tables, lengths, window=window)
     assert got.dtype == dtype and torch.isfinite(got).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=PAGED_TOL[dtype], rtol=PAGED_TOL[dtype])
+
+
+@pytest.mark.parametrize("R,nb,bs,KV,H,Dh", [
+    (4, 33, 16, 8, 8, 80), (4, 8, 16, 4, 4, 128), (8, 36, 16, 3, 9, 128)])
+def test_paged_kernel_bf16_rounds_where_the_dense_decode_rounds(cuda, R, nb,
+                                                                bs, KV, H,
+                                                                Dh):
+    """q and K scaled by 8 peak the scores. On such a case fp32 q and P
+    (the gather path on fp32 copies of the same bf16 values, the TPU
+    kernel's rounding) land more than 4 ulps from the bf16 gather path,
+    so the case tells the two apart; the kernel is within one ulp."""
+    q, kp, vp, tables = _paged_inputs(R, nb, bs, KV, H, Dh, torch.float32,
+                                      torch.float32, seed=7)
+    q, kp, vp = (q * 8).bfloat16(), (kp * 8).bfloat16(), vp.bfloat16()
+    T = nb * bs
+    lengths = torch.tensor(([T - 3, T, T + 5] * R)[:R]).cuda()
+    want = ref.paged_attention_ref(q, kp, vp, tables, lengths)
+    fp32 = ref.paged_attention_ref(q.float(), kp.float(), vp.float(),
+                                   tables, lengths)
+    assert _off_by(fp32, want, 4 * PAGED_TOL[torch.bfloat16])
+    got = pa.paged_attention(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=PAGED_TOL[torch.bfloat16],
+                               rtol=PAGED_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 6])
+@pytest.mark.parametrize("Dh", [64, 80, 128])
+def test_paged_kernel_split_edges(cuda, dtype, window, Dh):
+    """smollm's table (36 blocks of 16, 36 splits of 1 block) with an
+    empty row (0), a row whose later splits hold no valid slot, rows
+    whose wrapped ring crosses a split boundary inside the window, and a
+    full view; each against the gather path, and the whole call against
+    the kernel's split algebra at its own split size."""
+    R, nb, bs, KV, H = 8, 36, 16, 3, 9
+    T = nb * bs
+    q, kp, vp, tables = _paged_inputs(R, nb, bs, KV, H, Dh, dtype, dtype,
+                                      seed=Dh + window)
+    lengths = torch.tensor([0, 20, T + 48, T + 50, T + 3, T, 1,
+                            3 * T + 100]).cuda()
+    bps, splits = pa.split_plan(R, KV, nb)
+    assert (bps, splits) == (1, 36)
+    got = pa.paged_attention(q, kp, vp, tables, lengths, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = ref.paged_attention_ref(q, kp, vp, tables, lengths, window=window)
+    tol = PAGED_TOL[dtype]
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), atol=tol,
+                               rtol=tol)
+    split = pa.paged_attention_split_plain(q, kp, vp, tables, lengths,
+                                           window=window,
+                                           blocks_per_split=bps)
+    torch.testing.assert_close(got.float(), split.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("R,nb,KV,H,Dh", [
+    (8, 36, 3, 9, 64), (4, 33, 32, 32, 80), (4, 33, 16, 16, 128)])
+def test_paged_kernel_is_deterministic_at_the_serving_shapes(cuda, R, nb, KV,
+                                                             H, Dh):
+    """The partials are summed in split order by whichever block arrives
+    last: two calls on the same inputs give the same bits."""
+    q, kp, vp, tables = _paged_inputs(R, nb, 16, KV, H, Dh, torch.bfloat16,
+                                      torch.bfloat16, seed=11)
+    lengths = torch.tensor(([nb * 16 - 7, nb * 16, 300, 1000] * R)[:R],
+                           dtype=torch.int32).cuda()
+    first = pa.paged_attention(q, kp, vp, tables, lengths)
+    for _ in range(3):
+        assert torch.equal(pa.paged_attention(q, kp, vp, tables, lengths),
+                           first)
 
 
 def test_paged_kernel_fp32_queries_over_bf16_pools(cuda):
-    """fp32 compute over the engine's bf16 pools: the kernel keeps q and
-    the probabilities in fp32, the gather path rounds both to bf16."""
+    """fp32 compute over the engine's bf16 pools: the kernel, as the
+    gather path, rounds the scaled q and the probabilities to bf16."""
     q, kp, vp, tables = _paged_inputs(4, 5, 16, 2, 4, 128, torch.float32,
                                       torch.bfloat16, seed=3)
     lengths = torch.tensor([1, 30, 80, 81]).cuda()
     got = pa.paged_attention(q, kp, vp, tables, lengths)
     want = ref.paged_attention_ref(q, kp, vp, tables, lengths)
     assert got.dtype == torch.float32
-    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got, want, atol=2 ** -7, rtol=2 ** -7)
 
 
 def test_paged_kernel_empty_row_is_zero_and_strided_q(cuda):
@@ -355,7 +455,7 @@ def test_paged_kernel_empty_row_is_zero_and_strided_q(cuda):
 @pytest.mark.parametrize("case,err", [
     ("float16", TypeError), ("head_dim_96", ValueError),
     ("block_128", ValueError), ("strided_pool", ValueError),
-    ("two_tokens", ValueError)])
+    ("two_tokens", ValueError), ("misaligned_pool", ValueError)])
 def test_paged_kernel_refuses_what_it_does_not_take(cuda, case, err):
     q, kp, vp, tables = _paged_inputs(2, 2, 8, 1, 2, 64, torch.float32,
                                       torch.float32, seed=5)
@@ -369,6 +469,9 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda, case, err):
         kp = vp = torch.zeros((5, 128, 1, 64), device="cuda")
     elif case == "strided_pool":
         kp = torch.zeros((5, 8, 2, 64), device="cuda")[:, :, :1]
+    elif case == "misaligned_pool":      # contiguous, 4 bytes off 16
+        kp = torch.zeros((5 * 8 * 64 + 1,), device="cuda")[1:].reshape(
+            5, 8, 1, 64)
     else:
         q = q.expand(-1, 2, -1, -1)
     before = pa.launches
