@@ -65,9 +65,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    engine decoding through the gather path, the same requests on a
    simulated clock: tokens equal and logits within 1e-3 over fp32
    pools, tokens equal over the serving dtype's bf16 pools (their logit
-   difference printed beside PR 14's 0.271; above 0.05 the first decode
-   layer whose MoE input or output departs is traced and printed), the
-   launches one per layer per decode step;
+   difference printed beside PR 14's 0.271 and beside the gather path
+   run twice; above 0.05 the first decode layer whose MoE input or
+   output departs is traced and printed), the launches one per layer per
+   decode step;
 4. serving through ``repro_torch.launch.serve`` at full width, bf16, each
    path with every launch count zeroed just before it and read just
    after: smollm-135m, mamba2-130m, zamba2-2.7b (full depth: 54 SSM
@@ -791,6 +792,11 @@ def phase_paged_kernel():
                 for dt in (torch.float32, torch.bfloat16):
                     cases.append((dict(R=3, H=4, KV=2, D=D, bs=4, T=12),
                                   lens, window, dt))
+    # one split: a table of one pool block, and R * KV filling the card
+    for s in (dict(R=4, H=4, KV=2, D=80, bs=16, T=16),
+              dict(R=33, H=16, KV=16, D=128, bs=16, T=32)):
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((s, tuple(([5, 16, 40, 100] * 9)[:s["R"]]), 0, dt))
     for arch, s in PAGED_SERVE_SHAPES.items():
         T = s["T"]
         lens = tuple(([T - 64, T, T + 100, 3 * T + 5, 1, 200] * 2)[:s["R"]])
@@ -811,8 +817,8 @@ def phase_paged_kernel():
                           f"{s} lengths {lens}")
         max_err[dt] = max(max_err[dt], err)
     log(f"[2d] paged_attention: {len(cases)} cases (head dims 64/80/128, "
-        f"windows 0/6, partial/full/wrapped views, the 3 serving shapes, "
-        f"the splits' edges), max|err| f32 {max_err[torch.float32]:.3g} "
+        f"windows 0/6, partial/full/wrapped views, one split, the 3 serving "
+        f"shapes, the splits' edges), max|err| f32 {max_err[torch.float32]:.3g} "
         f"(tol 2e-5), bf16 {max_err[torch.bfloat16]:.3g} (tol 2**-7)")
     # sharp scores (q and K x 8) at the serving shapes: fp32 q and P (the
     # TPU kernel's rounding) would miss the gather path by 4 tolerances
@@ -916,11 +922,12 @@ def moe_engine_run(api, params, attn_impl, pool_dtype, trace=None):
     api = dataclasses.replace(
         api, decode_step=record,
         init_cache=functools.partial(api.init_cache, dtype=pool_dtype))
-    trace = synthetic_trace(6, rate_rps=20.0, vocab=api.cfg.vocab_size,
-                            prompt_lens=(128, 256, 512), max_new=8, seed=0)
+    requests = synthetic_trace(6, rate_rps=20.0, vocab=api.cfg.vocab_size,
+                               prompt_lens=(128, 256, 512), max_new=8,
+                               seed=0)
     engine = ServeEngine(api, params, max_active=4, view_len=528,
                          block_size=16, attn_impl=attn_impl)
-    sched = Scheduler(trace, max_active=4, token_budget=4 * 528)
+    sched = Scheduler(requests, max_active=4, token_budget=4 * 528)
     pa.launches = 0
     if trace is not None:
         moe_model.moe_block = traced_moe
@@ -1029,12 +1036,20 @@ def phase_moe_model():
                                      f"differs from the gather path: tokens "
                                      f"equal {same}, logits {ldiff}")
             if pool_dtype == torch.bfloat16:
-                # the kernel rounds q and P where the gather path does
+                # the kernel rounds q and P where the gather path does; the
+                # gather path run again gives the run-to-run floor (the
+                # MoE combine's index_add_ sums with atomics)
+                _, xl2, _, _ = moe_engine_run(kern, params, "xla", pool_dtype)
+                floor = max(((a - b)[:, valid].abs().max().item()
+                             for a, b in zip(xl, xl2) if a.shape == b.shape),
+                            default=float("inf"))
+                out[f"engine_{name}"]["gather_vs_gather_logit_diff"] = floor
                 log(f"    bf16 pools: logits max|diff| {ldiff:.3g} (PR 14, "
                     f"before the kernel rounded as the gather path: "
-                    f"{BF16_LOGIT_DIFF_PR14})")
+                    f"{BF16_LOGIT_DIFF_PR14}); the gather path against "
+                    f"itself {floor:.3g}")
                 if ldiff > 0.05:
-                    out["engine_bf16"]["first_departure"] = \
+                    out[f"engine_{name}"]["first_departure"] = \
                         trace_moe_departure(kern, params, cfg.num_layers)
                 if not (same and len(kl) == len(xl)):
                     raise AssertionError(f"olmoe engine over bf16 pools "

@@ -337,6 +337,8 @@ def _off_by(got, want, tol):
     (4, 33, 16, 32, 32, 80),      # zamba2 serving, view 528
     (4, 33, 16, 16, 16, 128),     # olmoe serving, view 528
     (2, 2, 64, 1, 5, 128),        # block size 64, group 5
+    (4, 1, 16, 2, 4, 80),         # one pool block: one split
+    (33, 2, 16, 16, 16, 128),     # R*KV fills the card alone: one split
 ])
 def test_paged_kernel_matches_plain(cuda, dtype, window, R, nb, bs, KV, H,
                                     Dh):
