@@ -5,7 +5,7 @@ and no JAX: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Elsewhere every test skips: a CUDA kernel
 has no CPU mode (its arithmetic is held against the reference on the CPU
 through ``flash_attention_plain``, ``ssd_chunked_plain``,
-``segment_combine_plain`` and ``ref.paged_attention_ref``, in
+``segment_combine_plain`` and ``paged_attention_split_plain``, in
 ``tests/test_torch_kernels.py``, ``tests/test_torch_ssm.py``,
 ``tests/test_torch_collectives.py`` and
 ``tests/test_torch_paged_attention.py``).
