@@ -91,11 +91,28 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    trials, the exhaustive tuner's table printed, saved and loaded back,
    with the launch counts gathered from the ranks (zeroed just before the
    tuning run, read just after: every reducing algorithm launches the
-   kernel exactly as its schedule says); then smollm-135m's whole fp32
-   gradient, counted from the port's model, all-reduced through the
-   tuned choice and through ``"xla"`` (gloo's all-reduce), each held
-   against the oracle sum and timed;
-7. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
+   kernel exactly as its schedule says); then a gradient of
+   smollm-135m's parameter count (one fp32 leaf) synced through the
+   Communicator built from the table just tuned, on a ``("data",)``
+   mesh, and through ``"xla"`` (gloo's all-reduce), each held against
+   the float64 oracle mean and timed, with its launches held to its
+   plan's;
+7. the tuned Communicator over smollm-135m's whole fp32 gradient tree
+   (the port's per-layer layout, leaves drawn from a seed), through
+   ``measure_collectives --grad-arch smollm-135m``: (a) a 2x2
+   ``("pod", "data")`` mesh of 4 ranks with
+   ``examples/artifacts/hierarchical_decision.json``, per leaf, the
+   sync tiers probed first; (b) a 2x2x2 ``("dcn", "pod", "data")`` mesh
+   of 8 ranks with ``hierarchical_decision_3level.json``, per leaf and
+   bucketed and pipelined at the artifact's own 8 MB schedule; (c)
+   ``"xla"`` on both meshes. Each variant is held against the float64
+   oracle mean at 2e-4, its ``explain_gradients`` against the spans a
+   `TraceRecorder` recorded, and its ``segment_combine`` launches
+   (zeroed just before it, read just after, summed over the ranks)
+   against what its plan's reduce phases imply; the bucketed result is
+   held to each bucket's own sequential composition bit for bit and to
+   the per-leaf result at 2e-4; every variant is timed;
+8. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
 the port is not beside this file, or when any phase fails.
@@ -1305,27 +1322,56 @@ def phase_breakdown(arch, B, S):
 
 
 def expected_combines(op, key, p):
-    """segment_combine launches of one run of ``key`` summed over the p
-    ranks, from its schedule: ring g(p-1) per rank and segment count g,
-    recursive doubling and Rabenseifner log2(p) per rank, the binomial
-    reduce of reduce_bcast p-1 (the receiving ranks only), a synthesized
-    program its reduce steps per rank, allgather_reduce none (it sums
-    with an add of its own)."""
-    from repro_torch.core.collectives import synth
+    """segment_combine launches of one run of ``key`` ("algorithm/
+    segments") summed over the p ranks, from its schedule
+    (``measure_collectives.combines_per_rank``: ring g(p-1) per rank and
+    segment count g, recursive doubling and Rabenseifner log2(p) per
+    rank, the binomial reduce of reduce_bcast p-1 in all, a synthesized
+    program its reduce steps per rank, allgather_reduce none; broadcast
+    and all-gather none)."""
+    from repro_torch.launch import measure_collectives as mc
     algo, segs = key.rsplit("/", 1)
-    k = p.bit_length() - 1
-    if op != "all_reduce" or algo == "allgather_reduce":
-        return 0
-    if algo == "ring":
-        return p * int(segs) * (p - 1)
-    if algo in ("recursive_doubling", "rabenseifner"):
-        return p * k
-    if algo == "reduce_bcast":
-        return p - 1
-    if algo.startswith("synth:"):
-        prog = synth.get_program(op, algo[len("synth:"):], p)
-        return p * sum(1 for st in prog.steps if st.reduce)
-    raise AssertionError(f"no launch count for {op} {algo}")
+    return int(p * mc.combines_per_rank(op, algo, int(segs), p))
+
+
+def check_grad_sync(gs, world, tag):
+    """The launcher's gradient-sync variants, held again here: the
+    oracle error within 2e-4, the recorded spans equal to the plan, the
+    traced run's bits equal to the untraced one's, and the launches,
+    summed over the ``world`` ranks, equal to the runs times what the
+    plan's phases imply (recounted here entry by entry). Returns the
+    launch counts by path."""
+    from repro_torch.launch import measure_collectives as mc
+    paths = {}
+    for label, v in gs["variants"].items():
+        per_run = 0
+        for key, n in v["plan"].items():
+            op, algo, segs, p = key.split("/")
+            per_run += n * world // int(p) * expected_combines(
+                op, f"{algo}/{segs}", int(p))
+        got = v["launches"]["segment_combine"]
+        log(f"    {tag} {label}: {v['plan_entries']} plan entries "
+            f"({v['describe']}), s per run "
+            f"{' '.join(f'{t:.4f}' for t in v['seconds'])}, max|err| vs "
+            f"the float64 mean {v['max_abs_err']:.3g}; segment_combine "
+            f"{got} over {v['runs']} runs, plan {per_run} a run"
+            + (f"; {v['buckets_bit_equal']}/{v['buckets']} buckets "
+               f"bit-equal to their sequential composition, "
+               f"{v['vs_per_leaf_max_abs']:.3g} from per leaf"
+               if "buckets" in v else ""))
+        log(f"      rank 0's traced run {v['recorded_s']:.4f} s, in its "
+            f"collectives: " + ", ".join(
+                f"{k} {t:.4f}" for k, t in sorted(v["span_s"].items())))
+        if not (v["max_abs_err"] <= mc.GRAD_TOL and v["plan_matches_spans"]
+                and v["trace_bits_equal"] and per_run == v["plan_combines"]
+                and got == v["runs"] * per_run
+                and v["launches"]["flash_attention"] == 0
+                and v["launches"]["ssd_chunk"] == 0
+                and v.get("buckets_bit_equal") == v.get("buckets")
+                and v.get("vs_per_leaf_max_abs", 0.0) <= mc.GRAD_TOL):
+            raise AssertionError(f"{tag} {label}: {v}")
+        paths[f"{tag}_{label}"] = v["launches"]
+    return paths
 
 
 def gradient_elems():
@@ -1414,24 +1460,74 @@ def phase_collectives(ranks=RANKS):
         f"{table.meta.backend}, {len(table.meta.programs or ())} programs")
 
     gs = res["grad_sync"]
-    for label in ("tuned", "xla"):
-        g = gs[label]
-        log(f"    gradient all-reduce {label} ({g['algorithm']}/s"
-            f"{g['segments']}), {gs['elems']} fp32 elements "
-            f"({gs['bytes'] / 1e6:.1f} MB): "
-            f"{' '.join(f'{t:.4f}' for t in g['seconds'])} s, max|err| "
-            f"vs oracle {g['max_abs_err']:.3g}; launches {g['launches']}")
-    if gs["tuned"]["launches"]["segment_combine"] != gs["tuned"]["runs"] \
-            * expected_combines("all_reduce", f"{gs['tuned']['algorithm']}/"
-                                f"{gs['tuned']['segments']}", ranks):
-        raise AssertionError(f"gradient launches {gs['tuned']['launches']}")
+    log(f"    gradient sync through the Communicator, mesh {gs['mesh']}, "
+        f"{gs['elems']} fp32 elements ({gs['bytes'] / 1e6:.1f} MB)")
+    if gs["mesh"] != {"data": ranks} or list(gs["variants"]) != \
+            ["per_leaf", "xla"]:
+        raise AssertionError(f"gradient sync ran {gs['mesh']} "
+                             f"{list(gs['variants'])}")
+    paths = check_grad_sync(gs, ranks, "grad_sync")
     log(f"    {wall:.1f}s with set-up")
     res["wall_s"] = wall
-    paths = {"measure_collectives_tune": res["launches"],
-             "measure_collectives_check": chk["launches"],
-             "grad_sync_tuned": gs["tuned"]["launches"],
-             "grad_sync_xla": gs["xla"]["launches"]}
+    paths.update({"measure_collectives_tune": res["launches"],
+                  "measure_collectives_check": chk["launches"]})
     return res, paths
+
+
+#: the Communicator phase: (path, topology, committed artifact, variants)
+COMMUNICATOR_PATHS = (
+    ("comm_2x2", "2x2", "hierarchical_decision.json",
+     ["per_leaf", "xla"]),
+    ("comm_2x2x2", "2x2x2", "hierarchical_decision_3level.json",
+     ["per_leaf", "bucketed", "xla"]),
+)
+
+
+def phase_communicator(n_params):
+    """smollm-135m's whole fp32 gradient tree (``n_params`` elements, as
+    [6] counted them) through the tuned Communicator on the 2x2 and
+    2x2x2 meshes (``measure_collectives --tuning-table``), each variant
+    checked and timed; returns the results and the launch counts by
+    path."""
+    from repro_torch.launch import measure_collectives as mc
+    out, paths = {}, {}
+    for tag, topo, artifact, variants in COMMUNICATOR_PATHS:
+        argv = ["--topology", topo, "--tuning-table",
+                os.path.join(ROOT, "examples", "artifacts", artifact),
+                "--grad-arch", "smollm-135m"]
+        if topo == "2x2":
+            argv.append("--probe-fabric")
+        log(f"[7] measure_collectives {' '.join(argv)}")
+        t0 = time.perf_counter()
+        res = mc.main(argv)
+        wall = time.perf_counter() - t0
+        gs = res["grad_sync"]
+        world = 1
+        for n in gs["mesh"].values():
+            world *= n
+        if res["device"] != "cuda:0" or res["ranks"] != world or \
+                list(gs["variants"]) != variants or gs["arch"] != \
+                "smollm-135m" or gs["elems"] != n_params:
+            raise AssertionError(f"{tag}: ran {res['device']} x "
+                                 f"{res['ranks']}, {gs['elems']} elements, "
+                                 f"variants {list(gs['variants'])}")
+        if "probed" in res:
+            for line in res["probed"].splitlines():
+                log(f"    {line}")
+        log(f"    {tag}: mesh {gs['mesh']}, {gs['leaves']} leaves, "
+            f"{gs['elems']} fp32 elements ({gs['bytes'] / 1e6:.1f} MB); "
+            f"{gs['describe']}")
+        paths.update(check_grad_sync(gs, world, tag))
+        log(f"    {wall:.1f}s with set-up")
+        out[tag] = {"wall_s": wall, "mesh": gs["mesh"],
+                    "leaves": gs["leaves"], "probed": res.get("probed"),
+                    "variants": {k: {kk: v[kk] for kk in (
+                        "seconds", "max_abs_err", "plan_entries",
+                        "plan_combines", "runs", "launches", "buckets",
+                        "vs_per_leaf_max_abs", "recorded_s", "span_s")
+                        if kk in v}
+                        for k, v in gs["variants"].items()}}
+    return out, paths
 
 
 def main() -> int:
@@ -1474,9 +1570,11 @@ def main() -> int:
                  "zamba2-2.7b": phase_breakdown("zamba2-2.7b", 4, 512),
                  "olmoe-1b-7b": phase_breakdown("olmoe-1b-7b", 4, 512)}
     coll, coll_paths = phase_collectives()
-    for path, counts in coll_paths.items():
+    comm, comm_paths = phase_communicator(coll["grad_sync"]["elems"])
+    for path, counts in {**coll_paths, **comm_paths}.items():
         for name, n in counts.items():
-            if n:
+            # every gradient-sync path is listed for the combine, 0 too
+            if n or (name == "segment_combine" and path in comm_paths):
                 kernels[name]["launches_by_path"][path] = n
     # the collectives path's launches: its tuning run
     kernels["segment_combine"]["launches"] = \
@@ -1488,7 +1586,8 @@ def main() -> int:
                       "breakdown": breakdown, "serving": serving,
                       "collectives": {k: coll[k] for k in (
                           "best", "grad_sync", "tune_seconds", "wall_s",
-                          "samples", "penalty", "fronts")}}))
+                          "samples", "penalty", "fronts")},
+                      "communicator": comm}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

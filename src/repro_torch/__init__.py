@@ -10,9 +10,15 @@ counterpart is easy to find:
                    sources in ``csrc/``) and the ``ops`` dispatch;
   * ``models``   — layers, the dense, SSM and hybrid models, ``build_model``;
   * ``core``     — the collective algorithms on a ``torch.distributed``
-                   group (``collectives``, with the rank transport
-                   ``collectives/group.py``), the analytical base models
-                   and the tuning core (``tuning``);
+                   group (``collectives``, with the rank transport and
+                   the mesh of ranks ``collectives/group.py``, and the
+                   N-level and pipelined compositions), the cost models
+                   (``analytical``), the tuning core (``tuning``) and the
+                   topology model and artifacts (``topology``);
+  * ``comms``    — the tuned ``Communicator`` and its requests, plans,
+                   buckets and probe;
+  * ``obs``      — trace spans and counters;
+  * ``pytree``   — trees of tensors flattened as ``jax.tree`` flattens;
   * ``bridge``   — the JAX package's numpy params -> the port's modules;
   * ``serve``    — paged KV, the continuous-batching scheduler, the engine;
   * ``launch``   — ``python -m repro_torch.launch.serve`` and

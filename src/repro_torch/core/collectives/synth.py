@@ -1,11 +1,7 @@
 """Schedule synthesis for collectives at concrete fan-outs (survey §6).
 
 A copy of ``repro/core/collectives/synth.py`` (numpy search over
-programs, the registry and ``runner``). One change: a front entry is
-priced by ``program_cost``, the number the reference's
-``hierarchy.modeled_phase_cost`` closure returns for a pinned
-``synth:`` method, since ``core/analytical/hierarchy.py`` is not ported
-yet. The reference's text follows.
+programs, the registry and ``runner``). The reference's text follows.
 
 SCCL-style synthesis reduced to the rotation-symmetric step-program IR
 of ``program.py``: for a concrete fan-out ``p`` we enumerate the k-step
@@ -282,16 +278,17 @@ def synthesize_front(op: str, p: int, *,
     """Enumerate, verify, price, and pareto-filter the families at
     (op, p).
 
-    Pricing is ``program_cost``: the reference prices through
-    ``hierarchy.modeled_phase_cost`` with the candidate pinned as the
-    level method, and with a pinned ``synth:`` method that closure
-    reduces to ``collective_cost`` -> ``program_cost``, so this gives the
-    reference's number without the hierarchy module (not ported yet).
-    The front is non-dominated in
+    Pricing goes through ``hierarchy.modeled_phase_cost`` — literally
+    the closure the tuners and telemetry residuals consume — with the
+    candidate pinned as the level method, so a synthesized schedule is
+    costed by the exact machinery that will later rank it against the
+    hand-written menu.  The front is non-dominated in
     (steps, wire chunks, combine chunks); the closure's cost is a
     positive combination of exactly those three axes, so front
     membership is "best somewhere" over (message size, gamma).
     """
+    from repro_torch.core.analytical.hierarchy import modeled_phase_cost
+
     verified: Dict[str, Program] = {}
     for name, prog in sorted(families(op, p).items()):
         try:
@@ -308,7 +305,9 @@ def synthesize_front(op: str, p: int, *,
 
     entries = []
     for name, prog in verified.items():
-        cost = program_cost(op, name, model, p, float(nbytes), gamma=gamma)
+        phase_cost = modeled_phase_cost(
+            [(p, model)], {(0, op): (SYNTH_PREFIX + name, 1)}, gamma=gamma)
+        cost, _ = phase_cost(0, op, nbytes)
         entries.append(FrontEntry(prog, prog.n_steps, prog.wire_chunks,
                                   prog.reduce_chunks, cost))
 

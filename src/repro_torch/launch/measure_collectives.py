@@ -1,7 +1,10 @@
-"""Measure the port's collective algorithms for real and tune from the
-measurements (port of ``examples/measure_real_collectives.py``).
+"""Measure the port's collective algorithms for real, tune from the
+measurements (port of ``examples/measure_real_collectives.py``), and
+sync a gradient through the tuned `Communicator` (the gradient sync of
+the reference's ``launch/train.py``, with its flags).
 
-Spawns ``--ranks`` processes under one ``gloo`` group. Each rank holds
+Spawns ``--ranks`` processes (or the product of ``--topology``) under
+one ``gloo`` group. Each rank holds
 its buffers on the card (``cuda:0``; ``--device cpu``: the host),
 registers the synthesized schedule fronts at p = ranks, and runs the same
 ``TuningSession`` in lockstep: a ``DeviceBackend`` times every
@@ -20,31 +23,54 @@ Options beyond the reference's example:
   * ``--check``: before tuning, hold every algorithm of ``ALGORITHMS``
     and every synthesized program family at p against the oracle
     (sum, concatenation, root's value) at 4 MB and at an odd size;
-  * ``--grad-elems N``: after tuning, all-reduce an N-element fp32
-    gradient through the table's choice and through ``"xla"`` (the
-    backend's all-reduce), each held against the oracle sum and timed.
+  * the gradient sync, with ``--grad-arch ARCH`` (that model's whole
+    parameter tree in the port's layout; ``--reduced`` for its reduced
+    config) or ``--grad-elems N`` (one flat fp32 leaf); each rank draws
+    its leaves from a seed. The mesh is ``--topology SPEC``'s (``2x2``:
+    ``("pod", "data")``, ``2x2x2``: ``("dcn", "pod", "data")``) or one
+    ``("data",)`` axis over ``--ranks``. The Communicator is built from
+    ``--tuning-table PATH`` (and the tuning sweep is skipped) or from
+    the table just tuned. It syncs per leaf, bucketed (``--bucket-mb``,
+    or the artifact's tuned schedule) and through ``"xla"`` (gloo's
+    built-ins); each variant is held against the float64 oracle mean at
+    ``GRAD_TOL``, its recorded spans against ``explain_gradients``, and
+    timed (``GRAD_TRIALS`` runs, the slowest rank's seconds), with its
+    ``segment_combine`` launches summed over the ranks beside the count
+    its plan implies (`plan_combines`);
+  * ``--probe-fabric``: probe every sync tier of the mesh and print the
+    fitted (host-staged) profiles.
 
 Examples:
     python -m repro_torch.launch.measure_collectives
     python -m repro_torch.launch.measure_collectives --device cpu \\
         --ranks 2 --sizes 4096 65536 --trials 1 --out /tmp/t.json
+    python -m repro_torch.launch.measure_collectives --topology 2x2 \\
+        --tuning-table examples/artifacts/hierarchical_decision.json \\
+        --grad-arch smollm-135m
 """
 from __future__ import annotations
 
 import argparse
 import time
+from fractions import Fraction
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import pytree
+from repro_torch.comms import Communicator
+from repro_torch.comms.probe import describe_topology, probe_mesh_topology
 from repro_torch.core.collectives import algorithms as alg
 from repro_torch.core.collectives import group as grp
 from repro_torch.core.collectives import synth
 from repro_torch.core.collectives.dispatch import CollectiveSpec, \
     apply_collective
-from repro_torch.core.tuning import DecisionTable, TuningSession, make_tuner
+from repro_torch.core.collectives.hierarchical import multilevel_all_reduce
+from repro_torch.core.topology import Topology
+from repro_torch.core.tuning import TuningSession, make_tuner
 from repro_torch.core.tuning.executor import DeviceBackend
 from repro_torch.kernels import attention, segment_reduce, ssd_scan
+from repro_torch.obs import TraceRecorder
 
 #: the reference example's message sizes plus 64 MB, the top of
 #: ``MESSAGE_SIZES`` and a gradient bucket's size
@@ -157,100 +183,334 @@ def check_algorithms(device) -> dict:
     return {"max_abs_err": errs, "launches": _sum_over_ranks(_counts())}
 
 
-def grad_sync(table: DecisionTable, n: int, device, trials: int = 3) -> dict:
-    """Run inside every rank: all-reduce an n-element fp32 gradient
-    through the table's choice at its size and through ``"xla"``; each is
-    held against the oracle sum and timed like a probe (barrier, run,
-    synchronize; the slowest rank's time)."""
-    p, r = grp.size(), grp.rank()
-    xs = _inputs(n, p, device, seed=1)
-    want = _oracle_sum(xs)
-    x = xs[r]
-    del xs
-    nbytes = 4 * n
-    meth = table.decide("all_reduce", p, nbytes)
-    out = {"elems": n, "bytes": nbytes}
-    for label, spec in (("tuned", CollectiveSpec(meth.algorithm,
-                                                 meth.segments)),
-                        ("xla", CollectiveSpec("xla", 1))):
-        _zero_counts()
-        got = apply_collective("all_reduce", x, None, p, spec)
-        err = grp.max_over_ranks([_err(got, want)])[0]
-        if not err <= 1e-5 * (1 + want.abs().max().item()):
-            raise AssertionError(f"{label} gradient all-reduce off the "
-                                 f"oracle by {err}")
-        del got
-        times = []
-        for _ in range(trials):
-            grp.barrier()
-            t0 = time.perf_counter()
-            apply_collective("all_reduce", x, None, p, spec)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            times.append(time.perf_counter() - t0)
-        out[label] = {"algorithm": spec.algorithm, "segments": spec.segments,
-                      "max_abs_err": err, "runs": 1 + trials,
-                      "seconds": grp.max_over_ranks(times),
-                      "launches": _sum_over_ranks(_counts())}
+# ---------------------------------------------------------------------------
+# gradient sync through the Communicator
+# ---------------------------------------------------------------------------
+#: hierarchical sums against the float64 oracle mean
+#: (tests/helpers/validate_communicator.py)
+GRAD_TOL = 2e-4
+#: timed runs of each gradient-sync variant, after its traced first run
+GRAD_TRIALS = 2
+
+
+def combines_per_rank(op: str, algorithm: str, segments: int, p: int
+                      ) -> int:
+    """``segment_combine`` calls one rank makes in one run of ``op`` by
+    ``algorithm`` at fan-out p, from its schedule (the binomial reduce of
+    ``reduce_bcast``: the mean over the p ranks, p-1 in all)."""
+    k = p.bit_length() - 1
+    if op not in ("all_reduce", "reduce_scatter") or p < 2 or \
+            algorithm in ("xla", "allgather_reduce"):
+        return 0
+    if algorithm.startswith("synth:"):
+        prog = synth._dispatch_program(op, algorithm[len("synth:"):], p)
+        return sum(1 for st in prog.steps if st.reduce)
+    per = {("all_reduce", "ring"): segments * (p - 1),
+           ("all_reduce", "recursive_doubling"): k,
+           ("all_reduce", "rabenseifner"): k,
+           ("all_reduce", "reduce_bcast"): Fraction(p - 1, p),
+           ("reduce_scatter", "ring"): p - 1,
+           ("reduce_scatter", "recursive_halving"): k}
+    if (op, algorithm) not in per:
+        raise KeyError(f"no combine count for {op} {algorithm}")
+    return per[(op, algorithm)]
+
+
+def plan_combines(report, world: int) -> int:
+    """``segment_combine`` launches that one run of a gradient-sync plan
+    implies, summed over the ``world`` ranks: every entry runs in every
+    rank (each in its own sub-group along the entry's axis)."""
+    total = sum(combines_per_rank(e.request.op, e.spec.algorithm,
+                                  e.spec.segments, e.request.axis_size)
+                for e in report.entries)
+    return int(total * world)
+
+
+def mesh_spec(topology, ranks: int):
+    """(shape, axis names) of the launch mesh: the topology's levels,
+    outermost first, on the sync axes (``("pod", "data")`` for ``2x2``);
+    without a topology one ``("data",)`` axis over the ranks."""
+    if topology is None:
+        return (ranks,), ("data",)
+    levels = list(reversed(topology.levels))
+    return tuple(lv.size for lv in levels), tuple(lv.axis for lv in levels)
+
+
+def _gradient_structure(arch, reduced, n, device):
+    """Shapes of the synced gradient: ``arch``'s parameter tree in the
+    port's layout (per-layer dicts), or one flat (n,) leaf."""
+    if not arch:
+        return {"grad": pytree.LeafStruct((n,), torch.float32)}
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    with torch.inference_mode():
+        params = build_model(cfg, device=device.type).init(
+            torch.Generator(device=device).manual_seed(0))
+    struct = pytree.tree_map(
+        lambda t: pytree.LeafStruct(tuple(t.shape), torch.float32), params)
+    del params
+    return struct
+
+
+def _draw(struct, device, seed: int, r: int):
+    """Rank r's gradient: every leaf from N(0, 1), drawn in tree order
+    from one generator seeded by (seed, r), on the device."""
+    gen = torch.Generator(device=device).manual_seed(seed * 100003 + r)
+    return pytree.tree_map(lambda s: torch.randn(
+        s.shape, generator=gen, device=device, dtype=s.dtype), struct)
+
+
+def _oracle_err(out, struct, device, seed: int, p: int) -> float:
+    """max |out - mean over ranks| with the mean in float64, leaf by
+    leaf: each rank's leaves are drawn again from its generator."""
+    gens = [torch.Generator(device=device).manual_seed(seed * 100003 + j)
+            for j in range(p)]
+    err = 0.0
+    for got, s in zip(pytree.leaves(out), pytree.leaves(struct)):
+        acc = torch.zeros(s.shape, dtype=torch.float64, device=device)
+        for g in gens:
+            acc += torch.randn(s.shape, generator=g, device=device,
+                               dtype=s.dtype).double()
+        if tuple(got.shape) != tuple(s.shape) or not \
+                torch.isfinite(got).all():
+            raise AssertionError(f"leaf {tuple(got.shape)} off its "
+                                 f"shape {s.shape} or not finite")
+        if got.numel():
+            err = max(err, (got.double() - acc / p).abs().max().item())
+    return err
+
+
+def _max_diff(a, b) -> float:
+    return max(((x.double() - y.double()).abs().max().item()
+                for x, y in zip(pytree.leaves(a), pytree.leaves(b))
+                if x.numel()), default=0.0)
+
+
+def _bits_equal(a, b) -> bool:
+    return all(torch.equal(x, y)
+               for x, y in zip(pytree.leaves(a), pytree.leaves(b)))
+
+
+def _plan_counts(report) -> dict:
+    """The plan's entries counted by ``op/algorithm/segments/p``."""
+    out = {}
+    for e in report.entries:
+        key = (f"{e.request.op}/{e.spec.algorithm}/{e.spec.segments}/"
+               f"{e.request.axis_size}")
+        out[key] = out.get(key, 0) + 1
     return out
 
 
-def _rank_main(sizes, trials, out_path, device, check, grad_elems):
+def _spans_match(report, spans) -> bool:
+    """The plan's dispatched entries (every entry but the flat path's
+    psum tops) equal the recorded spans, entry for entry."""
+    planned = [(e.request.op, e.request.nbytes, e.request.axis,
+                e.request.axis_size, e.spec.algorithm, e.spec.segments,
+                e.bucket, e.step)
+               for e in report.entries if e.source != "psum"]
+    recorded = [(s.op, s.nbytes, s.axis, s.axis_size, s.algorithm,
+                 s.segments, s.bucket, s.step) for s in spans]
+    return planned == recorded
+
+
+def _bucket_check(comm, grads, out) -> list:
+    """Each fusion bucket of the bucketed sync's result against its own
+    sequential composition (``multilevel_all_reduce``, psum tops for a
+    flat policy, the mean): [bit-equal?] per bucket."""
+    layout, active, _, axes, _, keys, hier = comm._bucket_plan(
+        grads, comm.bucket_bytes)
+    flats_in, flats_out = layout.flatten(grads), layout.flatten(out)
+    denom = comm._data_parallel_size()
+    equal = []
+    for i in active:
+        seq = multilevel_all_reduce(flats_in[i], comm._levels_for(axes),
+                                    comm, level_keys=keys)
+        if not hier:
+            for outer in comm._sync_axes[1:]:
+                seq = grp.psum(seq, comm.mesh.axis(outer))
+        equal.append(torch.equal(seq / denom, flats_out[i]))
+    return equal
+
+
+def grad_sync(mesh, artifact, struct, device, *, bucket_bytes=None,
+              trials: int = GRAD_TRIALS, seed: int = 1) -> dict:
+    """Run inside every rank: sync this rank's gradient (``struct``'s
+    shapes, drawn from (seed, rank)) through the Communicator built from
+    ``artifact`` on ``mesh``, per leaf, bucketed (when the artifact's
+    schedule or ``bucket_bytes`` gives a budget) and through ``"xla"``.
+    Each variant's first run records its spans (rank 0 reports their
+    seconds by op and axis beside the run's wall time) and is held
+    against the float64 oracle mean and its plan; then ``trials`` timed runs
+    (barrier, run, synchronize; the slowest rank's time), the first of
+    which must give the recorded run's bits. The bucketed variant's
+    buckets are held bit-equal to their sequential compositions and its
+    result to the per-leaf one."""
+    p = grp.size()
+    grads = _draw(struct, device, seed, grp.rank())
+    comm = Communicator.create(mesh, artifact=artifact,
+                               bucket_bytes=bucket_bytes)
+    variants = {"per_leaf": Communicator.create(mesh, artifact=artifact,
+                                                bucket_bytes=0)}
+    if comm.bucket_bytes:
+        variants["bucketed"] = comm
+    variants["xla"] = Communicator.create(mesh)
+    leaves = pytree.leaves(grads)
+    out = {"elems": sum(t.numel() for t in leaves), "leaves": len(leaves),
+           "bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "mesh": dict(mesh.shape), "describe": comm.describe(),
+           "variants": {}}
+    kept = None
+    for label, c in variants.items():
+        plan = c.explain_gradients(grads)
+        v = {"describe": c.describe(), "bucket_bytes": c.bucket_bytes,
+             "plan_entries": len(plan), "plan": _plan_counts(plan),
+             "plan_combines": plan_combines(plan, p), "runs": 1 + trials}
+        _zero_counts()
+        c.trace = TraceRecorder()
+        t0 = time.perf_counter()
+        recorded = c.sync_gradients(grads)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        v["recorded_s"] = time.perf_counter() - t0
+        spans = c.trace.collective_spans()
+        c.trace = None
+        # where this rank's recorded run went, by op and axis
+        v["span_s"] = {}
+        for sp in spans:
+            key = f"{sp.op}@{sp.axis}"
+            v["span_s"][key] = v["span_s"].get(key, 0.0) + sp.seconds
+        times = []
+        for i in range(trials):
+            grp.barrier()
+            t0 = time.perf_counter()
+            res = c.sync_gradients(grads)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                v["trace_bits_equal"] = grp.max_over_ranks(
+                    [float(not _bits_equal(res, recorded))])[0] == 0
+            del res
+        v["launches"] = _sum_over_ranks(_counts())
+        v["seconds"] = grp.max_over_ranks(times)
+        v["spans"] = len(spans)
+        v["plan_matches_spans"] = _spans_match(plan, spans)
+        v["max_abs_err"] = grp.max_over_ranks(
+            [_oracle_err(recorded, struct, device, seed, p)])[0]
+        if label == "bucketed":
+            eq = _bucket_check(c, grads, recorded)
+            v["buckets"] = len(eq)
+            v["buckets_bit_equal"] = -int(grp.max_over_ranks(
+                [-sum(eq)])[0])
+            v["vs_per_leaf_max_abs"] = grp.max_over_ranks(
+                [_max_diff(recorded, kept)])[0]
+            kept = None
+        if label == "per_leaf" and "bucketed" in variants:
+            kept = recorded
+        del recorded
+        ok = (v["max_abs_err"] <= GRAD_TOL and v["plan_matches_spans"]
+              and v["trace_bits_equal"]
+              and v.get("buckets_bit_equal", 0) == v.get("buckets", 0)
+              and v.get("vs_per_leaf_max_abs", 0.0) <= GRAD_TOL)
+        if not ok:
+            raise AssertionError(f"gradient sync {label} failed its "
+                                 f"checks: {v}")
+        out["variants"][label] = v
+    return out
+
+
+def _rank_main(opts: dict):
     """The whole run inside one rank; rank 0's return value is the
     result."""
-    device = grp.device_of(device)
+    device = grp.device_of(opts["device"])
     p = grp.size()
     res = {"ranks": p, "device": str(device),
            "device_name": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu")}
-    if check:
+    if opts["check"]:
         res["check"] = check_algorithms(device)
 
-    fronts = synth.synthesize_all(OPS, (p,))
-    backend = DeviceBackend(device=device)
-    session = TuningSession(backend, trials=trials)
-    _zero_counts()
-    t0 = time.perf_counter()
-    rep = session.fit_all([make_tuner("exhaustive", OPS, (p,), sizes)])[0]
-    res["tune_seconds"] = time.perf_counter() - t0
-    res["launches"] = _sum_over_ranks(_counts())
-    res["launches_by_method"] = _sum_over_ranks(
-        {"/".join(map(str, k)): v for k, v in backend.launches.items()})
-    res["runs_by_method"] = _sum_over_ranks(
-        {"/".join(map(str, k)): v for k, v in backend.runs.items()})
-    if grad_elems:
-        res["grad_sync"] = grad_sync(rep.table, grad_elems, device)
-    if grp.rank() != 0:
-        return None
-    rep.table.save(out_path)
-    res.update(
-        fronts={f"{op}@{q}": list(v) for (op, q), v in fronts.items()},
-        samples=len(session), n_experiments=rep.n_experiments,
-        penalty=rep.penalty, backend=rep.table.meta.backend,
-        out=out_path,
-        best=[(op, m, meth.algorithm, meth.segments, t)
-              for (op, _, m), (meth, t) in sorted(
-                  session.dataset().best().items())],
-        means={"/".join(map(str, k)): t
-               for k, t in session.dataset().mean_times().items()})
-    return res
+    artifact = opts["tuning_table"]
+    if artifact is None:
+        fronts = synth.synthesize_all(OPS, (p,))
+        backend = DeviceBackend(device=device)
+        session = TuningSession(backend, trials=opts["trials"])
+        _zero_counts()
+        t0 = time.perf_counter()
+        rep = session.fit_all([make_tuner("exhaustive", OPS, (p,),
+                                          opts["sizes"])])[0]
+        res["tune_seconds"] = time.perf_counter() - t0
+        res["launches"] = _sum_over_ranks(_counts())
+        res["launches_by_method"] = _sum_over_ranks(
+            {"/".join(map(str, k)): v for k, v in backend.launches.items()})
+        res["runs_by_method"] = _sum_over_ranks(
+            {"/".join(map(str, k)): v for k, v in backend.runs.items()})
+        artifact = rep.table
+        if grp.rank() == 0:
+            rep.table.save(opts["out"])
+            res.update(
+                fronts={f"{op}@{q}": list(v) for (op, q), v in fronts.items()},
+                samples=len(session), n_experiments=rep.n_experiments,
+                penalty=rep.penalty, backend=rep.table.meta.backend,
+                out=opts["out"],
+                best=[(op, m, meth.algorithm, meth.segments, t)
+                      for (op, _, m), (meth, t) in sorted(
+                          session.dataset().best().items())],
+                means={"/".join(map(str, k)): t for k, t in
+                       session.dataset().mean_times().items()})
+    if opts["grad_arch"] or opts["grad_elems"]:
+        mesh = grp.RankMesh(opts["mesh_shape"], opts["mesh_axes"],
+                            device=device)
+        if opts["probe_fabric"]:
+            res["probed"] = describe_topology(probe_mesh_topology(mesh))
+        struct = _gradient_structure(opts["grad_arch"], opts["reduced"],
+                                     opts["grad_elems"], device)
+        res["grad_sync"] = grad_sync(
+            mesh, artifact, struct, device, bucket_bytes=opts["bucket_bytes"],
+            trials=GRAD_TRIALS)
+        res["grad_sync"]["arch"] = opts["grad_arch"]
+        res["grad_sync"]["artifact"] = opts["tuning_table"] or "tuned"
+    return res if grp.rank() == 0 else None
 
 
 def print_table(res: dict) -> None:
     where = res["device_name"] + (", payloads staged through the host"
                                   if res["device"].startswith("cuda") else "")
-    print(f"measured {res['samples']} samples on {res['ranks']} ranks "
-          f"({where}; {res['n_experiments']} experiments, penalty "
-          f"{res['penalty'] * 100:.2f}%)")
-    print(f"{'op':12s} {'bytes':>9s} {'winner':>22s} {'us':>9s}")
-    for op, m, a, s, t in res["best"]:
-        print(f"{op:12s} {m:9d} {a:>18s}/s{s} {t * 1e6:9.1f}")
-    print(f"-> {res['out']} (backend={res['backend']})")
+    if "best" in res:
+        print(f"measured {res['samples']} samples on {res['ranks']} ranks "
+              f"({where}; {res['n_experiments']} experiments, penalty "
+              f"{res['penalty'] * 100:.2f}%)")
+        print(f"{'op':12s} {'bytes':>9s} {'winner':>22s} {'us':>9s}")
+        for op, m, a, s, t in res["best"]:
+            print(f"{op:12s} {m:9d} {a:>18s}/s{s} {t * 1e6:9.1f}")
+        print(f"-> {res['out']} (backend={res['backend']})")
+    if "probed" in res:
+        print(res["probed"])
+    gs = res.get("grad_sync")
+    if gs:
+        print(f"gradient sync on {res['ranks']} ranks ({where}), mesh "
+              f"{gs['mesh']}, {gs['leaves']} leaves, {gs['elems']} fp32 "
+              f"elements ({gs['bytes'] / 1e6:.1f} MB), artifact "
+              f"{gs['artifact']}: {gs['describe']}")
+        for label, v in gs["variants"].items():
+            print(f"  {label:9s} {v['plan_entries']:6d} entries, s per "
+                  f"trial {' '.join(f'{t:.4f}' for t in v['seconds'])}, "
+                  f"max|err| vs the float64 mean {v['max_abs_err']:.3g}, "
+                  f"segment_combine {v['launches']['segment_combine']} "
+                  f"launches over {v['runs']} runs (plan: "
+                  f"{v['plan_combines']} a run); rank 0's traced run "
+                  f"{v['recorded_s']:.4f} s, in collectives "
+                  + ", ".join(f"{k} {t:.4f}" for k, t in
+                              sorted(v["span_s"].items())))
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--ranks", type=int, default=4,
+                    help="ranks without --topology")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--sizes", nargs="+", type=int, default=list(SIZES),
                     help="message sizes in bytes")
@@ -258,19 +518,45 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default="device_measured_decision.json")
     ap.add_argument("--check", action="store_true",
                     help="hold every algorithm against the oracle first")
+    ap.add_argument("--tuning-table", default=None,
+                    help="build the Communicator from this artifact and "
+                         "skip the tuning sweep")
+    ap.add_argument("--topology", default=None,
+                    help="mesh spec, outermost first (2x2, 2x2x2): the "
+                         "ranks are its product, the axes the sync tiers")
+    ap.add_argument("--bucket-mb", type=float, default=None,
+                    help="fusion-bucket budget for the bucketed sync "
+                         "(default: the artifact's tuned schedule)")
+    ap.add_argument("--grad-arch", default=None,
+                    help="sync this model's whole gradient tree")
+    ap.add_argument("--reduced", action="store_true",
+                    help="with --grad-arch: the model's reduced config")
     ap.add_argument("--grad-elems", type=int, default=0,
-                    help="all-reduce a gradient of this many fp32 "
-                         "elements through the tuned choice and 'xla'")
+                    help="sync one flat gradient of this many fp32 "
+                         "elements (without --grad-arch)")
+    ap.add_argument("--probe-fabric", action="store_true",
+                    help="probe every sync tier of the mesh and print "
+                         "the fitted profiles")
     args = ap.parse_args(argv)
+    topology = Topology.from_spec(args.topology) if args.topology else None
+    ranks = topology.total_size if topology else args.ranks
+    shape, axes = mesh_spec(topology, ranks)
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass --device cpu to run "
                                "the ranks on the host")
         from repro_torch.kernels import _build
         _build.build_all()      # once, before the ranks load it
-    res = grp.spawn(_rank_main, args.ranks,
-                    (tuple(args.sizes), args.trials, args.out, args.device,
-                     args.check, args.grad_elems))
+    opts = dict(
+        device=args.device, check=args.check, sizes=tuple(args.sizes),
+        trials=args.trials, out=args.out, tuning_table=args.tuning_table,
+        mesh_shape=shape, mesh_axes=axes,
+        bucket_bytes=None if args.bucket_mb is None
+        else int(args.bucket_mb * (1 << 20)),
+        grad_arch=args.grad_arch, reduced=args.reduced,
+        grad_elems=args.grad_elems,
+        probe_fabric=args.probe_fabric)
+    res = grp.spawn(_rank_main, ranks, (opts,))
     print_table(res)
     return res
 

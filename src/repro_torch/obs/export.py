@@ -1,8 +1,9 @@
 """Summary artifact for ``--trace-dir`` (port of ``repro.obs.export.write_summary``).
 
 The reference's document bundles collective counters, a residual rollup
-and launcher extras; the port has no collectives yet, so only the
-extras are written (``counters`` stays None until the collectives slice).
+and launcher extras; the port writes the counters (a
+`repro_torch.obs.MetricsRegistry`, when given) and the extras (the
+residual rollup needs ``obs.residuals``, not ported yet).
 """
 from __future__ import annotations
 

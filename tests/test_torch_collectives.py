@@ -451,8 +451,14 @@ def test_measure_collectives_cpu_table_loads_in_the_reference(tmp_path):
         assert (meth.algorithm, meth.segments) == best[2:4]
     assert tj.meta.programs, "synthesized fronts ride in the artifact"
     assert max(res["check"]["max_abs_err"].values()) <= mc.TOL
-    for label in ("tuned", "xla"):
-        assert res["grad_sync"][label]["max_abs_err"] <= 1e-5
+    # the gradient goes through the Communicator built from the tuned
+    # table (its choice at the gradient's size) and through "xla"
+    variants = res["grad_sync"]["variants"]
+    for label in ("per_leaf", "xla"):
+        assert variants[label]["max_abs_err"] <= 1e-5
+    meth = tj.decide("all_reduce", 2, 4 * 5000)
+    assert variants["per_leaf"]["plan"] == {
+        f"all_reduce/{meth.algorithm}/{meth.segments}/2": 1}
     # CPU tensors take the plain version: no kernel counts a launch
     assert res["launches"] == {"segment_combine": 0, "flash_attention": 0,
                                "ssd_chunk": 0}

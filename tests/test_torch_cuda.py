@@ -304,6 +304,60 @@ def test_two_rank_host_staged_ring_all_reduce_on_the_card(cuda):
                    "rs_equal": True, "rs_launches": 1}
 
 
+def _communicator_on_card(artifact, bucket_bytes, device="cuda"):
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.comms import Communicator
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.launch import measure_collectives as mc
+    dev = grp.device_of(device)
+    mesh = grp.RankMesh((2, 2), ("pod", "data"), device=dev)
+    comm = Communicator.create(mesh, artifact=artifact,
+                               bucket_bytes=bucket_bytes)
+    shapes = {"w": (33, 7), "b": (5,), "emb": (1000, 64), "ln": (64,)}
+
+    def tree(r):
+        g = torch.Generator().manual_seed(100 + r)
+        return {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    mine = pytree.tree_map(lambda t: t.to(dev), tree(grp.rank()))
+    segment_reduce.launches = 0
+    out = comm.sync_gradients(mine)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = [None] * grp.size()
+    dist.all_gather_object(launches, segment_reduce.launches)
+    # the same sync over host tensors: the kernels' plain versions
+    host = comm.sync_gradients(tree(grp.rank()))
+    mean = {k: sum(tree(j)[k].double() for j in range(4)) / 4
+            for k in shapes}
+    err = max((out[k].double().cpu() - mean[k]).abs().max().item()
+              for k in shapes)
+    return {"launches": sum(launches),
+            "plan": mc.plan_combines(comm.explain_gradients(mine), 4),
+            "device": out["w"].device.type, "err": err,
+            "plain_bits": all(torch.equal(out[k].cpu(), host[k])
+                              for k in shapes)}
+
+
+@pytest.mark.parametrize("bucket_bytes", [0, 4096])
+def test_communicator_sync_on_the_card_launches_as_its_plan(cuda,
+                                                            bucket_bytes):
+    """A 2x2 ("pod", "data") mesh of four ranks on the card, the
+    hierarchical artifact, per leaf and bucketed: every reduce step of
+    every reduce-scatter and all-reduce phase is one kernel launch (the
+    launches summed over the ranks equal what the plan implies), the
+    result is the mean within the reference's 2e-4 for hierarchical
+    sums, and it has the bits of the same sync over host tensors."""
+    import os
+    from repro_torch.core.collectives import group as grp
+    artifact = os.path.join(os.path.dirname(__file__), "..", "examples",
+                            "artifacts", "hierarchical_decision.json")
+    res = grp.spawn(_communicator_on_card, 4, (artifact, bucket_bytes))
+    assert res["device"] == "cuda" and res["plan"] > 0
+    assert res["launches"] == res["plan"]
+    assert res["err"] <= 2e-4 and res["plain_bits"]
+
+
 # ---------------------------------------------------------------------------
 # the paged decode attention kernel
 # ---------------------------------------------------------------------------
