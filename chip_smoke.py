@@ -97,6 +97,15 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    mesh, and through ``"xla"`` (gloo's all-reduce), each held against
    the float64 oracle mean and timed, with its launches held to its
    plan's;
+   b. every tuner family of ``core.tuning.TUNERS``
+   (``measure_collectives --tuners all``, 4 ranks, [6]'s ops and sizes)
+   fitted over one measured session: per family its new experiments,
+   cache hits, empirical penalty, seconds and ``segment_combine``
+   launches (zeroed just before its fit, read just after, summed over
+   the ranks): a family that only refits the cache launches nothing,
+   and every family's launches (STAR's and feedback's fresh samples)
+   equal what its runs' schedules imply; every rank ends with the same
+   table for every family;
 7. the tuned Communicator over smollm-135m's whole fp32 gradient tree
    (the port's per-layer layout, leaves drawn from a seed), through
    ``measure_collectives --grad-arch smollm-135m``: (a) a 2x2
@@ -111,7 +120,15 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    (zeroed just before it, read just after, summed over the ranks)
    against what its plan's reduce phases imply; the bucketed result is
    held to each bucket's own sequential composition bit for bit and to
-   the per-leaf result at 2e-4; every variant is timed;
+   the per-leaf result at 2e-4; every variant is timed; (d) [7b]'s tree
+   and artifact with a tuned mesh mapping stamped into every level's
+   meta (the first non-identity candidate of ``enumerate_mappings`` on
+   2x2x2, written to a temporary file): the Communicator rebuilds the
+   mesh in the mapping's rank order, every rank is checked at its
+   ``device_order`` slot and ``describe()`` names the mapping; each
+   variant checked as in (b), the bucketed one timed beside (b)'s; then
+   ``tune_topology(2x2x2, tune_mapping=True)`` on the simulator and its
+   winner's summary;
 8. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
@@ -1483,51 +1500,206 @@ COMMUNICATOR_PATHS = (
 )
 
 
-def phase_communicator(n_params):
-    """smollm-135m's whole fp32 gradient tree (``n_params`` elements, as
-    [6] counted them) through the tuned Communicator on the 2x2 and
-    2x2x2 meshes (``measure_collectives --tuning-table``), each variant
-    checked and timed; returns the results and the launch counts by
-    path."""
+def communicator_run(tag, topo, artifact, variants, n_params, probe=False):
+    """One ``measure_collectives --tuning-table`` run of smollm-135m's
+    whole fp32 gradient tree (``n_params`` elements, as [6] counted
+    them) on the ``topo`` mesh, each variant checked; returns the
+    launcher's gradient-sync result, its summary and the launch counts
+    by path."""
     from repro_torch.launch import measure_collectives as mc
+    argv = ["--topology", topo, "--tuning-table", artifact,
+            "--grad-arch", "smollm-135m"]
+    if probe:
+        argv.append("--probe-fabric")
+    log(f"[7] measure_collectives {' '.join(argv)}")
+    t0 = time.perf_counter()
+    res = mc.main(argv)
+    wall = time.perf_counter() - t0
+    gs = res["grad_sync"]
+    world = 1
+    for n in gs["mesh"].values():
+        world *= n
+    if res["device"] != "cuda:0" or res["ranks"] != world or \
+            list(gs["variants"]) != variants or gs["arch"] != \
+            "smollm-135m" or gs["elems"] != n_params:
+        raise AssertionError(f"{tag}: ran {res['device']} x "
+                             f"{res['ranks']}, {gs['elems']} elements, "
+                             f"variants {list(gs['variants'])}")
+    if "probed" in res:
+        for line in res["probed"].splitlines():
+            log(f"    {line}")
+    log(f"    {tag}: mesh {gs['mesh']}, {gs['leaves']} leaves, "
+        f"{gs['elems']} fp32 elements ({gs['bytes'] / 1e6:.1f} MB); "
+        f"{gs['describe']}; slot -> rank {gs['slots']}")
+    paths = check_grad_sync(gs, world, tag)
+    log(f"    {wall:.1f}s with set-up")
+    summary = {"wall_s": wall, "mesh": gs["mesh"], "leaves": gs["leaves"],
+               "probed": res.get("probed"), "slots": gs["slots"],
+               "mapping": gs["mapping"],
+               "variants": {k: {kk: v[kk] for kk in (
+                   "seconds", "max_abs_err", "plan_entries",
+                   "plan_combines", "runs", "launches", "buckets",
+                   "vs_per_leaf_max_abs", "recorded_s", "span_s")
+                   if kk in v}
+                   for k, v in gs["variants"].items()}}
+    return gs, summary, paths
+
+
+def phase_communicator(n_params):
+    """smollm-135m's whole fp32 gradient tree through the tuned
+    Communicator on the 2x2 and 2x2x2 meshes (``measure_collectives
+    --tuning-table``), each variant checked and timed; returns the
+    results and the launch counts by path."""
     out, paths = {}, {}
     for tag, topo, artifact, variants in COMMUNICATOR_PATHS:
-        argv = ["--topology", topo, "--tuning-table",
-                os.path.join(ROOT, "examples", "artifacts", artifact),
-                "--grad-arch", "smollm-135m"]
-        if topo == "2x2":
-            argv.append("--probe-fabric")
-        log(f"[7] measure_collectives {' '.join(argv)}")
+        gs, out[tag], got = communicator_run(
+            tag, topo, os.path.join(ROOT, "examples", "artifacts", artifact),
+            variants, n_params, probe=topo == "2x2")
+        if gs["mapping"] is not None or gs["slots"] != list(range(len(
+                gs["slots"]))):
+            raise AssertionError(f"{tag}: a committed artifact remapped "
+                                 f"the mesh: {gs['slots']}")
+        paths.update(got)
+    return out, paths
+
+
+# ---------------------------------------------------------------------------
+# [6b] every tuner family from the card's measurements
+# ---------------------------------------------------------------------------
+#: the families that measure afresh (``session.fresh_sample``)
+ADAPTIVE_TUNERS = ("star", "feedback")
+
+
+def phase_tuners(ranks=RANKS):
+    """``measure_collectives --tuners all`` at ``ranks`` processes on the
+    card, over [6]'s ops and sizes: every family fitted over the one
+    measured session, each with its launch counts zeroed just before its
+    fit and read just after. Returns the per-family results and the
+    launch counts by path."""
+    import tempfile
+    from repro_torch.core.tuning import TUNERS, DecisionTable
+    from repro_torch.launch import measure_collectives as mc
+    with tempfile.TemporaryDirectory() as d:
+        out_path = os.path.join(d, "tuners_measured_decision.json")
+        argv = ["--ranks", str(ranks), "--tuners", "all", "--out", out_path]
+        log(f"[6b] measure_collectives {' '.join(argv[:-2])}")
         t0 = time.perf_counter()
         res = mc.main(argv)
         wall = time.perf_counter() - t0
-        gs = res["grad_sync"]
-        world = 1
-        for n in gs["mesh"].values():
-            world *= n
-        if res["device"] != "cuda:0" or res["ranks"] != world or \
-                list(gs["variants"]) != variants or gs["arch"] != \
-                "smollm-135m" or gs["elems"] != n_params:
-            raise AssertionError(f"{tag}: ran {res['device']} x "
-                                 f"{res['ranks']}, {gs['elems']} elements, "
-                                 f"variants {list(gs['variants'])}")
-        if "probed" in res:
-            for line in res["probed"].splitlines():
-                log(f"    {line}")
-        log(f"    {tag}: mesh {gs['mesh']}, {gs['leaves']} leaves, "
-            f"{gs['elems']} fp32 elements ({gs['bytes'] / 1e6:.1f} MB); "
-            f"{gs['describe']}")
-        paths.update(check_grad_sync(gs, world, tag))
-        log(f"    {wall:.1f}s with set-up")
-        out[tag] = {"wall_s": wall, "mesh": gs["mesh"],
-                    "leaves": gs["leaves"], "probed": res.get("probed"),
-                    "variants": {k: {kk: v[kk] for kk in (
-                        "seconds", "max_abs_err", "plan_entries",
-                        "plan_combines", "runs", "launches", "buckets",
-                        "vs_per_leaf_max_abs", "recorded_s", "span_s")
-                        if kk in v}
-                        for k, v in gs["variants"].items()}}
-    return out, paths
+        table = DecisionTable.load(out_path)
+    fams = res["families"]
+    if res["device"] != "cuda:0" or res["ranks"] != ranks or \
+            [f["name"] for f in fams] != list(TUNERS) or \
+            table.meta.tuner != res["tuner"] or \
+            table.meta.backend != "DeviceBackend":
+        raise AssertionError(f"[6b] ran {res['device']} x {res['ranks']}, "
+                             f"families {[f['name'] for f in fams]}, "
+                             f"table {table.meta}")
+    log(f"    {res['samples']} samples, {res['n_experiments']} experiments "
+        f"in {res['tune_seconds']:.1f}s (host-staged ranks); sizes "
+        f"{list(mc.SIZES)} B, ops {list(mc.OPS)}")
+    log(f"    {'tuner':14s} {'new exps':>9s} {'cache hits':>11s} "
+        f"{'penalty':>9s} {'seconds':>8s} {'segment_combine':>16s}")
+    paths = {}
+    for f in fams:
+        got = f["launches"]["segment_combine"]
+        want = 0
+        for key, n_runs in f["runs_by_method"].items():
+            op, k = key.split("/", 1)
+            want += n_runs // ranks * expected_combines(op, k, ranks)
+        log(f"    {f['name']:14s} {f['n_experiments']:9d} "
+            f"{f['cache_hits']:11d} {f['penalty'] * 100:8.2f}% "
+            f"{f['seconds']:8.2f} {got:16d}")
+        ok = (f["same_table_on_every_rank"] and got == want
+              and got == sum(f["launches_by_method"].values())
+              and f["launches"]["flash_attention"] == 0
+              and f["launches"]["ssd_chunk"] == 0)
+        if f["n_experiments"] == 0:
+            ok = ok and got == 0 and not f["runs_by_method"]
+        if f["name"] in ADAPTIVE_TUNERS:
+            ok = ok and f["n_experiments"] > 0 and got > 0
+        if not ok:
+            raise AssertionError(f"[6b] {f['name']}: launches {got}, the "
+                                 f"runs' schedules imply {want}: {f}")
+        paths[f"tuner_{f['name']}"] = f["launches"]
+    log(f"    best: {res['tuner']} ({res['penalty'] * 100:.2f}%); every "
+        f"rank ended with the same table for every family; {wall:.1f}s "
+        f"with set-up")
+    return {"wall_s": wall, "tune_seconds": res["tune_seconds"],
+            "samples": res["samples"], "best": res["tuner"],
+            "families": [{k: f[k] for k in (
+                "name", "n_experiments", "cache_hits", "penalty", "seconds",
+                "launches")} for f in fams]}, paths
+
+
+# ---------------------------------------------------------------------------
+# [7d] the gradient tree through a remapped mesh
+# ---------------------------------------------------------------------------
+def mapped_artifact(path):
+    """``hierarchical_decision_3level.json`` with the first non-identity
+    candidate of ``enumerate_mappings`` on 2x2x2 stamped into every
+    level's meta, written to ``path``; returns the mapping."""
+    from repro_torch.core.topology import (
+        HierarchicalDecision, Topology, enumerate_mappings, load_decision)
+    from repro_torch.core.tuning.decision import TableMeta
+    axes, shape = ("dcn", "pod", "data"), (2, 2, 2)
+    remap = next(c for c in enumerate_mappings(
+        Topology.from_spec("2x2x2"), axes, shape) if not c.is_identity)
+    hier = load_decision(os.path.join(
+        ROOT, "examples", "artifacts", "hierarchical_decision_3level.json"))
+    if not isinstance(hier, HierarchicalDecision):
+        raise AssertionError(f"3-level artifact loads as "
+                             f"{type(hier).__name__}")
+    for _, table in hier.levels:
+        if table.meta is None:
+            table.meta = TableMeta()
+        table.meta.mapping = remap.to_json()
+    hier.save(path)
+    return remap
+
+
+def phase_remapped(n_params, identity_bucketed):
+    """[7b]'s tree and artifact through a mesh rebuilt in a mapping's
+    rank order, bucketed at the artifact's schedule, checked as [7]
+    checks; the placement sweep of ``tune_topology`` on the simulator;
+    returns the summary and the launch counts by path."""
+    import tempfile
+    from repro_torch.core.topology import MeshMapping, Topology, tune_topology
+    from repro_torch.core.tuning.space import DECODE_MESSAGE_SIZES
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "mapped_3level.json")
+        remap = mapped_artifact(path)
+        log(f"[7d] 2x2x2 remapped: {remap.summary()}, slot -> rank "
+            f"{list(remap.device_order)}")
+        gs, summary, paths = communicator_run(
+            "comm_2x2x2_mapped", "2x2x2", path,
+            ["per_leaf", "bucketed", "xla"], n_params)
+    if gs["slots"] != list(remap.device_order) or \
+            MeshMapping.from_json(gs["mapping"]) != remap or \
+            f"mapping={remap.summary()}" not in gs["describe"]:
+        raise AssertionError(f"[7d] ran slots {gs['slots']}, mapping "
+                             f"{gs['mapping']}: {gs['describe']}")
+    b = gs["variants"]["bucketed"]
+    log(f"    bucketed through the remapped mesh: s per run "
+        f"{' '.join(f'{t:.4f}' for t in b['seconds'])} beside [7b]'s "
+        f"identity mesh {' '.join(f'{t:.4f}' for t in identity_bucketed)} "
+        f"(host-staged ranks, this call); every rank at its "
+        f"device_order slot")
+    # examples/autotune_collectives.py's grid and gradient-leaf mix
+    ms = tuple(sorted(set(1024 * 4 ** i for i in range(7))
+                      | set(DECODE_MESSAGE_SIZES)))
+    leaf_mix = [4 << 20, 64 << 10, 64 << 10, 16 << 10] * 6
+    t0 = time.perf_counter()
+    hier, _ = tune_topology(Topology.from_spec("2x2x2"), ms=ms,
+                            schedule_leaf_bytes=leaf_mix, tune_mapping=True)
+    winner = MeshMapping.from_json(hier.levels[0][1].meta.mapping)
+    log(f"    tune_topology(2x2x2, tune_mapping=True) on the simulator "
+        f"({time.perf_counter() - t0:.1f}s): {winner.summary()}"
+        + ("; the identity wins, as the reference's "
+           "BENCH_mapping_smoke.json reads for 2x2x2 (vs-identity=1.00x)"
+           if winner.is_identity else ""))
+    summary["tune_topology_winner"] = winner.summary()
+    return summary, paths
 
 
 def main() -> int:
@@ -1570,7 +1742,13 @@ def main() -> int:
                  "zamba2-2.7b": phase_breakdown("zamba2-2.7b", 4, 512),
                  "olmoe-1b-7b": phase_breakdown("olmoe-1b-7b", 4, 512)}
     coll, coll_paths = phase_collectives()
+    tuners, tuner_paths = phase_tuners()
+    coll_paths.update(tuner_paths)
     comm, comm_paths = phase_communicator(coll["grad_sync"]["elems"])
+    comm["comm_2x2x2_mapped"], mapped_paths = phase_remapped(
+        coll["grad_sync"]["elems"],
+        comm["comm_2x2x2"]["variants"]["bucketed"]["seconds"])
+    comm_paths.update(mapped_paths)
     for path, counts in {**coll_paths, **comm_paths}.items():
         for name, n in counts.items():
             # every gradient-sync path is listed for the combine, 0 too
@@ -1587,6 +1765,7 @@ def main() -> int:
                       "collectives": {k: coll[k] for k in (
                           "best", "grad_sync", "tune_seconds", "wall_s",
                           "samples", "penalty", "fronts")},
+                      "tuners": tuners,
                       "communicator": comm}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

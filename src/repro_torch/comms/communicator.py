@@ -12,9 +12,10 @@ plans and trace spans carry axis names, as the reference's do.
 Left out until their ROADMAP.md Queue 1 step (each raises
 ``NotImplementedError`` naming it): the backward-overlapped release path
 (`release_sink`, `sync_gradients_streamed`, ``_sync_release`` and
-``explain_gradients(overlap_backward=True)``; step 9, training), and an
-artifact whose meta carries a mesh mapping (step 5, placement). The
-reference's text follows.
+``explain_gradients(overlap_backward=True)``; step 9, training). An
+artifact whose meta carries a tuned mesh mapping rebuilds the `RankMesh`
+in the mapping's rank order (``MeshMapping.apply``), as the reference
+rebuilds its ``Mesh``. The reference's text follows.
 
 Constructed ONCE per launch, it resolves the whole decision stack that
 call sites used to re-assemble by hand:
@@ -317,8 +318,12 @@ class Communicator:
                  probed=None, probed_topology=None,
                  a2a_algorithm: str = "xla",
                  artifact_path: Optional[str] = None,
-                 bucket_bytes: int = 0, trace=None):
+                 bucket_bytes: int = 0, trace=None, mapping=None):
         self.mesh = mesh
+        #: the artifact's tuned logical→physical `MeshMapping` (already
+        #: applied to ``mesh`` by `create`), or None when the mesh
+        #: stands in default rank order (mapping-free artifacts)
+        self.mapping = mapping
         self.topology = topology
         #: optional `repro_torch.obs.TraceRecorder` — installed around every
         #: dispatch root so traced launches need no explicit scoping
@@ -455,17 +460,37 @@ class Communicator:
             # synth:<name> rows dispatch (each re-passes the verifier)
             from repro_torch.core.collectives import synth
             synth.adopt_programs(carried)
-        if _meta_mapping(policy):
-            raise NotImplementedError(
-                "the artifact carries a tuned mesh mapping; placement "
-                "comes with core/topology/placement.py (ROADMAP.md Queue "
-                "1, step 5)")
+        mapping = None
+        mapdoc = _meta_mapping(policy)
+        if mapdoc:
+            # rebuild the exact mesh the placement sweep priced: same
+            # axes, same shape, the tuned rank order
+            from repro_torch.core.topology.placement import MeshMapping
+            mapping = MeshMapping.from_json(mapdoc)
+            if mesh is not None:
+                if tuple(mesh.axis_names) != mapping.axes:
+                    # a different logical mesh (e.g. a pure-TP ("model",)
+                    # mesh loading a train-tuned artifact): the mapping
+                    # doesn't apply — keep the launch alive
+                    import warnings
+                    warnings.warn(
+                        f"artifact's mesh mapping targets axes "
+                        f"{mapping.axes} but this launch built "
+                        f"{tuple(mesh.axis_names)}; leaving the mesh "
+                        "in default device order", RuntimeWarning,
+                        stacklevel=2)
+                    mapping = None
+                else:
+                    # same axes but a different machine size is a real
+                    # misconfiguration — apply() raises naming both
+                    mesh = mapping.apply(mesh)
         if trace is True:
             trace = obs_trace.TraceRecorder()
         return cls(mesh, policy=policy, topology=topology, probed=probed,
                    probed_topology=probed_topology,
                    a2a_algorithm=a2a_algorithm, artifact_path=path,
-                   bucket_bytes=bucket_bytes, trace=trace)
+                   bucket_bytes=bucket_bytes, trace=trace,
+                   mapping=mapping)
 
     @classmethod
     def from_config(cls, coll, mesh=None, *, topology=None,
@@ -501,6 +526,8 @@ class Communicator:
             d += f", a2a={self._a2a}"
         if self.bucket_bytes:
             d += f", bucket_bytes={self.bucket_bytes}"
+        if self.mapping is not None:
+            d += f", mapping={self.mapping.summary()}"
         return d
 
     # -- decision resolution ------------------------------------------------
@@ -621,13 +648,21 @@ class Communicator:
             return self._composition_entries(req)
         return [self._resolve(req)]
 
+    def _mapping_header(self) -> Optional[str]:
+        """The plan-report context line a placement-tuned artifact adds:
+        which physical layout the rendered decisions assume."""
+        return None if self.mapping is None \
+            else f"mesh mapping: {self.mapping.summary()}"
+
     def explain(self, requests: Sequence[CollectiveRequest]) -> PlanReport:
         """Resolve requests through the exact lookup path the executing
-        ops use; renders the per-leaf {algorithm, segments, level} plan."""
+        ops use; renders the per-leaf {algorithm, segments, level} plan
+        (headed by the active mesh mapping when the artifact carries
+        one)."""
         entries: List[PlanEntry] = []
         for req in requests:
             entries.extend(self.plan(req))
-        return PlanReport(entries)
+        return PlanReport(entries, self._mapping_header())
 
     def gradient_requests(self, tree) -> List[CollectiveRequest]:
         """One request per gradient leaf, shaped the way `sync_gradients`
@@ -691,6 +726,8 @@ class Communicator:
         report = self._explain_gradients_plan(
             tree, bucket_bytes=bucket_bytes,
             overlap_backward=overlap_backward)
+        report = dataclasses.replace(report,
+                                     header=self._mapping_header())
         if measured is not None:
             spans = getattr(measured, "spans", measured)
             report = report.with_measured(spans)

@@ -27,10 +27,15 @@ Mesh axes. The reference's ``Mesh`` names its axes and ``shard_map``
 runs a collective over one of them. `RankMesh` is the port's
 counterpart: built inside every rank after ``init_process_group``, it
 lays the ranks out row-major over the axis names (rank ``r`` holds what
-device ``r`` of the reference's mesh holds) and keeps, for each axis,
-this rank's ``gloo`` sub-group of the ranks that differ only along that
-axis, as an `Axis` (name, group, size). Every function here takes an
-`Axis`, a process group, or ``None`` (the default group).
+device ``r`` of the reference's mesh holds), or in a tuned
+``device_order`` (flat slot ``i`` holds rank ``device_order[i]``, as a
+mapped mesh's ``mesh.devices``), and keeps, for each axis, this rank's
+``gloo`` sub-group of the ranks that differ only along that axis, as an
+`Axis` (name, group, size, slot order). An axis index is the rank's
+coordinate along the axis, whatever its global rank: ``rank(axis)``,
+``ppermute``'s pairs and the order of ``all_gather`` and ``all_to_all``
+blocks all count in it. Every function here takes an `Axis`, a process
+group, or ``None`` (the default group).
 """
 from __future__ import annotations
 
@@ -54,19 +59,29 @@ TIMEOUT_S = 600.0
 @dataclasses.dataclass(frozen=True, eq=False)
 class Axis:
     """One mesh axis as this rank sees it: the axis name, the ``gloo``
-    sub-group of the ranks along it, and its size."""
+    sub-group of the ranks along it, and its size. ``order[i]`` is the
+    group rank at axis index ``i`` where the two differ (a mapped mesh:
+    a ``gloo`` group numbers its members by global rank), else None."""
 
     name: str
     group: object
     size: int
+    order: Optional[Tuple[int, ...]] = None
 
 
 def _pg(group):
     return group.group if isinstance(group, Axis) else group
 
 
+def _order(group) -> Optional[Tuple[int, ...]]:
+    return group.order if isinstance(group, Axis) else None
+
+
 def rank(group=None) -> int:
-    return dist.get_rank(_pg(group))
+    """This rank's index along ``group`` (its axis coordinate)."""
+    r = dist.get_rank(_pg(group))
+    order = _order(group)
+    return r if order is None else order.index(r)
 
 
 def size(group=None) -> int:
@@ -78,7 +93,11 @@ def barrier(group=None) -> None:
 
 
 def _peer(group, r: int) -> int:
-    return r if group is None else dist.get_global_rank(group, r)
+    """The global rank at index ``r`` along ``group``."""
+    order = _order(group)
+    r = r if order is None else order[r]
+    pg = _pg(group)
+    return r if pg is None else dist.get_global_rank(pg, r)
 
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:
@@ -97,7 +116,6 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
         raise ValueError(f"ppermute sources and destinations must be "
                          f"unique: {list(perm)}")
-    group = _pg(group)
     r = rank(group)
     send_to = [d for s, d in perm if s == r]
     recv_from = [s for s, d in perm if d == r]
@@ -110,11 +128,11 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
         payload = x.detach().contiguous() if x.device.type == "cpu" \
             else x.detach().to("cpu")
         ops.append(dist.P2POp(dist.isend, payload, _peer(group, send_to[0]),
-                              group))
+                              _pg(group)))
     if recv_from:
         buf = torch.empty(x.shape, dtype=x.dtype)
         ops.append(dist.P2POp(dist.irecv, buf, _peer(group, recv_from[0]),
-                              group))
+                              _pg(group)))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     if not recv_from:
@@ -134,6 +152,9 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     buf = _to_host(x)
     parts = [torch.empty_like(buf) for _ in range(size(group))]
     dist.all_gather(parts, buf, group=_pg(group))
+    order = _order(group)
+    if order is not None:                     # group rank -> axis order
+        parts = [parts[g] for g in order]
     return torch.cat(parts, dim=0).to(x.device)
 
 
@@ -142,8 +163,16 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     j goes to rank j, and the received blocks are stacked in rank order
     (``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
     buf = _to_host(x)
+    order = _order(group)
+    if order is not None:          # block j goes to group rank order[j]
+        blocks = buf.chunk(len(order))
+        inv = [order.index(g) for g in range(len(order))]
+        buf = torch.cat([blocks[j] for j in inv])
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=_pg(group))
+    if order is not None:          # received in group-rank order
+        blocks = out.chunk(len(order))
+        out = torch.cat([blocks[g] for g in order])
     return out.to(x.device)
 
 
@@ -158,8 +187,10 @@ def max_over_ranks(values: Sequence[float], group=None) -> list:
 # the mesh of ranks
 # ---------------------------------------------------------------------------
 class RankMesh:
-    """The ranks of the default group laid out row-major over named axes
-    (the reference's ``Mesh``; ``shape`` and ``axis_names`` read alike).
+    """The ranks of the default group laid out over named axes (the
+    reference's ``Mesh``; ``shape`` and ``axis_names`` read alike):
+    row-major, or flat slot ``i`` holding rank ``device_order[i]`` (a
+    tuned `MeshMapping`'s order, the mapped mesh's ``mesh.devices``).
 
     Creating one is collective: every rank of the default group must
     build the same mesh, in the same order as any other mesh, because
@@ -168,7 +199,8 @@ class RankMesh:
     buffers (``group.device_of``), for code that makes its own."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
-                 device=None, timeout_s: float = TIMEOUT_S):
+                 device=None, timeout_s: float = TIMEOUT_S,
+                 device_order: Optional[Sequence[int]] = None):
         shape = tuple(int(s) for s in shape)
         axis_names = tuple(axis_names)
         if len(shape) != len(axis_names) or len(set(axis_names)) != \
@@ -179,12 +211,18 @@ class RankMesh:
         if int(np.prod(shape)) != world:
             raise ValueError(f"mesh {shape} needs {int(np.prod(shape))} "
                              f"ranks, the group has {world}")
+        order = np.arange(world) if device_order is None \
+            else np.asarray([int(r) for r in device_order])
+        if sorted(order.tolist()) != list(range(world)):
+            raise ValueError(f"device_order must be a permutation of "
+                             f"0..{world - 1}; got {list(order)}")
         self.axis_names = axis_names
         self.shape = collections.OrderedDict(zip(axis_names, shape))
         #: global rank at each mesh coordinate (the reference's
         #: ``mesh.devices``)
-        self.ranks = np.arange(world).reshape(shape)
+        self.ranks = order.reshape(shape)
         self.device = device
+        self.timeout_s = timeout_s
         me = rank()
         timeout = datetime.timedelta(seconds=timeout_s)
         self._axes = {}
@@ -193,7 +231,12 @@ class RankMesh:
             for line in lines:                    # every rank, same order
                 pg = dist.new_group(line.tolist(), timeout=timeout)
                 if me in line:
-                    self._axes[name] = Axis(name, pg, shape[i])
+                    groups = tuple(dist.get_group_rank(pg, int(g))
+                                   for g in line)
+                    self._axes[name] = Axis(
+                        name, pg, shape[i],
+                        None if groups == tuple(range(shape[i]))
+                        else groups)
 
     def axis(self, name: str) -> Axis:
         """This rank's sub-group along ``name``."""

@@ -1,11 +1,14 @@
 """The tuning core (port of ``repro.core.tuning``).
 
-``space``, ``decision``, ``simulator``, ``session``, ``exhaustive`` and
-``heuristic`` are copies of the reference's numpy modules; artifact JSON
+``space``, ``decision``, ``simulator``, ``session``, ``exhaustive``,
+``heuristic`` and the modules of every other tuner family
+(``preprocess``, ``regression``, ``ann``, ``ensemble``,
+``decision_tree``, ``quadtree``, ``octree``, ``star``, ``feedback``,
+``umtac``) are copies of the reference's numpy modules; artifact JSON
 keeps its format, so a table written by either package loads in the
 other. ``executor`` adds a PyTorch ``DeviceBackend`` that times the
 port's algorithms inside every rank of a process group. ``tuners`` has
-the tuners whose modules are ported.
+all twelve of the reference's tuners.
 """
 from repro_torch.core.tuning.decision import (
     DecisionTable,

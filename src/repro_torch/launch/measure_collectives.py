@@ -9,10 +9,15 @@ its buffers on the card (``cuda:0``; ``--device cpu``: the host),
 registers the synthesized schedule fronts at p = ranks, and runs the same
 ``TuningSession`` in lockstep: a ``DeviceBackend`` times every
 (algorithm, segments) candidate of each op at each message size (a trial
-is the slowest rank's time), and the exhaustive tuner fits a
-``DecisionTable`` on those measurements. Rank 0 prints the measured
-winners (op, bytes, winner, us) and saves the table in the reference's
-format, which ``repro.core.tuning.DecisionTable.load`` reads too.
+is the slowest rank's time), and the tuner families ``--tuners`` names
+(the exhaustive one by default) fit a ``DecisionTable`` each on those
+measurements, over the one shared cache, as the reference's
+``examples/autotune_collectives.py`` fits them over its simulator. Rank
+0 prints the measured winners (op, bytes, winner, us) and, per family,
+its new experiments, cache hits, empirical penalty, seconds and
+``segment_combine`` launches, and saves the best table in the
+reference's format, which ``repro.core.tuning.DecisionTable.load``
+reads too.
 
 Every reduce step on the card runs the hand-written ``segment_combine``
 kernel. Payloads cross between the ranks through host memory
@@ -30,13 +35,16 @@ Options beyond the reference's example:
     ``("pod", "data")``, ``2x2x2``: ``("dcn", "pod", "data")``) or one
     ``("data",)`` axis over ``--ranks``. The Communicator is built from
     ``--tuning-table PATH`` (and the tuning sweep is skipped) or from
-    the table just tuned. It syncs per leaf, bucketed (``--bucket-mb``,
-    or the artifact's tuned schedule) and through ``"xla"`` (gloo's
-    built-ins); each variant is held against the float64 oracle mean at
-    ``GRAD_TOL``, its recorded spans against ``explain_gradients``, and
-    timed (``GRAD_TRIALS`` runs, the slowest rank's seconds), with its
-    ``segment_combine`` launches summed over the ranks beside the count
-    its plan implies (`plan_combines`);
+    the best table just tuned; an artifact that carries a tuned mesh
+    mapping rebuilds the mesh in the mapping's rank order, and the
+    launcher reports the slot -> rank order it ran with. It syncs per
+    leaf, bucketed (``--bucket-mb``, or the artifact's tuned schedule)
+    and through ``"xla"`` (gloo's built-ins); each variant is held
+    against the float64 oracle mean at ``GRAD_TOL``, its recorded spans
+    against ``explain_gradients``, and timed (``GRAD_TRIALS`` runs, the
+    slowest rank's seconds), with its ``segment_combine`` launches
+    summed over the ranks beside the count its plan implies
+    (`plan_combines`);
   * ``--probe-fabric``: probe every sync tier of the mesh and print the
     fitted (host-staged) profiles.
 
@@ -44,6 +52,7 @@ Examples:
     python -m repro_torch.launch.measure_collectives
     python -m repro_torch.launch.measure_collectives --device cpu \\
         --ranks 2 --sizes 4096 65536 --trials 1 --out /tmp/t.json
+    python -m repro_torch.launch.measure_collectives --tuners all
     python -m repro_torch.launch.measure_collectives --topology 2x2 \\
         --tuning-table examples/artifacts/hierarchical_decision.json \\
         --grad-arch smollm-135m
@@ -51,6 +60,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from fractions import Fraction
 
@@ -67,7 +77,8 @@ from repro_torch.core.collectives.dispatch import CollectiveSpec, \
     apply_collective
 from repro_torch.core.collectives.hierarchical import multilevel_all_reduce
 from repro_torch.core.topology import Topology
-from repro_torch.core.tuning import TuningSession, make_tuner
+from repro_torch.core.tuning import TUNERS, TuningSession, make_tuner
+from repro_torch.core.tuning.decision import rows_to_json
 from repro_torch.core.tuning.executor import DeviceBackend
 from repro_torch.kernels import attention, segment_reduce, ssd_scan
 from repro_torch.obs import TraceRecorder
@@ -335,6 +346,22 @@ def _bucket_check(comm, grads, out) -> list:
     return equal
 
 
+def _slots(mesh) -> list:
+    """The rank at each flat mesh slot, as the ranks see it: each rank
+    gathers its index along every axis (``group.rank``), so a slot
+    holds the rank whose indices name it."""
+    coords = [grp.rank(mesh.axis(a)) for a in mesh.axis_names]
+    parts = [None] * grp.size()
+    dist.all_gather_object(parts, coords)
+    slots = [None] * grp.size()
+    for r, c in enumerate(parts):
+        i = 0
+        for a, k in zip(mesh.axis_names, c):
+            i = i * mesh.shape[a] + k
+        slots[i] = r
+    return slots
+
+
 def grad_sync(mesh, artifact, struct, device, *, bucket_bytes=None,
               trials: int = GRAD_TRIALS, seed: int = 1) -> dict:
     """Run inside every rank: sync this rank's gradient (``struct``'s
@@ -352,16 +379,19 @@ def grad_sync(mesh, artifact, struct, device, *, bucket_bytes=None,
     grads = _draw(struct, device, seed, grp.rank())
     comm = Communicator.create(mesh, artifact=artifact,
                                bucket_bytes=bucket_bytes)
-    variants = {"per_leaf": Communicator.create(mesh, artifact=artifact,
+    # an artifact's tuned mapping rebuilt the mesh: every variant runs on
+    # the rebuilt one
+    variants = {"per_leaf": Communicator.create(comm.mesh, artifact=artifact,
                                                 bucket_bytes=0)}
     if comm.bucket_bytes:
         variants["bucketed"] = comm
-    variants["xla"] = Communicator.create(mesh)
+    variants["xla"] = Communicator.create(comm.mesh)
     leaves = pytree.leaves(grads)
     out = {"elems": sum(t.numel() for t in leaves), "leaves": len(leaves),
            "bytes": sum(t.numel() * t.element_size() for t in leaves),
            "mesh": dict(mesh.shape), "describe": comm.describe(),
-           "variants": {}}
+           "mapping": comm.mapping.to_json() if comm.mapping else None,
+           "slots": _slots(comm.mesh), "variants": {}}
     kept = None
     for label, c in variants.items():
         plan = c.explain_gradients(grads)
@@ -422,6 +452,83 @@ def grad_sync(mesh, artifact, struct, device, *, bucket_bytes=None,
     return out
 
 
+class _Counted:
+    """A tuner whose fit is bracketed by the launch counts: zeroed just
+    before it, read just after, with the backend's runs and launches by
+    (op, algorithm, segments) that the fit added (its fresh samples)."""
+
+    def __init__(self, tuner, backend: DeviceBackend):
+        self.tuner, self.backend = tuner, backend
+        self.name = tuner.name
+
+    def fit(self, session):
+        runs0, launches0 = dict(self.backend.runs), \
+            dict(self.backend.launches)
+        _zero_counts()
+        table = self.tuner.fit(session)
+        self.launches = _counts()
+
+        def added(now, before):
+            return {"/".join(map(str, k)): v - before.get(k, 0)
+                    for k, v in now.items() if v != before.get(k, 0)}
+        self.runs = added(self.backend.runs, runs0)
+        self.launches_by_method = added(self.backend.launches, launches0)
+        return table
+
+
+def _table_text(table) -> str:
+    """A table's artifact JSON (meta and rows), for comparing ranks."""
+    return json.dumps({"meta": table.meta.to_json() if table.meta else None,
+                       "rows": rows_to_json(table.table)}, sort_keys=True)
+
+
+def tune(device, tuners, sizes, trials: int) -> dict:
+    """Run inside every rank: fit each of ``tuners`` (registry names)
+    over one measured `TuningSession` at p = ranks, the ops ``OPS`` at
+    ``sizes``. Returns the best report's table and, per family, its
+    report and launch counts summed over the ranks, and whether every
+    rank ended with the same table."""
+    p = grp.size()
+    fronts = synth.synthesize_all(OPS, (p,))
+    backend = DeviceBackend(device=device)
+    session = TuningSession(backend, trials=trials)
+    counted = [_Counted(make_tuner(n, OPS, (p,), sizes), backend)
+               for n in tuners]
+    t0 = time.perf_counter()
+    reps = session.fit_all(counted)
+    out = {"tune_seconds": time.perf_counter() - t0, "families": []}
+    total = {}
+    for c, rep in zip(counted, reps):
+        launches = _sum_over_ranks(c.launches)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        texts = [None] * p
+        dist.all_gather_object(texts, _table_text(rep.table))
+        out["families"].append(dict(
+            name=rep.name, n_experiments=rep.n_experiments,
+            n_requested=rep.n_requested, cache_hits=rep.cache_hits,
+            penalty=rep.penalty, seconds=rep.fit_seconds,
+            launches=launches,
+            launches_by_method=_sum_over_ranks(c.launches_by_method),
+            runs_by_method=_sum_over_ranks(c.runs),
+            same_table_on_every_rank=len(set(texts)) == 1))
+    best = TuningSession.best(reps)
+    out.update(
+        report=best, launches=total,
+        launches_by_method=_sum_over_ranks(
+            {"/".join(map(str, k)): v for k, v in backend.launches.items()}),
+        runs_by_method=_sum_over_ranks(
+            {"/".join(map(str, k)): v for k, v in backend.runs.items()}),
+        fronts={f"{op}@{q}": list(v) for (op, q), v in fronts.items()},
+        samples=len(session), n_experiments=session.n_experiments,
+        best=[(op, m, meth.algorithm, meth.segments, t)
+              for (op, _, m), (meth, t) in sorted(
+                  session.dataset().best().items())],
+        means={"/".join(map(str, k)): t for k, t in
+               session.dataset().mean_times().items()})
+    return out
+
+
 def _rank_main(opts: dict):
     """The whole run inside one rank; rank 0's return value is the
     result."""
@@ -435,32 +542,14 @@ def _rank_main(opts: dict):
 
     artifact = opts["tuning_table"]
     if artifact is None:
-        fronts = synth.synthesize_all(OPS, (p,))
-        backend = DeviceBackend(device=device)
-        session = TuningSession(backend, trials=opts["trials"])
-        _zero_counts()
-        t0 = time.perf_counter()
-        rep = session.fit_all([make_tuner("exhaustive", OPS, (p,),
-                                          opts["sizes"])])[0]
-        res["tune_seconds"] = time.perf_counter() - t0
-        res["launches"] = _sum_over_ranks(_counts())
-        res["launches_by_method"] = _sum_over_ranks(
-            {"/".join(map(str, k)): v for k, v in backend.launches.items()})
-        res["runs_by_method"] = _sum_over_ranks(
-            {"/".join(map(str, k)): v for k, v in backend.runs.items()})
+        tuned = tune(device, opts["tuners"], opts["sizes"], opts["trials"])
+        rep = tuned.pop("report")
         artifact = rep.table
+        res.update(tuned)
         if grp.rank() == 0:
             rep.table.save(opts["out"])
-            res.update(
-                fronts={f"{op}@{q}": list(v) for (op, q), v in fronts.items()},
-                samples=len(session), n_experiments=rep.n_experiments,
-                penalty=rep.penalty, backend=rep.table.meta.backend,
-                out=opts["out"],
-                best=[(op, m, meth.algorithm, meth.segments, t)
-                      for (op, _, m), (meth, t) in sorted(
-                          session.dataset().best().items())],
-                means={"/".join(map(str, k)): t for k, t in
-                       session.dataset().mean_times().items()})
+            res.update(tuner=rep.name, penalty=rep.penalty,
+                       backend=rep.table.meta.backend, out=opts["out"])
     if opts["grad_arch"] or opts["grad_elems"]:
         mesh = grp.RankMesh(opts["mesh_shape"], opts["mesh_axes"],
                             device=device)
@@ -476,17 +565,30 @@ def _rank_main(opts: dict):
     return res if grp.rank() == 0 else None
 
 
+def _percent(penalty) -> str:
+    """A penalty as a percentage; None (no decision could be scored)
+    as such."""
+    return "none" if penalty is None else f"{penalty * 100:.2f}%"
+
+
 def print_table(res: dict) -> None:
     where = res["device_name"] + (", payloads staged through the host"
                                   if res["device"].startswith("cuda") else "")
     if "best" in res:
         print(f"measured {res['samples']} samples on {res['ranks']} ranks "
-              f"({where}; {res['n_experiments']} experiments, penalty "
-              f"{res['penalty'] * 100:.2f}%)")
+              f"({where}; {res['n_experiments']} experiments)")
         print(f"{'op':12s} {'bytes':>9s} {'winner':>22s} {'us':>9s}")
         for op, m, a, s, t in res["best"]:
             print(f"{op:12s} {m:9d} {a:>18s}/s{s} {t * 1e6:9.1f}")
-        print(f"-> {res['out']} (backend={res['backend']})")
+        print(f"{'tuner':14s} {'new exps':>9s} {'cache hits':>11s} "
+              f"{'penalty':>8s} {'seconds':>8s} {'combines':>9s}")
+        for f in res["families"]:
+            print(f"{f['name']:14s} {f['n_experiments']:9d} "
+                  f"{f['cache_hits']:11d} {_percent(f['penalty']):>8s} "
+                  f"{f['seconds']:8.2f} "
+                  f"{f['launches']['segment_combine']:9d}")
+        print(f"-> {res['out']} (best: {res['tuner']}, penalty "
+              f"{_percent(res['penalty'])}, backend={res['backend']})")
     if "probed" in res:
         print(res["probed"])
     gs = res.get("grad_sync")
@@ -495,6 +597,9 @@ def print_table(res: dict) -> None:
               f"{gs['mesh']}, {gs['leaves']} leaves, {gs['elems']} fp32 "
               f"elements ({gs['bytes'] / 1e6:.1f} MB), artifact "
               f"{gs['artifact']}: {gs['describe']}")
+        if gs["mapping"]:
+            print(f"  mesh remapped by the artifact: slot -> rank "
+                  f"{gs['slots']}")
         for label, v in gs["variants"].items():
             print(f"  {label:9s} {v['plan_entries']:6d} entries, s per "
                   f"trial {' '.join(f'{t:.4f}' for t in v['seconds'])}, "
@@ -515,7 +620,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--sizes", nargs="+", type=int, default=list(SIZES),
                     help="message sizes in bytes")
     ap.add_argument("--trials", type=int, default=3)
-    ap.add_argument("--out", default="device_measured_decision.json")
+    ap.add_argument("--out", default="device_measured_decision.json",
+                    help="where the best tuner's table is saved")
+    ap.add_argument("--tuners", default="exhaustive",
+                    help="tuner families to fit over the measured "
+                         "session: comma-separated names of "
+                         "core.tuning.TUNERS, or 'all'")
     ap.add_argument("--check", action="store_true",
                     help="hold every algorithm against the oracle first")
     ap.add_argument("--tuning-table", default=None,
@@ -538,6 +648,11 @@ def main(argv=None) -> dict:
                     help="probe every sync tier of the mesh and print "
                          "the fitted profiles")
     args = ap.parse_args(argv)
+    tuners = list(TUNERS) if args.tuners == "all" else \
+        [n.strip() for n in args.tuners.split(",") if n.strip()]
+    for n in tuners:
+        if n not in TUNERS:
+            raise KeyError(f"unknown tuner {n!r}; have {sorted(TUNERS)}")
     topology = Topology.from_spec(args.topology) if args.topology else None
     ranks = topology.total_size if topology else args.ranks
     shape, axes = mesh_spec(topology, ranks)
@@ -550,6 +665,7 @@ def main(argv=None) -> dict:
     opts = dict(
         device=args.device, check=args.check, sizes=tuple(args.sizes),
         trials=args.trials, out=args.out, tuning_table=args.tuning_table,
+        tuners=tuners,
         mesh_shape=shape, mesh_axes=axes,
         bucket_bytes=None if args.bucket_mb is None
         else int(args.bucket_mb * (1 << 20)),

@@ -425,11 +425,18 @@ def test_committed_artifact_resolves_the_same_method():
 
 
 def test_only_ported_tuners_are_offered():
-    assert sorted(ttuning.TUNERS) == ["exhaustive", "smgd", "thinned"]
-    for name in ("regression", "ann", "umtac"):
-        assert name in jtuning.TUNERS
-        with pytest.raises(KeyError, match="unknown tuner"):
-            ttuning.make_tuner(name)
+    """Every tuner family of the reference is ported, in its registry
+    order, and an unknown name raises the reference's KeyError."""
+    assert list(ttuning.TUNERS) == list(jtuning.TUNERS)
+    assert len(ttuning.TUNERS) == 12
+    for name in ttuning.TUNERS:
+        assert ttuning.make_tuner(name).name == \
+            jtuning.make_tuner(name).name
+    with pytest.raises(KeyError) as et:
+        ttuning.make_tuner("simplex")
+    with pytest.raises(KeyError) as ej:
+        jtuning.make_tuner("simplex")
+    assert str(et.value) == str(ej.value)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Single process (``tests/test_communicator.py`` mirrored): decision
 resolution over every artifact generation, the static policy's
 per-leaf segments, probe selection, the hierarchical plan expansion,
-``describe()`` and ``explain()`` text equal to the reference's, and the
-parts left for later raising ``NotImplementedError``.
+``describe()`` and ``explain()`` text equal to the reference's, the
+adoption of an artifact's tuned mesh mapping (``tests/test_placement.py``
+mirrored), and the parts left for later raising
+``NotImplementedError``.
 
 Multi-rank: the same numpy gradients and buffers through the reference
 (one subprocess with ``--xla_force_host_platform_device_count=8``:
@@ -22,9 +24,15 @@ does (gloo sums in another order than XLA). The recorded spans equal
 the reference's (all but the times: the port's are concrete, each one
 clock step), ``explain_gradients`` renders the reference's text and
 equals the port's spans entry for entry, and the port's untraced sync
-gives the traced sync's bits. A 2x2x2 case with the 3-level artifact
+gives the traced sync's bits. Remapped meshes: the same 2x2 and
+``("data",)`` meshes with artifacts that carry a scrambled mesh mapping
+(the reference runs ``shard_map`` over the mapped ``comm.mesh``; each
+port rank takes its slot's inputs, and the results are stacked in slot
+order). A 2x2x2 case with the 3-level artifact, plain and remapped (the
+first non-identity candidate of ``enumerate_mappings`` and a scramble),
 runs under ``slow``.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -236,15 +244,74 @@ def test_later_parts_raise_with_their_roadmap_step(tmp_path):
                                               overlap_backward=True)):
         with pytest.raises(NotImplementedError, match="step 9"):
             call()
-    doc = json.load(open(HIER))
-    doc["profiles"][0]["meta"]["mapping"] = {"axes": ["pod", "data"]}
-    path = str(tmp_path / "mapped.json")
-    json.dump(doc, open(path, "w"))
-    with pytest.raises(NotImplementedError, match="step 5"):
-        TComm.create(artifact=path)
     with pytest.raises(ValueError, match="'data' axis"):
         TComm.create(FakeRankMesh(pod=2), artifact=HIER).sync_gradients(
             {"w": torch.zeros(2)})
+
+
+# ---------------------------------------------------------------------------
+# a tuned mesh mapping in the artifact (tests/test_placement.py mirrored)
+# ---------------------------------------------------------------------------
+def _mapped_table(pkg_dt, pkg_meta, mapping):
+    return pkg_dt({("all_reduce", 2, 1024): Method("ring", 1)},
+                  meta=pkg_meta(tuner="handmade", mapping=mapping.to_json()))
+
+
+def test_communicator_adopts_identity_mapping_and_renders_it():
+    """The same mesh axes: the mapping is installed (identity leaves the
+    mesh object untouched), and describe() and the plan reports say
+    so, in the reference's text."""
+    from test_gradsync_pipeline import fake_mesh
+    from repro_torch.core.topology import identity_mapping
+    from repro_torch.core.tuning import DecisionTable as TDT, TableMeta as TM
+    ident = dataclasses.replace(
+        identity_mapping(("dcn", "pod", "data"), (2, 2, 2)), cost=1e-3,
+        tiers={"data": "intra_host", "pod": "intra_pod",
+               "dcn": "cross_pod"})
+    mesh = FakeRankMesh(dcn=2, pod=2, data=2)
+    tc = TComm.create(mesh, artifact=_mapped_table(TDT, TM, ident))
+    jc = JComm.create(fake_mesh(dcn=2, pod=2, data=2),
+                      artifact=_mapped_table(JDT, JMeta, ident))
+    assert tc.mapping == ident and tc.mesh is mesh
+    assert "mapping=identity" in tc.describe()
+    assert tc.describe() == jc.describe()
+    plan = tc.explain_gradients({"w": pytree.LeafStruct((64,),
+                                                        torch.float32)})
+    assert plan.header == "mesh mapping: " + ident.summary()
+    assert plan.render().splitlines()[0].strip().startswith("mesh mapping:")
+    req = [TReq("all_reduce", 1024, axis="data", axis_size=2)]
+    assert tc.explain(req).render() == jc.explain(
+        [JReq("all_reduce", 1024, axis="data", axis_size=2)]).render()
+
+
+def test_communicator_skips_mapping_for_different_mesh_axes():
+    """A mesh of other axes (a pure-TP ``("model",)`` mesh loading a
+    train-tuned artifact): warn and keep the mesh."""
+    from repro_torch.core.topology import identity_mapping
+    from repro_torch.core.tuning import DecisionTable as TDT, TableMeta as TM
+    mesh = FakeRankMesh(model=2)
+    ident = identity_mapping(("dcn", "pod", "data"), (2, 2, 2))
+    with pytest.warns(RuntimeWarning, match="mesh mapping"):
+        tc = TComm.create(mesh, artifact=_mapped_table(TDT, TM, ident))
+    assert tc.mapping is None and tc.mesh is mesh
+    assert "mapping=" not in tc.describe()
+
+
+def test_communicator_rejects_mapping_for_wrong_machine_size(tmp_path):
+    from repro_torch.core.topology import identity_mapping
+    from repro_torch.core.tuning import DecisionTable as TDT, TableMeta as TM
+    wrong = identity_mapping(("dcn", "pod", "data"), (2, 2, 4))
+    with pytest.raises(ValueError, match="different machine size"):
+        TComm.create(FakeRankMesh(dcn=2, pod=2, data=2),
+                     artifact=_mapped_table(TDT, TM, wrong))
+    # from a file: the schema-3 artifact with the mapping in a level's meta
+    doc = json.load(open(HIER))
+    doc["profiles"][0]["meta"]["mapping"] = wrong.to_json()
+    path = str(tmp_path / "mapped.json")
+    json.dump(doc, open(path, "w"))
+    with pytest.raises(ValueError, match="different machine size"):
+        TComm.create(FakeRankMesh(dcn=2, pod=2, data=2), artifact=path)
+    assert TComm.create(artifact=path).mapping == wrong     # no mesh yet
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +322,17 @@ LEAF_SHAPES = {"z/w": (33, 7), "z/a": (5,), "b/0": (3, 5), "b/1": (7,),
 N_X = 1003
 MESHES = {"2x2": ((2, 2), ("pod", "data")), "d4": ((4,), ("data",)),
           "2x2x2": ((2, 2, 2), ("dcn", "pod", "data"))}
+# remapped meshes: the same meshes, the artifact carrying a tuned mapping
+# (slot i holds rank order[i]). 2x2 and d4 scramble the rank order so
+# that a sub-group's member order differs from its axis order; 2x2x2
+# takes the first non-identity candidate of enumerate_mappings (the
+# chip's case) and a scramble
+MESHES.update({"2x2m": MESHES["2x2"], "d4m": MESHES["d4"],
+               "2x2x2m": MESHES["2x2x2"]})
+ORDER_2X2 = (3, 1, 2, 0)
+ORDER_D4 = (2, 0, 3, 1)
+ORDER_2X2X2_CAND = (0, 1, 4, 5, 2, 3, 6, 7)
+ORDER_2X2X2 = (5, 2, 7, 0, 3, 6, 1, 4)
 CASES = {
     "2x2": [("hier", HIER, 0), ("hier_b", HIER, 1024), ("flat", FLAT, 0),
             ("flat_b", FLAT, 2048), ("xla", None, 0)],
@@ -262,7 +340,39 @@ CASES = {
            ("xla", None, 0)],
     "2x2x2": [("hier3", HIER3, 0), ("hier3_sched", HIER3, None),
               ("hier3_b", HIER3, 1024), ("xla", None, 0)],
+    "2x2m": [("hier", ("map", HIER, ORDER_2X2), 0),
+             ("hier_b", ("map", HIER, ORDER_2X2), 1024),
+             ("flat", ("map", FLAT, ORDER_2X2), 0)],
+    "d4m": [("flat_b", ("map", FLAT, ORDER_D4), 2048)],
+    "2x2x2m": [("hier3_sched", ("map", HIER3, ORDER_2X2X2_CAND), None),
+               ("hier3", ("map", HIER3, ORDER_2X2X2), 0),
+               ("hier3_b", ("map", HIER3, ORDER_2X2X2), 1024)],
 }
+
+
+def _mapped_artifact(src, order, axes, shape, dst):
+    """``src`` with a `MeshMapping` of ``order`` stamped into its meta
+    (every level's, for a schema-3 artifact), written to ``dst``."""
+    from repro_torch.core.topology import MeshMapping
+    doc = json.load(open(src))
+    mapping = MeshMapping(tuple(axes), tuple(shape), tuple(order)).to_json()
+    for meta in ([p["meta"] for p in doc["profiles"]] if "profiles" in doc
+                 else [doc["meta"]]):
+        meta["mapping"] = mapping
+    json.dump(doc, open(dst, "w"))
+    return dst
+
+
+def _resolve(tmp, mesh_name, cases):
+    """The cases with each ``("map", src, order)`` artifact written out."""
+    shape, axes = MESHES[mesh_name]
+    out = []
+    for name, art, bb in cases:
+        if isinstance(art, tuple):
+            art = _mapped_artifact(art[1], art[2], axes, shape,
+                                   str(tmp / f"{mesh_name}_{name}.json"))
+        out.append((name, art, bb))
+    return out
 
 
 def _tree_of(flat):
@@ -347,7 +457,8 @@ for mesh_name, cases in cfg["cases"].items():
             return jax.tree.map(lambda a: a[None], o)
 
         got = jax.jit(compat.shard_map(
-            body, mesh=mesh, in_specs=(lead, lead, lead), out_specs=lead,
+            body, mesh=comm.mesh, in_specs=(lead, lead, lead),
+            out_specs=lead,
             check_vma=False))(tree, jnp.asarray(data["x"]),
                               jnp.asarray(data["x4"]))
         for key, val in got.items():
@@ -403,16 +514,27 @@ def _port_cases(mesh_names, cases, meshes, inputs, out_dir):
         shape, axes = meshes[mesh_name]
         mesh = grp.RankMesh(shape, axes, device="cpu")
         data = dict(np.load(inputs[mesh_name]))
-        tree = _tree_of({k.split("|", 1)[1]: torch.from_numpy(v[r])
-                         for k, v in data.items() if k.startswith("tree|")})
-        x, x4 = torch.from_numpy(data["x"][r]), \
-            torch.from_numpy(data["x4"][r])
         multi = len(axes) > 1
         haxes = tuple(reversed(axes))
         for name, artifact, bb in cases[mesh_name]:
             rec = TraceRecorder(clock=FakeClock(step=1.0))
             comm = TComm.create(mesh, artifact=artifact, bucket_bytes=bb,
                                 trace=rec)
+            # a mapped artifact rebuilt the mesh: this rank holds the
+            # slot the mapping gives it, and takes that slot's inputs
+            slots = comm.mesh.ranks.reshape(-1).tolist()
+            if comm.mapping is not None:
+                assert comm.mesh is not mesh
+                assert slots == list(comm.mapping.device_order)
+            me = slots.index(r)
+            coords = np.unravel_index(me, shape)
+            assert [grp.rank(comm.mesh.axis(a)) for a in axes] == \
+                [int(c) for c in coords]
+            tree = _tree_of({k.split("|", 1)[1]: torch.from_numpy(v[me])
+                             for k, v in data.items()
+                             if k.startswith("tree|")})
+            x, x4 = torch.from_numpy(data["x"][me]), \
+                torch.from_numpy(data["x4"][me])
             o, xla_in = {}, {}
             psum_tops = not comm.hierarchical and len(comm._sync_axes) > 1
 
@@ -475,7 +597,8 @@ def _port_cases(mesh_names, cases, meshes, inputs, out_dir):
                     [e.request.op, e.request.nbytes, e.request.axis,
                      e.spec.algorithm, e.spec.segments, e.bucket, e.step]
                     for e in plan.entries if e.source != "psum"],
-                "untraced_bits_equal": same, "xla_in": xla_in}
+                "untraced_bits_equal": same, "xla_in": xla_in,
+                "slots": slots}
     np.savez(os.path.join(out_dir, f"port_r{r}.npz"), **outs)
     if r == 0:
         with open(os.path.join(out_dir, "meta.json"), "w") as f:
@@ -485,7 +608,8 @@ def _port_cases(mesh_names, cases, meshes, inputs, out_dir):
 def _run_both(tmp, mesh_names, world):
     """The reference subprocess and the port's group, side by side."""
     cfg = {"meshes": {m: MESHES[m] for m in mesh_names},
-           "cases": {m: CASES[m] for m in mesh_names}, "inputs": {},
+           "cases": {m: _resolve(tmp, m, CASES[m]) for m in mesh_names},
+           "inputs": {},
            "out": str(tmp / "ref.npz"), "meta": str(tmp / "ref.json")}
     for i, m in enumerate(mesh_names):
         shape, axes = MESHES[m]
@@ -518,7 +642,7 @@ def _run_both(tmp, mesh_names, world):
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     return _run_both(tmp_path_factory.mktemp("communicator"),
-                     ("2x2", "d4"), 4)
+                     ("2x2", "d4", "2x2m", "d4m"), 4)
 
 
 def _case_keys(mesh_names):
@@ -544,7 +668,8 @@ def _check_case(run, mesh_name, name):
         k for k in run.port[0] if k.startswith(prefix))
     for key in keys:
         want = run.ref[key]
-        got = np.stack([run.port[r][key] for r in range(len(run.port))])
+        # slot order: slot i is the rank the mesh placed there
+        got = np.stack([run.port[r][key] for r in meta_t["slots"]])
         assert got.shape == want.shape, (key, got.shape, want.shape)
         op = key.split("|")[2]
         if meta_t["xla_in"][op]:
@@ -560,7 +685,8 @@ def _check_case(run, mesh_name, name):
         np.testing.assert_allclose(got, mean, rtol=0, atol=2e-6)
 
 
-@pytest.mark.parametrize("mesh_name,name", _case_keys(("2x2", "d4")))
+@pytest.mark.parametrize("mesh_name,name",
+                         _case_keys(("2x2", "d4", "2x2m", "d4m")))
 def test_communicator_matches_reference_on_four_ranks(four_ranks, mesh_name,
                                                       name):
     _check_case(four_ranks, mesh_name, name)
@@ -578,14 +704,34 @@ def test_non_xla_cases_are_bit_for_bit(four_ranks):
     assert four_ranks.port_meta["2x2|flat"]["xla_in"]["sync"]   # psum tops
 
 
+def test_remapped_meshes_place_each_rank_at_its_slot(four_ranks):
+    """A mapped artifact rebuilds the 4-rank mesh in the mapping's order
+    (the rank at slot i is ``device_order[i]``; each rank's indices
+    along the axes are its slot's, checked in every rank), describe()
+    and the plan name the mapping (the results are held to the
+    reference's slot for slot by the parametrized cases)."""
+    for key, order in (("2x2m|hier", ORDER_2X2), ("2x2m|flat", ORDER_2X2),
+                       ("d4m|flat_b", ORDER_D4)):
+        meta = four_ranks.port_meta[key]
+        assert meta["slots"] == list(order)
+        assert "mapping=tuned-order" in meta["describe"]
+        assert meta["plan"].splitlines()[0].strip().startswith(
+            "mesh mapping:")
+    for key in ("2x2|hier", "d4|flat"):
+        assert four_ranks.port_meta[key]["slots"] == [0, 1, 2, 3]
+
+
 @pytest.mark.slow
 def test_communicator_matches_reference_on_2x2x2():
     import tempfile
     import pathlib
     with tempfile.TemporaryDirectory() as d:
-        run = _run_both(pathlib.Path(d), ("2x2x2",), 8)
-        for _, name in _case_keys(("2x2x2",)):
-            _check_case(run, "2x2x2", name)
+        run = _run_both(pathlib.Path(d), ("2x2x2", "2x2x2m"), 8)
+        for mesh_name, name in _case_keys(("2x2x2", "2x2x2m")):
+            _check_case(run, mesh_name, name)
+        assert run.port_meta["2x2x2m|hier3_sched"]["slots"] == \
+            list(ORDER_2X2X2_CAND)
+        assert run.port_meta["2x2x2m|hier3"]["slots"] == list(ORDER_2X2X2)
         assert not run.port_meta["2x2x2|hier3_sched"]["xla_in"]["sync"]
 
 

@@ -189,7 +189,12 @@ def test_import_loads_no_jax_and_no_reference_package():
         "'core.topology.decision', 'core.analytical.costs', "
         "'core.analytical.fitting', 'core.analytical.hierarchy', "
         "'core.collectives.hierarchical', 'core.collectives.schedule', "
-        "'pytree'):\n"
+        "'core.tuning.preprocess', 'core.tuning.regression', "
+        "'core.tuning.ann', 'core.tuning.ensemble', "
+        "'core.tuning.decision_tree', 'core.tuning.quadtree', "
+        "'core.tuning.octree', 'core.tuning.star', 'core.tuning.feedback', "
+        "'core.tuning.umtac', 'core.topology.placement', "
+        "'core.topology.tune', 'pytree'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('imported', sum(n.startswith('repro_torch') for n in sys.modules))\n")
     root = os.path.join(HERE, "..")
