@@ -54,6 +54,18 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       (warm back to back and on the device, and cold) and the plain
       version at each serving shape beside the bound (no single PyTorch
       call computes this function);
+   e. the flash-attention backward (``fa_bwd_dq`` then ``fa_bwd_dkdv``)
+      against ``flash_attention_bwd_plain`` on the forward's own output
+      and row log-sum-exp, over the forward's sweep (windows, the decode
+      offset, fully masked rows, T != S, S not a multiple of 64, MQA and
+      GQA, D 64/80/128) and smollm-135m's training shape, f32 at 1e-4
+      and bf16 at 2e-2, each case called twice and held bit-equal, the
+      forward's lse held to the plain one and the serving forward's bits
+      to the lse-writing forward's; times the backward, its plain
+      version, the forward and backward through autograd and SDPA's
+      forward and backward through autograd (a yardstick only) at the
+      training shape (2, 256, 9, 3, 64) and the serving shape, beside
+      the backward's bound;
 3. the kernels inside the models, fp32: full-width smollm-135m prefill
    logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``;
    full-width, full-depth mamba2-130m and zamba2-2.7b prefill logits
@@ -129,7 +141,26 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    variant checked as in (b), the bucketed one timed beside (b)'s; then
    ``tune_topology(2x2x2, tune_mapping=True)`` on the simulator and its
    winner's summary;
-8. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
+8. training: ``repro_torch.launch.train --arch smollm-135m --ranks 4
+   --topology 2x2 --tuning-table examples/artifacts/
+   hierarchical_decision.json --steps 4 --seq 256 --batch 8`` (full
+   width and depth, fp32 master weights, bf16 compute, 4 host-staged
+   ranks on the card), then the same with ``--collective xla`` as the
+   oracle: each step's loss and its split into forward+backward,
+   gradient sync and optimizer seconds, each rank's peak memory; the
+   replicas' params bit-equal after every step; the launches (zeroed in
+   every rank just before the steps, summed over the ranks just after)
+   held to 30 flash forwards and 30 x 2 backward launches a rank-step
+   and, tuned, the plan's 2,184 combines a step (none through xla); the
+   tuned run held to the xla run: step 0's synced gradients leaf by
+   leaf (relative 2-norm; rank 0's gradients before the sync bit-equal
+   in both runs, so only the order of the sum differs), the params'
+   change over the run (relative 2-norm over the tree) and the losses;
+   each reading also taken of faults planted in the tuned run's trees
+   (gradients zeroed, negated, summed and not averaged, shifted between
+   same-shaped leaves, half a leaf dropped; the update lost, reversed),
+   each of which must exceed its tolerance;
+9. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
 the port is not beside this file, or when any phase fails.
@@ -158,6 +189,13 @@ L2_FLUSH_BYTES = 1 << 30         # written before each cold call (L2: 50 MB)
 SSD_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}   # tests/test_kernels.py
 MODEL_TOL = 1e-3                 # phase 3: 24-54 layers of the kernel tolerance
 COMBINE_TOL = 1e-6               # tests/test_kernels.py (expected bit-equal)
+# the flash backward against its plain version (tests/test_torch_cuda.py):
+# f32 sums up to S x H/KV terms per dK/dV entry in another order; bf16
+# computes in fp32 from the same bf16 inputs and rounds once, as the
+# forward (the forward's bf16 tolerance)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# smollm-135m's training attention: 2 rows a rank of the 8 x 256 batch
+TRAIN_ATTN_SHAPE = (2, 256, 9, 3, 64)
 COMBINE_N = 1 << 24              # 16M elements: 64 MB of fp32 per operand
 RANKS = 4                        # processes on the card for the collectives
 SERVE_SHAPE = dict(B=8, S=512, H=9, KV=3, D=64)
@@ -482,6 +520,189 @@ def time_attention(fa, name, shape):
             "library_device_ms": library_dev, "host_ms": host,
             "library_host_ms": library_host,
             "shape": f"B={B} S={S} H={H} KV={KV} D={D}"}
+
+
+# ---------------------------------------------------------------------------
+# [2e] the flash-attention backward
+# ---------------------------------------------------------------------------
+def flash_bwd_bound_ms(B, S, T, H, KV, D, itemsize, causal=True):
+    """Least time for the backward: q, k, v, o, dO and the fp32 lse read
+    once, dq, dk, dv written once, over the memory rate; or its five
+    products (QK^T, dO V^T, P^T dO, dS K, dS^T Q) over the visible
+    pairs, 10 D flops a pair, over the peak rate of the input type."""
+    nbytes = itemsize * (4 * B * S * H * D + 4 * B * T * KV * D) \
+        + 4 * B * H * S
+    pairs = B * H * (S * (S + 1) // 2 if causal and S == T else S * T)
+    flops = 10 * D * pairs
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes, flops
+
+
+def check_flash_bwd(fa, fb, q, k, v, dt, kw, seed):
+    """One backward call against ``flash_attention_bwd_plain`` on the
+    forward's own output and lse: counted, the dtype's kernels, finite,
+    within the dtype's tolerance, and a second call bit-equal; the lse
+    against the plain forward's. Returns (max error, lse max error)."""
+    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(dt)
+    before = fb.launches
+    got = fb.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    if fb.launches != before + fb.LAUNCHES_PER_CALL:
+        raise AssertionError("the backward did not count its launches")
+    name = f"fa_bwd<{'bf16' if dt == torch.bfloat16 else 'f32'},{q.shape[-1]}>"
+    if fb.last_kernel() != name:
+        raise AssertionError(f"ran {fb.last_kernel()}, expected {name}")
+    want = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    err = 0.0
+    for a, b in zip(got, want):
+        d = (a.float() - b.float()).abs()
+        if not torch.isfinite(a).all() or \
+                (d > BWD_TOL[dt] * (1 + b.float().abs())).any():
+            raise AssertionError(f"backward disagrees at {tuple(q.shape)} "
+                                 f"k {tuple(k.shape)} {dt} {kw}: max err "
+                                 f"{d.max().item()}")
+        err = max(err, d.max().item())
+    again = fb.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"two backward calls differ at "
+                             f"{tuple(q.shape)} {dt} {kw}")
+    _, plse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    if not torch.equal(torch.isinf(lse), torch.isinf(plse)):
+        raise AssertionError(f"lse -inf rows differ at {tuple(q.shape)}")
+    fin = torch.isfinite(plse)
+    lerr = 0.0
+    if fin.any():
+        lerr = (lse[fin] - plse[fin]).abs().max().item()
+        if lerr > 1e-4 * (1 + plse[fin].abs().max().item()):
+            raise AssertionError(f"lse off by {lerr} at {tuple(q.shape)}")
+    if not torch.equal(fa.flash_attention(q, k, v, **kw), out):
+        raise AssertionError("the serving forward's bits change with lse")
+    return err, lerr
+
+
+def time_flash_bwd(fa, fb, name, shape):
+    """At one bf16 causal shape, in turns: the backward kernels alone, the
+    plain backward, the forward (with lse) and backward through autograd,
+    and SDPA's forward and backward through autograd (a yardstick only:
+    the port never calls it); back to back between CUDA events and on
+    the device from the profiler; beside the backward's bound."""
+    import torch.nn.functional as F
+    B, S, H, KV, D = shape
+    q, k, v = rand_qkv(B, S, S, H, KV, D, torch.bfloat16, seed=98)
+    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    g = torch.Generator(device="cuda").manual_seed(97)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).clone().requires_grad_()
+                  for t in (q, k, v))
+    doutt = dout.transpose(1, 2)
+    bwd = lambda: fb.flash_attention_bwd(q, k, v, out, dout, lse)  # noqa: E731
+    plain = lambda: fb.flash_attention_bwd_plain(  # noqa: E731
+        q, k, v, out, dout, lse)
+
+    def ours():
+        o = fa.flash_attention(qg, kg, vg)
+        return torch.autograd.grad(o, (qg, kg, vg), dout)
+
+    def lib():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=KV != H)
+        return torch.autograd.grad(o, (qt, kt, vt), doutt)
+    b1, p1, o1, l1 = (time_calls(bwd), time_calls(plain), time_calls(ours),
+                      time_calls(lib))
+    db1, do1, dl1 = device_ms(bwd), device_ms(ours), device_ms(lib)
+    b2, p2, o2, l2 = (time_calls(bwd), time_calls(plain), time_calls(ours),
+                      time_calls(lib))
+    db2, do2, dl2 = device_ms(bwd), device_ms(ours), device_ms(lib)
+    med = lambda a, b: statistics.median(a + b)  # noqa: E731
+    ms, plain_ms, fb_ms, lib_ms = med(b1, b2), med(p1, p2), med(o1, o2), \
+        med(l1, l2)
+    dev, fb_dev, lib_dev = (db1 + db2) / 2, (do1 + do2) / 2, (dl1 + dl2) / 2
+    bound_ms, bound_by, nbytes, flops = flash_bwd_bound_ms(B, S, S, H, KV,
+                                                           D, 2)
+    log(f"    {name} B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
+        f"{fb.last_kernel()} back to back: backward {ms:.4f} ms (turns "
+        f"{statistics.median(b1):.4f}, {statistics.median(b2):.4f}), plain "
+        f"{plain_ms:.4f} ms; forward+backward through autograd: ours "
+        f"{fb_ms:.4f} ms, sdpa {lib_ms:.4f} ms; device: backward "
+        f"{dev:.4f} ms (turns {db1:.4f}, {db2:.4f}), ours fwd+bwd "
+        f"{fb_dev:.4f} ms, sdpa fwd+bwd {lib_dev:.4f} ms; bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP); device {dev / bound_ms:.1f}x the bound")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "device_ms": dev, "fwd_bwd_ms": fb_ms,
+            "fwd_bwd_device_ms": fb_dev, "library_ms": lib_ms,
+            "library_device_ms": lib_dev,
+            "shape": f"B={B} S={S} H={H} KV={KV} D={D}"}
+
+
+def phase_flash_backward():
+    """[2e] the backward kernels against ``flash_attention_bwd_plain``
+    over the forward's sweep, both dtypes, then timed at smollm's
+    training and serving shapes; returns the kernels-line entry."""
+    from repro_torch.kernels import attention as fa
+    from repro_torch.kernels import attention_bwd as fb
+    both = (torch.float32, torch.bfloat16)
+    sweep = [((1, 128, 128, 4, 4, 64), {}), ((2, 256, 256, 4, 2, 64), {}),
+             ((1, 128, 128, 4, 1, 128), {}), ((1, 96, 96, 2, 2, 80), {})]
+    sweep += [((1, 256, 256, 2, 2, 64), {"window": w})
+              for w in (1, 17, 64, 256)]
+    sweep += [((2, 1, 200, 4, 2, 64), {"q_offset": 199}),
+              ((1, 40, 40, 2, 1, 64), {"q_offset": -5}),   # fully masked
+              ((1, 96, 300, 4, 2, 64), {"q_offset": 204}),
+              ((2, 200, 200, 4, 1, 64), {}),               # MQA, S = 200
+              ((2, 200, 200, 6, 2, 80), {}),               # GQA
+              ((2, 70, 300, 3, 1, 128), {"causal": False}),
+              ((1, 200, 264, 2, 1, 128), {"window": 64, "q_offset": 64})]
+    B, S, H, KV, D = TRAIN_ATTN_SHAPE
+    sweep.append(((B, S, S, H, KV, D), {}))
+    max_err = {dt: 0.0 for dt in both}
+    lse_err = 0.0
+    for i, ((B, S, T, H, KV, D), kw) in enumerate(sweep):
+        for dt in both:
+            q, k, v = rand_qkv(B, S, T, H, KV, D, dt, seed=200 + i)
+            err, lerr = check_flash_bwd(fa, fb, q, k, v, dt,
+                                        {"causal": True, **kw}, seed=i)
+            max_err[dt] = max(max_err[dt], err)
+            lse_err = max(lse_err, lerr)
+            log(f"[2e] {(B, S, T, H, KV, D)} {str(dt)[6:]} {kw}: "
+                f"{fb.last_kernel()}, max|err| {err:.3g}, lse {lerr:.3g}; "
+                f"two calls bit-equal")
+    train_err = err          # the training shape (bf16) is the last case
+    log(f"    max|err| f32 {max_err[torch.float32]:.3g} (tol "
+        f"{BWD_TOL[torch.float32]}), bf16 {max_err[torch.bfloat16]:.3g} "
+        f"(tol {BWD_TOL[torch.bfloat16]}), lse {lse_err:.3g}; every "
+        f"serving forward bit-equal with and without lse")
+    s = SERVE_SHAPE
+    by_shape = {"smollm training": time_flash_bwd(fa, fb, "smollm training",
+                                                  TRAIN_ATTN_SHAPE),
+                "smollm serving": time_flash_bwd(
+                    fa, fb, "smollm serving",
+                    (s["B"], s["S"], s["H"], s["KV"], s["D"]))}
+    top = by_shape["smollm training"]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/attention.py:132",
+            "note": "the gradient of that kernel's function, as the "
+                    "reference takes it under jax.value_and_grad",
+            "max_abs_err": train_err, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "library_is": "F.scaled_dot_product_attention forward and "
+                          "backward through autograd",
+            "device_ms": top["device_ms"],
+            "library_device_ms": top["library_device_ms"],
+            "fwd_bwd_ms": top["fwd_bwd_ms"],
+            "fwd_bwd_device_ms": top["fwd_bwd_device_ms"],
+            "launches_per_call": fb.LAUNCHES_PER_CALL,
+            "max_err_f32": max_err[torch.float32],
+            "max_err_bf16": max_err[torch.bfloat16],
+            "max_lse_err": lse_err,
+            "shape": top["shape"] + " bf16 causal", "by_shape": by_shape}
 
 
 def phase_model():
@@ -1147,9 +1368,10 @@ def phase_ssm_model(arch: str, batch: int):
 
 
 def _counters():
-    from repro_torch.kernels import attention, paged_attention, \
-        segment_reduce, ssd_scan
-    return {"flash_attention": attention, "ssd_chunk": ssd_scan,
+    from repro_torch.kernels import attention, attention_bwd, \
+        paged_attention, segment_reduce, ssd_scan
+    return {"flash_attention": attention,
+            "flash_attention_bwd": attention_bwd, "ssd_chunk": ssd_scan,
             "segment_combine": segment_reduce,
             "paged_attention": paged_attention}
 
@@ -1702,6 +1924,180 @@ def phase_remapped(n_params, identity_bucketed):
     return summary, paths
 
 
+# ---------------------------------------------------------------------------
+# [8] the data-parallel training step
+# ---------------------------------------------------------------------------
+TRAIN_STEPS = 4
+TRAIN_ARGV = ["--arch", "smollm-135m", "--ranks", "4", "--topology", "2x2",
+              "--steps", str(TRAIN_STEPS), "--seq", "256", "--batch", "8"]
+# the tuned run against the "xla" run. Both start from the same params
+# and batches, and rank 0's step-0 gradients before the sync are checked
+# bit-equal in both, so step 0's synced trees differ only by the order
+# of an fp32 sum of 4 terms: per leaf |g_t - g_x| / |g_x| (2-norms), a
+# few 1e-8 where the terms do not cancel
+TRAIN_GRAD_TOL = 1e-6
+# the params' change over the run, |d_t - d_x| / |d_x| over the whole
+# tree (d = final - initial): Adam's update g / (|g| + eps) is
+# insensitive to the gradient's size and the global-norm clip rescales
+# it anyway, so this holds the sync's signs and placement; where a
+# gradient is near 0 the order of the sum can flip its update (two steps
+# apart), which a flip in 1 of 10^5 params would read at ~1e-2
+TRAIN_CHANGE_TOL = 1e-2
+# lr_scale is 0, .01, .02, .03 over the 4 warmup steps (lr 3e-4), so a
+# param moves at most a few times 1.8e-5 in all; a param that crosses a
+# bf16 rounding boundary moves the bf16 forward's loss by ~1e-4
+TRAIN_LOSS_TOL = 5e-3
+
+
+def grad_reading(got, want) -> float:
+    """max over the leaves of |got - want| / |want| (2-norms, float64 on
+    the card)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.to("cuda", torch.float64), w.to("cuda", torch.float64)
+        num, den = (g - w).norm().item(), w.norm().item()
+        worst = max(worst, num / den if den else
+                    (0.0 if num == 0 else float("inf")))
+    return worst
+
+
+def change_reading(final, init, want) -> float:
+    """|d - d_want| / |d_want| over the whole tree, d = final - init."""
+    num = den = 0.0
+    for f, i, w in zip(final, init, want):
+        f, i, w = (t.to("cuda", torch.float64) for t in (f, i, w))
+        num += (f - w).square().sum().item()
+        den += (w - i).square().sum().item()
+    return (num / den) ** 0.5
+
+
+def sync_readings(tuned, xla):
+    """[8]'s readings of the tuned run against the xla run, and the same
+    readings of faults planted in the tuned run's trees."""
+    from repro_torch import pytree
+    gt, gx = pytree.leaves(tuned["grads0"]), pytree.leaves(xla["grads0"])
+    init = pytree.leaves(tuned["init_params"])
+    ft, fx = pytree.leaves(tuned["params"]), pytree.leaves(xla["params"])
+    if not all(torch.equal(a, b) for a, b in
+               zip(init, pytree.leaves(xla["init_params"]))) or \
+            tuned["local_grads0_fingerprint"] != \
+            xla["local_grads0_fingerprint"]:
+        raise AssertionError("[8] the runs' initial params or rank 0's "
+                             "step-0 gradients before the sync differ")
+    shifted = list(gt)              # each leaf takes the next same-shaped
+    by_shape = {}
+    for j, t in enumerate(gt):
+        by_shape.setdefault(tuple(t.shape), []).append(j)
+    for idx in by_shape.values():
+        for a, b in zip(idx, idx[1:] + idx[:1]):
+            shifted[a] = gt[b]
+    big = max(range(len(gt)), key=lambda j: gt[j].numel())
+    halved = list(gt)
+    halved[big] = gt[big].flatten().clone()
+    halved[big][gt[big].numel() // 2:] = 0
+    planted = {
+        "gradients zeroed": grad_reading([torch.zeros_like(g) for g in gt],
+                                         gx),
+        "gradients negated": grad_reading([-g for g in gt], gx),
+        "summed, not averaged": grad_reading([4 * g for g in gt], gx),
+        "shifted between same-shaped leaves": grad_reading(shifted, gx),
+        "half of the largest leaf dropped": grad_reading(
+            halved, [g.flatten() if j == big else g
+                     for j, g in enumerate(gx)]),
+        "update lost": change_reading(init, init, fx),
+        "update reversed": change_reading([2 * i - f for i, f in
+                                           zip(init, ft)], init, fx)}
+    return {"grad": grad_reading(gt, gx),
+            "change": change_reading(ft, init, fx),
+            "max_abs_param": max((a.double() - b.double()).abs().max().item()
+                                 for a, b in zip(ft, fx)),
+            "planted": planted}
+
+
+def train_run(label, argv):
+    """One ``repro_torch.launch.train`` run (its counts are zeroed in
+    every rank just before the steps and summed over the ranks just
+    after); returns rank 0's result with its final params."""
+    from repro_torch.launch import train
+    log(f"[8] {label}: train {' '.join(argv)}")
+    t0 = time.perf_counter()
+    res = train.main(argv, keep_params=True)
+    res["wall_s"] = time.perf_counter() - t0
+    mem = ", ".join(f"{b / 2**30:.2f}" for b in res["peak_mem_bytes"])
+    log(f"    losses {' '.join(f'{x:.6f}' for x in res['losses'])}; s per "
+        f"step {' '.join(f'{x:.3f}' for x in res['step_s'])}")
+    for i in range(len(res["losses"])):
+        log(f"    step {i}: forward+backward {res['compute_s'][i]:.4f} s, "
+            f"gradient sync {res['sync_s'][i]:.4f} s, optimizer "
+            f"{res['opt_s'][i]:.4f} s (slowest rank's)")
+    log(f"    peak memory per rank (GiB): {mem}; launches {res['launches']};"
+        f" {res['plan_entries']} sync collectives and "
+        f"{res['plan_combines']} combines a step; replicas bit-equal after "
+        f"every step: "
+        f"{all(res['replicas_equal'])}; {res['wall_s']:.1f}s with set-up")
+    return res
+
+
+def phase_training():
+    """[8] smollm-135m at full width and depth trained data-parallel on 4
+    host-staged ranks on the card through the tuned 2x2 hierarchical
+    sync, and again through ``--collective xla`` as the oracle; each
+    run's launches held to its plan; returns the summary and the launch
+    counts by path."""
+    hier = os.path.join(ROOT, "examples", "artifacts",
+                        "hierarchical_decision.json")
+    tuned = train_run("tuned", [*TRAIN_ARGV, "--tuning-table", hier])
+    xla = train_run("xla", [*TRAIN_ARGV, "--collective", "xla"])
+    ranks, layers = 4, 30
+    for label, r in (("tuned", tuned), ("xla", xla)):
+        want = {"flash_attention": layers * TRAIN_STEPS * ranks,
+                "flash_attention_bwd": layers * TRAIN_STEPS * ranks * 2,
+                "segment_combine": TRAIN_STEPS * r["plan_combines"]}
+        bad = (r["device"] != "cuda:0" or r["ranks"] != ranks
+               or r["mesh"] != {"pod": 2, "data": 2, "model": 1}
+               or r["param_elems"] != 162826560 or r["leaves"] != 273
+               or not r["replicas_equal_at_init"]
+               or not all(r["replicas_equal"])
+               or len(r["losses"]) != TRAIN_STEPS
+               or not all(x == x and 0 < x < 20 for x in r["losses"])
+               or r["launches"] != want)
+        if bad:
+            raise AssertionError(f"[8] {label}: {r['launches']} vs {want}; "
+                                 f"{ {k: r[k] for k in ('mesh', 'losses')} }")
+    if not tuned["tuned"] or xla["tuned"] or xla["plan_combines"] != 0 or \
+            tuned["plan_combines"] != 2184:
+        raise AssertionError(f"[8] plans: tuned {tuned['plan_combines']} "
+                             f"combines a step, xla {xla['plan_combines']}")
+    loss_diff = max(abs(a - b) for a, b in zip(tuned["losses"],
+                                               xla["losses"]))
+    rd = sync_readings(tuned, xla)
+    log(f"    tuned vs xla: step 0's synced gradients within {rd['grad']:.3g}"
+        f" (tol {TRAIN_GRAD_TOL}), the params' change within "
+        f"{rd['change']:.3g} (tol {TRAIN_CHANGE_TOL}), losses within "
+        f"{loss_diff:.3g} (tol {TRAIN_LOSS_TOL}), final params within "
+        f"{rd['max_abs_param']:.3g}; sync s a step tuned "
+        f"{statistics.median(tuned['sync_s']):.3f}, xla "
+        f"{statistics.median(xla['sync_s']):.3f} (medians)")
+    log("    planted in the tuned run's trees: " + "; ".join(
+        f"{k} {v:.3g}" for k, v in rd["planted"].items()))
+    if rd["grad"] > TRAIN_GRAD_TOL or rd["change"] > TRAIN_CHANGE_TOL \
+            or loss_diff > TRAIN_LOSS_TOL:
+        raise AssertionError("[8] the tuned run departs from the xla run")
+    for k, v in rd["planted"].items():
+        if v <= (TRAIN_CHANGE_TOL if k.startswith("update")
+                 else TRAIN_GRAD_TOL):
+            raise AssertionError(f"[8] the planted fault '{k}' reads {v}, "
+                                 f"inside the tolerance")
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "peak_mem_bytes", "launches", "plan_entries", "plan_combines",
+            "describe", "wall_s")
+    summary = {"tuned": {k: tuned[k] for k in keep},
+               "xla": {k: xla[k] for k in keep},
+               "loss_diff": loss_diff, "readings": rd}
+    paths = {"train_tuned": tuned["launches"], "train_xla": xla["launches"]}
+    return summary, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1714,6 +2110,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     kernels = {"flash_attention": phase_kernel(),
+               "flash_attention_bwd": phase_flash_backward(),
                "ssd_chunk": phase_ssd_kernel(),
                "segment_combine": phase_combine_kernel(),
                "paged_attention": phase_paged_kernel()}
@@ -1749,6 +2146,13 @@ def main() -> int:
         coll["grad_sync"]["elems"],
         comm["comm_2x2x2"]["variants"]["bucketed"]["seconds"])
     comm_paths.update(mapped_paths)
+    training, train_paths = phase_training()
+    for path, counts in train_paths.items():
+        for name, n in counts.items():
+            kernels[name]["launches_by_path"][path] = n
+    # the training path's launches of the attention kernels
+    kernels["flash_attention_bwd"]["launches"] = \
+        train_paths["train_tuned"]["flash_attention_bwd"]
     for path, counts in {**coll_paths, **comm_paths}.items():
         for name, n in counts.items():
             # every gradient-sync path is listed for the combine, 0 too
@@ -1766,7 +2170,7 @@ def main() -> int:
                           "best", "grad_sync", "tune_seconds", "wall_s",
                           "samples", "penalty", "fronts")},
                       "tuners": tuners,
-                      "communicator": comm}))
+                      "communicator": comm, "training": training}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: ``get_config("<arch-id>")``.
+"""Architecture registry of the port: ``get_config("<arch-id>")`` and the
+four shapes.
 
 The dense, MoE, SSM and hybrid families are here so far; the encoder-
 decoder and vision-language configs arrive with the slice that ports
@@ -6,7 +7,14 @@ their families (see ROADMAP.md Queue 1). arctic-480b does not fit one
 card; it is here for its reduced variant (a dense residual MLP beside
 the experts).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (
+    CollectiveConfig,
+    ModelConfig,
+    ParallelConfig,
+    ShapeConfig,
+    TrainConfig,
+)
+from repro_torch.configs.shapes import SHAPES, get_shape
 from repro_torch.configs import (  # noqa: E402
     arctic_480b,
     chatglm3_6b,
@@ -31,4 +39,6 @@ def get_config(name: str) -> ModelConfig:
     return ARCHITECTURES[name]
 
 
-__all__ = ["ARCHITECTURES", "ModelConfig", "get_config"]
+__all__ = ["ARCHITECTURES", "CollectiveConfig", "ModelConfig",
+           "ParallelConfig", "SHAPES", "ShapeConfig", "TrainConfig",
+           "get_config", "get_shape"]

@@ -1,13 +1,18 @@
-"""Model config dataclass (a copy of ``repro.configs.base.ModelConfig``).
+"""Config dataclasses (copies of ``repro.configs.base``): ``ModelConfig``,
+``ShapeConfig``, ``CollectiveConfig`` with ``validate_collectives``,
+``ParallelConfig`` and ``TrainConfig``.
 
 The port keeps its own copy so that it imports nothing of the JAX
 package; the fields, ``resolved_head_dim`` and ``reduced()`` are the
-reference's, so a config names the same model in both packages.
+reference's, so a config names the same model in both packages, and
+``Communicator.from_config`` reads a ``CollectiveConfig`` by attribute
+as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any, Optional, Union
 
 
 @dataclass(frozen=True)
@@ -116,3 +121,118 @@ class ModelConfig:
         if self.num_patches:
             kw.update(num_patches=16)
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+@dataclass(frozen=True)
+class CollectiveConfig:
+    """How collectives are implemented/tuned — the paper's technique.
+
+    algorithm: "xla" uses the backend's built-in collective (baseline, =
+    MPI's hardcoded default in the survey); otherwise one of the
+    registered algorithm names ("ring", "recursive_halving", ...).
+    segment_bytes: 0 = unsegmented.
+    decision: optional tuned DecisionTable that overrides the static fields
+    per (op, bytes, axis size) — either a path to the serialized JSON
+    artifact or an already-loaded DecisionTable instance.
+    """
+
+    algorithm: str = "xla"
+    segment_bytes: int = 0
+    decision: Optional[Union[str, Any]] = None
+    a2a_algorithm: str = "xla"     # MoE expert-dispatch all-to-all algorithm
+    overlap_microbatches: int = 1  # >1 accumulates over k microbatches (§4.1)
+    bucket_bytes: Optional[int] = None  # fusion-bucket budget for the
+    # bucketed, overlap-pipelined gradient sync; None = adopt the
+    # artifact's tuned schedule (sequential per-leaf when it carries
+    # none), 0 = force the per-leaf path even over a schedule-carrying
+    # artifact
+    overlap_backward: bool = False  # backward-overlapped streamed sync
+    # (--overlap-backward on the train CLI)
+
+
+class CollectiveConfigError(ValueError):
+    """An unsupported collective-config combination, detected at
+    config/CLI parse time (not mid-step) with the flags to change."""
+
+
+def validate_collectives(coll: "CollectiveConfig",
+                         parallel: "ParallelConfig",
+                         tuned: Optional[bool] = None) -> None:
+    """Reject collective/parallel combinations the step builder cannot
+    execute, naming the flags that conflict. ``tuned`` is whether the
+    resolved communicator takes the explicit tuned-sync path (defaults
+    to what the config alone implies: a non-xla algorithm, a decision
+    artifact, or a fusion-bucket budget)."""
+    if tuned is None:
+        tuned = (coll.algorithm != "xla" or coll.decision is not None
+                 or bool(coll.bucket_bytes))
+    if tuned and parallel.shard_params_over_data:
+        raise CollectiveConfigError(
+            "tuned gradient sync and FSDP param sharding are mutually "
+            "exclusive (DESIGN.md §3): tuned sync all-reduces full "
+            "gradients inside shard_map, FSDP reduce-scatters per-shard. "
+            "Drop --fsdp (ParallelConfig.shard_params_over_data) or run "
+            "the XLA path (--collective xla, no --tuning-table / "
+            "--bucket-mb).")
+    if coll.overlap_backward and parallel.shard_params_over_data:
+        raise CollectiveConfigError(
+            "--overlap-backward requires non-FSDP params: release points "
+            "sync full per-layer gradients, FSDP shards them. Drop "
+            "--fsdp (ParallelConfig.shard_params_over_data) or "
+            "--overlap-backward.")
+    if coll.overlap_backward and not tuned:
+        raise CollectiveConfigError(
+            "--overlap-backward needs the tuned gradient-sync path to "
+            "issue release-point collectives: pass --tuning-table, "
+            "--collective <algorithm>, or --bucket-mb (the plain XLA "
+            "path has no explicit sync to overlap).")
+    if coll.overlap_backward and coll.overlap_microbatches > 1:
+        raise CollectiveConfigError(
+            "--overlap-backward and --overlap-microbatches are mutually "
+            "exclusive: release points would sync partial gradients once "
+            "per microbatch (k x the communication). Set "
+            "--overlap-microbatches 1 or drop --overlap-backward.")
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    data_axes: tuple = ("data",)   # ("pod","data") on multi-pod meshes
+    model_axis: str = "model"
+    remat: str = "none"            # none | full | selective
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # beyond-paper knobs exercised during hillclimbing:
+    shard_params_over_data: bool = False  # ZeRO-3 style (FSDP) param sharding
+    seq_shard_activations: bool = True    # shard long sequences over "model"
+    gather_in_compute_dtype: bool = False  # cast fp32 master params to bf16
+    # BEFORE the FSDP all-gather (halves gather bytes; grads still fp32)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    collectives: CollectiveConfig = field(default_factory=CollectiveConfig)
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    seed: int = 0

@@ -41,6 +41,11 @@
 // cross the diagonal, the window edge or T, and scores and probabilities
 // never leave the SM. wgmma/TMA (warp-specialised) is later work.
 //
+// With a non-null `lse` (training), each kernel also writes the row
+// log-sum-exp m + log(l) of the scaled scores, fp32 (B, H, S), for the
+// backward (flash_attention_bwd.cu); a fully masked row writes -inf. A null
+// `lse` (serving) writes nothing more.
+//
 // Numerics follow the reference: masked scores are -1e30 (the bf16 kernel
 // writes -inf, which gives the same running max and p), p = 0 where
 // masked, fp32 running max / sum / accumulator, expf (no fast math),
@@ -71,6 +76,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;             // (B, H, S) row log-sum-exp, or null
   long long qb, qs, qh;   // element strides of q over (B, S, H)
   long long kb, kt, kh;   // k over (B, T, KV)
   long long vb, vt, vh;   // v over (B, T, KV)
@@ -226,6 +232,10 @@ __global__ void __launch_bounds__(NT) fa_fwd(const Params p) {
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
       og[row * p.os + c + 8 * cc] = acc[i][cc] / li;
+    // m and l are the same in the 8 lanes of the row group
+    if (p.lse != nullptr && c == 0)
+      p.lse[(long long)bh * p.S + row] =
+          l[i] == 0.f ? -INFINITY : m[i] + logf(l[i]);
   }
 }
 
@@ -441,6 +451,14 @@ __global__ void __launch_bounds__(NT) fa_fwd_mma(const Params p) {
   cp_async_wait<0>();
   __syncthreads();
   const float li0 = l0 == 0.f ? 1.f : l0, li1 = l1 == 0.f ? 1.f : l1;
+  // m and l are the same in the 4 lanes that share a row
+  if (p.lse != nullptr && t == 0) {
+    const int row0 = q0 + wrow + g;
+    float* lrow = p.lse + (long long)bh * p.S;
+    if (row0 < p.S) lrow[row0] = l0 == 0.f ? -INFINITY : m0 + logf(l0);
+    if (row0 + 8 < p.S)
+      lrow[row0 + 8] = l1 == 0.f ? -INFINITY : m1 + logf(l1);
+  }
 #pragma unroll
   for (int n = 0; n < NTO; ++n) {
     __nv_bfloat16* r0 = Qs + (wrow + g) * P + n * 8 + 2 * t;
@@ -499,17 +517,18 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32 (fa_fwd, SIMT), 1 = bfloat16 (fa_fwd_mma, tensor
-// cores; 16-byte-aligned rows). Strides are in elements. Returns the
-// cudaError_t of the launch (0 = success).
+// cores; 16-byte-aligned rows). Strides are in elements. `lse` is null or
+// a contiguous fp32 (B, H, S) buffer. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     long long qb, long long qs, long long qh,
     long long kb, long long kt, long long kh,
     long long vb, long long vt, long long vh,
     long long ob, long long os, long long oh,
     int B, int S, int T, int H, int KV, int D, int dtype,
     int causal, int window, int q_offset, float scale, void* stream) {
-  Params p{q, k, v, o, qb, qs, qh, kb, kt, kh, vb, vt, vh, ob, os, oh,
+  Params p{q, k, v, o, lse, qb, qs, qh, kb, kt, kh, vb, vt, vh, ob, os, oh,
            B, S, T, H, KV, causal, window, q_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {

@@ -1,4 +1,5 @@
-"""Flash attention forward: the hand-written CUDA kernels, their plain version.
+"""Flash attention: the hand-written CUDA kernels, their plain version, and
+the autograd function that trains through them.
 
 Replaces ``repro/kernels/attention.py::flash_attention`` (the Pallas TPU
 kernel ``_fa_kernel``). The kernels are in ``csrc/flash_attention.cu``,
@@ -19,6 +20,14 @@ tensor to ``flash_attention_plain``; any other device raises. There is
 no fallback from one kernel to the other or to the plain version: what
 the bf16 kernel does not take (a row that does not start on a 16-byte
 boundary) raises.
+
+Training: when an input requires a gradient, ``flash_attention`` runs
+through `FlashAttention` (a ``torch.autograd.Function``): its forward
+is the same kernel, also writing the row log-sum-exp (``lse``, fp32
+``(B, H, S)``; -inf for a row that sees no key), and its backward is
+``attention_bwd.flash_attention_bwd`` (the hand-written backward kernel
+on a CUDA tensor, its plain version on a CPU tensor). With no gradient
+the call is the forward alone, as serving runs it.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention_bwd
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 80, 128)
@@ -38,10 +48,12 @@ launches = 0
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
-                          scale=None):
+                          scale=None, return_lse=False):
     """The kernel's arithmetic in plain PyTorch: online softmax over
     ``BLOCK_K``-key tiles in fp32, -1e30 masking, whole-tile skips, and
-    0 for a fully masked row. q (B,S,H,D), k/v (B,T,KV,D) -> (B,S,H,D)."""
+    0 for a fully masked row. q (B,S,H,D), k/v (B,T,KV,D) -> (B,S,H,D);
+    with ``return_lse`` also the row log-sum-exp of the scaled scores,
+    fp32 (B,H,S), -inf for a fully masked row."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -75,9 +87,15 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, vt)
         m = m_new
-    l = torch.where(l == 0.0, torch.ones((), device=dev), l)
+    masked = l == 0.0
+    l = torch.where(masked, torch.ones((), device=dev), l)
     out = acc / l[..., None]                                 # (B,KV,g,S,D)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(masked, torch.full((), float("-inf"), device=dev),
+                      m + torch.log(l))
+    return out, lse.reshape(B, H, S)
 
 
 def _check(q, k, v):
@@ -114,13 +132,56 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                     scale=None):
-    """GQA flash attention forward. q (B,S,H,D), k/v (B,T,KV,D) -> (B,S,H,D)
-    in q's dtype. CUDA tensors run the hand-written kernel of their dtype
-    (one launch either way); CPU tensors run ``flash_attention_plain``."""
+    """GQA flash attention. q (B,S,H,D), k/v (B,T,KV,D) -> (B,S,H,D) in
+    q's dtype. CUDA tensors run the hand-written kernel of their dtype
+    (one launch either way); CPU tensors run ``flash_attention_plain``.
+    When an input requires a gradient (and grad mode is on) the call is
+    differentiable through `FlashAttention`."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset, scale)
+    out, _ = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, scale=scale)
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward saves q, k, v, its
+    output and the row log-sum-exp; the backward runs
+    ``attention_bwd.flash_attention_bwd`` on them (the kernel on a CUDA
+    tensor, or raises; the plain version on a CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       window=window, q_offset=q_offset,
+                                       scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd.flash_attention_bwd(
+            q, k, v, out, dout, lse, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, q_offset=0,
+                        scale=None, with_lse=False):
+    """The forward alone: ``(out, lse)``, ``lse`` fp32 (B, H, S) when
+    ``with_lse`` else None; the kernel on a CUDA tensor (``lse`` costs no
+    other launch), the plain version on a CPU tensor."""
     global launches
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, scale=scale)
+        res = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, scale=scale,
+                                    return_lse=with_lse)
+        return res if with_lse else (res, None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if k.device != q.device or v.device != q.device:
@@ -128,13 +189,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     _check(q, k, v)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else D ** -0.5
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     fn = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -145,7 +208,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0,
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {rc}")
     launches += 1
-    return out
+    return out, lse
 
 
 def last_kernel() -> str:
@@ -161,7 +224,7 @@ def _kernel():
     fn = lib.repro_flash_attention_fwd
     if fn.argtypes is None:
         ll, i = ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ll] * 12 + [i] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ll] * 12 + [i] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn

@@ -9,6 +9,20 @@ from __future__ import annotations
 import torch
 
 
+def attention_mask(S: int, T: int, *, causal: bool = True, window: int = 0,
+                   q_offset: int = 0, device="cpu") -> torch.Tensor:
+    """(S, T) bool: whether query row i (position i + q_offset) sees key
+    j — causal, sliding window of ``window`` keys."""
+    q_pos = torch.arange(S, device=device)[:, None] + q_offset
+    k_pos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
 def attention(
     q: torch.Tensor,          # (B, S, H, D)
     k: torch.Tensor,          # (B, T, KV, D)
@@ -31,13 +45,8 @@ def attention(
     vf = v.float().repeat_interleave(group, dim=2)
 
     logits = torch.einsum("bshd,bthd->bhst", qf, kf)
-    q_pos = torch.arange(S, device=q.device)[:, None] + q_offset
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window > 0:
-        mask &= k_pos > q_pos - window
+    mask = attention_mask(S, T, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     # rows that are fully masked produce NaN from softmax(-inf); zero them

@@ -3,9 +3,10 @@
 Plain functions over parameter dicts of tensors, in the reference's
 layouts (``wq`` is ``(d, H, Dh)``, ``wo`` is ``(H, Dh, d)``, ``embed.out``
 is ``(d, Vp)``), so the JAX package's params cross over unchanged
-(``repro_torch.bridge``). Training-only pieces (gradient release points,
-the fused loss) and the sharding constraints, which are identities on
-one device, are left out.
+(``repro_torch.bridge``). The fused loss (``lm_head_loss``) and
+``cross_entropy`` are here for training; the gradient release points of
+the backward-overlapped sync (ROADMAP.md Queue 1 step 9) and the sharding
+constraints, which are identities on one device, are left out.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -272,3 +274,66 @@ def unembed(x: torch.Tensor, p: Params, cfg: ModelConfig,
     if logits.shape[-1] != V:
         logits[..., V:] = NEG_INF
     return logits
+
+
+def _chunk_nll(x, labels, w, V: int, compute_dtype):
+    """(sum of the masked NLL, count of counted labels) of one chunk of
+    rows: its logits exist only inside this call."""
+    logits = torch.einsum("bsd,dv->bsv", x.to(compute_dtype), w)
+    if logits.shape[-1] != V:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(col < V, logits,
+                             torch.full((), NEG_INF, dtype=logits.dtype,
+                                        device=logits.device))
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    mask = (labels >= 0) & (labels < V)
+    picked = torch.gather(lf, -1,
+                          torch.where(mask, labels, 0).long()[..., None])
+    maskf = mask.float()
+    return torch.sum((lse - picked[..., 0]) * maskf), torch.sum(maskf)
+
+
+def lm_head_loss(hidden: torch.Tensor, p: Params, labels: torch.Tensor,
+                 cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+                 chunk: int = 512) -> torch.Tensor:
+    """Fused final-norm + unembed + CE, chunked over the sequence with
+    recomputation (``torch.utils.checkpoint`` per chunk, as the
+    reference's ``jax.checkpoint``): the (tokens x vocab) logits exist
+    at most ``chunk`` rows at a time, in the forward and the backward.
+    Padded vocab columns are -1e30; labels outside [0, V) count as no
+    token."""
+    x = rms_norm(hidden, p["final_norm"], cfg.norm_eps)
+    B, S, d = x.shape
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    w = p["out"].to(compute_dtype)
+    nlls, cnts = [], []
+    for i in range(0, S + pad, c):
+        nll, cnt = checkpoint(_chunk_nll, x[:, i:i + c], labels[:, i:i + c],
+                              w, cfg.vocab_size, compute_dtype,
+                              use_reentrant=False)
+        nlls.append(nll)
+        cnts.append(cnt)
+    return torch.stack(nlls).sum() / torch.clamp(torch.stack(cnts).sum(),
+                                                 min=1.0)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -1) -> torch.Tensor:
+    """Mean token NLL; positions with label==ignore (or outside [0, V))
+    are masked out."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    V = logits.shape[-1]
+    mask = (labels != ignore) & (labels >= 0) & (labels < V)
+    picked = torch.gather(lf, -1,
+                          torch.where(mask, labels, 0).long()[..., None])
+    maskf = mask.float()
+    nll = lse - picked[..., 0]
+    return torch.sum(nll * maskf) / torch.clamp(torch.sum(maskf), min=1.0)

@@ -3,7 +3,9 @@
 
 Params are a dict: ``{"embed": {...}, "layers": [per-layer dict, ...]}``;
 the reference's stacked ``(L, ...)`` leaves become a Python list, and its
-``lax.scan`` over layers a loop. Serving: ``init_cache``, ``prefill`` and
+``lax.scan`` over layers a loop (``remat``: ``torch.utils.checkpoint``
+around each layer, as ``jax.checkpoint`` around the scan body). Training:
+``loss_fn``. Serving: ``init_cache``, ``prefill`` and
 ``decode_step``, whose ``length`` is a scalar or a per-row ``(B,)``
 tensor and whose cache is dense or paged (block pools read through the
 paged-attention kernel).
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -47,14 +50,23 @@ def _layer(x, lp, cfg: ModelConfig, positions, *, window, kv, compute_dtype,
 
 def forward(params, embeds: torch.Tensor, cfg: ModelConfig, *,
             positions: Optional[torch.Tensor] = None, window: int = 0,
-            compute_dtype=torch.bfloat16, attn_impl: str = "auto"):
-    """embeds: (B, S, d) already-embedded inputs. Returns final hidden (B,S,d)."""
+            compute_dtype=torch.bfloat16, attn_impl: str = "auto",
+            remat: bool = False):
+    """embeds: (B, S, d) already-embedded inputs. Returns final hidden
+    (B,S,d). ``remat`` recomputes each layer in the backward instead of
+    keeping its activations."""
     if positions is None:
         positions = torch.arange(embeds.shape[1], device=embeds.device)
+
+    def body(x, lp):
+        y, _ = _layer(x, lp, cfg, positions, window=window, kv=None,
+                      compute_dtype=compute_dtype, attn_impl=attn_impl)
+        return y
+
     x = embeds
     for lp in params["layers"]:
-        x, _ = _layer(x, lp, cfg, positions, window=window, kv=None,
-                      compute_dtype=compute_dtype, attn_impl=attn_impl)
+        x = checkpoint(body, x, lp, use_reentrant=False) if remat \
+            else body(x, lp)
     return x
 
 
@@ -64,6 +76,17 @@ def embed_tokens(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16)
 
 def logits_fn(params, hidden, cfg: ModelConfig, compute_dtype=torch.bfloat16):
     return L.unembed(hidden, params["embed"], cfg, compute_dtype)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+            window: int = 0, attn_impl: str = "auto", remat: bool = False):
+    """(mean next-token NLL, {}) of ``batch`` (``tokens``, ``labels``)."""
+    x = embed_tokens(params, batch["tokens"], cfg, compute_dtype)
+    h = forward(params, x, cfg, window=window, compute_dtype=compute_dtype,
+                attn_impl=attn_impl, remat=remat)
+    loss = L.lm_head_loss(h, params["embed"], batch["labels"], cfg,
+                          compute_dtype=compute_dtype)
+    return loss, {}
 
 
 # ---------------------------------------------------------------------------

@@ -83,9 +83,16 @@ def leaves(tree) -> List:
     return flatten(tree)[0]
 
 
-def tree_map(fn: Callable, tree) -> Any:
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    """``fn`` over the leaves of ``tree`` (and, leaf by leaf, of each tree
+    in ``rest``, which must have the same number of leaves), in
+    ``tree``'s structure."""
     flat, treedef = flatten(tree)
-    return treedef.unflatten([fn(x) for x in flat])
+    others = [leaves(t) for t in rest]
+    if any(len(o) != len(flat) for o in others):
+        raise ValueError(f"tree_map over trees of {len(flat)} and "
+                         f"{[len(o) for o in others]} leaves")
+    return treedef.unflatten([fn(*xs) for xs in zip(flat, *others)])
 
 
 def dtype_name(dtype) -> str:
@@ -100,3 +107,15 @@ def itemsize(dtype) -> int:
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     return dtype.itemsize
+
+
+def fingerprint(tree) -> list:
+    """Two int64 sums (wrapping) of every leaf's bit patterns and their
+    squares: equal lists mean, short of a collision, bit-equal trees."""
+    sums = []
+    for t in leaves(tree):
+        t = t.detach().contiguous()
+        bits = t.view(torch.int32 if t.element_size() == 4
+                      else torch.int16).long()
+        sums.append(torch.stack([bits.sum(), (bits * bits).sum()]))
+    return torch.stack(sums).tolist()

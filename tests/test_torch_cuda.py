@@ -4,9 +4,10 @@ These imports hold no JAX, so the file also runs on a machine with a GPU
 and no JAX: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. Elsewhere every test skips: a CUDA kernel
 has no CPU mode (its arithmetic is held against the reference on the CPU
-through ``flash_attention_plain``, ``ssd_chunked_plain``,
-``segment_combine_plain`` and ``paged_attention_split_plain``, in
-``tests/test_torch_kernels.py``, ``tests/test_torch_ssm.py``,
+through ``flash_attention_plain``, ``flash_attention_bwd_plain``,
+``ssd_chunked_plain``, ``segment_combine_plain`` and
+``paged_attention_split_plain``, in ``tests/test_torch_kernels.py``,
+``tests/test_torch_attention_grad.py``, ``tests/test_torch_ssm.py``,
 ``tests/test_torch_collectives.py`` and
 ``tests/test_torch_paged_attention.py``).
 """
@@ -15,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import attention as fa  # noqa: E402
+from repro_torch.kernels import attention_bwd as fa_bwd  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import segment_reduce  # noqa: E402
@@ -135,6 +137,122 @@ def test_bf16_kernel_refuses_misaligned_rows_and_never_falls_back(cuda, case):
     with pytest.raises(ValueError, match="16-byte-aligned"):
         fa.flash_attention(q, k, v)
     assert fa.launches == before and fa.last_kernel() == ran
+
+
+# ---------------------------------------------------------------------------
+# flash attention for training: the row log-sum-exp and the backward kernel
+# ---------------------------------------------------------------------------
+# f32: the kernel sums up to S x H/KV terms per dK/dV entry in another
+# order than the plain version; bf16: both compute in fp32 from the same
+# bf16 inputs and round once, so they differ by that order and one
+# rounding of the result (the forward's bf16 tolerance)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_CASES = [
+    (1, 128, 128, 4, 4, 64, {}),
+    (2, 256, 256, 9, 3, 64, {}),                      # smollm's heads
+    (1, 128, 128, 4, 1, 128, {}),                     # MQA
+    (1, 96, 96, 2, 2, 80, {}),
+    (2, 200, 200, 6, 2, 80, {}),                      # GQA, S = 200
+    (1, 256, 256, 2, 2, 64, {"window": 17}),
+    (1, 256, 256, 2, 2, 128, {"window": 64}),
+    (1, 40, 40, 2, 1, 64, {"q_offset": -5}),          # fully masked rows
+    (1, 64, 64, 2, 1, 64, {"q_offset": 50, "window": 16}),
+    (2, 70, 300, 3, 1, 128, {"causal": False}),       # T != S, key padding
+    (1, 96, 300, 4, 2, 64, {"q_offset": 204}),
+]
+
+
+def _bwd_inputs(B, S, T, H, KV, D, dtype, kw, seed):
+    q, k, v = _qkv(B, S, T, H, KV, D, dtype, seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    g = torch.Generator().manual_seed(seed + 1)
+    dout = torch.randn(q.shape, generator=g).to(dtype).cuda()
+    return q, k, v, out, dout, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,D,kw", BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, D, kw):
+    kw = {"causal": True, **kw}
+    args = _bwd_inputs(B, S, T, H, KV, D, dtype, kw, seed=S + T)
+    before = fa_bwd.launches
+    got = fa_bwd.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa_bwd.launches == before + fa_bwd.LAUNCHES_PER_CALL
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert fa_bwd.last_kernel() == f"fa_bwd<{name},{D}>"
+    want = fa_bwd.flash_attention_bwd_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+    # deterministic: a second call gives the same bits
+    again = fa_bwd.flash_attention_bwd(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,D,kw", BWD_CASES)
+def test_forward_lse_matches_plain(cuda, dtype, B, S, T, H, KV, D, kw):
+    kw = {"causal": True, **kw}
+    q, k, v = _qkv(B, S, T, H, KV, D, dtype, seed=S + T)
+    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    _, want = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    # a row that sees no key is -inf in both; the others agree to fp32
+    # summation order
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(lse[fin], want[fin], atol=1e-4, rtol=1e-5)
+    # the serving forward writes the same output bits without lse
+    serving = fa.flash_attention(q, k, v, **kw)
+    assert torch.equal(serving, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_runs_both_kernels(cuda, dtype):
+    """A CUDA input that requires a gradient runs the forward kernel once
+    and the backward kernels once per backward, with the backward's
+    gradients; a strided output gradient is read as it is."""
+    kw = dict(causal=True)
+    q, k, v = (t.requires_grad_() for t in
+               _qkv(2, 256, 256, 9, 3, 64, dtype, seed=11))
+    f0, b0 = fa.launches, fa_bwd.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    g = torch.Generator().manual_seed(12)
+    dout = torch.randn((2, 256, 64, 9), generator=g).to(dtype).cuda()
+    dout = dout.transpose(2, 3)               # strided, last dim not unit
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    assert fa.launches == f0 + 1
+    assert fa_bwd.launches == b0 + fa_bwd.LAUNCHES_PER_CALL
+    o, lse = fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                    with_lse=True, **kw)
+    want = fa_bwd.flash_attention_bwd_plain(q.detach(), k.detach(),
+                                            v.detach(), o, dout, lse, **kw)
+    for got, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), w.float(),
+                                   atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("case,err", [
+    ("float16", TypeError), ("head_dim_96", ValueError),
+    ("lse_shape", ValueError)])
+def test_backward_refuses_what_it_does_not_take(cuda, case, err):
+    kw = dict(causal=True)
+    q, k, v, out, dout, lse = _bwd_inputs(1, 32, 32, 2, 1, 64,
+                                          torch.float32, kw, seed=6)
+    if case == "float16":
+        q, k, v, out, dout = (t.half() for t in (q, k, v, out, dout))
+    elif case == "head_dim_96":
+        q, out, dout = (torch.zeros((1, 32, 2, 96), device="cuda")
+                        for _ in range(3))
+        k = v = torch.zeros((1, 32, 1, 96), device="cuda")
+    else:
+        lse = lse[:, :, :16]
+    before = fa_bwd.launches
+    with pytest.raises(err):
+        fa_bwd.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert fa_bwd.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -194,7 +194,11 @@ def test_import_loads_no_jax_and_no_reference_package():
         "'core.tuning.decision_tree', 'core.tuning.quadtree', "
         "'core.tuning.octree', 'core.tuning.star', 'core.tuning.feedback', "
         "'core.tuning.umtac', 'core.topology.placement', "
-        "'core.topology.tune', 'pytree'):\n"
+        "'core.topology.tune', 'pytree', 'kernels.attention_bwd', "
+        "'configs.shapes', 'optim', 'optim.adamw', 'optim.schedule', "
+        "'data', 'data.pipeline', 'parallel.sharding', 'launch.mesh', "
+        "'launch.steps', 'launch.train', 'checkpoint', 'checkpoint.ckpt', "
+        "'bridge'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('imported', sum(n.startswith('repro_torch') for n in sys.modules))\n")
     root = os.path.join(HERE, "..")
