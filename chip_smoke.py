@@ -54,18 +54,25 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       (warm back to back and on the device, and cold) and the plain
       version at each serving shape beside the bound (no single PyTorch
       call computes this function);
-   e. the flash-attention backward (``fa_bwd_dq`` then ``fa_bwd_dkdv``)
+   e. the flash-attention backward (bf16 ``fa_bwd_dq_mma`` then
+      ``fa_bwd_dkdv_mma`` on the tensor cores, fp32 the SIMT ``fa_bwd_dq``
+      then ``fa_bwd_dkdv``; the instantiation each call ran is checked)
       against ``flash_attention_bwd_plain`` on the forward's own output
       and row log-sum-exp, over the forward's sweep (windows, the decode
-      offset, fully masked rows, T != S, S not a multiple of 64, MQA and
-      GQA, D 64/80/128) and smollm-135m's training shape, f32 at 1e-4
-      and bf16 at 2e-2, each case called twice and held bit-equal, the
+      offset, fully masked rows, T != S, S and T off the tile heights,
+      MQA and GQA, D 64/80/128 with query groups of 1, 2 and 3) and
+      smollm-135m's training shape, f32 at 1e-4 and bf16 at 2e-2, bf16
+      also against ``flash_attention_bwd_mma_plain`` (the kernels'
+      rounding) at 1e-2, each case called twice and held bit-equal, the
       forward's lse held to the plain one and the serving forward's bits
-      to the lse-writing forward's; times the backward, its plain
-      version, the forward and backward through autograd and SDPA's
-      forward and backward through autograd (a yardstick only) at the
-      training shape (2, 256, 9, 3, 64) and the serving shape, beside
-      the backward's bound;
+      to the lse-writing forward's; times the backward, the SIMT kernels
+      on the same bf16 inputs (the first design, as the yardstick), its
+      plain version, the forward and backward through autograd, and
+      SDPA's forward alone and forward and backward through autograd (a
+      yardstick only; its backward alone is the difference of the two
+      device times) at the training shape (2, 256, 9, 3, 64) and the
+      serving shape, beside the backward's bound; the tensor-core
+      kernels must not spill at D = 64 (ptxas, [1]);
 3. the kernels inside the models, fp32: full-width smollm-135m prefill
    logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``;
    full-width, full-depth mamba2-130m and zamba2-2.7b prefill logits
@@ -150,7 +157,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    gradient sync and optimizer seconds, each rank's peak memory; the
    replicas' params bit-equal after every step; the launches (zeroed in
    every rank just before the steps, summed over the ranks just after)
-   held to 30 flash forwards and 30 x 2 backward launches a rank-step
+   held to 30 flash forwards and 30 x ``attention_bwd.LAUNCHES_PER_CALL``
+   backward launches a rank-step
    and, tuned, the plan's 2,184 combines a step (none through xla); the
    tuned run held to the xla run: step 0's synced gradients leaf by
    leaf (relative 2-norm; rank 0's gradients before the sync bit-equal
@@ -194,6 +202,10 @@ COMBINE_TOL = 1e-6               # tests/test_kernels.py (expected bit-equal)
 # computes in fp32 from the same bf16 inputs and rounds once, as the
 # forward (the forward's bf16 tolerance)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 against flash_attention_bwd_mma_plain, which rounds P and dS where
+# the kernels do: fp32 summation order, which now and then moves a
+# rounded P or dS by one ulp, and one bf16 ulp of the output (2**-7)
+BWD_MMA_TOL = 1e-2
 # smollm-135m's training attention: 2 rows a rank of the 8 x 256 batch
 TRAIN_ATTN_SHAPE = (2, 256, 9, 3, 64)
 COMBINE_N = 1 << 24              # 16M elements: 64 MB of fp32 per operand
@@ -346,6 +358,11 @@ def phase_device():
         if logf.exists():
             for fn, props in ptxas_report(logf.read_text()):
                 log(f"    ptxas {name}: {fn}: {props}")
+                # the tensor-core backward at D = 64 (the training path's)
+                if "fa_bwd_" in fn and ("_mma<64>" in fn or
+                                        "_mmaILi64E" in fn) \
+                        and "0 bytes spill stores" not in props:
+                    raise AssertionError(f"{fn} spills: {props}")
     return smi
 
 
@@ -540,11 +557,20 @@ def flash_bwd_bound_ms(B, S, T, H, KV, D, itemsize, causal=True):
                                        else "operations"), nbytes, flops
 
 
+def bwd_kernel_for(dtype, D):
+    """The backward instantiation the wrapper must launch for ``dtype``:
+    bf16 on the tensor cores, fp32 on the SIMT kernels."""
+    return (f"fa_bwd_mma<bf16,{D}>" if dtype == torch.bfloat16
+            else f"fa_bwd<f32,{D}>")
+
+
 def check_flash_bwd(fa, fb, q, k, v, dt, kw, seed):
     """One backward call against ``flash_attention_bwd_plain`` on the
     forward's own output and lse: counted, the dtype's kernels, finite,
-    within the dtype's tolerance, and a second call bit-equal; the lse
-    against the plain forward's. Returns (max error, lse max error)."""
+    within the dtype's tolerance (bf16 also against
+    ``flash_attention_bwd_mma_plain``), and a second call bit-equal; the
+    lse against the plain forward's. Returns (max error, max error
+    against the kernels' rounding (bf16), lse max error)."""
     out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dout = torch.randn(q.shape, generator=g, device="cuda").to(dt)
@@ -553,7 +579,7 @@ def check_flash_bwd(fa, fb, q, k, v, dt, kw, seed):
     torch.cuda.synchronize()
     if fb.launches != before + fb.LAUNCHES_PER_CALL:
         raise AssertionError("the backward did not count its launches")
-    name = f"fa_bwd<{'bf16' if dt == torch.bfloat16 else 'f32'},{q.shape[-1]}>"
+    name = bwd_kernel_for(dt, q.shape[-1])
     if fb.last_kernel() != name:
         raise AssertionError(f"ran {fb.last_kernel()}, expected {name}")
     want = fb.flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
@@ -566,6 +592,18 @@ def check_flash_bwd(fa, fb, q, k, v, dt, kw, seed):
                                  f"k {tuple(k.shape)} {dt} {kw}: max err "
                                  f"{d.max().item()}")
         err = max(err, d.max().item())
+    mma_err = 0.0
+    if dt == torch.bfloat16:
+        rounded = fb.flash_attention_bwd_mma_plain(q, k, v, out, dout, lse,
+                                                   **kw)
+        for a, b in zip(got, rounded):
+            d = (a.float() - b.float()).abs()
+            if (d > BWD_MMA_TOL * (1 + b.float().abs())).any():
+                raise AssertionError(
+                    f"backward disagrees with its rounding at "
+                    f"{tuple(q.shape)} k {tuple(k.shape)} {kw}: max err "
+                    f"{d.max().item()}")
+            mma_err = max(mma_err, d.max().item())
     again = fb.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"two backward calls differ at "
@@ -581,15 +619,18 @@ def check_flash_bwd(fa, fb, q, k, v, dt, kw, seed):
             raise AssertionError(f"lse off by {lerr} at {tuple(q.shape)}")
     if not torch.equal(fa.flash_attention(q, k, v, **kw), out):
         raise AssertionError("the serving forward's bits change with lse")
-    return err, lerr
+    return err, mma_err, lerr
 
 
 def time_flash_bwd(fa, fb, name, shape):
     """At one bf16 causal shape, in turns: the backward kernels alone, the
-    plain backward, the forward (with lse) and backward through autograd,
-    and SDPA's forward and backward through autograd (a yardstick only:
-    the port never calls it); back to back between CUDA events and on
-    the device from the profiler; beside the backward's bound."""
+    SIMT kernels on the same inputs (the first design: the yardstick of
+    the redesign), the plain backward, the forward (with lse) and
+    backward through autograd, SDPA's forward alone and SDPA's forward
+    and backward through autograd (a yardstick only: the port never
+    calls it; its backward alone is the difference of the two device
+    times, derived); back to back between CUDA events and on the device
+    from the profiler; beside the backward's bound."""
     import torch.nn.functional as F
     B, S, H, KV, D = shape
     q, k, v = rand_qkv(B, S, S, H, KV, D, torch.bfloat16, seed=98)
@@ -601,8 +642,12 @@ def time_flash_bwd(fa, fb, name, shape):
                   for t in (q, k, v))
     doutt = dout.transpose(1, 2)
     bwd = lambda: fb.flash_attention_bwd(q, k, v, out, dout, lse)  # noqa: E731
+    simt = lambda: fb.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, dout, lse, simt=True)
     plain = lambda: fb.flash_attention_bwd_plain(  # noqa: E731
         q, k, v, out, dout, lse)
+    lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=KV != H)
 
     def ours():
         o = fa.flash_attention(qg, kg, vg)
@@ -612,31 +657,51 @@ def time_flash_bwd(fa, fb, name, shape):
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                            enable_gqa=KV != H)
         return torch.autograd.grad(o, (qt, kt, vt), doutt)
-    b1, p1, o1, l1 = (time_calls(bwd), time_calls(plain), time_calls(ours),
-                      time_calls(lib))
-    db1, do1, dl1 = device_ms(bwd), device_ms(ours), device_ms(lib)
-    b2, p2, o2, l2 = (time_calls(bwd), time_calls(plain), time_calls(ours),
-                      time_calls(lib))
-    db2, do2, dl2 = device_ms(bwd), device_ms(ours), device_ms(lib)
-    med = lambda a, b: statistics.median(a + b)  # noqa: E731
-    ms, plain_ms, fb_ms, lib_ms = med(b1, b2), med(p1, p2), med(o1, o2), \
-        med(l1, l2)
-    dev, fb_dev, lib_dev = (db1 + db2) / 2, (do1 + do2) / 2, (dl1 + dl2) / 2
+    # the yardstick computes the same gradients, on its own kernels
+    ran = simt()
+    if fb.last_kernel() != f"fa_bwd<bf16,{D}>" or not all(
+            torch.allclose(a.float(), b.float(), atol=BWD_TOL[q.dtype],
+                           rtol=BWD_TOL[q.dtype])
+            for a, b in zip(ran, plain())):
+        raise AssertionError(f"the SIMT yardstick ({fb.last_kernel()}) "
+                             f"disagrees with the plain backward")
+    fns = {"bwd": bwd, "simt": simt, "plain": plain, "ours": ours,
+           "lib_fwd": lib_fwd, "lib": lib}
+    on_device = ("bwd", "simt", "ours", "lib_fwd", "lib")
+    turns = [({key: time_calls(fn) for key, fn in fns.items()},
+              {key: device_ms(fns[key]) for key in on_device})
+             for _ in range(2)]
+    ms = {key: statistics.median(turns[0][0][key] + turns[1][0][key])
+          for key in fns}
+    dev = {key: (turns[0][1][key] + turns[1][1][key]) / 2
+           for key in on_device}
+    lib_bwd_dev = dev["lib"] - dev["lib_fwd"]
+    bwd()                  # last_kernel() names the kernels timed
     bound_ms, bound_by, nbytes, flops = flash_bwd_bound_ms(B, S, S, H, KV,
                                                            D, 2)
     log(f"    {name} B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
-        f"{fb.last_kernel()} back to back: backward {ms:.4f} ms (turns "
-        f"{statistics.median(b1):.4f}, {statistics.median(b2):.4f}), plain "
-        f"{plain_ms:.4f} ms; forward+backward through autograd: ours "
-        f"{fb_ms:.4f} ms, sdpa {lib_ms:.4f} ms; device: backward "
-        f"{dev:.4f} ms (turns {db1:.4f}, {db2:.4f}), ours fwd+bwd "
-        f"{fb_dev:.4f} ms, sdpa fwd+bwd {lib_dev:.4f} ms; bound "
+        f"{fb.last_kernel()} back to back: backward {ms['bwd']:.4f} ms "
+        f"(turns {statistics.median(turns[0][0]['bwd']):.4f}, "
+        f"{statistics.median(turns[1][0]['bwd']):.4f}), SIMT "
+        f"{ms['simt']:.4f} ms, plain {ms['plain']:.4f} ms; forward+backward"
+        f" through autograd: ours {ms['ours']:.4f} ms, sdpa "
+        f"{ms['lib']:.4f} ms; device: backward {dev['bwd']:.4f} ms (turns "
+        f"{turns[0][1]['bwd']:.4f}, {turns[1][1]['bwd']:.4f}), SIMT "
+        f"{dev['simt']:.4f} ms (turns {turns[0][1]['simt']:.4f}, "
+        f"{turns[1][1]['simt']:.4f}), ours fwd+bwd {dev['ours']:.4f} ms, "
+        f"sdpa fwd {dev['lib_fwd']:.4f} ms, fwd+bwd {dev['lib']:.4f} ms, "
+        f"bwd alone {lib_bwd_dev:.4f} ms (derived: the difference); bound "
         f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
-        f"{flops / 1e9:.3f} GFLOP); device {dev / bound_ms:.1f}x the bound")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "device_ms": dev, "fwd_bwd_ms": fb_ms,
-            "fwd_bwd_device_ms": fb_dev, "library_ms": lib_ms,
-            "library_device_ms": lib_dev,
+        f"{flops / 1e9:.3f} GFLOP); device {dev['bwd'] / bound_ms:.1f}x "
+        f"the bound, {dev['simt'] / dev['bwd']:.2f}x faster than SIMT, "
+        f"{dev['bwd'] / lib_bwd_dev:.2f}x sdpa's backward")
+    return {"ms": ms["bwd"], "plain_ms": ms["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "device_ms": dev["bwd"],
+            "simt_ms": ms["simt"], "simt_device_ms": dev["simt"],
+            "fwd_bwd_ms": ms["ours"], "fwd_bwd_device_ms": dev["ours"],
+            "library_ms": ms["lib"], "library_device_ms": dev["lib"],
+            "library_fwd_device_ms": dev["lib_fwd"],
+            "library_bwd_device_ms": lib_bwd_dev,
             "shape": f"B={B} S={S} H={H} KV={KV} D={D}"}
 
 
@@ -658,24 +723,33 @@ def phase_flash_backward():
               ((2, 200, 200, 6, 2, 80), {}),               # GQA
               ((2, 70, 300, 3, 1, 128), {"causal": False}),
               ((1, 200, 264, 2, 1, 128), {"window": 64, "q_offset": 64})]
+    # S and T off the tile heights (32 and 64 rows); D 80 and 128 with
+    # query groups of 1, 2 and 3
+    sweep += [((2, 200, 264, 6, 3, 64), {"q_offset": 64}),
+              ((1, 200, 264, 3, 3, 80), {"q_offset": 64}),
+              ((2, 200, 264, 4, 2, 80), {"q_offset": 64}),
+              ((2, 200, 264, 4, 2, 128), {}),
+              ((1, 200, 264, 6, 2, 128), {"q_offset": 64, "window": 96})]
     B, S, H, KV, D = TRAIN_ATTN_SHAPE
     sweep.append(((B, S, S, H, KV, D), {}))
     max_err = {dt: 0.0 for dt in both}
-    lse_err = 0.0
+    lse_err = mma_err = 0.0
     for i, ((B, S, T, H, KV, D), kw) in enumerate(sweep):
         for dt in both:
             q, k, v = rand_qkv(B, S, T, H, KV, D, dt, seed=200 + i)
-            err, lerr = check_flash_bwd(fa, fb, q, k, v, dt,
-                                        {"causal": True, **kw}, seed=i)
+            err, merr, lerr = check_flash_bwd(fa, fb, q, k, v, dt,
+                                              {"causal": True, **kw}, seed=i)
             max_err[dt] = max(max_err[dt], err)
-            lse_err = max(lse_err, lerr)
+            mma_err, lse_err = max(mma_err, merr), max(lse_err, lerr)
             log(f"[2e] {(B, S, T, H, KV, D)} {str(dt)[6:]} {kw}: "
-                f"{fb.last_kernel()}, max|err| {err:.3g}, lse {lerr:.3g}; "
-                f"two calls bit-equal")
+                f"{fb.last_kernel()}, max|err| {err:.3g}"
+                + (f" (its rounding {merr:.3g})" if dt == torch.bfloat16
+                   else "") + f", lse {lerr:.3g}; two calls bit-equal")
     train_err = err          # the training shape (bf16) is the last case
     log(f"    max|err| f32 {max_err[torch.float32]:.3g} (tol "
         f"{BWD_TOL[torch.float32]}), bf16 {max_err[torch.bfloat16]:.3g} "
-        f"(tol {BWD_TOL[torch.bfloat16]}), lse {lse_err:.3g}; every "
+        f"(tol {BWD_TOL[torch.bfloat16]}; against its rounding "
+        f"{mma_err:.3g}, tol {BWD_MMA_TOL}), lse {lse_err:.3g}; every "
         f"serving forward bit-equal with and without lse")
     s = SERVE_SHAPE
     by_shape = {"smollm training": time_flash_bwd(fa, fb, "smollm training",
@@ -696,11 +770,16 @@ def phase_flash_backward():
                           "backward through autograd",
             "device_ms": top["device_ms"],
             "library_device_ms": top["library_device_ms"],
+            "library_bwd_device_ms": top["library_bwd_device_ms"],
+            "library_bwd_is": "derived: SDPA fwd+bwd minus SDPA fwd, "
+                              "device times",
+            "simt_device_ms": top["simt_device_ms"],
             "fwd_bwd_ms": top["fwd_bwd_ms"],
             "fwd_bwd_device_ms": top["fwd_bwd_device_ms"],
             "launches_per_call": fb.LAUNCHES_PER_CALL,
             "max_err_f32": max_err[torch.float32],
             "max_err_bf16": max_err[torch.bfloat16],
+            "max_err_bf16_vs_rounding": mma_err,
             "max_lse_err": lse_err,
             "shape": top["shape"] + " bf16 causal", "by_shape": by_shape}
 
@@ -2048,10 +2127,12 @@ def phase_training():
                         "hierarchical_decision.json")
     tuned = train_run("tuned", [*TRAIN_ARGV, "--tuning-table", hier])
     xla = train_run("xla", [*TRAIN_ARGV, "--collective", "xla"])
+    from repro_torch.kernels import attention_bwd
     ranks, layers = 4, 30
     for label, r in (("tuned", tuned), ("xla", xla)):
         want = {"flash_attention": layers * TRAIN_STEPS * ranks,
-                "flash_attention_bwd": layers * TRAIN_STEPS * ranks * 2,
+                "flash_attention_bwd": layers * TRAIN_STEPS * ranks
+                * attention_bwd.LAUNCHES_PER_CALL,
                 "segment_combine": TRAIN_STEPS * r["plan_combines"]}
         bad = (r["device"] != "cuda:0" or r["ranks"] != ranks
                or r["mesh"] != {"pod": 2, "data": 2, "model": 1}

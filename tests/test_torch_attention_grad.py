@@ -9,7 +9,12 @@ row log-sum-exp, and autograd through ``ops.attention(impl="auto")`` on
 CPU tensors (the plain forward and backward of the kernels). Tolerance
 1e-3, ``tests/test_kernels.py``'s for the gradient. Cases: causal,
 window, GQA and MQA, fully masked rows (zero gradient), T != S, no
-causal mask.
+causal mask. The same cases in bf16 (inputs bf16-representable, so the
+reference sees the very values) hold ``flash_attention_bwd_mma_plain``,
+the bf16 tensor-core kernels' algebra (P and dS rounded to bf16, the
+GQA partials summed in head order), to the reference's gradient at its
+bf16 tolerance, 2e-2 (``tests/test_kernels.py:17``), and to
+``flash_attention_bwd_plain`` on the same bf16 inputs.
 """
 import functools
 
@@ -46,13 +51,20 @@ def _inputs(B, S, T, H, KV, D, seed):
                       (B, S, H, D))]
 
 
+def _bf16_exact(a):
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
 @functools.lru_cache(maxsize=None)
-def _case(i):
-    """Case i's inputs, the reference's output and its gradients (both
-    tests of a case share them)."""
+def _case(i, bf16=False):
+    """Case i's inputs, the reference's output and its gradients (the
+    tests of a case share them); with ``bf16`` the inputs are rounded to
+    bf16 values first."""
     B, S, T, H, KV, D, kw = CASES[i]
     kw = {"causal": True, **kw}
     q, k, v, w = _inputs(B, S, T, H, KV, D, seed=S + T)
+    if bf16:
+        q, k, v, w = (_bf16_exact(a) for a in (q, k, v, w))
 
     @jax.jit
     def f(q, k, v):
@@ -85,6 +97,46 @@ def test_autograd_through_cpu_attention_matches_jax_grad(i):
     got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(w))
     for g, x in zip(got, want):
         np.testing.assert_allclose(g.numpy(), x, atol=TOL, rtol=TOL)
+
+
+BF16_TOL = 2e-2
+
+
+def _mma_plain_case(i):
+    """Case i in bf16 through the forward's plain version and
+    ``flash_attention_bwd_mma_plain``, beside the reference's gradients
+    and ``flash_attention_bwd_plain``'s on the same inputs."""
+    (q, k, v, w), kw, _, want = _case(i, bf16=True)
+    qt, kt, vt, wt = (torch.from_numpy(a).bfloat16() for a in (q, k, v, w))
+    out, lse = fa.flash_attention_fwd(qt, kt, vt, with_lse=True, **kw)
+    got = fa_bwd.flash_attention_bwd_mma_plain(qt, kt, vt, out, wt, lse,
+                                               **kw)
+    plain = fa_bwd.flash_attention_bwd_plain(qt, kt, vt, out, wt, lse, **kw)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    return got, want, plain
+
+
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_mma_plain_matches_jax_grad(i):
+    got, want, _ = _mma_plain_case(i)
+    err = max(float(np.abs(g.float().numpy() - x).max())
+              for g, x in zip(got, want))
+    print(f"mma plain vs jax.grad, case {IDS[i]}: max |err| {err:.3g}")
+    for g, x in zip(got, want):
+        assert np.isfinite(g.float().numpy()).all()
+        np.testing.assert_allclose(g.float().numpy(), x, atol=BF16_TOL,
+                                   rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
+def test_mma_plain_matches_plain(i):
+    got, _, plain = _mma_plain_case(i)
+    err = max(float((g.float() - p.float()).abs().max())
+              for g, p in zip(got, plain))
+    print(f"mma plain vs plain, case {IDS[i]}: max |err| {err:.3g}")
+    for g, p in zip(got, plain):
+        np.testing.assert_allclose(g.float().numpy(), p.float().numpy(),
+                                   atol=BF16_TOL, rtol=BF16_TOL)
 
 
 def test_lse_and_fully_masked_rows():

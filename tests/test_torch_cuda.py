@@ -147,6 +147,12 @@ def test_bf16_kernel_refuses_misaligned_rows_and_never_falls_back(cuda, case):
 # bf16 inputs and round once, so they differ by that order and one
 # rounding of the result (the forward's bf16 tolerance)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# bf16 against flash_attention_bwd_mma_plain, which rounds P and dS where
+# the tensor-core kernels do and sums the GQA partials in the same order:
+# what is left is the fp32 summation order inside the products, which
+# now and then moves a rounded P or dS by one bf16 ulp, and the final
+# rounding, one bf16 ulp of the output (2**-7 relative)
+BWD_MMA_TOL = 1e-2
 BWD_CASES = [
     (1, 128, 128, 4, 4, 64, {}),
     (2, 256, 256, 9, 3, 64, {}),                      # smollm's heads
@@ -159,7 +165,21 @@ BWD_CASES = [
     (1, 64, 64, 2, 1, 64, {"q_offset": 50, "window": 16}),
     (2, 70, 300, 3, 1, 128, {"causal": False}),       # T != S, key padding
     (1, 96, 300, 4, 2, 64, {"q_offset": 204}),
+    # S and T off the tile heights (32 and 64 rows); D 80 and 128 with
+    # query groups of 1, 2 and 3
+    (2, 200, 264, 6, 3, 64, {"q_offset": 64}),
+    (1, 200, 264, 3, 3, 80, {"q_offset": 64}),
+    (2, 200, 264, 4, 2, 80, {"q_offset": 64}),
+    (2, 200, 264, 4, 2, 128, {}),
+    (1, 200, 264, 6, 2, 128, {"q_offset": 64, "window": 96}),
 ]
+
+
+def _bwd_name(dtype, D):
+    """The instantiation the wrapper must run: bf16 on the tensor cores,
+    fp32 on the SIMT kernels."""
+    return (f"fa_bwd_mma<bf16,{D}>" if dtype == torch.bfloat16
+            else f"fa_bwd<f32,{D}>")
 
 
 def _bwd_inputs(B, S, T, H, KV, D, dtype, kw, seed):
@@ -179,13 +199,17 @@ def test_backward_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, D, kw):
     got = fa_bwd.flash_attention_bwd(*args, **kw)
     torch.cuda.synchronize()
     assert fa_bwd.launches == before + fa_bwd.LAUNCHES_PER_CALL
-    name = "bf16" if dtype == torch.bfloat16 else "f32"
-    assert fa_bwd.last_kernel() == f"fa_bwd<{name},{D}>"
+    assert fa_bwd.last_kernel() == _bwd_name(dtype, D)
     want = fa_bwd.flash_attention_bwd_plain(*args, **kw)
     for g, w in zip(got, want):
         assert g.dtype == dtype and torch.isfinite(g).all()
         torch.testing.assert_close(g.float(), w.float(), atol=BWD_TOL[dtype],
                                    rtol=BWD_TOL[dtype])
+    if dtype == torch.bfloat16:
+        mma = fa_bwd.flash_attention_bwd_mma_plain(*args, **kw)
+        for g, w in zip(got, mma):
+            torch.testing.assert_close(g.float(), w.float(),
+                                       atol=BWD_MMA_TOL, rtol=BWD_MMA_TOL)
     # deterministic: a second call gives the same bits
     again = fa_bwd.flash_attention_bwd(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -225,6 +249,7 @@ def test_autograd_runs_both_kernels(cuda, dtype):
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
     assert fa.launches == f0 + 1
     assert fa_bwd.launches == b0 + fa_bwd.LAUNCHES_PER_CALL
+    assert fa_bwd.last_kernel() == _bwd_name(dtype, 64)
     o, lse = fa.flash_attention_fwd(q.detach(), k.detach(), v.detach(),
                                     with_lse=True, **kw)
     want = fa_bwd.flash_attention_bwd_plain(q.detach(), k.detach(),
@@ -232,6 +257,38 @@ def test_autograd_runs_both_kernels(cuda, dtype):
     for got, w in zip((dq, dk, dv), want):
         torch.testing.assert_close(got.float(), w.float(),
                                    atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", ["k_offset_2_bytes", "dout_row_stride_68",
+                                  "q_and_out_offset_2_bytes"])
+def test_backward_copies_rows_off_16_bytes(cuda, case):
+    """The tensor-core kernels read 16-byte rows: a bf16 tensor whose rows
+    do not start on 16 bytes is copied first (autograd may hand over such
+    an output gradient), and the call gives the bits of the aligned call
+    on the same values, through the same kernels."""
+    kw = dict(causal=True)
+    args = list(_bwd_inputs(1, 64, 64, 4, 2, 64, torch.bfloat16, kw,
+                            seed=13))
+    want = fa_bwd.flash_attention_bwd(*args, **kw)
+
+    def off(t, extra):                 # the same values, rows moved
+        if extra == 0:                 # by one element
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+            return buf[1:].view(t.shape).copy_(t)
+        pad = torch.zeros(t.shape[:3] + (t.shape[3] + extra,),
+                          dtype=t.dtype, device="cuda")
+        return pad[..., :t.shape[3]].copy_(t)
+    if case == "k_offset_2_bytes":
+        args[1] = off(args[1], 0)
+    elif case == "dout_row_stride_68":
+        args[4] = off(args[4], 4)
+    else:
+        args[0], args[3] = off(args[0], 0), off(args[3], 0)
+    before = fa_bwd.launches
+    got = fa_bwd.flash_attention_bwd(*args, **kw)
+    assert fa_bwd.launches == before + fa_bwd.LAUNCHES_PER_CALL
+    assert fa_bwd.last_kernel() == "fa_bwd_mma<bf16,64>"
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("case,err", [
