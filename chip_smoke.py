@@ -168,6 +168,19 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    (gradients zeroed, negated, summed and not averaged, shifted between
    same-shaped leaves, half a leaf dropped; the update lost, reversed),
    each of which must exceed its tolerance;
+   c. the tuned run again with ``--overlap-backward --trace-dir`` (each
+   layer's gradients synced on a thread of every rank, on its own CUDA
+   stream, while the backward computes the layers below), its launches
+   zeroed just before the steps and read just after: rank 0's step-0
+   gradients before any sync bit-equal to the tuned run's (each
+   release's cotangent checksummed in the sink before its sync, the
+   residual before its sync), step 0's synced gradients within
+   ``TRAIN_GRAD_TOL``, the losses within ``TRAIN_LOSS_TOL``, the
+   combines 4 x ``explain_gradients(overlap_backward=True)``'s plan,
+   the flash launches the tuned run's, the releases in order 29...0 in
+   every rank and step, each step's trace and summary written, parsed
+   and holding one span a plan entry; each step's compute / exposed sync
+   / optimizer seconds printed beside the tuned run's;
 9. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
@@ -2007,6 +2020,7 @@ def phase_remapped(n_params, identity_bucketed):
 # [8] the data-parallel training step
 # ---------------------------------------------------------------------------
 TRAIN_STEPS = 4
+TRAIN_RANKS, TRAIN_LAYERS = 4, 30        # smollm-135m's 30 layers
 TRAIN_ARGV = ["--arch", "smollm-135m", "--ranks", "4", "--topology", "2x2",
               "--steps", str(TRAIN_STEPS), "--seq", "256", "--batch", "8"]
 # the tuned run against the "xla" run. Both start from the same params
@@ -2128,7 +2142,7 @@ def phase_training():
     tuned = train_run("tuned", [*TRAIN_ARGV, "--tuning-table", hier])
     xla = train_run("xla", [*TRAIN_ARGV, "--collective", "xla"])
     from repro_torch.kernels import attention_bwd
-    ranks, layers = 4, 30
+    ranks, layers = TRAIN_RANKS, TRAIN_LAYERS
     for label, r in (("tuned", tuned), ("xla", xla)):
         want = {"flash_attention": layers * TRAIN_STEPS * ranks,
                 "flash_attention_bwd": layers * TRAIN_STEPS * ranks
@@ -2176,7 +2190,97 @@ def phase_training():
                "xla": {k: xla[k] for k in keep},
                "loss_diff": loss_diff, "readings": rd}
     paths = {"train_tuned": tuned["launches"], "train_xla": xla["launches"]}
+    summary["overlapped"], paths["train_overlapped"] = \
+        phase_training_overlapped(tuned)
     return summary, paths
+
+
+def check_step_traces(d, r) -> dict:
+    """[8c]'s trace directory: every step's Perfetto trace and summary
+    parse, one span a plan entry; returns the drift a step and the
+    replayed seconds a step of the released layers' syncs and of the
+    residual's (each task alone, the slowest rank's)."""
+    drift, layers_s, residual_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        with open(os.path.join(d, f"step{i:03d}.trace.json")) as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e["ph"] == "X"]
+        with open(os.path.join(d, f"step{i:03d}.summary.json")) as f:
+            summ = json.load(f)
+        if len(spans) != r["plan_entries"] or \
+                summ["n_tasks"] != r["plan_entries"] or summ["step"] != i:
+            raise AssertionError(f"[8c] step {i}'s trace has {len(spans)} "
+                                 f"spans, its summary {summ['n_tasks']} "
+                                 f"tasks; the plan {r['plan_entries']}")
+        drift.append(summ.get("drift"))
+        released = [e for e in spans if e["args"]["release"] is not None]
+        layers_s.append(sum(e["dur"] for e in released) * 1e-6)
+        residual_s.append(sum(e["dur"] for e in spans) * 1e-6
+                          - layers_s[-1])
+    return {"drift": drift, "replay_layers_s": layers_s,
+            "replay_residual_s": residual_s}
+
+
+def phase_training_overlapped(tuned):
+    """[8c] [8]'s tuned run again with ``--overlap-backward --trace-dir``:
+    each layer's gradients synced on a thread of every rank (its own CUDA
+    stream) while the backward computes the layers below, held to [8]'s
+    tuned run; each step's trace written and checked; returns the summary
+    and the launch counts of the steps (zeroed in every rank just before
+    them, summed over the ranks just after; the trace replay's apart)."""
+    import tempfile
+    hier = os.path.join(ROOT, "examples", "artifacts",
+                        "hierarchical_decision.json")
+    with tempfile.TemporaryDirectory() as d:
+        r = train_run("tuned, overlapped",
+                      [*TRAIN_ARGV, "--tuning-table", hier,
+                       "--overlap-backward", "--trace-dir", d])
+        traces = check_step_traces(d, r)
+    order = list(reversed(range(TRAIN_LAYERS)))
+    bad = [k for k, ok in (
+        ("replicas", r["replicas_equal_at_init"]
+         and all(r["replicas_equal"])),
+        ("release order", r["release_events"]
+         == [[order] * TRAIN_RANKS] * TRAIN_STEPS),
+        ("combines", r["launches"]["segment_combine"]
+         == TRAIN_STEPS * r["plan_combines"] > 0),
+        ("flash launches", all(r["launches"][k] == tuned["launches"][k]
+                               for k in ("flash_attention",
+                                         "flash_attention_bwd"))),
+        ("gradients before the sync", r["local_grads0_fingerprint"]
+         == tuned["local_grads0_fingerprint"])) if not ok]
+    from repro_torch import pytree
+    grad = grad_reading(pytree.leaves(r["grads0"]),
+                        pytree.leaves(tuned["grads0"]))
+    loss_diff = max(abs(a - b) for a, b in zip(r["losses"],
+                                               tuned["losses"]))
+    log(f"    overlapped vs [8] tuned: step 0's synced gradients within "
+        f"{grad:.3g} (tol {TRAIN_GRAD_TOL}), losses within {loss_diff:.3g}"
+        f" (tol {TRAIN_LOSS_TOL}); {r['plan_entries']} sync collectives "
+        f"and {r['plan_combines']} combines a step ([8]: "
+        f"{tuned['plan_entries']}, {tuned['plan_combines']}); trace "
+        f"replay launches {r['replay_launches']}; drift a step "
+        f"{traces['drift']}")
+    log("    replayed sync s a step, each task alone: layers "
+        + " ".join(f"{x:.4f}" for x in traces["replay_layers_s"])
+        + "; residual " + " ".join(f"{x:.4f}"
+                                   for x in traces["replay_residual_s"]))
+    for i in range(TRAIN_STEPS):
+        log(f"    step {i}: compute / exposed sync / optimizer s, "
+            f"overlapped {r['compute_s'][i]:.4f} / {r['sync_s'][i]:.4f} / "
+            f"{r['opt_s'][i]:.4f} (sync thread {r['release_sync_s'][i]:.4f})"
+            f", [8] tuned {tuned['compute_s'][i]:.4f} / "
+            f"{tuned['sync_s'][i]:.4f} / {tuned['opt_s'][i]:.4f}; step "
+            f"{r['step_s'][i]:.3f} vs {tuned['step_s'][i]:.3f}")
+    if bad or grad > TRAIN_GRAD_TOL or loss_diff > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[8c] the overlapped run departs from [8]'s "
+                             f"tuned run: {bad}, gradients {grad}, losses "
+                             f"{loss_diff}")
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "release_sync_s", "peak_mem_bytes", "launches",
+            "replay_launches", "plan_entries", "plan_combines", "wall_s")
+    return ({**{k: r[k] for k in keep}, "grad_reading": grad,
+             "loss_diff": loss_diff, **traces}, r["launches"])
 
 
 def main() -> int:

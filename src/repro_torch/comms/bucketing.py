@@ -5,8 +5,14 @@ of ``repro/comms/bucketing.py``).
 The reference flattens with ``jax.tree``; the port with
 `repro_torch.pytree`, which visits a dict's children in sorted key
 order as ``jax.tree`` does, so one tree gives the reference's buckets.
-``layer_slice_struct`` gives `pytree.LeafStruct`s where the reference
-gives ``jax.ShapeDtypeStruct``s. The reference's text follows.
+The released subtree differs by design: the reference stacks the layers
+(one leaf a param, leading axis the layer), the port keeps a list of
+per-layer dicts. ``split_release_tree`` and ``layer_slice_struct`` take
+the list (the layer count is its length, one layer's slice is one
+element), and give `pytree.LeafStruct`s where the reference gives
+``jax.ShapeDtypeStruct``s: one layer's slice has the reference's
+structure, so each release syncs what the reference's does. The
+reference's text follows.
 
 A 200-leaf gradient tree pays 200 collective launches per step under the
 per-leaf sync; the survey's answer (and every production DDP stack's) is
@@ -42,31 +48,33 @@ __all__ = ["Bucket", "BucketLayout", "BucketSlot", "RELEASE_KEY",
            "coalesce_bytes", "layer_slice_struct", "pack_buckets",
            "split_release_tree"]
 
-# The top-level gradient-tree key whose leaves are stacked per layer
-# (leading axis = layer) and released layer-by-layer during backward.
-# grad_release tags are ("layers", i); tag[0] must equal this key.
+# The top-level gradient-tree key whose value is the list of per-layer
+# trees, released layer-by-layer during backward. grad_release tags are
+# ("layers", i); tag[0] must equal this key.
 RELEASE_KEY = "layers"
 
 
 def split_release_tree(tree, key: str = RELEASE_KEY):
     """Split a gradient tree into (per-layer released subtree, residual).
 
-    The released subtree is ``tree[key]`` — stacked per-layer leaves
-    whose shared leading axis is the layer count — and the residual is
-    everything else (embeddings, final norm, ...), synced post-backward.
-    Returns ``(None, tree)`` when the tree has no release key."""
-    if not isinstance(tree, dict) or key not in tree:
+    The released subtree is ``tree[key]``, a list of per-layer trees
+    (layer i's is element i), and the residual is everything else
+    (embeddings, final norm, ...), synced post-backward. Returns
+    ``(None, tree)`` when the tree has no release key or it holds no
+    layer."""
+    if not isinstance(tree, dict) or key not in tree \
+            or not isinstance(tree[key], (list, tuple)) or not tree[key]:
         return None, tree
     rest = {k: v for k, v in tree.items() if k != key}
     return tree[key], rest
 
 
 def layer_slice_struct(layers):
-    """Leaf structs of ONE layer's slice of a stacked subtree (leading
-    layer axis dropped) — what each release event hands the sink, used
-    to plan the per-release bucket layout without data."""
+    """Leaf structs of ONE layer's slice of the per-layer list — what
+    each release event hands the sink, used to plan the per-release
+    bucket layout without data."""
     return pytree.tree_map(
-        lambda a: pytree.LeafStruct(tuple(a.shape[1:]), a.dtype), layers)
+        lambda a: pytree.LeafStruct(tuple(a.shape), a.dtype), layers[0])
 
 
 @dataclasses.dataclass(frozen=True)

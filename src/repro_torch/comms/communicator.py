@@ -9,13 +9,22 @@ rank: an axis name resolves to this rank's sub-group along that axis
 path becomes ``group.psum`` over the outer axis's sub-group. Requests,
 plans and trace spans carry axis names, as the reference's do.
 
-Left out until their ROADMAP.md Queue 1 step (each raises
-``NotImplementedError`` naming it): the backward-overlapped release path
-(`release_sink`, `sync_gradients_streamed`, ``_sync_release`` and
-``explain_gradients(overlap_backward=True)``; step 9, training). An
-artifact whose meta carries a tuned mesh mapping rebuilds the `RankMesh`
-in the mapping's rank order (``MeshMapping.apply``), as the reference
-rebuilds its ``Mesh``. The reference's text follows.
+The backward-overlapped release path (`release_sink`,
+``_sync_release``, `sync_gradients_streamed`,
+``explain_gradients(overlap_backward=True)``) walks the port's gradient
+tree, whose ``layers`` are a list of per-layer dicts (the reference
+stacks them): each release syncs one layer, whose tree has the
+reference's structure, so the streamed plan is the reference's entry for
+entry. The reference gets the overlap from XLA's scheduler; the port's
+sink (``overlap=True``) hands each release to one `group.SyncThread` a
+rank, which syncs the layers in release order on a CUDA stream of its
+own while autograd runs the layers below, and returns the cotangent to
+autograd untouched; `sync_gradients_streamed` joins the thread. Without
+``overlap`` the sink syncs inside the backward and returns the synced
+cotangent, as the reference's does. Both sum alike, so both give the
+same bits. An artifact whose meta carries a tuned mesh mapping rebuilds
+the `RankMesh` in the mapping's rank order (``MeshMapping.apply``), as
+the reference rebuilds its ``Mesh``. The reference's text follows.
 
 Constructed ONCE per launch, it resolves the whole decision stack that
 call sites used to re-assemble by hand:
@@ -43,7 +52,11 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch import pytree
-from repro_torch.comms.bucketing import BucketLayout
+from repro_torch.comms.bucketing import (
+    BucketLayout,
+    layer_slice_struct,
+    split_release_tree,
+)
 from repro_torch.comms.report import PlanEntry, PlanReport
 from repro_torch.comms.request import CollectiveRequest
 from repro_torch.core.analytical.hierarchy import padded_allreduce_schedule
@@ -58,6 +71,7 @@ from repro_torch.core.collectives.hierarchical import (
 )
 from repro_torch.core.collectives.schedule import (
     build_pipeline_schedule,
+    build_stream_schedule,
     execute_pipelined,
 )
 from repro_torch.obs import trace as obs_trace
@@ -75,9 +89,69 @@ _XLA_SPEC = CollectiveSpec("xla", 1)
 N_STREAMS = 2
 
 
-#: where the backward-overlapped (streamed) sync comes from
-_STREAMED_LATER = ("the backward-overlapped gradient sync comes with "
-                   "training (ROADMAP.md Queue 1, step 9)")
+class _ReleaseSink:
+    """Adopts gradient-release events during the backward.
+
+    Installed via ``models.layers.release_scope`` around the forward and
+    backward: each per-layer release point hands its cotangent here the
+    moment autograd materializes it, and the sink syncs it through the
+    communicator's full tuned composition (sum only: the data-parallel
+    mean divides once at the end in ``sync_gradients_streamed``).
+    ``events`` records the tags in release (backward) order, the deepest
+    layer first; ``synced`` maps each tag to its summed tree.
+
+    Without ``overlap`` the sync runs inside the backward and its result
+    is the cotangent autograd carries on (the reference's form). With
+    ``overlap`` the release hands the cotangent to one
+    `group.SyncThread` (on ``device``'s own stream), returns it to
+    autograd untouched, and `finish` joins the thread (``busy_s``: the
+    thread's busy seconds). ``fingerprint``
+    keeps `pytree.fingerprint` of each cotangent as released, before any
+    sync (``fingerprints``)."""
+
+    def __init__(self, comm: "Communicator", bucket_bytes: int = 0,
+                 n_streams: int = N_STREAMS, *, overlap: bool = False,
+                 device=None, fingerprint: bool = False):
+        self.comm = comm
+        self.bucket_bytes = int(bucket_bytes or 0)
+        self.n_streams = int(n_streams)
+        self.events: List[Tuple] = []
+        self.synced: Dict[Tuple, object] = {}
+        self.fingerprints: Optional[Dict[Tuple, list]] = {} \
+            if fingerprint else None
+        self.thread = grp.SyncThread(device) if overlap else None
+        self.busy_s = 0.0
+
+    def _sync(self, tag, r: int, ct, rec):
+        if rec is None:
+            out = self.comm._sync_release(ct, self.bucket_bytes)
+        else:
+            with obs_trace.installed(rec), rec.tags(release=r):
+                out = self.comm._sync_release(ct, self.bucket_bytes)
+        self.synced[tag] = out
+        return out
+
+    def release(self, tag, ct):
+        self.events.append(tag)
+        r = len(self.events) - 1
+        if self.fingerprints is not None:
+            self.fingerprints[tag] = pytree.fingerprint(ct)
+        rec = obs_trace.active() or self.comm.trace
+        if rec is not None:
+            rec.note_release(tag, r, self.n_streams)
+        if self.thread is None:
+            return self._sync(tag, r, ct, rec)
+        self.thread.submit(self._sync, tag, r, ct, rec)
+        return ct
+
+    def finish(self) -> Dict[Tuple, object]:
+        """Wait for the overlapped syncs (a no-op without overlap);
+        returns ``synced``."""
+        if self.thread is not None:
+            thread, self.thread = self.thread, None
+            thread.join()
+            self.busy_s = thread.busy_s
+        return self.synced
 
 
 def _supported(op: str, algorithm: str) -> bool:
@@ -713,9 +787,11 @@ class Communicator:
         plus one psum hop per remaining sync tier. With bucketing: the
         pipelined schedule's entries in ISSUE order — bucket k's inward
         phase between bucket k-1's deeper phases — each tagged with its
-        fusion bucket and pipeline step. ``overlap_backward`` (the
-        backward-overlapped stream schedule) is not ported yet and
-        raises.
+        fusion bucket and pipeline step. With ``overlap_backward``: the
+        backward-overlapped stream schedule — one release event per
+        layer in backward order (deepest layer first), each entry tagged
+        ``release=``/``stream=``/``step=`` from the double-buffered
+        stream DAG, followed by the residual (embeddings, ...) sync.
 
         ``measured`` overlays recorded timings onto the plan: a
         `repro_torch.obs.TraceRecorder` (or its span list) from a traced or
@@ -738,7 +814,8 @@ class Communicator:
                                 overlap_backward: bool = False
                                 ) -> PlanReport:
         if overlap_backward:
-            raise NotImplementedError(_STREAMED_LATER)
+            return self._explain_gradients_streamed(
+                tree, self._resolve_bucket_bytes(bucket_bytes))
         bb = self._resolve_bucket_bytes(bucket_bytes)
         if not bb:
             entries: List[PlanEntry] = []
@@ -946,15 +1023,135 @@ class Communicator:
 
     # -- backward-overlapped (streamed) gradient sync -----------------------
     def release_sink(self, bucket_bytes: Optional[int] = None,
-                     n_streams: int = N_STREAMS):
-        """The reference's gradient-release sink for one
-        backward-overlapped step; not ported yet."""
-        raise NotImplementedError(_STREAMED_LATER)
+                     n_streams: int = N_STREAMS, *, overlap: bool = False,
+                     device=None, fingerprint: bool = False
+                     ) -> _ReleaseSink:
+        """A fresh gradient-release sink for one backward-overlapped
+        step: install it with ``models.layers.release_scope`` around the
+        forward and backward, then finish with
+        :meth:`sync_gradients_streamed`. ``overlap`` syncs on a thread
+        of this rank (on ``device``'s own CUDA stream) while the
+        backward runs; see `_ReleaseSink`."""
+        return _ReleaseSink(self, self._resolve_bucket_bytes(bucket_bytes),
+                            n_streams, overlap=overlap, device=device,
+                            fingerprint=fingerprint)
 
     def _sync_release(self, grads, bucket_bytes: int):
-        raise NotImplementedError(_STREAMED_LATER)
+        """Sync ONE release event's cotangent (sum, no mean) through the
+        full shape-preserving composition (reduce-scatter in, all-reduce
+        at the top, all-gather back out), so every rank's layer gradient
+        arrives reduced. ``bucket_bytes <= 0`` fuses the whole layer
+        into one bucket per dtype. Non-float leaves pass through
+        untouched."""
+        flat, treedef = pytree.flatten(grads)
+        idx = [i for i, leaf in enumerate(flat)
+               if leaf.is_floating_point()]
+        if len(idx) == len(flat):
+            return self._sync_gradients_bucketed(
+                grads, int(bucket_bytes), mean=False, denom=1)
+        sub = {str(i): flat[i] for i in idx}
+        synced = self._sync_gradients_bucketed(
+            sub, int(bucket_bytes), mean=False, denom=1)
+        for i in idx:
+            flat[i] = synced[str(i)]
+        return treedef.unflatten(flat)
 
-    def sync_gradients_streamed(self, grads, sink, *, mean: bool = True,
+    def sync_gradients_streamed(self, grads, sink: Optional[_ReleaseSink],
+                                *, mean: bool = True,
                                 bucket_bytes: Optional[int] = None):
-        """The reference's backward-overlapped sync; not ported yet."""
-        raise NotImplementedError(_STREAMED_LATER)
+        """Finish a backward-overlapped gradient sync.
+
+        Waits for the sink's syncs, puts each released layer's summed
+        gradients in place of the local ones (cast to the local leaf's
+        dtype, as autograd casts a cotangent that crosses a cast),
+        divides them by the data-parallel size, and syncs the RESIDUAL
+        (embeddings, final norm — everything outside the released
+        top-level keys) through the ordinary :meth:`sync_gradients`
+        path. With no sink or no recorded events (a model without
+        release points), falls back to the plain full-tree sync —
+        numerics are identical either way, only the overlap is lost."""
+        synced = sink.finish() if sink is not None else {}
+        if sink is None or not sink.events:
+            return self.sync_gradients(grads, mean=mean,
+                                       bucket_bytes=bucket_bytes)
+        denom = self._data_parallel_size()
+        released_keys = {t[0] for t in sink.events}
+        out = {k: v for k, v in grads.items() if k not in released_keys}
+        if out:
+            out = self.sync_gradients(out, mean=mean,
+                                      bucket_bytes=bucket_bytes)
+        for key in released_keys:
+            layers = list(grads[key])
+            missing = [i for i in range(len(layers))
+                       if (key, i) not in synced]
+            if missing:
+                raise ValueError(f"layers {missing} of {key!r} passed no "
+                                 f"release point")
+            for i, local in enumerate(layers):
+                summed = pytree.tree_map(
+                    lambda s, g: s.to(g.dtype), synced[(key, i)], local)
+                layers[i] = pytree.tree_map(lambda g: g / denom, summed) \
+                    if mean and denom > 1 else summed
+            out[key] = layers
+        return out
+
+    def _explain_gradients_streamed(self, tree, bucket_bytes: int,
+                                    n_streams: int = N_STREAMS
+                                    ) -> PlanReport:
+        """The backward-overlapped plan, in executed trace order: per
+        release event (layer L-1 first — backward order) the release's
+        full phase chain in its local pipeline order, tagged with the
+        global stream schedule's (release, stream, step); then the
+        residual sync's entries. The per-release collective specs are
+        resolved through exactly the lookup path ``_sync_release``
+        dispatches, so plan == executed for the streamed path too."""
+        layers, residual = split_release_tree(tree)
+        if layers is None:
+            return self.explain_gradients(tree, bucket_bytes=bucket_bytes)
+        if self._inner_axis is None:
+            raise ValueError("sync_gradients needs a mesh with a 'data' "
+                             "axis")
+        n_layers = len(layers)
+        slice_tree = layer_slice_struct(layers)
+        # every release syncs an identical layer slice, so one local
+        # bucket plan serves all of them
+        layout, active, sched, axes, sizes, keys, hier = \
+            self._bucket_plan(slice_tree, bucket_bytes)
+        elems = [layout.buckets[i].elems for i in active]
+        stream_sched = build_stream_schedule(
+            elems * n_layers, sizes,
+            releases=[r for r in range(n_layers) for _ in active],
+            n_streams=n_streams)
+        by_bp = {(t.bucket, t.phase): t for t in stream_sched.tasks}
+        entries: List[PlanEntry] = []
+        for r in range(n_layers):
+            base = r * len(active)
+            for t in sched.tasks:
+                st = by_bp[(base + t.bucket, t.phase)]
+                bucket = layout.buckets[active[t.bucket]]
+                itemsize = pytree.itemsize(bucket.dtype)
+                key = keys[t.level]
+                req = CollectiveRequest(
+                    t.op, t.in_elems * itemsize, axis=axes[t.level],
+                    axis_size=sizes[t.level], dtype=bucket.dtype,
+                    level=key if self._policy.kind == "hier" else None)
+                entry = self._level_entry(req, key)
+                entries.append(dataclasses.replace(
+                    entry, bucket=base + t.bucket, step=st.step,
+                    release=r, stream=st.stream))
+            if not hier:
+                for li, bi in enumerate(active):
+                    bucket = layout.buckets[bi]
+                    for outer in self._sync_axes[1:]:
+                        req = CollectiveRequest(
+                            "all_reduce", bucket.nbytes, axis=outer,
+                            axis_size=self.mesh.shape[outer],
+                            dtype=bucket.dtype)
+                        entries.append(PlanEntry(
+                            req, _XLA_SPEC, source="psum",
+                            bucket=base + li, release=r,
+                            stream=(base + li) % n_streams))
+        if pytree.leaves(residual):
+            entries.extend(self.explain_gradients(
+                residual, bucket_bytes=bucket_bytes).entries)
+        return PlanReport(entries)

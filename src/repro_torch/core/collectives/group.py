@@ -23,6 +23,18 @@ destinations must each be unique, as in JAX.
 The ``"xla"`` algorithms use the backend's built-ins: ``psum``,
 ``all_gather`` and ``all_to_all``.
 
+Threads. Every function here may be called from any one thread of a
+rank, as long as no other thread of that rank issues a collective at
+the same time: the ``gloo`` groups are used by one thread at a time, and
+every rank must issue its collectives in one order. `SyncThread` is the
+one place the port calls them off the main thread: the
+backward-overlapped gradient sync hands it one job a released layer
+while autograd runs the layers below, and the main thread issues no
+collective until it has joined the thread. On the card the thread works
+on a CUDA stream of its own, so the host staging's stream synchronizes
+(``.to("cpu")``, ``.to(device)``) wait for the sync's own copies and
+kernels, not for the backward queued on the main stream.
+
 Mesh axes. The reference's ``Mesh`` names its axes and ``shard_map``
 runs a collective over one of them. `RankMesh` is the port's
 counterpart: built inside every rank after ``init_process_group``, it
@@ -44,12 +56,17 @@ import dataclasses
 import datetime
 import os
 import pickle
+import queue
 import tempfile
+import threading
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch import pytree
 
 #: how long a rank waits on a collective (and on sub-group creation)
 #: before it fails instead of hanging
@@ -181,6 +198,81 @@ def max_over_ranks(values: Sequence[float], group=None) -> list:
     t = torch.tensor(list(values), dtype=torch.float64)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_pg(group))
     return t.tolist()
+
+
+class SyncThread:
+    """One thread that runs the jobs handed to `submit` in submission
+    order, each to its end, then returns their results from `join`.
+
+    On a CUDA ``device`` the thread runs every job on its own stream:
+    `submit` records an event on the submitting thread's current stream
+    (the stream that produced the job's tensors), the job's stream waits
+    for it before the job starts, and each tensor among the job's
+    arguments is marked as used on the job's stream (``record_stream``),
+    so the caching allocator does not hand its memory out again while
+    the job may still read it. `join` makes the joining thread's current
+    stream wait for the job stream and marks every tensor of the results
+    as used there. A job that raises ends the thread's work (the jobs
+    after it are skipped): `join` raises its error. ``busy_s`` sums the
+    jobs' seconds on the thread's clock."""
+
+    def __init__(self, device=None):
+        self.device = torch.device(device) if device is not None \
+            else torch.device("cpu")
+        self.stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        self.busy_s = 0.0
+        self._jobs: "queue.Queue" = queue.Queue()
+        self._results: list = []
+        self._error: Optional[Exception] = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def submit(self, fn: Callable, *args) -> None:
+        """Queue ``fn(*args)`` behind the jobs already submitted."""
+        event = None
+        if self.stream is not None:
+            event = torch.cuda.Event()
+            event.record()
+            for t in pytree.leaves(args):
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    t.record_stream(self.stream)
+        self._jobs.put((fn, args, event))
+
+    def _run(self) -> None:
+        while True:
+            job = self._jobs.get()
+            if job is None:                   # join's end marker
+                return
+            if self._error is not None:
+                continue
+            fn, args, event = job
+            t0 = time.perf_counter()
+            try:
+                if self.stream is None:
+                    self._results.append(fn(*args))
+                else:
+                    with torch.cuda.device(self.device), \
+                            torch.cuda.stream(self.stream):
+                        self.stream.wait_event(event)
+                        self._results.append(fn(*args))
+            except Exception as e:            # raised again by join
+                self._error = e
+            self.busy_s += time.perf_counter() - t0
+
+    def join(self) -> list:
+        """Wait for every job; returns their results in order."""
+        self._jobs.put(None)
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        if self.stream is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_stream(self.stream)
+            for t in pytree.leaves(self._results):
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    t.record_stream(current)
+        return self._results
 
 
 # ---------------------------------------------------------------------------

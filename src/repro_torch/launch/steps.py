@@ -20,10 +20,23 @@ params, so both paths are the same three phases in every rank:
   3. the local AdamW step with ``cosine_with_warmup``, which leaves the
      replicas equal wherever the synced gradients are.
 
+With ``overlap_backward`` (tuned only, as in the reference) phases 1 and
+2 overlap: the forward and backward run under a release sink
+(``comm.release_sink(..., overlap=True)``), whose thread syncs each
+layer's gradients, deepest first, while autograd computes the layers
+below; ``comm.sync_gradients_streamed`` then joins it and syncs the
+residual (embeddings, final norm). The step's metrics keep their
+meanings: ``compute_s`` is the forward and backward (ended by
+synchronizing the backward's stream alone; the sync's stream runs on),
+``sync_s`` the sync the step waits for after the backward (all of it
+without overlap; with overlap, the wait for the sync thread plus the
+residual sync), ``opt_s`` the optimizer; with overlap,
+``release_sync_s`` adds the sync thread's busy seconds and
+``release_events`` the released layers in release order.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 step): the backward-overlapped sync (``overlap_backward``, step
-9), expert and tensor parallelism (a ``model`` axis over 1, step 8) and
-FSDP param sharding (step 10).
+Queue 1 step): expert and tensor parallelism (a ``model`` axis over 1,
+step 8) and FSDP param sharding (step 10).
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.comms import Communicator
+from repro_torch.comms.bucketing import RELEASE_KEY
 from repro_torch.configs.base import (
     CollectiveConfig,
     ModelConfig,
@@ -43,6 +57,7 @@ from repro_torch.configs.base import (
     validate_collectives,
 )
 from repro_torch.core.collectives import group as grp
+from repro_torch.models import layers as L
 from repro_torch.models.registry import build_model
 from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.parallel import sharding as sh
@@ -83,6 +98,20 @@ def _synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _local_fingerprint(grads, sink) -> list:
+    """`pytree.fingerprint` of this rank's gradients before any sync,
+    leaf by leaf in tree order: each released layer's as the sink took it
+    at its release, the residual's from ``grads``."""
+    out = []
+    for key in sorted(grads):           # pytree's order of a dict
+        if key == RELEASE_KEY:
+            for i in range(len(grads[key])):
+                out.extend(sink.fingerprints[(key, i)])
+        else:
+            out.extend(pytree.fingerprint(grads[key]))
+    return out
+
+
 def build_train_step(
     cfg: ModelConfig,
     shape: ShapeConfig,
@@ -100,14 +129,12 @@ def build_train_step(
     process, built by the launcher — possibly with a live-fabric probe);
     when None, one is resolved from the CollectiveConfig. Every metric
     but the loss is this rank's: ``compute_s``, ``sync_s`` and ``opt_s``
-    time the three phases, each ended by synchronizing the device."""
+    time the three phases, each ended by synchronizing the device (see
+    the module's text for their meanings under ``overlap_backward``)."""
     comm = communicator or Communicator.from_config(coll, mesh)
     tuned = comm.is_tuned
     validate_collectives(coll, parallel, tuned=tuned)
-    if coll.overlap_backward:
-        raise NotImplementedError(
-            "the backward-overlapped gradient sync (--overlap-backward) "
-            "comes with ROADMAP.md Queue 1 step 9")
+    overlap = coll.overlap_backward     # tuned: validate_collectives
     if sh.model_size(mesh) > 1:
         raise NotImplementedError(
             "a model-parallel axis (expert or tensor parallelism inside "
@@ -173,16 +200,38 @@ def build_train_step(
         # whole group: no model axis), averaged
         return pytree.tree_map(lambda g: grp.psum(g) / dp, grads)
 
+    def overlapped(params, batch, keep_grads):
+        """Forward and backward under a release sink whose thread syncs
+        each layer as autograd releases it; the step's phase-1 result and
+        the sink, whose syncs may still run."""
+        sink = comm.release_sink(coll.bucket_bytes, overlap=True,
+                                 device=dev, fingerprint=keep_grads)
+        with L.release_scope(sink):
+            (loss, aux), grads = value_and_grad(params, batch)
+        if dev.type == "cuda":      # the backward's stream, not the sync's
+            torch.cuda.current_stream(dev).synchronize()
+        return (loss, aux), grads, sink
+
     def fn(params, opt_state, batch, keep_grads=False):
         t0 = time.perf_counter()
-        (loss, aux), grads = grad_fn(params, batch)
-        _synchronize(dev)
+        if overlap:
+            (loss, aux), grads, sink = overlapped(params, batch, keep_grads)
+        else:
+            (loss, aux), grads = grad_fn(params, batch)
+            _synchronize(dev)
         t1 = time.perf_counter()
         kept = {}
         if keep_grads:          # between the phases, untimed
-            kept["local_grads_fingerprint"] = pytree.fingerprint(grads)
+            kept["local_grads_fingerprint"] = \
+                _local_fingerprint(grads, sink) if overlap \
+                else pytree.fingerprint(grads)
         t1b = time.perf_counter()
-        grads = sync(grads)
+        if overlap:
+            grads = comm.sync_gradients_streamed(grads, sink, mean=True)
+            kept["release_sync_s"] = sink.busy_s
+            kept["release_events"] = [i for _, i in sink.events]
+        else:
+            grads = sync(grads)
         loss = _pmean(loss, mesh, dpx)
         aux = pytree.tree_map(lambda v: _pmean(v, mesh, dpx), aux)
         _synchronize(dev)

@@ -24,16 +24,30 @@ steps summed over the ranks, and whether the replicas' params stayed
 bit-identical after every step (a checksum gathered from every rank;
 a difference raises).
 
+``--overlap-backward`` (tuned sync only) syncs each layer's gradients
+on a thread of every rank while autograd computes the layers below
+(`steps.build_train_step`); the printed split then reads the exposed
+sync, the wait after the backward. ``--trace-dir DIR`` replays every
+step's gradient-sync schedule task by task in every rank
+(`obs.replay.measure_gradient_schedule`, outside the timed step) and
+writes rank 0's ``step{NNN}.trace.json`` (Perfetto) and
+``step{NNN}.summary.json`` into DIR, and, with a ``--topology``, prints
+the drift line the re-tune loop watches, as the reference does.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 step): ``--overlap-backward`` and ``--trace-dir`` (step 9),
-``--model-parallel`` above 1 (step 8), FSDP (step 10), and every family
-but dense (MoE step 8; SSM and hybrid step 9; VLM and enc-dec step 10).
+Queue 1 step): ``--model-parallel`` above 1 (step 8), FSDP (step 10),
+and every family but dense (MoE step 8; SSM and hybrid step 9; VLM and
+enc-dec step 10).
 
 Examples:
     python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
         --topology 2x2 \\
         --tuning-table examples/artifacts/hierarchical_decision.json \\
         --steps 4 --seq 256 --batch 8
+    python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
+        --topology 2x2 \\
+        --tuning-table examples/artifacts/hierarchical_decision.json \\
+        --steps 4 --seq 256 --batch 8 --overlap-backward --trace-dir /tmp/t
     python -m repro_torch.launch.train --arch smollm-135m --reduced \\
         --device cpu --ranks 2 --steps 2 --seq 64 --batch 4
 """
@@ -52,8 +66,10 @@ from repro_torch.checkpoint import save
 from repro_torch.configs import ARCHITECTURES
 from repro_torch.configs.base import (
     CollectiveConfig,
+    CollectiveConfigError,
     ParallelConfig,
     ShapeConfig,
+    validate_collectives,
 )
 from repro_torch.core.collectives import group as grp
 from repro_torch.data import SyntheticPipeline, batch_to_tensors, stream_ids
@@ -69,10 +85,6 @@ COUNTERS = {"flash_attention": attention,
 
 #: where each unported option comes from (ROADMAP.md Queue 1)
 LATER = {
-    "overlap_backward": "the backward-overlapped gradient sync "
-                        "(--overlap-backward) comes with step 9",
-    "trace_dir": "per-step telemetry (--trace-dir, obs/replay and "
-                 "obs/residuals) comes with step 9",
     "model_parallel": "a model-parallel axis (--model-parallel > 1: expert "
                       "or tensor parallelism in the training step) comes "
                       "with step 8",
@@ -95,6 +107,46 @@ def _gather(obj) -> list:
     parts = [None] * grp.size()
     dist.all_gather_object(parts, obj)
     return parts
+
+
+def _write_step_trace(args, comm, params, runner, topology, step,
+                      wall_ms):
+    """One step's telemetry artifacts: replay-measure the gradient-sync
+    schedule in every rank (per-task wall times, the slowest rank's, off
+    the critical path), join it against the analytical prediction, and
+    have rank 0 write the Perfetto trace and the flat summary and print
+    the drift line the re-tune loop watches."""
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import replay as obs_replay
+    from repro_torch.obs import residuals as obs_residuals
+
+    spans = obs_replay.measure_gradient_schedule(
+        comm, params, overlap_backward=args.overlap_backward,
+        runner=runner)
+    if grp.rank() != 0:
+        return
+    names = [lv.name for lv in topology.levels] if topology else None
+    obs_export.write_chrome_trace(
+        os.path.join(args.trace_dir, f"step{step:03d}.trace.json"),
+        spans, level_names=names)
+    resid = None
+    if topology is not None:
+        try:
+            resid = obs_residuals.gradient_residual_report(
+                comm, params, spans=spans, topology=topology,
+                overlap_backward=args.overlap_backward)
+        except ValueError as e:
+            print(f"trace: residuals skipped ({e})", flush=True)
+    obs_export.write_summary(
+        os.path.join(args.trace_dir, f"step{step:03d}.summary.json"),
+        counters=comm.metrics, residuals=resid,
+        extra={"step": step, "wall_ms": wall_ms,
+               "n_tasks": len(spans)})
+    if resid is not None:
+        print(f"trace: step {step:4d} drift {resid.drift():.3f} "
+              f"(measured {resid.measured_tasks()}/{len(resid.tasks)} "
+              f"tasks, exposed comm "
+              f"{resid.modeled_exposed * 1e6:.0f} us modeled)", flush=True)
 
 
 def _build_mesh(args, device, topology):
@@ -159,7 +211,10 @@ def _rank_main(opts: dict):
                 f"{lv.size}): launch={lv.profile.launch:.2e}s "
                 f"byte_time={lv.profile.byte_time:.2e}s/B")
     coll = CollectiveConfig(algorithm=args.collective, decision=table_path,
-                            bucket_bytes=comm.bucket_bytes)
+                            bucket_bytes=comm.bucket_bytes,
+                            overlap_backward=args.overlap_backward)
+    if args.overlap_backward:
+        say("gradient sync: backward-overlapped release streams")
     parallel = opts["parallel"]
     step = build_train_step(cfg, shape, parallel, coll, mesh, lr=args.lr,
                             total_steps=args.steps, communicator=comm,
@@ -171,11 +226,25 @@ def _rank_main(opts: dict):
     coll_desc = f"table:{table_path}" if table_path else args.collective
     say(f"arch={cfg.name} devices={grp.size()} mesh={dict(mesh.shape)} "
         f"collective={coll_desc}")
-    plan = comm.explain_gradients(params)
+    plan = comm.explain_gradients(params,
+                                  overlap_backward=args.overlap_backward)
     if args.explain:
-        say("gradient-sync plan (per leaf):" if not comm.bucket_bytes
+        say("gradient-sync plan (backward-overlapped streams):"
+            if args.overlap_backward else
+            "gradient-sync plan (per leaf):" if not comm.bucket_bytes
             else "gradient-sync plan (bucketed pipeline):")
         say(plan.render())
+    runner = None
+    if args.trace_dir:
+        from repro_torch.obs import replay as obs_replay
+        if lead:
+            os.makedirs(args.trace_dir, exist_ok=True)
+        # one runner for the whole run: its operands are made once
+        runner = obs_replay.ScheduleRunner(mesh)
+        trace_topo = topology or comm.probed_topology
+        if trace_topo is None:
+            say("trace: no --topology attached, writing traces without "
+                "modeled residuals")
     from repro_torch.launch.measure_collectives import plan_combines
     res = {"arch": cfg.name, "ranks": grp.size(), "device": str(device),
            "device_name": (torch.cuda.get_device_name(device)
@@ -190,7 +259,8 @@ def _rank_main(opts: dict):
            "plan_combines": plan_combines(plan, grp.size())
            if step.tuned else 0,
            "losses": [], "step_s": [], "compute_s": [], "sync_s": [],
-           "opt_s": [], "replicas_equal": []}
+           "opt_s": [], "replicas_equal": [], "release_sync_s": [],
+           "release_events": []}
     replicas = _gather(pytree.fingerprint(params))
     res["replicas_equal_at_init"] = all(r == replicas[0] for r in replicas)
     keep = opts["keep_params"] and lead
@@ -199,6 +269,7 @@ def _rank_main(opts: dict):
 
     for mod in COUNTERS.values():           # counts: the steps alone
         mod.launches = 0
+    replay = {name: 0 for name in COUNTERS}
     t_start = time.time()
     for i in range(args.steps):
         batch = batch_to_tensors(pipe.batch_at(i), device, rows=step.rows)
@@ -212,24 +283,39 @@ def _rank_main(opts: dict):
             res["local_grads0_fingerprint"] = metrics.pop(
                 "local_grads_fingerprint")
         split = grp.max_over_ranks([metrics["compute_s"], metrics["sync_s"],
-                                    metrics["opt_s"]])
+                                    metrics["opt_s"],
+                                    metrics.get("release_sync_s", 0.0)])
         replicas = _gather(pytree.fingerprint(params))
         equal = all(r == replicas[0] for r in replicas)
         for key, v in zip(("losses", "step_s", "compute_s", "sync_s",
-                           "opt_s", "replicas_equal"),
+                           "opt_s", "release_sync_s", "replicas_equal"),
                           (loss, wall, *split, equal)):
             res[key].append(v)
+        if args.overlap_backward:      # every rank's, in release order
+            res["release_events"].append(_gather(metrics["release_events"]))
         if i % args.log_every == 0:
             say(f"step {i:4d} loss {loss:.4f} ({wall * 1e3:.0f} ms)")
             say(f"  forward+backward {split[0]:.3f} s, gradient sync "
-                f"{split[1]:.3f} s, optimizer {split[2]:.3f} s (slowest "
-                f"rank's)")
+                f"{split[1]:.3f} s"
+                + (f" exposed ({split[3]:.3f} s on the sync thread)"
+                   if args.overlap_backward else "")
+                + f", optimizer {split[2]:.3f} s (slowest rank's)")
         if not equal:
             raise AssertionError(f"step {i}: the ranks' params differ "
                                  f"({len(replicas)} checksums)")
+        if runner is not None:
+            # the replay's launches are not the step's: counted apart
+            before = _counts()
+            _write_step_trace(args, comm, params, runner, trace_topo, i,
+                              wall_ms=wall * 1e3)
+            for name, mod in COUNTERS.items():
+                replay[name] += mod.launches - before[name]
+                mod.launches = before[name]
     done = time.time() - t_start
     res["launches"] = {k: sum(c[k] for c in _gather(_counts()))
                        for k in COUNTERS}
+    res["replay_launches"] = {k: sum(c[k] for c in _gather(replay))
+                              for k in COUNTERS}
     res["peak_mem_bytes"] = _gather(
         torch.cuda.max_memory_allocated(device)
         if device.type == "cuda" else 0)
@@ -285,8 +371,8 @@ def main(argv=None, *, keep_params: bool = False,
                          "pipelined gradient sync (default: the "
                          "artifact's tuned schedule; 0 forces per leaf)")
     ap.add_argument("--overlap-backward", action="store_true",
-                    help="backward-overlapped gradient sync (not ported: "
-                         "raises)")
+                    help="sync each layer's gradients while the backward "
+                         "computes the layers below (tuned sync only)")
     ap.add_argument("--topology", default=None,
                     help="network hierarchy: a 'PODSxDATA' spec (2x2), a "
                          "3-tier 'DCNxPODSxDATA' spec (2x2x2), or a "
@@ -298,17 +384,14 @@ def main(argv=None, *, keep_params: bool = False,
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--trace-dir", default=None,
-                    help="per-step telemetry (not ported: raises)")
+                    help="write each step's replayed gradient-sync trace "
+                         "(Perfetto JSON) and summary here")
     ap.add_argument("--ranks", type=int, default=None,
                     help="processes of the data-parallel group (default: "
                          "the topology's size, else 1)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    if args.overlap_backward:
-        raise _later("overlap_backward")
-    if args.trace_dir:
-        raise _later("trace_dir")
     if args.model_parallel > 1:
         raise _later("model_parallel")
     cfg = ARCHITECTURES[args.arch]
@@ -350,6 +433,14 @@ def main(argv=None, *, keep_params: bool = False,
                           for lv in reversed(topology.levels))
         print(f"topology: {desc}", flush=True)
     parallel = parallel or ParallelConfig()
+    try:        # tuned, as the Communicator will be: the flags alone say
+        validate_collectives(CollectiveConfig(
+            algorithm=args.collective,
+            decision=args.tuning_table or args.decision,
+            bucket_bytes=int((args.bucket_mb or 0) * (1 << 20)),
+            overlap_backward=args.overlap_backward), parallel)
+    except CollectiveConfigError as e:
+        raise SystemExit(f"invalid flags: {e}")
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass --device cpu to train "

@@ -4,18 +4,22 @@ Plain functions over parameter dicts of tensors, in the reference's
 layouts (``wq`` is ``(d, H, Dh)``, ``wo`` is ``(H, Dh, d)``, ``embed.out``
 is ``(d, Vp)``), so the JAX package's params cross over unchanged
 (``repro_torch.bridge``). The fused loss (``lm_head_loss``) and
-``cross_entropy`` are here for training; the gradient release points of
-the backward-overlapped sync (ROADMAP.md Queue 1 step 9) and the sharding
-constraints, which are identities on one device, are left out.
+``cross_entropy`` are here for training, and so are the gradient release
+points of the backward-overlapped sync (``release_scope``,
+``grad_release``: an identity ``torch.autograd.Function`` over one
+layer's param dict in place of the reference's ``custom_vjp``). The
+sharding constraints, which are identities on one device, are left out.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 # the dense decode's contraction and ring rule are the paged gather path's
@@ -35,6 +39,62 @@ def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
     fan_in = fan_in if fan_in is not None else shape[0]
     x = torch.randn(tuple(shape), generator=gen, device=gen.device)
     return (x * fan_in ** -0.5).to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# gradient release points
+# ---------------------------------------------------------------------------
+# A release point is an identity on the forward pass that, on the backward
+# pass, hands the cotangent of one layer's parameters to an installed sink
+# (repro_torch.comms.communicator._ReleaseSink) the moment autograd
+# materializes it, so that layer's sync can start while the layers below
+# it are still in their backward. The sink's return value is the
+# cotangent that flows on to the parameters. With no sink installed the
+# tree is returned untouched (no autograd node at all), so the unhooked
+# backward is bit-identical by construction.
+_RELEASE_SINK = None
+
+
+@contextlib.contextmanager
+def release_scope(sink):
+    """Install ``sink`` as the active gradient-release sink for the block.
+    The block must enclose the forward: each release point takes the sink
+    that was active when the forward passed it."""
+    global _RELEASE_SINK
+    prev = _RELEASE_SINK
+    _RELEASE_SINK = sink
+    try:
+        yield sink
+    finally:
+        _RELEASE_SINK = prev
+
+
+class _GradRelease(torch.autograd.Function):
+    """Identity over a layer's param leaves; its backward hands their
+    cotangents, as the layer's tree, to ``sink.release(tag, tree)``."""
+
+    @staticmethod
+    def forward(ctx, tag, sink, treedef, *leaves):
+        ctx.tag, ctx.sink, ctx.treedef = tag, sink, treedef
+        return tuple(t.view_as(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        out = ctx.sink.release(ctx.tag, ctx.treedef.unflatten(list(cts)))
+        return (None, None, None, *pytree.leaves(out))
+
+
+def grad_release(tag, tree):
+    """Mark ``tree`` (one layer's param dict) as a gradient-release
+    boundary tagged ``tag`` (``("layers", i)``: ``tag[0]`` is the
+    top-level key the released leaves live under). Identity unless a sink
+    is installed via :func:`release_scope`."""
+    sink = _RELEASE_SINK
+    if sink is None:
+        return tree
+    leaves, treedef = pytree.flatten(tree)
+    return treedef.unflatten(list(
+        _GradRelease.apply(tag, sink, treedef, *leaves)))
 
 
 # ---------------------------------------------------------------------------

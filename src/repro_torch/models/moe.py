@@ -4,8 +4,7 @@
 Routing uses sort-based dispatch (a stable argsort by expert id and
 capacity clipping), a grouped expert einsum and a scatter-add combine,
 as the reference does. Expert parallelism (``ep_axis``, the dispatch
-all-to-all and the Communicator) comes with the collectives slice
-(ROADMAP.md Queue 1 (a)).
+all-to-all and the Communicator) comes with ROADMAP.md Queue 1 step 8.
 
 Tokens are routed in groups: by default the whole call is one group
 (``T = B * S`` tokens compete for ``C = max(1, int(T * k *
@@ -109,8 +108,8 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     are over all tokens either way."""
     if ep_axis is not None:
         raise NotImplementedError(
-            "expert parallelism (ep_axis) comes with the collectives slice "
-            "(comms/*, ROADMAP.md Queue 1 (a)); the port runs ep_axis=None")
+            "expert parallelism (ep_axis) comes with ROADMAP.md Queue 1 "
+            "step 8; the port runs ep_axis=None")
     Bq, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     G = Bq if per_row else 1

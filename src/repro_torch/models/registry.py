@@ -19,11 +19,11 @@ from repro_torch.models import hybrid, moe_model, ssm, transformer
 _FAMILY = {"dense": transformer, "moe": moe_model, "ssm": ssm,
            "hybrid": hybrid}
 
-# families the port does not have yet, and the ROADMAP.md Queue 1 slice
+# families the port does not have yet, and the ROADMAP.md Queue 1 step
 # that brings each
 _LATER = {
-    "encdec": "slice (e): the remaining families",
-    "vlm": "slice (e): the remaining families",
+    "encdec": "step 10 (the remaining families)",
+    "vlm": "step 10 (the remaining families)",
 }
 
 # families the port cannot train yet, and the ROADMAP.md Queue 1 step
@@ -83,7 +83,7 @@ def build_model(
     if cfg.family not in _FAMILY:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: it comes with "
-            f"{_LATER.get(cfg.family, 'a later slice')} (ROADMAP.md Queue 1)")
+            f"{_LATER.get(cfg.family, 'a later step')} (ROADMAP.md Queue 1)")
     dev = resolve_device(device)
     mod = _FAMILY[cfg.family]
     # the per-family keywords, as the reference passes them

@@ -4,7 +4,9 @@
 Params are a dict: ``{"embed": {...}, "layers": [per-layer dict, ...]}``;
 the reference's stacked ``(L, ...)`` leaves become a Python list, and its
 ``lax.scan`` over layers a loop (``remat``: ``torch.utils.checkpoint``
-around each layer, as ``jax.checkpoint`` around the scan body). Training:
+around each layer, as ``jax.checkpoint`` around the scan body; each
+layer's params pass a gradient release point, ``("layers", i)``, as in
+the reference's unrolled stack). Training:
 ``loss_fn``. Serving: ``init_cache``, ``prefill`` and
 ``decode_step``, whose ``length`` is a scalar or a per-row ``(B,)``
 tensor and whose cache is dense or paged (block pools read through the
@@ -64,14 +66,21 @@ def forward(params, embeds: torch.Tensor, cfg: ModelConfig, *,
         return y
 
     x = embeds
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
+        # the release point wraps the layer's params outside the
+        # checkpoint, so a recompute does not fire it again
+        lp = L.grad_release(("layers", i), lp)
         x = checkpoint(body, x, lp, use_reentrant=False) if remat \
             else body(x, lp)
     return x
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16):
-    return params["embed"]["tok"].to(compute_dtype)[tokens]
+    # F.embedding, not indexing: the same forward bits, and a CPU backward
+    # that sums the rows of repeated tokens in index order (the indexing's
+    # accumulating index_put_ sums them in an order that varies between
+    # calls when more than one intra-op thread runs)
+    return F.embedding(tokens, params["embed"]["tok"].to(compute_dtype))
 
 
 def logits_fn(params, hidden, cfg: ModelConfig, compute_dtype=torch.bfloat16):

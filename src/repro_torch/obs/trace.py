@@ -6,11 +6,12 @@ and tells a traced call (a ``jax.core.Tracer`` under ``jit``/``shard_map``,
 recorded with ``concrete=False`` and zero duration) from an eager one.
 In the port every call runs eagerly inside its rank, so every span is
 concrete: its end is read once the output is ready, after synchronizing
-the output's CUDA device (a CPU output is ready when the call returns).
-A span's ``axis`` is the axis NAME (the port dispatches over a named
+the CUDA stream that computed it (a CPU output is ready when the call
+returns; the backward-overlapped sync's thread has a stream of its own,
+so its spans do not wait for the backward). A span's ``axis`` is the
+axis NAME (the port dispatches over a named
 `repro_torch.core.collectives.group.Axis`), as in the reference. The
-reference's text follows (``obs.residuals`` and ``obs.replay`` are not
-ported yet).
+reference's text follows.
 
 PICO's argument (PAPERS.md) is that performance insight must be
 STRUCTURED — attributed to the schedule that executed, not dumped as
@@ -50,10 +51,11 @@ from repro_torch.obs.metrics import MetricsRegistry
 
 
 def ready(out):
-    """Wait until ``out`` (a tensor) is computed: synchronize its CUDA
-    device; a CPU tensor is ready already. Returns ``out``."""
+    """Wait until ``out`` (a tensor) is computed: synchronize the current
+    CUDA stream of its device, the one that computed it; a CPU tensor is
+    ready already. Returns ``out``."""
     if isinstance(out, torch.Tensor) and out.device.type == "cuda":
-        torch.cuda.synchronize(out.device)
+        torch.cuda.current_stream(out.device).synchronize()
     return out
 
 

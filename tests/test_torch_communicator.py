@@ -5,8 +5,8 @@ resolution over every artifact generation, the static policy's
 per-leaf segments, probe selection, the hierarchical plan expansion,
 ``describe()`` and ``explain()`` text equal to the reference's, the
 adoption of an artifact's tuned mesh mapping (``tests/test_placement.py``
-mirrored), and the parts left for later raising
-``NotImplementedError``.
+mirrored), and the backward-overlapped entry points, which no longer
+raise.
 
 Multi-rank: the same numpy gradients and buffers through the reference
 (one subprocess with ``--xla_force_host_platform_device_count=8``:
@@ -236,14 +236,20 @@ def test_gradient_requests_spell_dtypes_as_the_reference():
 
 
 def test_later_parts_raise_with_their_roadmap_step(tmp_path):
+    """The backward-overlapped path (ROADMAP.md Queue 1 step 9a) is
+    ported: none of its entry points raises any more (its parity tests
+    are ``tests/test_torch_overlap.py``). A mesh without a 'data' axis
+    still has no gradient sync."""
     tc = TComm.create(FakeRankMesh(pod=2, data=2), artifact=HIER)
-    for call in (lambda: tc.release_sink(),
-                 lambda: tc.sync_gradients_streamed({}, None),
-                 lambda: tc._sync_release({}, 0),
-                 lambda: tc.explain_gradients({"w": torch.zeros(2)},
-                                              overlap_backward=True)):
-        with pytest.raises(NotImplementedError, match="step 9"):
-            call()
+    sink = tc.release_sink()
+    assert sink.events == [] and sink.thread is None
+    assert tc.sync_gradients_streamed({}, None) == {}
+    assert tc._sync_release({}, 0) == {}
+    plan = tc.explain_gradients({"w": torch.zeros(2)},
+                                overlap_backward=True)
+    assert [e.request.op for e in plan.entries] == \
+        [e.request.op for e in tc.explain_gradients(
+            {"w": torch.zeros(2)}).entries]
     with pytest.raises(ValueError, match="'data' axis"):
         TComm.create(FakeRankMesh(pod=2), artifact=HIER).sync_gradients(
             {"w": torch.zeros(2)})

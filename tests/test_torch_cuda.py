@@ -533,6 +533,86 @@ def test_communicator_sync_on_the_card_launches_as_its_plan(cuda,
     assert res["err"] <= 2e-4 and res["plain_bits"]
 
 
+def _overlapped_on_card(device="cuda"):
+    """One backward of the reduced smollm-135m (bf16 compute, the flash
+    kernels) under a synchronous release sink and under the sync thread,
+    each then finished by ``sync_gradients_streamed``; and the
+    overlapped training step's synced gradients against a step whose
+    sync runs after the backward."""
+    import os
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.comms import Communicator
+    from repro_torch.configs import ARCHITECTURES, ParallelConfig, \
+        ShapeConfig
+    from repro_torch.configs.base import CollectiveConfig
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.data import batch_to_tensors
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import make_train_batch
+    dev = grp.device_of(device)
+    mesh = grp.RankMesh((2, 2, 1), ("pod", "data", "model"), device=dev)
+    artifact = os.path.join(os.path.dirname(__file__), "..", "examples",
+                            "artifacts", "hierarchical_decision.json")
+    comm = Communicator.create(mesh, artifact=artifact)
+    cfg = ARCHITECTURES["smollm-135m"].reduced()
+    shape = ShapeConfig(name="t", seq_len=256, global_batch=8, kind="train")
+    par = ParallelConfig()
+    steps = {o: build_train_step(cfg, shape, par, CollectiveConfig(
+        decision=artifact, overlap_backward=o), mesh, communicator=comm,
+        device=dev) for o in (False, True)}
+    api = steps[True].api
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    batch = batch_to_tensors(make_train_batch(cfg, shape, seed=2), dev,
+                             rows=steps[True].rows)
+    out = {}
+    for overlap in (False, True):
+        leaves, treedef = pytree.flatten(params)
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        sink = comm.release_sink(overlap=overlap, device=dev)
+        with L.release_scope(sink):
+            loss, _ = api.loss(treedef.unflatten(leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+        out[overlap] = pytree.leaves(comm.sync_gradients_streamed(
+            treedef.unflatten(list(grads)), sink, mean=True))
+        out[f"events{overlap}"] = [i for _, i in sink.events]
+    step_grads = {}
+    for overlap, step in steps.items():
+        _, _, m = step.fn(params, step.opt.init(params), batch,
+                          keep_grads=True)
+        step_grads[overlap] = (m["local_grads_fingerprint"],
+                               pytree.leaves(m["grads"]))
+    worst = max(((a.double() - b.double()).norm()
+                 / b.double().norm().clamp_min(1e-30)).item()
+                for a, b in zip(step_grads[True][1], step_grads[False][1]))
+    res = {"bits": all(torch.equal(a, b) for a, b in
+                       zip(out[True], out[False])),
+           "device": out[True][0].device.type,
+           "events": out["eventsTrue"] == out["eventsFalse"]
+           == list(reversed(range(cfg.num_layers))),
+           "fingerprints": step_grads[True][0] == step_grads[False][0],
+           "step_rel": worst}
+    parts = [None] * grp.size()
+    dist.all_gather_object(parts, res)
+    return parts
+
+
+def test_overlapped_sync_equals_the_synchronous_release_on_the_card(cuda):
+    """Four host-staged ranks on the card, 2x2, the hierarchical
+    artifact: the gradients synced on each rank's sync thread (its own
+    CUDA stream, while autograd runs the layers below) equal, bit for
+    bit, those synced inside the backward by the synchronous sink, in
+    every rank; releases come deepest layer first; the overlapped
+    training step sees the plain step's gradients before the sync (bit
+    checksums) and syncs them within 1e-6 (relative a leaf: per-layer
+    buckets against per-leaf sums of the same 4 terms)."""
+    from repro_torch.core.collectives import group as grp
+    for res in grp.spawn(_overlapped_on_card, 4):
+        assert res["device"] == "cuda" and res["bits"] and res["events"]
+        assert res["fingerprints"] and res["step_rel"] <= 1e-6
+
+
 # ---------------------------------------------------------------------------
 # the paged decode attention kernel
 # ---------------------------------------------------------------------------

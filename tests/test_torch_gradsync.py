@@ -191,19 +191,25 @@ def test_bucket_layout_keeps_dtype_streams_apart():
 
 
 def test_layer_slice_struct_and_release_split_equal_reference():
+    """The reference's stacked ``layers`` against the port's list of
+    per-layer dicts holding the same slices: the same residual and one
+    layer's slice struct."""
     from repro.comms import bucketing as jb
     from repro_torch.comms import bucketing as tb
     tree = {"layers": {"w": np.zeros((3, 4, 2), np.float32),
                        "b": np.zeros((3, 2), np.float32)},
             "embed": np.zeros((5, 2), np.float32)}
-    tl, trest = tb.split_release_tree(to_torch(tree))
+    per_layer = {"layers": [{k: v[i] for k, v in tree["layers"].items()}
+                            for i in range(3)], "embed": tree["embed"]}
+    tl, trest = tb.split_release_tree(to_torch(per_layer))
     jl, jrest = jb.split_release_tree(to_jax(tree))
-    assert list(trest) == list(jrest) == ["embed"]
+    assert list(trest) == list(jrest) == ["embed"] and len(tl) == 3
     assert [(s.shape, pytree.dtype_name(s.dtype)) for s in
             pytree.leaves(tb.layer_slice_struct(tl))] == \
         [(s.shape, np.dtype(s.dtype).name) for s in
          jax.tree.leaves(jb.layer_slice_struct(jl))]
     assert tb.split_release_tree([1]) == (None, [1])
+    assert tb.split_release_tree({"layers": []}) == (None, {"layers": []})
 
 
 # ---------------------------------------------------------------------------

@@ -303,7 +303,7 @@ def test_non_dense_family_names_its_slice():
     cfg = ModelConfig(name="m", family="vlm", num_layers=1, d_model=8,
                       num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=8,
                       num_patches=4)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="step 10"):
         build_model(cfg, device="cpu")
 
 

@@ -14,6 +14,16 @@ one process.
   ``probe_live_profile`` and ``probe_mesh_topology`` fit the
   reference's profiles exactly; ``level_probe_pairs`` picks the
   reference's pairs on the same coordinate grids.
+* Residuals, exports and replay (``tests/test_observability.py``
+  mirrored): ``modeled_gradient_report`` over the same levels, buckets
+  and compute gives the reference's document, drift (zero for a matching
+  fabric, scale-invariant, tripping ``retune_if_drifted`` for a slowed
+  tier) and text; ``chrome_trace`` and ``summary`` of the same spans
+  give the reference's documents. ``measure_gradient_schedule`` with an
+  injected runner walks the reference's schedule over the port's
+  per-layer tree (the reference's over its stacked one): the same
+  spans, tags and order, one a plan entry; ``gradient_residual_report``
+  of those spans on the live Communicator equals the reference's.
 """
 from types import SimpleNamespace
 
@@ -268,3 +278,182 @@ def test_communicator_create_probe_synthesizes_topology(monkeypatch):
     assert [lv.axis for lv in topo.levels] == ["data", "pod", "dcn"]
     assert comm.probed is topo.inner.profile and comm.topology is topo
     assert comm.probed.byte_time == pytest.approx(1e-10, rel=0.05)
+
+
+# ---------------------------------------------------------------------------
+# residuals, exports and replay
+# ---------------------------------------------------------------------------
+def _levels(costs_mod):
+    hockney = costs_mod.Hockney
+    return [(8, hockney(1e-6, 1e-9)), (4, hockney(5e-6, 1e-8)),
+            (2, hockney(2e-5, 4e-8))]
+
+
+BUCKETS = [1 << 20, 1 << 18, 1 << 20, 1 << 16, 1 << 19]
+COMPUTE = [3e-4, 2e-4, 4e-4, 1e-4, 3e-4]
+
+
+def _packages():
+    """(costs, hierarchy, residuals, export) of the reference, then the
+    port's."""
+    from repro.core.analytical import costs as jc
+    from repro.core.analytical import hierarchy as jh
+    from repro.obs import export as je
+    from repro.obs import residuals as jr
+    from repro_torch.core.analytical import costs as tc
+    from repro_torch.core.analytical import hierarchy as th
+    from repro_torch.obs import export as te
+    from repro_torch.obs import residuals as tr
+    return (jc, jh, jr, je), (tc, th, tr, te)
+
+
+def _timed_spans(pkg, level_scale=None):
+    costs, hier, resid, _ = pkg
+    levels = _levels(costs)
+    pc = hier.modeled_phase_cost(levels)
+    ready, acc = [], 0.0
+    for c in COMPUTE:
+        acc += c
+        ready.append(acc)
+    _, timed = hier.backward_overlapped_schedule(
+        [p for p, _ in levels], BUCKETS, pc,
+        releases=list(range(len(BUCKETS))), ready_times=ready, n_streams=2)
+    return resid.spans_from_timed(timed, level_scale=level_scale)
+
+
+def _report(pkg, **kw):
+    costs, _, resid, _ = pkg
+    return resid.modeled_gradient_report(_levels(costs), BUCKETS, COMPUTE,
+                                         **kw)
+
+
+@pytest.mark.parametrize("scale", [None, {0: 2.0, 1: 2.0, 2: 2.0},
+                                   {2: 3.0}])
+def test_residual_report_drift_render_and_json_equal_reference(scale):
+    from repro.core.tuning.session import TuningSession as JSession
+    from repro_torch.core.tuning.session import TuningSession as TSession
+    j, t = _packages()
+    jrep = _report(j, spans=_timed_spans(j, scale),
+                   level_names=["host", "pod", "dcn"])
+    trep = _report(t, spans=_timed_spans(t, scale),
+                   level_names=["host", "pod", "dcn"])
+    assert trep.to_json() == jrep.to_json()
+    assert trep.render() == jrep.render()
+    assert trep.drift() == jrep.drift()
+    assert trep.modeled_makespan == t[1].backward_overlapped_time(
+        _levels(t[0]), BUCKETS, COMPUTE)
+    assert trep.measured_tasks() == len(trep.tasks) > 0
+    if scale is None or len(scale) == 3:     # matching or uniformly off
+        assert trep.drift() == pytest.approx(0.0, abs=1e-9)
+    else:                                    # one tier slowed: re-tune
+        assert trep.drift() > 0.2
+    for session_cls in (JSession, TSession):
+        assert session_cls().retune_if_drifted(0.2, drift=trep.drift()) \
+            == (trep.drift() > 0.2)
+    # the modeled side alone: no span joined
+    assert _report(t).to_json() == _report(j).to_json()
+
+
+def test_chrome_trace_and_summary_equal_reference(tmp_path):
+    j, t = _packages()
+    names = ["host", "pod", "dcn"]
+    jspans, tspans = _timed_spans(j), _timed_spans(t)
+    # a compute span and an untagged (residual) one, as a real trace has
+    for mod, spans in ((jtrace, jspans), (ttrace, tspans)):
+        spans.append(mod.Span(kind="compute", op="layers", release=1,
+                              concrete=True, t_start=0.5, t_end=0.75))
+        spans.append(mod.Span(op="all_reduce", nbytes=64, level=0, phase=0,
+                              concrete=True, t_start=1.0, t_end=1.5))
+    jdoc = j[3].chrome_trace(jspans, level_names=names)
+    tdoc = t[3].chrome_trace(tspans, level_names=names)
+    assert tdoc == jdoc
+    tracks = {e["args"]["name"] for e in tdoc["traceEvents"]
+              if e["ph"] == "M"}
+    assert {"compute", "host s0", "host s1", "host"} <= tracks
+    path = tmp_path / "t.json"
+    t[3].write_chrome_trace(str(path), tspans, level_names=names)
+    import json
+    assert json.loads(path.read_text()) == json.loads(json.dumps(jdoc))
+
+    jreg, treg = JReg(), TReg()
+    for reg in (jreg, treg):
+        reg.inc("collective_bytes", 1024, label="data")
+    jsum = j[3].summary(counters=jreg, residuals=_report(
+        j, spans=_timed_spans(j)), extra={"wall_ms": 12.5})
+    tsum = t[3].summary(counters=treg, residuals=_report(
+        t, spans=_timed_spans(t)), extra={"wall_ms": 12.5})
+    assert tsum == jsum
+    assert "tasks" not in tsum["residuals"] and tsum["wall_ms"] == 12.5
+    t[3].write_summary(str(path), counters=treg, extra={"step": 3})
+    assert json.loads(path.read_text()) == {
+        "counters": {"collective_bytes{data}": 1024.0}, "step": 3}
+
+
+def _replay_trees(n_layers=3):
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(n_layers, 16, 4)).astype(np.float32)
+    b = rng.normal(size=(n_layers, 4)).astype(np.float32)
+    e = rng.normal(size=(8, 4)).astype(np.float32)
+    stacked = {"layers": {"w": w, "b": b}, "embed": e}
+    per_layer = {"layers": [{"w": torch.from_numpy(w[i]),
+                             "b": torch.from_numpy(b[i])}
+                            for i in range(n_layers)],
+                 "embed": torch.from_numpy(e)}
+    return stacked, per_layer
+
+
+@pytest.mark.parametrize("overlap,bb", [(True, 256), (False, 256),
+                                        (True, 0)])
+def test_replay_spans_equal_reference_and_the_plan(overlap, bb, tmp_path):
+    from repro.comms import Communicator as JComm
+    from repro.obs.replay import measure_gradient_schedule as jmeasure
+    from repro.obs.residuals import gradient_residual_report as jresid
+    from repro_torch.comms import Communicator as TComm
+    from repro_torch.core.topology import Topology as TTopo
+    from repro_torch.obs.replay import measure_gradient_schedule as tmeasure
+    from repro_torch.obs.residuals import gradient_residual_report as tresid
+    from repro.core.topology import Topology as JTopo
+    from test_gradsync_pipeline import fake_mesh, hier3
+    from test_torch_gradsync import FakeRankMesh
+    path = str(tmp_path / "hier3.json")
+    hier3().save(path)
+    sizes = dict(dcn=2, pod=2, data=2)
+    jc = JComm.create(fake_mesh(**sizes), artifact=path, bucket_bytes=bb)
+    tc = TComm.create(FakeRankMesh(**sizes), artifact=path, bucket_bytes=bb)
+    stacked, per_layer = _replay_trees()
+
+    def runner(op, elems, dtype, axis, axis_size, spec):
+        return 1e-8 * elems * (1 + ("pod", "dcn", "data").index(axis))
+
+    jspans = jmeasure(jc, stacked, overlap_backward=overlap, runner=runner)
+    tspans = tmeasure(tc, per_layer, overlap_backward=overlap,
+                      runner=runner)
+    plan = tc.explain_gradients(per_layer, overlap_backward=overlap)
+    assert len(tspans) == len(plan.entries)
+    for s, e in zip(tspans, plan.entries):
+        assert (s.op, s.nbytes, s.axis, s.algorithm, s.segments) == \
+            (e.request.op, e.request.nbytes, e.request.axis,
+             e.spec.algorithm, e.spec.segments)
+        assert (s.bucket, s.step, s.release, s.stream) == \
+            (e.bucket, e.step, e.release, e.stream)
+    for prev, nxt in zip(tspans, tspans[1:]):
+        assert nxt.t_start == pytest.approx(prev.t_end)
+    assert all(e.measured_us is not None
+               for e in plan.with_measured(tspans).entries)
+    if not overlap:
+        # the whole tree's buckets differ by design (the reference stacks
+        # the layers); the streamed walk syncs one layer a release
+        return
+    released = [s.to_json() for s in tspans if s.release is not None]
+    assert released and released == \
+        [s.to_json() for s in jspans if s.release is not None]
+    if bb:       # per leaf, the reference fuses the residual (see replay)
+        assert [s.to_json() for s in tspans] == \
+            [s.to_json() for s in jspans]
+    topo = TTopo.from_spec("2x2x2")
+    trep = tresid(tc, per_layer, spans=tspans, topology=topo,
+                  overlap_backward=overlap)
+    jrep = jresid(jc, stacked, spans=jspans, topology=JTopo.from_spec(
+        "2x2x2"), overlap_backward=overlap)
+    assert trep.to_json() == jrep.to_json()
+    assert trep.measured_tasks() == len(trep.tasks) > 0

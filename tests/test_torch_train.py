@@ -417,10 +417,74 @@ def test_remat_and_gather_in_compute_dtype():
         assert np.linalg.norm(g - w) <= 2 ** -7 * np.linalg.norm(w)
 
 
+def _repeated_step_grads():
+    """In one spawned rank (all the host's intra-op threads): three
+    ``step.grad`` calls on one batch of 512 tokens over a 256-token
+    vocabulary, so the embedding's rows repeat."""
+    from repro_torch.configs.base import CollectiveConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_train_step
+    _, cfg = _cfgs(vocab_size=256)
+    shape = ShapeConfig(name="t", seq_len=64, global_batch=8, kind="train")
+    step = build_train_step(cfg, shape, FP32, CollectiveConfig(),
+                            make_local_mesh(), device="cpu")
+    params = step.api.init(torch.Generator().manual_seed(0))
+    batch = batch_to_tensors(make_train_batch(cfg, shape, seed=1), "cpu",
+                             rows=step.rows)
+    return torch.get_num_threads(), [
+        pytree.leaves(step.grad(params, batch)[1]) for _ in range(3)]
+
+
+def test_step_gradients_are_bit_equal_across_calls_with_threads():
+    """The embedding's gradient sums repeated tokens' rows in one order
+    (``F.embedding``'s CPU backward), whatever the intra-op threads do:
+    every call of ``step.grad`` gives the same bits."""
+    from repro_torch.core.collectives import group as grp
+    threads, runs = grp.spawn(_repeated_step_grads, 1)
+    assert threads == max(1, os.cpu_count() or 1)
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_overlap_backward_and_trace_dir_over_two_ranks(tmp_path, capfd):
+    """``--overlap-backward --trace-dir`` on 2 CPU ranks for 2 steps: the
+    run equals the non-overlapped one (the gradients before the sync bit
+    for bit, synced within 1e-6), every rank releases the layers deepest
+    first, and each step's trace and summary are written, one span a
+    plan entry."""
+    import json
+    argv = ["--ranks", "2", "--topology", "2", "--tuning-table",
+            os.path.join(ARTIFACTS, "hierarchical_decision.json"),
+            "--steps", "2"]
+    trace = tmp_path / "trace"
+    ovl, out = _train([*argv, "--overlap-backward", "--trace-dir",
+                       str(trace)], capfd)
+    plain, _ = _train(argv, capfd)
+    assert "gradient sync: backward-overlapped release streams" in out
+    assert "exposed" in out and "trace: step    1 drift" in out
+    assert ovl["local_grads0_fingerprint"] == \
+        plain["local_grads0_fingerprint"]
+    np.testing.assert_allclose(ovl["losses"], plain["losses"], atol=1e-6,
+                               rtol=1e-6)
+    _close_trees(ovl["grads0"], pytree.leaves(plain["grads0"]), 1e-6)
+    layers = ARCHITECTURES["smollm-135m"].reduced().num_layers
+    assert ovl["release_events"] == [[list(reversed(range(layers)))] * 2] * 2
+    for i in range(2):
+        doc = json.loads((trace / f"step{i:03d}.trace.json").read_text())
+        spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+        assert len(spans) == ovl["plan_entries"]
+        summary = json.loads((trace / f"step{i:03d}.summary.json")
+                             .read_text())
+        assert summary["step"] == i and summary["n_tasks"] == len(spans)
+        assert "drift" in summary
+    # the overlap needs a tuned sync and one microbatch, as the reference
+    with pytest.raises(SystemExit, match="needs the tuned gradient-sync"):
+        train.main(["--reduced", "--device", "cpu", "--overlap-backward"])
+
+
 def test_unported_options_raise_naming_their_step():
-    for argv, step in ((["--overlap-backward"], "step 9"),
-                       (["--trace-dir", "/nonexistent"], "step 9"),
-                       (["--model-parallel", "2"], "step 8"),
+    for argv, step in ((["--model-parallel", "2"], "step 8"),
                        (["--arch", "olmoe-1b-7b"], "step 8"),
                        (["--arch", "mamba2-130m"], "step 9")):
         with pytest.raises(NotImplementedError, match=step):
