@@ -73,6 +73,19 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       device times) at the training shape (2, 256, 9, 3, 64) and the
       serving shape, beside the backward's bound; the tensor-core
       kernels must not spill at D = 64 (ptxas, [1]);
+   f. the SSD chunk backward (``ssd_chunk_bwd`` then
+      ``ssd_chunk_bwd_reduce``, fp32 SIMT for both dtypes; the
+      instantiation each call ran is checked) against
+      ``ssd_chunk_bwd_plain`` on the forward kernel's ``cum`` with random
+      fp32 cotangents of all three forward outputs, over the reference's
+      SSD shapes, Q=100, Q=7 with N below one staged slice, and the two
+      training shapes (mamba2-130m's (2, 256, 24, 64, 128, 128) a rank,
+      zamba2-2.7b's heads (2, 256, 80, 64, 64, 128)), f32 at 5e-5 and
+      bf16 at 5e-2 of each gradient leaf's largest entry, each call
+      counted and repeated bit-equal; times the kernels back to back and
+      on the device, and the plain version, in turns at both training
+      shapes (bf16) beside the bound (no single PyTorch call computes
+      this function);
 3. the kernels inside the models, fp32: full-width smollm-135m prefill
    logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``;
    full-width, full-depth mamba2-130m and zamba2-2.7b prefill logits
@@ -87,7 +100,16 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    difference printed beside PR 14's 0.271 and beside the gather path
    run twice; above 0.05 the first decode layer whose MoE input or
    output departs is traced and printed), the launches one per layer per
-   decode step;
+   decode step; [3t] the training loss and every leaf's gradient of
+   mamba2-130m at full width and depth and of zamba2-2.7b at full width
+   and 6 mamba layers (one group, one shared-attention application),
+   2 x 256 tokens, fp32, one process: ``ssd_impl``/``attn_impl="auto"``
+   (SSD forward and backward kernels, flash forward and backward)
+   against ``"xla"``/``"ref"`` under autograd, the loss within 1e-5 and
+   each leaf within 1e-3 (relative 2-norm), the launches of the
+   kernels' call held to one SSD forward and ``LAUNCHES_PER_CALL``
+   backward launches a layer, one flash forward and backward a shared
+   application;
 4. serving through ``repro_torch.launch.serve`` at full width, bf16, each
    path with every launch count zeroed just before it and read just
    after: smollm-135m, mamba2-130m, zamba2-2.7b (full depth: 54 SSM
@@ -181,6 +203,13 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    every rank and step, each step's trace and summary written, parsed
    and holding one span a plan entry; each step's compute / exposed sync
    / optimizer seconds printed beside the tuned run's;
+   s. [8]'s runs and checks for ``--arch mamba2-130m`` (24 layers, d 768,
+   24 SSD heads of 64, N 128, vocab 50280; 167,832,000 fp32 params, 219
+   leaves), tuned and ``"xla"``: the launches held to 24 SSD forwards
+   and 24 x ``ssd_scan_bwd.LAUNCHES_PER_CALL`` backward launches a
+   rank-step, no flash, and the tuned plan's combines every step;
+   sc. [8s]'s tuned run with ``--overlap-backward --trace-dir``, held to
+   it as [8c] is held to [8] (the SSD launches its, releases 23...0);
 9. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
@@ -795,6 +824,158 @@ def phase_flash_backward():
             "max_err_bf16_vs_rounding": mma_err,
             "max_lse_err": lse_err,
             "shape": top["shape"] + " bf16 causal", "by_shape": by_shape}
+
+
+# ---------------------------------------------------------------------------
+# [2f] the SSD chunk backward
+# ---------------------------------------------------------------------------
+# mamba2-130m's training SSD call, one rank's rows (2 of the 8 x 256
+# batch), and zamba2-2.7b's heads (80 of 64, N 64) at the same rows
+SSD_TRAIN_SHAPE = (2, 256, 24, 64, 128, 128)
+SSD_ZAMBA2_TRAIN_SHAPE = (2, 256, 80, 64, 64, 128)
+
+
+def ssd_bwd_bound_ms(B, S, H, P, N, Q, itemsize):
+    """Least time for the backward: x, dt, A, B, C, the forward's cum and
+    the fp32 cotangents of y_intra, states and cum read once, dx, ddt,
+    dA, dB and dC written once (in the inputs' dtypes) over the memory
+    rate; or the products over the peak rate of the input type: per
+    (batch, head, chunk) dy x^T and scores^T dy (2 P flops a lower-
+    triangle pair each), dG B and dG^T C (2 N each), x dS^T and B dS
+    (2 Q N P each), and C B^T once per (batch, chunk)."""
+    nc = S // Q
+    nbytes = (2 * itemsize * (B * S * H * P + 2 * B * S * N)
+              + 4 * (2 * B * S * H + 2 * H)
+              + 4 * B * H * nc * (2 * Q + Q * P + N * P))
+    pairs = Q * (Q + 1) // 2
+    flops = (2 * N * pairs * B * nc
+             + B * H * nc * (4 * P * pairs + 4 * N * pairs + 4 * Q * N * P))
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations"), nbytes, flops
+
+
+def ssd_bwd_inputs(shape, dtype, seed):
+    """rand_ssd's inputs, the forward kernel's cum, and random fp32
+    cotangents of all three forward outputs."""
+    from repro_torch.kernels import ssd_scan
+    B, S, H, P, N, Q = shape
+    x, dts, A, Bm, Cm = rand_ssd(B, S, H, P, N, dtype, seed)
+    outs = ssd_scan.ssd_chunk(x, dts, A, Bm, Cm, chunk=Q)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cts = [torch.randn(t.shape, generator=g, device="cuda") for t in outs]
+    return (x, dts, A, Bm, Cm, outs[2], *cts)
+
+
+def check_ssd_bwd(shape, dtype, seed):
+    """One backward call against ``ssd_chunk_bwd_plain``: counted, the
+    dtype's instantiation, finite, every leaf within the forward's
+    tolerance of its largest entry (ddt's and dA's terms cancel, so
+    their error scales with the leaf, not the entry), and a second call
+    bit-equal. Returns (max |err| over the leaves, max of |err| / (1 +
+    max |want|) over the leaves)."""
+    from repro_torch.kernels import ssd_scan_bwd as sb
+    ins = ssd_bwd_inputs(shape, dtype, seed)
+    Q, P = shape[5], shape[3]
+    before = sb.launches
+    got = sb.ssd_chunk_bwd(*ins, chunk=Q)
+    torch.cuda.synchronize()
+    if sb.launches != before + sb.LAUNCHES_PER_CALL:
+        raise AssertionError("the SSD backward did not count its launches")
+    name = f"ssd_chunk_bwd<{'bf16' if dtype == torch.bfloat16 else 'f32'}" \
+        f",{P}>"
+    if sb.last_kernel() != name:
+        raise AssertionError(f"ran {sb.last_kernel()}, expected {name}")
+    want = sb.ssd_chunk_bwd_plain(*ins, chunk=Q)
+    err = rel = 0.0
+    for leaf, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        d = (a.float() - b.float()).abs().max().item()
+        r = d / (1 + b.float().abs().max().item())
+        if a.shape != b.shape or a.dtype != b.dtype or \
+                not torch.isfinite(a).all() or r > SSD_TOL[dtype]:
+            raise AssertionError(f"SSD backward {leaf} disagrees at {shape} "
+                                 f"{dtype}: max err {d} ({r:.3g} of the "
+                                 f"leaf)")
+        err, rel = max(err, d), max(rel, r)
+    again = sb.ssd_chunk_bwd(*ins, chunk=Q)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"two SSD backward calls differ at {shape} "
+                             f"{dtype}")
+    return err, rel
+
+
+def time_ssd_bwd(name, shape):
+    """At one bf16 shape, in turns (kernel, plain, kernel, plain): the
+    backward kernels back to back between CUDA events and on the device
+    from the profiler, and the plain backward; beside the bound."""
+    from repro_torch.kernels import ssd_scan_bwd as sb
+    B, S, H, P, N, Q = shape
+    ins = ssd_bwd_inputs(shape, torch.bfloat16, seed=96)
+    kern = lambda: sb.ssd_chunk_bwd(*ins, chunk=Q)  # noqa: E731
+    plain = lambda: sb.ssd_chunk_bwd_plain(*ins, chunk=Q)  # noqa: E731
+    turns = [(time_calls(kern), time_calls(plain), device_ms(kern))
+             for _ in range(2)]
+    ms = statistics.median(turns[0][0] + turns[1][0])
+    plain_ms = statistics.median(turns[0][1] + turns[1][1])
+    dev = (turns[0][2] + turns[1][2]) / 2
+    bound_ms, bound_by, nbytes, flops = ssd_bwd_bound_ms(B, S, H, P, N, Q,
+                                                         2)
+    log(f"    {name} B={B} S={S} H={H} P={P} N={N} Q={Q} bf16 "
+        f"({B * H * (S // Q)} blocks): {sb.last_kernel()} + reduce back to "
+        f"back {ms:.4f} ms (turns {statistics.median(turns[0][0]):.4f}, "
+        f"{statistics.median(turns[1][0]):.4f}), device {dev:.4f} ms (turns "
+        f"{turns[0][2]:.4f}, {turns[1][2]:.4f}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP; {1e3 * flops / FP32_FLOP_PER_S:.5f} ms at "
+        f"the fp32 SIMT rate the kernel runs at); device {dev / bound_ms:.1f}"
+        f"x the bound; no single library call")
+    return {"ms": ms, "plain_ms": plain_ms, "device_ms": dev,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": f"B={B} S={S} H={H} P={P} N={N} Q={Q} bf16"}
+
+
+def phase_ssd_backward():
+    """[2f] the SSD backward kernels against ``ssd_chunk_bwd_plain`` over
+    the reference's SSD shapes, Q off the powers of two, and the two
+    training shapes, fp32 and bf16, random cotangents of all three
+    forward outputs; timed at both training shapes; returns the
+    kernels-line entry."""
+    from repro_torch.kernels import ssd_scan_bwd
+    sweep = [(1, 64, 2, 64, 32, 32), (2, 128, 3, 64, 64, 32),
+             (1, 128, 1, 32, 128, 64),               # tests/test_kernels.py
+             (1, 200, 2, 64, 128, 100), (2, 14, 3, 32, 16, 7),
+             SSD_ZAMBA2_TRAIN_SHAPE, SSD_TRAIN_SHAPE]  # the main path's last
+    max_rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, shape in enumerate(sweep):
+        for dt in (torch.float32, torch.bfloat16):
+            err, rel = check_ssd_bwd(shape, dt, seed=300 + 2 * i)
+            max_rel[dt] = max(max_rel[dt], rel)
+            log(f"[2f] ssd backward {shape} {str(dt)[6:]}: "
+                f"{ssd_scan_bwd.last_kernel()}, max|err| {err:.3g} ({rel:.3g} of the "
+                f"leaf's scale); two calls bit-equal")
+    train_err = err           # the training shape, bf16, is the last case
+    log(f"    max error over the leaves' scale: f32 "
+        f"{max_rel[torch.float32]:.3g} (tol {SSD_TOL[torch.float32]}), bf16 "
+        f"{max_rel[torch.bfloat16]:.3g} (tol {SSD_TOL[torch.bfloat16]})")
+    by_shape = {"mamba2 training": time_ssd_bwd("mamba2 training",
+                                                SSD_TRAIN_SHAPE),
+                "zamba2 training": time_ssd_bwd("zamba2 training",
+                                                SSD_ZAMBA2_TRAIN_SHAPE)}
+    top = by_shape["mamba2 training"]
+    return {"name": "ssd_chunk_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:81",
+            "note": "the gradient of that kernel's function, which the "
+                    "reference takes through XLA under jax.value_and_grad",
+            "max_abs_err": train_err, "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "device_ms": top["device_ms"],
+            "launches_per_call": ssd_scan_bwd.LAUNCHES_PER_CALL,
+            "max_err_of_leaf_f32": max_rel[torch.float32],
+            "max_err_of_leaf_bf16": max_rel[torch.bfloat16],
+            "shape": top["shape"], "by_shape": by_shape}
 
 
 def phase_model():
@@ -1459,11 +1640,112 @@ def phase_ssm_model(arch: str, batch: int):
     return diff
 
 
+# ---------------------------------------------------------------------------
+# [3t] gradients with the kernels inside the models
+# ---------------------------------------------------------------------------
+# the kernels' loss and gradients against the plain versions', fp32: the
+# loss within 1e-5 (relative); each leaf's gradient within 1e-3 (relative
+# 2-norm): the SSD kernels' fp32 tolerance (5e-5) through 6-24 layers of
+# forward and backward, as MODEL_TOL is for the logits
+GRAD_MODEL_TOL = 1e-3
+GRAD_LOSS_TOL = 1e-5
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted paths of the leaves in ``pytree.flatten``'s order (dicts by
+    sorted key, lists in order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def phase_train_grads(arch, layers=None, batch=2, seq=256):
+    """Loss and every leaf's gradient of ``arch`` at full width (depth cut
+    to ``layers``), fp32, one process: ``ssd_impl``/``attn_impl="auto"``
+    (the SSD and flash kernels, forward and backward) against
+    ``"xla"``/``"ref"`` (plain PyTorch under autograd); the launches of
+    the kernels' call zeroed just before it and read just after."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import batch_to_tensors
+    from repro_torch.kernels import attention_bwd, ssd_scan_bwd
+    from repro_torch.models.registry import build_model, make_train_batch
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    kern = build_model(cfg, compute_dtype=torch.float32, ssd_impl="auto",
+                       attn_impl="auto")
+    plain = build_model(cfg, compute_dtype=torch.float32, ssd_impl="xla",
+                        attn_impl="ref")
+    n_attn = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    want = {"ssd_chunk": cfg.num_layers,
+            "ssd_chunk_bwd": cfg.num_layers * ssd_scan_bwd.LAUNCHES_PER_CALL,
+            "flash_attention": n_attn,
+            "flash_attention_bwd": n_attn * attention_bwd.LAUNCHES_PER_CALL}
+    params = kern.init(torch.Generator(device="cuda").manual_seed(0))
+    shape = ShapeConfig(name="grad", seq_len=seq, global_batch=batch,
+                        kind="train")
+    data = batch_to_tensors(make_train_batch(cfg, shape, seed=1), "cuda")
+
+    def loss_and_grads(api):
+        leaves, treedef = pytree.flatten(params)
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        loss, _ = api.loss(treedef.unflatten(leaves), data)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.item(), grads
+
+    counters = _counters()
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    lk, gk = loss_and_grads(kern)
+    t_kern = time.perf_counter() - t0
+    got = {name: counters[name].launches for name in want}
+    t0 = time.perf_counter()
+    lp, gp = loss_and_grads(plain)
+    t_plain = time.perf_counter() - t0
+    worst, worst_leaf = 0.0, None
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        num, den = (a.double() - b.double()).norm().item(), \
+            b.double().norm().item()
+        r = num / den if den else (0.0 if num == 0 else float("inf"))
+        if not torch.isfinite(a).all():
+            r = float("inf")
+        if r >= worst:
+            worst, worst_leaf = r, i
+    loss_rel = abs(lk - lp) / abs(lp)
+    where = leaf_names(params)[worst_leaf]
+    log(f"[3t] {arch} full width, {cfg.num_layers} layers, fp32 loss and "
+        f"gradients ({batch}x{seq}; {len(gk)} leaves, "
+        f"{sum(t.numel() for t in gk)} elements): loss kernels {lk:.6f} "
+        f"plain {lp:.6f} (relative {loss_rel:.3g}, tol {GRAD_LOSS_TOL}); "
+        f"worst leaf's gradient {worst:.3g} ({where}; relative 2-norm, tol "
+        f"{GRAD_MODEL_TOL}); launches {got}; {t_kern:.2f}s with the "
+        f"kernels, {t_plain:.2f}s plain (first calls)")
+    if got != want:
+        raise AssertionError(f"[3t] {arch} launched {got}, expected {want}")
+    if loss_rel > GRAD_LOSS_TOL or worst > GRAD_MODEL_TOL:
+        raise AssertionError(f"[3t] {arch} gradients through the kernels "
+                             f"depart from the plain versions: loss "
+                             f"{loss_rel}, worst leaf {worst}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return {"loss_rel": loss_rel, "worst_leaf_rel": worst,
+            "layers": cfg.num_layers, "launches": got}
+
+
 def _counters():
     from repro_torch.kernels import attention, attention_bwd, \
-        paged_attention, segment_reduce, ssd_scan
+        paged_attention, segment_reduce, ssd_scan, ssd_scan_bwd
     return {"flash_attention": attention,
             "flash_attention_bwd": attention_bwd, "ssd_chunk": ssd_scan,
+            "ssd_chunk_bwd": ssd_scan_bwd,
             "segment_combine": segment_reduce,
             "paged_attention": paged_attention}
 
@@ -2020,9 +2302,20 @@ def phase_remapped(n_params, identity_bucketed):
 # [8] the data-parallel training step
 # ---------------------------------------------------------------------------
 TRAIN_STEPS = 4
-TRAIN_RANKS, TRAIN_LAYERS = 4, 30        # smollm-135m's 30 layers
-TRAIN_ARGV = ["--arch", "smollm-135m", "--ranks", "4", "--topology", "2x2",
-              "--steps", str(TRAIN_STEPS), "--seq", "256", "--batch", "8"]
+TRAIN_RANKS = 4
+TRAIN_ARGS = ["--ranks", "4", "--topology", "2x2", "--steps",
+              str(TRAIN_STEPS), "--seq", "256", "--batch", "8"]
+# what each trained model's run must show: its layers (each one release
+# point and one flash or SSD launch a rank-step), params and leaves, and
+# the tuned 2x2 plan's combines a step where it is pinned
+TRAIN_MODELS = {
+    "smollm-135m": {"tag": "8", "layers": 30, "param_elems": 162826560,
+                    "leaves": 273, "combines": 2184,
+                    "kernels": ("flash_attention", "flash_attention_bwd")},
+    "mamba2-130m": {"tag": "8s", "layers": 24, "param_elems": 167832000,
+                    "leaves": 219, "combines": None,
+                    "kernels": ("ssd_chunk", "ssd_chunk_bwd")},
+}
 # the tuned run against the "xla" run. Both start from the same params
 # and batches, and rank 0's step-0 gradients before the sync are checked
 # bit-equal in both, so step 0's synced trees differ only by the order
@@ -2107,12 +2400,12 @@ def sync_readings(tuned, xla):
             "planted": planted}
 
 
-def train_run(label, argv):
+def train_run(tag, label, argv):
     """One ``repro_torch.launch.train`` run (its counts are zeroed in
     every rank just before the steps and summed over the ranks just
     after); returns rank 0's result with its final params."""
     from repro_torch.launch import train
-    log(f"[8] {label}: train {' '.join(argv)}")
+    log(f"[{tag}] {label}: train {' '.join(argv)}")
     t0 = time.perf_counter()
     res = train.main(argv, keep_params=True)
     res["wall_s"] = time.perf_counter() - t0
@@ -2131,38 +2424,59 @@ def train_run(label, argv):
     return res
 
 
-def phase_training():
-    """[8] smollm-135m at full width and depth trained data-parallel on 4
-    host-staged ranks on the card through the tuned 2x2 hierarchical
-    sync, and again through ``--collective xla`` as the oracle; each
-    run's launches held to its plan; returns the summary and the launch
-    counts by path."""
+def expected_train_launches(arch, r):
+    """Each kernel's launches over a run's steps, summed over the ranks:
+    one forward launch a layer and LAUNCHES_PER_CALL backward launches a
+    layer for every rank-step of the model's kernels (flash attention or
+    the SSD chunk; no remat), none of the others, and the tuned plan's
+    combines every step."""
+    from repro_torch.kernels import attention_bwd, ssd_scan_bwd
+    spec = TRAIN_MODELS[arch]
+    per = spec["layers"] * TRAIN_STEPS * TRAIN_RANKS
+    fwd, bwd = spec["kernels"]
+    bwd_mod = {"flash_attention_bwd": attention_bwd,
+               "ssd_chunk_bwd": ssd_scan_bwd}[bwd]
+    want = {name: 0 for name in ("flash_attention", "flash_attention_bwd",
+                                 "ssd_chunk", "ssd_chunk_bwd")}
+    want[fwd], want[bwd] = per, per * bwd_mod.LAUNCHES_PER_CALL
+    want["segment_combine"] = TRAIN_STEPS * r["plan_combines"]
+    return want
+
+
+def phase_training(arch):
+    """[8] / [8s] ``arch`` at full width and depth trained data-parallel
+    on 4 host-staged ranks on the card through the tuned 2x2
+    hierarchical sync, and again through ``--collective xla`` as the
+    oracle; each run's launches held to its plan; returns the summary
+    and the launch counts by path."""
+    spec = TRAIN_MODELS[arch]
+    tag = spec["tag"]
+    argv = ["--arch", arch, *TRAIN_ARGS]
     hier = os.path.join(ROOT, "examples", "artifacts",
                         "hierarchical_decision.json")
-    tuned = train_run("tuned", [*TRAIN_ARGV, "--tuning-table", hier])
-    xla = train_run("xla", [*TRAIN_ARGV, "--collective", "xla"])
-    from repro_torch.kernels import attention_bwd
-    ranks, layers = TRAIN_RANKS, TRAIN_LAYERS
+    tuned = train_run(tag, "tuned", [*argv, "--tuning-table", hier])
+    xla = train_run(tag, "xla", [*argv, "--collective", "xla"])
     for label, r in (("tuned", tuned), ("xla", xla)):
-        want = {"flash_attention": layers * TRAIN_STEPS * ranks,
-                "flash_attention_bwd": layers * TRAIN_STEPS * ranks
-                * attention_bwd.LAUNCHES_PER_CALL,
-                "segment_combine": TRAIN_STEPS * r["plan_combines"]}
-        bad = (r["device"] != "cuda:0" or r["ranks"] != ranks
+        want = expected_train_launches(arch, r)
+        bad = (r["device"] != "cuda:0" or r["ranks"] != TRAIN_RANKS
                or r["mesh"] != {"pod": 2, "data": 2, "model": 1}
-               or r["param_elems"] != 162826560 or r["leaves"] != 273
+               or r["param_elems"] != spec["param_elems"]
+               or r["leaves"] != spec["leaves"]
                or not r["replicas_equal_at_init"]
                or not all(r["replicas_equal"])
                or len(r["losses"]) != TRAIN_STEPS
                or not all(x == x and 0 < x < 20 for x in r["losses"])
                or r["launches"] != want)
         if bad:
-            raise AssertionError(f"[8] {label}: {r['launches']} vs {want}; "
+            raise AssertionError(f"[{tag}] {label}: {r['launches']} vs "
+                                 f"{want}; "
                                  f"{ {k: r[k] for k in ('mesh', 'losses')} }")
     if not tuned["tuned"] or xla["tuned"] or xla["plan_combines"] != 0 or \
-            tuned["plan_combines"] != 2184:
-        raise AssertionError(f"[8] plans: tuned {tuned['plan_combines']} "
-                             f"combines a step, xla {xla['plan_combines']}")
+            tuned["plan_combines"] <= 0 or spec["combines"] not in (
+                None, tuned["plan_combines"]):
+        raise AssertionError(f"[{tag}] plans: tuned "
+                             f"{tuned['plan_combines']} combines a step, xla "
+                             f"{xla['plan_combines']}")
     loss_diff = max(abs(a - b) for a, b in zip(tuned["losses"],
                                                xla["losses"]))
     rd = sync_readings(tuned, xla)
@@ -2177,21 +2491,24 @@ def phase_training():
         f"{k} {v:.3g}" for k, v in rd["planted"].items()))
     if rd["grad"] > TRAIN_GRAD_TOL or rd["change"] > TRAIN_CHANGE_TOL \
             or loss_diff > TRAIN_LOSS_TOL:
-        raise AssertionError("[8] the tuned run departs from the xla run")
+        raise AssertionError(f"[{tag}] the tuned run departs from the xla "
+                             f"run")
     for k, v in rd["planted"].items():
         if v <= (TRAIN_CHANGE_TOL if k.startswith("update")
                  else TRAIN_GRAD_TOL):
-            raise AssertionError(f"[8] the planted fault '{k}' reads {v}, "
-                                 f"inside the tolerance")
+            raise AssertionError(f"[{tag}] the planted fault '{k}' reads "
+                                 f"{v}, inside the tolerance")
     keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
             "peak_mem_bytes", "launches", "plan_entries", "plan_combines",
             "describe", "wall_s")
     summary = {"tuned": {k: tuned[k] for k in keep},
                "xla": {k: xla[k] for k in keep},
                "loss_diff": loss_diff, "readings": rd}
-    paths = {"train_tuned": tuned["launches"], "train_xla": xla["launches"]}
-    summary["overlapped"], paths["train_overlapped"] = \
-        phase_training_overlapped(tuned)
+    prefix = "train" if arch == "smollm-135m" else f"train_{arch}"
+    paths = {f"{prefix}_tuned": tuned["launches"],
+             f"{prefix}_xla": xla["launches"]}
+    summary["overlapped"], paths[f"{prefix}_overlapped"] = \
+        phase_training_overlapped(arch, tuned)
     return summary, paths
 
 
@@ -2209,7 +2526,8 @@ def check_step_traces(d, r) -> dict:
             summ = json.load(f)
         if len(spans) != r["plan_entries"] or \
                 summ["n_tasks"] != r["plan_entries"] or summ["step"] != i:
-            raise AssertionError(f"[8c] step {i}'s trace has {len(spans)} "
+            raise AssertionError(f"[8c/8sc] step {i}'s trace has "
+                                 f"{len(spans)} "
                                  f"spans, its summary {summ['n_tasks']} "
                                  f"tasks; the plan {r['plan_entries']}")
         drift.append(summ.get("drift"))
@@ -2221,22 +2539,25 @@ def check_step_traces(d, r) -> dict:
             "replay_residual_s": residual_s}
 
 
-def phase_training_overlapped(tuned):
-    """[8c] [8]'s tuned run again with ``--overlap-backward --trace-dir``:
-    each layer's gradients synced on a thread of every rank (its own CUDA
-    stream) while the backward computes the layers below, held to [8]'s
-    tuned run; each step's trace written and checked; returns the summary
+def phase_training_overlapped(arch, tuned):
+    """[8c] / [8sc] [8]'s / [8s]'s tuned run of ``arch`` again with
+    ``--overlap-backward --trace-dir``: each layer's gradients synced on
+    a thread of every rank (its own CUDA stream) while the backward
+    computes the layers below, held to that tuned run; each step's trace
+    written and checked; returns the summary
     and the launch counts of the steps (zeroed in every rank just before
     them, summed over the ranks just after; the trace replay's apart)."""
     import tempfile
+    spec = TRAIN_MODELS[arch]
+    tag = spec["tag"] + "c"
     hier = os.path.join(ROOT, "examples", "artifacts",
                         "hierarchical_decision.json")
     with tempfile.TemporaryDirectory() as d:
-        r = train_run("tuned, overlapped",
-                      [*TRAIN_ARGV, "--tuning-table", hier,
+        r = train_run(tag, "tuned, overlapped",
+                      ["--arch", arch, *TRAIN_ARGS, "--tuning-table", hier,
                        "--overlap-backward", "--trace-dir", d])
         traces = check_step_traces(d, r)
-    order = list(reversed(range(TRAIN_LAYERS)))
+    order = list(reversed(range(spec["layers"])))
     bad = [k for k, ok in (
         ("replicas", r["replicas_equal_at_init"]
          and all(r["replicas_equal"])),
@@ -2244,9 +2565,10 @@ def phase_training_overlapped(tuned):
          == [[order] * TRAIN_RANKS] * TRAIN_STEPS),
         ("combines", r["launches"]["segment_combine"]
          == TRAIN_STEPS * r["plan_combines"] > 0),
-        ("flash launches", all(r["launches"][k] == tuned["launches"][k]
-                               for k in ("flash_attention",
-                                         "flash_attention_bwd"))),
+        ("model kernels' launches", all(
+            r["launches"][k] == tuned["launches"][k]
+            for k in ("flash_attention", "flash_attention_bwd", "ssd_chunk",
+                      "ssd_chunk_bwd"))),
         ("gradients before the sync", r["local_grads0_fingerprint"]
          == tuned["local_grads0_fingerprint"])) if not ok]
     from repro_torch import pytree
@@ -2254,10 +2576,10 @@ def phase_training_overlapped(tuned):
                         pytree.leaves(tuned["grads0"]))
     loss_diff = max(abs(a - b) for a, b in zip(r["losses"],
                                                tuned["losses"]))
-    log(f"    overlapped vs [8] tuned: step 0's synced gradients within "
-        f"{grad:.3g} (tol {TRAIN_GRAD_TOL}), losses within {loss_diff:.3g}"
+    log(f"    overlapped vs [{spec['tag']}] tuned: step 0's synced "
+        f"gradients within {grad:.3g} (tol {TRAIN_GRAD_TOL}), losses within {loss_diff:.3g}"
         f" (tol {TRAIN_LOSS_TOL}); {r['plan_entries']} sync collectives "
-        f"and {r['plan_combines']} combines a step ([8]: "
+        f"and {r['plan_combines']} combines a step ([{spec['tag']}]: "
         f"{tuned['plan_entries']}, {tuned['plan_combines']}); trace "
         f"replay launches {r['replay_launches']}; drift a step "
         f"{traces['drift']}")
@@ -2269,13 +2591,13 @@ def phase_training_overlapped(tuned):
         log(f"    step {i}: compute / exposed sync / optimizer s, "
             f"overlapped {r['compute_s'][i]:.4f} / {r['sync_s'][i]:.4f} / "
             f"{r['opt_s'][i]:.4f} (sync thread {r['release_sync_s'][i]:.4f})"
-            f", [8] tuned {tuned['compute_s'][i]:.4f} / "
+            f", [{spec['tag']}] tuned {tuned['compute_s'][i]:.4f} / "
             f"{tuned['sync_s'][i]:.4f} / {tuned['opt_s'][i]:.4f}; step "
             f"{r['step_s'][i]:.3f} vs {tuned['step_s'][i]:.3f}")
     if bad or grad > TRAIN_GRAD_TOL or loss_diff > TRAIN_LOSS_TOL:
-        raise AssertionError(f"[8c] the overlapped run departs from [8]'s "
-                             f"tuned run: {bad}, gradients {grad}, losses "
-                             f"{loss_diff}")
+        raise AssertionError(f"[{tag}] the overlapped run departs from "
+                             f"[{spec['tag']}]'s tuned run: {bad}, "
+                             f"gradients {grad}, losses {loss_diff}")
     keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
             "release_sync_s", "peak_mem_bytes", "launches",
             "replay_launches", "plan_entries", "plan_combines", "wall_s")
@@ -2297,11 +2619,15 @@ def main() -> int:
     kernels = {"flash_attention": phase_kernel(),
                "flash_attention_bwd": phase_flash_backward(),
                "ssd_chunk": phase_ssd_kernel(),
+               "ssd_chunk_bwd": phase_ssd_backward(),
                "segment_combine": phase_combine_kernel(),
                "paged_attention": phase_paged_kernel()}
     diffs = {"smollm-135m": phase_model(),
              "mamba2-130m": phase_ssm_model("mamba2-130m", 2),
              "zamba2-2.7b": phase_ssm_model("zamba2-2.7b", 2)}
+    # zamba2 at full width, one group: 6 mamba layers, one shared block
+    train_grads = {"mamba2-130m": phase_train_grads("mamba2-130m"),
+                   "zamba2-2.7b": phase_train_grads("zamba2-2.7b", layers=6)}
     moe = phase_moe_model()
     diffs["olmoe-1b-7b"] = moe["prefill_logit_diff"]
     serving = {}
@@ -2331,13 +2657,17 @@ def main() -> int:
         coll["grad_sync"]["elems"],
         comm["comm_2x2x2"]["variants"]["bucketed"]["seconds"])
     comm_paths.update(mapped_paths)
-    training, train_paths = phase_training()
+    training, train_paths = phase_training("smollm-135m")
+    training_ssm, ssm_paths = phase_training("mamba2-130m")
+    train_paths.update(ssm_paths)
     for path, counts in train_paths.items():
         for name, n in counts.items():
             kernels[name]["launches_by_path"][path] = n
-    # the training path's launches of the attention kernels
+    # the training paths' launches of the backward kernels
     kernels["flash_attention_bwd"]["launches"] = \
         train_paths["train_tuned"]["flash_attention_bwd"]
+    kernels["ssd_chunk_bwd"]["launches"] = \
+        train_paths["train_mamba2-130m_tuned"]["ssd_chunk_bwd"]
     for path, counts in {**coll_paths, **comm_paths}.items():
         for name, n in counts.items():
             # every gradient-sync path is listed for the combine, 0 too
@@ -2355,7 +2685,9 @@ def main() -> int:
                           "best", "grad_sync", "tune_seconds", "wall_s",
                           "samples", "penalty", "fronts")},
                       "tuners": tuners,
-                      "communicator": comm, "training": training}))
+                      "communicator": comm, "training": training,
+                      "training_mamba2": training_ssm,
+                      "train_grads_fp32": train_grads}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,17 @@
   "auto" — the hand-written CUDA kernel for a CUDA tensor, its plain
            PyTorch version for a CPU tensor (``attention.flash_attention``,
            ``ssd_scan.ssd_chunked``, ``segment_reduce.segment_combine``,
-           ``paged_attention.paged_attention``).
+           ``paged_attention.paged_attention``); an input that requires a
+           gradient trains through the kernels' autograd functions
+           (``attention.FlashAttention``, ``ssd_scan.SSDChunk``), whose
+           backwards are hand-written kernels too.
   "ref"  — the plain oracle (``ref.attention``, ``ref.ssd``,
            ``ref.segment_combine``, ``ref.paged_attention_ref``).
   "xla"  — the chunked plain oracle (``ref.attention_xla_chunked``,
            ``ref.ssd_chunked``) and the gather path of paged attention
            (``ref.paged_attention_ref``), named after the reference's
-           non-TPU production path.
+           non-TPU production path. "ref" and "xla" train through plain
+           autograd.
 """
 from __future__ import annotations
 

@@ -23,6 +23,14 @@ one that ran; ``PERF.md`` has their times.
 ``ssd_chunk`` takes a CUDA tensor to the kernel, and only a CPU tensor to
 ``ssd_chunked_plain``; any other device raises. There is no fallback from
 the kernel to the plain version.
+
+Training: when an input requires a gradient, ``ssd_chunked`` runs the
+within-chunk pass through `SSDChunk` (a ``torch.autograd.Function``):
+its forward is ``ssd_chunk``, its backward
+``ssd_scan_bwd.ssd_chunk_bwd`` (the hand-written backward kernels on a
+CUDA tensor, their plain version on a CPU tensor), from the cotangents
+of all three outputs. The inter-chunk recurrence stays plain PyTorch
+under autograd, as the reference leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ssd_scan_bwd
 
 NEG_INF = -1e30
 Q_MAX = 128                   # chunk rows one kernel block covers
@@ -45,20 +54,22 @@ launches = 0
 def ssd_chunked_plain(x, dt, A, Bm, Cm, *, chunk: int):
     """The kernel's arithmetic in plain PyTorch. x (B,S,H,P), dt (B,S,H),
     A (H,), Bm/Cm (B,S,N) -> (y_intra (B,H,nc,Q,P), states (B,H,nc,N,P),
-    cum (B,H,nc,Q)), fp32."""
+    cum (B,H,nc,Q)), fp32 (float64 for float64 inputs: the tests'
+    exact-algebra oracle)."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     _check_chunk(S, chunk)
     nc = S // chunk
-    xf = x.float().reshape(Bsz, nc, chunk, H, P).permute(0, 3, 1, 2, 4)
-    dtc = dt.float().reshape(Bsz, nc, chunk, H)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc).reshape(Bsz, nc, chunk, H, P).permute(0, 3, 1, 2, 4)
+    dtc = dt.to(acc).reshape(Bsz, nc, chunk, H)
     dtf = dtc.permute(0, 3, 1, 2)                          # (B,H,nc,Q)
-    Bf = Bm.float().reshape(Bsz, 1, nc, chunk, N)
-    Cf = Cm.float().reshape(Bsz, 1, nc, chunk, N)
+    Bf = Bm.to(acc).reshape(Bsz, 1, nc, chunk, N)
+    Cf = Cm.to(acc).reshape(Bsz, 1, nc, chunk, N)
 
     # cumsum over a non-innermost dim: sequential on the card, the
     # kernel's order (see csrc/ssd_chunk.cu)
-    cum = torch.cumsum(dtc * A.float(), dim=2).permute(0, 3, 1, 2)
+    cum = torch.cumsum(dtc * A.to(acc), dim=2).permute(0, 3, 1, 2)
     total = cum[..., -1:]
     diff = cum[..., :, None] - cum[..., None, :]           # (B,H,nc,Q,Q) t,s
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
@@ -151,13 +162,40 @@ def ssd_chunk(x, dt, A, Bm, Cm, *, chunk: int):
     return y, states, cum
 
 
+class SSDChunk(torch.autograd.Function):
+    """The within-chunk pass with its backward: the forward is
+    ``ssd_chunk`` and saves its inputs and ``cum``; the backward runs
+    ``ssd_scan_bwd.ssd_chunk_bwd`` on the cotangents of ``y_intra``,
+    ``states`` and ``cum`` (the kernels on a CUDA tensor, or raises; the
+    plain version on a CPU tensor) and returns dx, ddt, dA, dB and dC."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        y, states, cum = ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, cum)
+        ctx.chunk = chunk
+        return y, states, cum
+
+    @staticmethod
+    def backward(ctx, dy, dstates, dcum):
+        x, dt, A, Bm, Cm, cum = ctx.saved_tensors
+        grads = ssd_scan_bwd.ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, dy,
+                                           dstates, dcum, chunk=ctx.chunk)
+        return (*grads, None)
+
+
 def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 128):
     """Chunked SSD through the within-chunk pass (kernel on the card),
     with the inter-chunk recurrence, ``y_inter`` and the skip in plain
-    PyTorch. x (B,S,H,P) -> y (B,S,H,P) in x's dtype."""
+    PyTorch. x (B,S,H,P) -> y (B,S,H,P) in x's dtype. With an input that
+    requires a gradient the pass runs through `SSDChunk`."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
-    y_intra, states, cum = ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        y_intra, states, cum = SSDChunk.apply(x, dt, A, Bm, Cm, chunk)
+    else:
+        y_intra, states, cum = ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk)
     nc = S // chunk
 
     # inter-chunk recurrence (tiny loop over nc): the state BEFORE each chunk

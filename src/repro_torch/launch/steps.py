@@ -11,8 +11,9 @@ of the global batch (`sharding.batch_rows`) and a full replica of the
 params, so both paths are the same three phases in every rank:
 
   1. forward and backward of this rank's rows (``torch.autograd.grad``;
-     attention through the flash kernels), optionally accumulated over
-     ``overlap_microbatches``;
+     attention through the flash kernels, the SSD scan of the SSM and
+     hybrid families through the SSD chunk kernels), optionally
+     accumulated over ``overlap_microbatches``;
   2. gradient sync: tuned, ``comm.sync_gradients(grads, mean=True)``
      (flat, N-level or bucketed, as the Communicator resolved); untuned,
      the backend's all-reduce of every leaf over the data-parallel ranks,
@@ -34,9 +35,12 @@ residual sync), ``opt_s`` the optimizer; with overlap,
 ``release_sync_s`` adds the sync thread's busy seconds and
 ``release_events`` the released layers in release order.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 step): expert and tensor parallelism (a ``model`` axis over 1,
-step 8) and FSDP param sharding (step 10).
+The dense, SSM and hybrid families train; the hybrid's mamba layers
+release under their global indices, its shared block syncs with the
+residual. Not ported (each raises ``NotImplementedError`` naming its
+ROADMAP.md Queue 1 step): expert and tensor parallelism (a ``model``
+axis over 1, step 8), the MoE family (step 8) and FSDP param sharding
+(step 10).
 """
 from __future__ import annotations
 

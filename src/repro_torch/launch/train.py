@@ -11,7 +11,9 @@ PyTorch versions). Every rank builds the launch mesh (``("data",
 from ``--tuning-table`` / ``--collective`` / ``--bucket-mb``, and the
 training step (`steps.build_train_step`), then takes ``--steps`` steps
 over its rows of the synthetic global batches: forward and backward
-(attention through the flash-attention kernels), the tuned gradient
+(attention through the flash-attention kernels, the SSM and hybrid
+families' SSD scan through the SSD chunk forward and backward kernels),
+the tuned gradient
 sync (every reduce step in the ``segment_combine`` kernel) or the
 backend's all-reduce (``--collective xla``, the default), and AdamW.
 Rank 0 prints. Weights are random, drawn by a ``torch.Generator`` with
@@ -34,10 +36,10 @@ writes rank 0's ``step{NNN}.trace.json`` (Perfetto) and
 ``step{NNN}.summary.json`` into DIR, and, with a ``--topology``, prints
 the drift line the re-tune loop watches, as the reference does.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 step): ``--model-parallel`` above 1 (step 8), FSDP (step 10),
-and every family but dense (MoE step 8; SSM and hybrid step 9; VLM and
-enc-dec step 10).
+The dense, SSM (mamba2) and hybrid (zamba2) families train. Not ported
+yet (each raises ``NotImplementedError`` naming its ROADMAP.md Queue 1
+step): ``--model-parallel`` above 1 (step 8), FSDP (step 10), the MoE
+family (step 8), and the VLM and enc-dec families (step 10).
 
 Examples:
     python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
@@ -48,6 +50,10 @@ Examples:
         --topology 2x2 \\
         --tuning-table examples/artifacts/hierarchical_decision.json \\
         --steps 4 --seq 256 --batch 8 --overlap-backward --trace-dir /tmp/t
+    python -m repro_torch.launch.train --arch mamba2-130m --ranks 4 \\
+        --topology 2x2 \\
+        --tuning-table examples/artifacts/hierarchical_decision.json \\
+        --steps 4 --seq 256 --batch 8
     python -m repro_torch.launch.train --arch smollm-135m --reduced \\
         --device cpu --ranks 2 --steps 2 --seq 64 --batch 4
 """
@@ -73,7 +79,8 @@ from repro_torch.configs.base import (
 )
 from repro_torch.core.collectives import group as grp
 from repro_torch.data import SyntheticPipeline, batch_to_tensors, stream_ids
-from repro_torch.kernels import attention, attention_bwd, segment_reduce
+from repro_torch.kernels import attention, attention_bwd, segment_reduce, \
+    ssd_scan, ssd_scan_bwd
 from repro_torch.launch.mesh import local_mesh_spec, make_local_mesh
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models.registry import check_trainable
@@ -81,6 +88,7 @@ from repro_torch.models.registry import check_trainable
 #: the kernels of the training path, by the name the launch counts use
 COUNTERS = {"flash_attention": attention,
             "flash_attention_bwd": attention_bwd,
+            "ssd_chunk": ssd_scan, "ssd_chunk_bwd": ssd_scan_bwd,
             "segment_combine": segment_reduce}
 
 #: where each unported option comes from (ROADMAP.md Queue 1)

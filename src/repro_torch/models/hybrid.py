@@ -7,7 +7,8 @@ The shared block goes through the port's ``layers.attention_block`` and
 on the card. ``decode_step`` takes the cache's ``length`` as a scalar or
 a per-row ``(B,)`` tensor and a dense or paged KV cache, as
 ``transformer.decode_step`` does, and writes the token's k/v into the
-cache IN PLACE.
+cache IN PLACE. Training: ``loss_fn`` (the SSD chunk and flash-attention
+kernels' autograd functions with the ``"auto"`` impls).
 """
 from __future__ import annotations
 
@@ -59,17 +60,38 @@ def _shared_attn(x, sp, cfg, positions, *, window, kv, compute_dtype,
 
 
 def forward(params, embeds, cfg: ModelConfig, *, window=0,
-            compute_dtype=torch.bfloat16, ssd_impl="auto", attn_impl="auto"):
+            compute_dtype=torch.bfloat16, ssd_impl="auto", attn_impl="auto",
+            remat: bool = False):
+    """embeds: (B, S, d) already-embedded inputs. Returns final hidden
+    (B,S,d). Each mamba layer's params pass the release point
+    ``("layers", i)`` with its GLOBAL index i (the reference's per-group
+    scan restarts its tags at 0 in every group; the port's streamed sync
+    keys layers by tag, so the tags must be unique), so the backward
+    releases them deepest first, L-1 ... 0. The shared block is used once
+    a group and stays in the residual. ``remat`` recomputes each mamba
+    layer in the backward, as the reference checkpoints its scan body."""
     positions = torch.arange(embeds.shape[1], device=embeds.device)
     x = embeds
     for grp in _groups(cfg):
-        for i in grp:
-            x, _ = S.mamba_layer(x, params["layers"][i], cfg,
-                                 compute_dtype=compute_dtype, ssd_impl=ssd_impl)
+        x = S.mamba_layers(x, params, cfg, grp, compute_dtype=compute_dtype,
+                           ssd_impl=ssd_impl, remat=remat)
         x, _ = _shared_attn(x, params["shared"], cfg, positions,
                             window=window, kv=None,
                             compute_dtype=compute_dtype, attn_impl=attn_impl)
     return x
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+            window=0, ssd_impl="auto", attn_impl="auto",
+            remat: bool = False):
+    """(mean next-token NLL, {}) of ``batch`` (``tokens``, ``labels``), as
+    the reference's ``hybrid.loss_fn``."""
+    x = T.embed_tokens(params, batch["tokens"], cfg, compute_dtype)
+    h = forward(params, x, cfg, window=window, compute_dtype=compute_dtype,
+                ssd_impl=ssd_impl, attn_impl=attn_impl, remat=remat)
+    loss = L.lm_head_loss(h, params["embed"], batch["labels"], cfg,
+                          compute_dtype=compute_dtype)
+    return loss, {}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,

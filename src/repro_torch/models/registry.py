@@ -1,9 +1,10 @@
 """Uniform model API (port of ``repro/models/registry.py``): the dense,
 MoE, SSM and hybrid families, and the training batches.
 
-Training (``ModelAPI.loss``) is ported for the dense family; the other
-families' ``loss`` raises ``NotImplementedError`` naming the ROADMAP.md
-Queue 1 step that brings it."""
+Training (``ModelAPI.loss``) is ported for the dense, SSM and hybrid
+families; the MoE family's ``loss`` raises ``NotImplementedError``
+naming the ROADMAP.md Queue 1 step that brings it (step 8), as do the
+VLM and enc-dec families, which the port does not have yet (step 10)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,8 +31,6 @@ _LATER = {
 # that brings each
 _TRAIN_LATER = {
     "moe": "step 8 (MoE expert parallelism inside the training step)",
-    "ssm": "step 9 (the SSD backward for SSM/hybrid training)",
-    "hybrid": "step 9 (the SSD backward for SSM/hybrid training)",
     "vlm": "step 10 (the remaining families)",
     "encdec": "step 10 (the remaining families)",
 }
@@ -39,8 +38,8 @@ _TRAIN_LATER = {
 
 def check_trainable(family: str) -> None:
     """Raise ``NotImplementedError`` naming the step that brings the
-    family's training, unless the port trains it (dense)."""
-    if family != "dense":
+    family's training, unless the port trains it (dense, SSM, hybrid)."""
+    if family in _TRAIN_LATER:
         raise NotImplementedError(
             f"training the {family} family is not ported yet: it comes "
             f"with ROADMAP.md Queue 1 {_TRAIN_LATER[family]}")
@@ -95,7 +94,7 @@ def build_model(
         pkw["attn_impl"] = attn_impl
     if cfg.family in ("ssm", "hybrid"):
         pkw["ssd_impl"] = ssd_impl
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "ssm", "hybrid"):
         loss = functools.partial(mod.loss_fn, cfg=cfg, remat=remat, **pkw)
     else:
         loss = functools.partial(_loss_later, cfg.family)

@@ -5,6 +5,10 @@ space scan, with O(1)-state decode (port of ``repro/models/ssm.py``).
 Params are ``{"embed": {...}, "layers": [{"ssm": {...}, "ln": ...}, ...]}``;
 the decode cache keeps the reference's layer-stacked ``(L, B, ...)``
 leaves: ``conv`` in bf16 (even at fp32 compute) and ``ssd`` in fp32.
+Training: ``loss_fn``, through the SSD chunk kernel's autograd function
+(``ssd_scan.SSDChunk``) with ``ssd_impl="auto"``; each layer's params
+pass a gradient release point ``("layers", i)``, and ``remat``
+recomputes each layer in the backward.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -179,14 +184,43 @@ def mamba_layer(x, lp, cfg, *, compute_dtype, **kw):
     return x + y, ns
 
 
-def forward(params, embeds, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-            ssd_impl="auto"):
-    """embeds: (B, S, d) already-embedded inputs. Returns final hidden (B,S,d)."""
-    x = embeds
-    for lp in params["layers"]:
-        x, _ = mamba_layer(x, lp, cfg, compute_dtype=compute_dtype,
+def mamba_layers(x, params, cfg: ModelConfig, indices, *, compute_dtype,
+                 ssd_impl, remat: bool = False):
+    """Run the mamba layers ``indices`` of ``params["layers"]`` in order.
+    Each layer's params pass the release point ``("layers", i)`` outside
+    the checkpoint, so a recompute does not fire it again; ``remat``
+    recomputes each layer in the backward (``torch.utils.checkpoint``, as
+    ``jax.checkpoint`` around the reference's scan body)."""
+    def body(x, lp):
+        y, _ = mamba_layer(x, lp, cfg, compute_dtype=compute_dtype,
                            ssd_impl=ssd_impl)
+        return y
+
+    for i in indices:
+        lp = L.grad_release(("layers", i), params["layers"][i])
+        x = checkpoint(body, x, lp, use_reentrant=False) if remat \
+            else body(x, lp)
     return x
+
+
+def forward(params, embeds, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+            ssd_impl="auto", remat: bool = False):
+    """embeds: (B, S, d) already-embedded inputs. Returns final hidden (B,S,d)."""
+    return mamba_layers(embeds, params, cfg, range(len(params["layers"])),
+                        compute_dtype=compute_dtype, ssd_impl=ssd_impl,
+                        remat=remat)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
+            ssd_impl="auto", remat: bool = False):
+    """(mean next-token NLL, {}) of ``batch`` (``tokens``, ``labels``), as
+    the reference's ``ssm.loss_fn``."""
+    x = T.embed_tokens(params, batch["tokens"], cfg, compute_dtype)
+    h = forward(params, x, cfg, compute_dtype=compute_dtype,
+                ssd_impl=ssd_impl, remat=remat)
+    loss = L.lm_head_loss(h, params["embed"], batch["labels"], cfg,
+                          compute_dtype=compute_dtype)
+    return loss, {}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,

@@ -21,6 +21,7 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import segment_reduce  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
+from repro_torch.kernels import ssd_scan_bwd  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -383,6 +384,93 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda, case, err):
     with pytest.raises(err):
         ssd_scan.ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk)
     assert ssd_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunk backward kernel
+# ---------------------------------------------------------------------------
+def _ssd_cotangents(x, dt, A, Bm, Cm, chunk, seed):
+    """The forward kernel's outputs and random fp32 cotangents of all
+    three, so every term of the backward is exercised."""
+    y, states, cum = ssd_scan.ssd_chunk(x, dt, A, Bm, Cm, chunk=chunk)
+    g = torch.Generator().manual_seed(seed)
+    return cum, [torch.randn(t.shape, generator=g).cuda()
+                 for t in (y, states, cum)]
+
+
+def _ssd_bwd_close(got, want, tol):
+    """Per gradient leaf, max |got - want| <= tol (1 + max |want|): dt's
+    and A's gradients are sums whose terms cancel (the reverse cumsum of
+    dcum), so their fp32 error scales with the leaf's largest entry, not
+    with each entry."""
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g).all(), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * (1 + w.float().abs().max().item()), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 64, 2, 64, 32, 32),             # tests/test_kernels.py's sweep
+    (2, 128, 3, 64, 64, 32),
+    (1, 128, 1, 32, 128, 64),
+    (1, 200, 2, 64, 128, 100),          # Q not a power of two
+    (2, 14, 3, 32, 16, 7),              # Q = 7, N below one slice
+    (2, 256, 24, 64, 128, 128),         # mamba2-130m training, per rank
+    (2, 256, 80, 64, 64, 128),          # zamba2-2.7b
+])
+def test_ssd_backward_kernel_matches_plain(cuda, dtype, B, S, H, P, N,
+                                          chunk):
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype, seed=S + H)
+    cum, cts = _ssd_cotangents(x, dt, A, Bm, Cm, chunk, seed=S + N)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd.ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, *cts,
+                                     chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + ssd_scan_bwd.LAUNCHES_PER_CALL
+    assert ssd_scan_bwd.last_kernel() == \
+        f"ssd_chunk_bwd<{'bf16' if dtype == torch.bfloat16 else 'f32'},{P}>"
+    want = ssd_scan_bwd.ssd_chunk_bwd_plain(x, dt, A, Bm, Cm, cum, *cts,
+                                            chunk=chunk)
+    _ssd_bwd_close(got, want, SSD_TOL[dtype])
+    again = ssd_scan_bwd.ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, *cts,
+                                       chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_autograd_runs_both_kernels(cuda, dtype):
+    """A CUDA input that requires a gradient runs the SSD forward kernel
+    once and the backward kernels once per backward (``ops.ssd``,
+    ``impl="auto"``); the gradients of the fused x/B/C projection, dt, A
+    and D equal plain autograd's through the chunked oracle
+    (``impl="xla"``, no launch) within the kernels' tolerance."""
+    from repro_torch.kernels import ops
+    H, P, N = 4, 64, 64
+    x, dt, A, Bm, Cm = _ssd_inputs(2, 256, H, P, N, dtype, seed=7)
+    xbc = torch.cat([x.reshape(2, 256, -1), Bm, Cm], -1)
+    D = torch.linspace(0.5, 1.5, H, device="cuda")
+    g = torch.Generator().manual_seed(8)
+    dy = torch.randn((2, 256, H, P), generator=g).to(dtype).cuda()
+    grads = {}
+    for impl in ("auto", "xla"):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (xbc, dt, A, D)]
+        f = leaves[0]
+        f0, b0 = ssd_scan.launches, ssd_scan_bwd.launches
+        y = ops.ssd(f[..., :H * P].reshape(2, 256, H, P), leaves[1],
+                    leaves[2], f[..., H * P:H * P + N], f[..., H * P + N:],
+                    leaves[3], chunk=128, impl=impl)
+        grads[impl] = torch.autograd.grad(y, leaves, dy)
+        n = 1 if impl == "auto" else 0
+        assert ssd_scan.launches == f0 + n
+        assert ssd_scan_bwd.launches == \
+            b0 + n * ssd_scan_bwd.LAUNCHES_PER_CALL
+    for a, b in zip(grads["auto"], grads["xla"]):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= SSD_TOL[dtype] * (1 + b.float().abs().max().item())
 
 
 # ---------------------------------------------------------------------------

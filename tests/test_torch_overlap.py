@@ -16,7 +16,10 @@
   hierarchical and flat artifacts and a static algorithm, per leaf and
   bucketed; a tree without layers falls back to the plain plan. The
   spans a recorder takes of the streamed sync over fake collectives
-  (both sinks: synchronous and on the sync thread) equal the plan.
+  (both sinks: synchronous and on the sync thread) equal the plan. The
+  same for the reduced mamba2-130m and zamba2-2.7b, whose mamba layers
+  release under their global indices (zamba2's ``shared`` block syncs
+  with the residual).
 * Numerics on 4 spawned ``gloo`` ranks, 2x2 ``("pod", "data")``
   (``tests/helpers/validate_communicator.py`` section 6 mirrored): a
   real backward through release points, synced by the hierarchical
@@ -26,7 +29,9 @@
   ``overlap_backward`` on the reduced smollm (fp32): the gradients
   before the sync bit-equal to the plain step's, the synced gradients
   within 3e-5 of the per-leaf sync and the float64 mean, the loss and
-  the release order (layer L-1 first) in every rank.
+  the release order (layer L-1 first) in every rank. On 2 ranks, the
+  reduced mamba2 and zamba2: the overlapped step gives the plain tuned
+  step's bits, releasing L-1 ... 0 in every rank.
 """
 import os
 
@@ -257,6 +262,61 @@ def test_streamed_plan_equals_reference_and_the_executed_spans(
               e.release, e.stream) for e in entries]
 
 
+def _ssm_cfg(arch):
+    return ARCHITECTURES[arch].reduced().replace(vocab_size=256)
+
+
+SSM_ARCHS = ["mamba2-130m", "zamba2-2.7b"]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES[:2], ids=["hier", "hier-64K"])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_and_hybrid_streamed_plan_equals_reference_and_the_executed_spans(
+        arch, case, tmp_path, tfake_collectives, monkeypatch):
+    """The reduced mamba2's and zamba2's streamed plan equals the
+    reference's over its stacked tree entry for entry (the reference
+    counts the layers from the stacked leaf; zamba2's ``shared`` block
+    syncs with the residual), and a real backward through the port's
+    release points, synced over fake collectives, records exactly the
+    plan: every mamba layer released once under its global index, L-1
+    first (for zamba2 this pins the global tags: a tag repeated per
+    group would leave a layer unsynced)."""
+    monkeypatch.setattr(grp, "psum", lambda x, group=None: x * group.size)
+    cfg = _ssm_cfg(arch)
+    jc, tc = _comms(case, tmp_path)
+    api = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    stacked = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
+                           bridge.to_reference(params))
+    jplan = jc.explain_gradients(stacked, overlap_backward=True)
+    tplan = tc.explain_gradients(params, overlap_backward=True)
+    assert [_entry_key(e) for e in tplan.entries] == \
+        [_entry_key(e) for e in jplan.entries]
+    assert tplan.render() == jplan.render()
+    n = cfg.num_layers
+    assert {e.release for e in tplan.entries} == set(range(n)) | {None}
+
+    shape = ShapeConfig(name="t", seq_len=32, global_batch=2, kind="train")
+    batch = batch_to_tensors(make_train_batch(cfg, shape, seed=1), "cpu")
+    leaves, treedef = pytree.flatten(params)
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    tc.trace = TraceRecorder(clock=FakeClock(step=1e-6))
+    sink = tc.release_sink(overlap=True, device="cpu")
+    with L.release_scope(sink):
+        loss, _ = api.loss(treedef.unflatten(leaves), batch)
+    grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
+    tc.sync_gradients_streamed(grads, sink, mean=True)
+    assert sink.events == [("layers", i) for i in reversed(range(n))]
+    spans = [sp for sp in assign_stream_tags(tc.trace)
+             if sp.kind == "collective"]
+    entries = [e for e in tplan.entries if e.source != "psum"]
+    assert [(sp.op, sp.nbytes, sp.axis, sp.algorithm, sp.segments,
+             sp.bucket, sp.step, sp.release, sp.stream) for sp in spans] == \
+        [(e.request.op, e.request.nbytes, e.request.axis, e.spec.algorithm,
+          e.spec.segments, e.bucket, e.step, e.release, e.stream)
+         for e in entries]
+
+
 def test_streamed_plan_matches_layerless_fallback(tmp_path):
     jc, tc = _comms(("ring", dict(pod=1, data=4), None), tmp_path)
     tree = {"embed": pytree.LeafStruct((32, 4), torch.float32)}
@@ -421,6 +481,63 @@ def _four_ranks():
 @pytest.fixture(scope="module")
 def four_ranks():
     return grp.spawn(_four_ranks, 4)
+
+
+def _two_ranks_ssm():
+    """In each of 2 ranks, for the reduced mamba2 and zamba2 (fp32): the
+    training step through the hierarchical artifact's tuned sync, plain
+    and with ``overlap_backward``, on one batch; rank 0 returns each
+    run's loss, synced gradients, pre-sync fingerprint and every rank's
+    release order."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_train_step
+    mesh = make_local_mesh()
+    comm = TComm.create(mesh, artifact=HIER)
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = _ssm_cfg(arch)
+        shape = ShapeConfig(name="t", seq_len=32, global_batch=4,
+                            kind="train")
+        res = {}
+        for overlap in (False, True):
+            coll = CollectiveConfig(decision=HIER, overlap_backward=overlap)
+            step = build_train_step(cfg, shape, FP32, coll, mesh,
+                                    communicator=comm, device="cpu")
+            params = step.api.init(torch.Generator().manual_seed(0))
+            batch = batch_to_tensors(make_train_batch(cfg, shape, seed=3),
+                                     "cpu", rows=step.rows)
+            _, _, m = step.fn(params, step.opt.init(params), batch,
+                              keep_grads=True)
+            parts = [None] * grp.size()
+            torch.distributed.all_gather_object(parts,
+                                                m.get("release_events"))
+            res[overlap] = {"loss": m["loss"].item(), "grads": m["grads"],
+                            "fingerprint": m["local_grads_fingerprint"],
+                            "events": parts}
+        out[arch] = res
+    return out if grp.rank() == 0 else None
+
+
+@pytest.fixture(scope="module")
+def two_ranks_ssm():
+    return grp.spawn(_two_ranks_ssm, 2)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_overlapped_ssm_and_hybrid_steps_equal_the_plain_steps(two_ranks_ssm,
+                                                               arch):
+    """On 2 ranks, ``overlap_backward`` gives the plain tuned step's bits:
+    the gradients before the sync, the loss and the synced gradients; the
+    layers release under their global indices, deepest first, in every
+    rank (zamba2: L-1 ... 0 across its groups)."""
+    plain, ovl = two_ranks_ssm[arch][False], two_ranks_ssm[arch][True]
+    assert ovl["fingerprint"] == plain["fingerprint"]
+    assert ovl["loss"] == plain["loss"]
+    for a, b in zip(pytree.leaves(ovl["grads"]), pytree.leaves(plain["grads"])):
+        assert torch.equal(a, b)
+    n = _ssm_cfg(arch).num_layers
+    assert plain["events"] == [None] * 2
+    assert ovl["events"] == [list(reversed(range(n)))] * 2
 
 
 def _close(got, want, tol=TOL):

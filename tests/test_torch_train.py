@@ -9,7 +9,10 @@ at fp32 compute with the reference's params carried over by
 ``repro_torch.bridge``: loss within 1e-5, every gradient within 1e-3,
 one AdamW step's params within 1e-5. Then the port alone, as
 ``tests/test_system.py`` holds the reference: the loss falls over 30
-steps and a checkpoint round trip resumes bit-equal.
+steps and a checkpoint round trip resumes bit-equal. The reduced
+mamba2-130m and zamba2-2.7b (the SSD scan through ``ssd_scan.SSDChunk``)
+likewise: loss within 1e-5 and every gradient within 1e-3 of the
+reference's, the same with ``remat`` bit for bit.
 
 Multi-rank: ``repro_torch.launch.train`` on 4 spawned ``gloo`` ranks
 (2x2, ``examples/artifacts/hierarchical_decision.json``, 2 steps, fp32
@@ -22,8 +25,9 @@ in 10^4 may be off by up to two steps, see the test). The CLI prints
 the reference's lines. In one spawned rank, ``overlap_microbatches=2``
 accumulates the whole batch's loss and gradients (1e-6), ``remat``
 leaves loss and gradients bit-equal, and ``gather_in_compute_dtype``
-matches the reference's cast. The 2x2x2 (8-rank, bucketed) case runs
-under ``slow``.
+matches the reference's cast. The reduced mamba2 on 2 ranks: tuned
+equals ``"xla"`` (1e-6). The 2x2x2 (8-rank, bucketed) case runs under
+``slow``.
 """
 import dataclasses
 import os
@@ -215,6 +219,40 @@ def test_reduced_model_loss_gradients_and_step_match():
                          pt)
     _close_trees(bridge.to_reference(pt2), jax.tree.map(np.asarray, pj2),
                  1e-5)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_reduced_ssm_and_hybrid_loss_and_gradients_match(arch):
+    """The reduced mamba2-130m and zamba2-2.7b (2 SSM layers; zamba2's
+    shared attention after each, ``attn_every=1``) at fp32 compute, the
+    reference's params carried over by ``repro_torch.bridge``: the loss
+    within 1e-5 and every leaf's gradient within 1e-3 of
+    ``jax.value_and_grad`` of the reference's loss (its SSD through
+    ``ref.ssd_chunked``, the port's through ``ssd_scan.SSDChunk``), as the
+    dense family's; with ``remat`` the same loss and gradients bit for
+    bit."""
+    cfg_j = JARCH[arch].reduced().replace(vocab_size=256)
+    cfg_t = ARCHITECTURES[arch].reduced().replace(vocab_size=256)
+    shape = JShape(name="t", seq_len=64, global_batch=2, kind="train")
+    japi = jbuild(cfg_j, compute_dtype=jnp.float32, attn_impl="ref",
+                  ssd_impl="xla")
+    pj = japi.init(jax.random.PRNGKey(0))
+    batch = jmake(cfg_j, shape, seed=2)
+    (want, _), gj = jax.jit(jax.value_and_grad(japi.loss, has_aux=True))(
+        pj, batch)
+    pt = bridge.from_jax(jax.tree.map(np.asarray, pj))
+    bt = bridge.batch_from_jax(jax.tree.map(np.asarray, batch))
+    runs = []
+    for remat in (False, True):
+        api = build_model(cfg_t, compute_dtype=torch.float32, device="cpu",
+                          remat=remat)
+        runs.append(_grads(api, pt, bt))
+    (got, gt), (got_r, gt_r) = runs
+    np.testing.assert_allclose(got.item(), float(want), atol=1e-5, rtol=1e-5)
+    _close_trees(bridge.to_reference(gt), jax.tree.map(np.asarray, gj), 1e-3)
+    assert got_r.item() == got.item()
+    for a, b in zip(pytree.leaves(gt_r), pytree.leaves(gt)):
+        assert torch.equal(a, b)
 
 
 def test_port_training_reduces_loss_and_resumes(tmp_path):
@@ -483,10 +521,34 @@ def test_overlap_backward_and_trace_dir_over_two_ranks(tmp_path, capfd):
         train.main(["--reduced", "--device", "cpu", "--overlap-backward"])
 
 
+def test_two_ranks_reduced_mamba2_tuned_equals_xla(capfd):
+    """The reduced mamba2-130m on 2 CPU ranks for 2 steps (fp32 compute,
+    the SSD scan through ``ssd_scan.SSDChunk``), through the tuned sync
+    of the hierarchical artifact and through ``"xla"``: rank 0's
+    gradients before the sync bit-equal, the losses, step 0's synced
+    gradients and the final params within 1e-6 (fp32 reduction order),
+    the replicas bit-identical after every step."""
+    argv = ["--arch", "mamba2-130m", "--ranks", "2", "--topology", "2",
+            "--steps", "2"]
+    tuned, out = _train([*argv, "--tuning-table",
+                         os.path.join(ARTIFACTS,
+                                      "hierarchical_decision.json")], capfd)
+    xla, _ = _train([*argv, "--collective", "xla"], capfd)
+    assert "arch=mamba2-130m devices=2" in out and "done: 2 steps" in out
+    assert tuned["tuned"] and not xla["tuned"]
+    for r in (tuned, xla):
+        assert r["replicas_equal_at_init"] and all(r["replicas_equal"])
+    assert tuned["local_grads0_fingerprint"] == \
+        xla["local_grads0_fingerprint"]
+    np.testing.assert_allclose(tuned["losses"], xla["losses"], atol=1e-6,
+                               rtol=1e-6)
+    _close_trees(tuned["grads0"], pytree.leaves(xla["grads0"]), 1e-6)
+    _close_trees(tuned["params"], pytree.leaves(xla["params"]), 1e-6)
+
+
 def test_unported_options_raise_naming_their_step():
     for argv, step in ((["--model-parallel", "2"], "step 8"),
-                       (["--arch", "olmoe-1b-7b"], "step 8"),
-                       (["--arch", "mamba2-130m"], "step 9")):
+                       (["--arch", "olmoe-1b-7b"], "step 8")):
         with pytest.raises(NotImplementedError, match=step):
             train.main(["--reduced", "--device", "cpu", *argv])
 
