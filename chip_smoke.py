@@ -73,19 +73,27 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       device times) at the training shape (2, 256, 9, 3, 64) and the
       serving shape, beside the backward's bound; the tensor-core
       kernels must not spill at D = 64 (ptxas, [1]);
-   f. the SSD chunk backward (``ssd_chunk_bwd`` then
-      ``ssd_chunk_bwd_reduce``, fp32 SIMT for both dtypes; the
-      instantiation each call ran is checked) against
-      ``ssd_chunk_bwd_plain`` on the forward kernel's ``cum`` with random
-      fp32 cotangents of all three forward outputs, over the reference's
-      SSD shapes, Q=100, Q=7 with N below one staged slice, and the two
-      training shapes (mamba2-130m's (2, 256, 24, 64, 128, 128) a rank,
-      zamba2-2.7b's heads (2, 256, 80, 64, 64, 128)), f32 at 5e-5 and
-      bf16 at 5e-2 of each gradient leaf's largest entry, each call
-      counted and repeated bit-equal; times the kernels back to back and
-      on the device, and the plain version, in turns at both training
-      shapes (bf16) beside the bound (no single PyTorch call computes
-      this function);
+   f. the SSD chunk backward (bf16: the tensor-core ``ssd_chunk_bwd_mma``,
+      one launch; fp32: the SIMT ``ssd_chunk_bwd`` then
+      ``ssd_chunk_bwd_reduce``; the kernel each call ran is checked)
+      against ``ssd_chunk_bwd_plain`` on the forward kernel's ``cum``
+      with random fp32 cotangents of all three forward outputs, over the
+      reference's SSD shapes, Q=100, Q=7 with N below one staged slice,
+      and the two training shapes (mamba2-130m's (2, 256, 24, 64, 128,
+      128) a rank, zamba2-2.7b's heads (2, 256, 80, 64, 64, 128)), f32 at
+      5e-5 and bf16 at 5e-2 of each gradient leaf's largest entry, bf16
+      also against ``ssd_chunk_bwd_mma_plain`` (the kernel's rounding) at
+      1e-2 and that rounding's own error against the plain version
+      printed, each call counted and repeated bit-equal; at both training
+      shapes (bf16, dy a transposed view as training hands it over), in
+      turns, times the kernel, the first design's SIMT pair on the same
+      inputs (``simt=True``, with its copy of dy and its three casts) and
+      the plain version, back to back and on the device, beside the bound
+      (no single PyTorch call computes this function) and the host's time
+      to issue a call;
+      logs the kernel's shared memory, registers, spills, blocks an SM
+      and clusters at once; fails unless the kernel is faster on the
+      device than the SIMT pair;
 3. the kernels inside the models, fp32: full-width smollm-135m prefill
    logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``;
    full-width, full-depth mamba2-130m and zamba2-2.7b prefill logits
@@ -108,8 +116,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    against ``"xla"``/``"ref"`` under autograd, the loss within 1e-5 and
    each leaf within 1e-3 (relative 2-norm), the launches of the
    kernels' call held to one SSD forward and ``LAUNCHES_PER_CALL``
-   backward launches a layer, one flash forward and backward a shared
-   application;
+   (fp32) backward launches a layer, one flash forward and backward a
+   shared application;
 4. serving through ``repro_torch.launch.serve`` at full width, bf16, each
    path with every launch count zeroed just before it and read just
    after: smollm-135m, mamba2-130m, zamba2-2.7b (full depth: 54 SSM
@@ -206,8 +214,9 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    s. [8]'s runs and checks for ``--arch mamba2-130m`` (24 layers, d 768,
    24 SSD heads of 64, N 128, vocab 50280; 167,832,000 fp32 params, 219
    leaves), tuned and ``"xla"``: the launches held to 24 SSD forwards
-   and 24 x ``ssd_scan_bwd.LAUNCHES_PER_CALL`` backward launches a
-   rank-step, no flash, and the tuned plan's combines every step;
+   and 24 x ``ssd_scan_bwd.LAUNCHES_PER_CALL`` (bf16: one) backward
+   launches a rank-step, no flash, and the tuned plan's combines every
+   step;
    sc. [8s]'s tuned run with ``--overlap-backward --trace-dir``, held to
    it as [8c] is held to [8] (the SSD launches its, releases 23...0);
 9. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
@@ -237,6 +246,11 @@ PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
 BF16_LOGIT_DIFF_PR14 = 0.271     # olmoe's engine over bf16 pools, PR 14
 L2_FLUSH_BYTES = 1 << 30         # written before each cold call (L2: 50 MB)
 SSD_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}   # tests/test_kernels.py
+# the bf16 SSD backward against ssd_chunk_bwd_mma_plain, which rounds where
+# the kernel does (tests/test_torch_cuda.py): fp32 summation order, which
+# now and then moves a rounded score or dG by one ulp, and one bf16 ulp of
+# dx, dB and dC
+SSD_BWD_MMA_TOL = 1e-2
 MODEL_TOL = 1e-3                 # phase 3: 24-54 layers of the kernel tolerance
 COMBINE_TOL = 1e-6               # tests/test_kernels.py (expected bit-equal)
 # the flash backward against its plain version (tests/test_torch_cuda.py):
@@ -870,94 +884,164 @@ def ssd_bwd_inputs(shape, dtype, seed):
 
 def check_ssd_bwd(shape, dtype, seed):
     """One backward call against ``ssd_chunk_bwd_plain``: counted, the
-    dtype's instantiation, finite, every leaf within the forward's
-    tolerance of its largest entry (ddt's and dA's terms cancel, so
-    their error scales with the leaf, not the entry), and a second call
-    bit-equal. Returns (max |err| over the leaves, max of |err| / (1 +
-    max |want|) over the leaves)."""
+    dtype's kernel, finite, every leaf within the forward's tolerance of
+    its largest entry (ddt's and dA's terms cancel, so their error scales
+    with the leaf, not the entry), bf16 also within ``SSD_BWD_MMA_TOL`` of
+    ``ssd_chunk_bwd_mma_plain`` (the kernel's rounding), and a second
+    call bit-equal. Returns (max |err| over the leaves, max of |err| /
+    (1 + max |want|) over the leaves, that against the kernel's rounding
+    (bf16), and the rounding's own: ``ssd_chunk_bwd_mma_plain`` against
+    ``ssd_chunk_bwd_plain`` (bf16))."""
     from repro_torch.kernels import ssd_scan_bwd as sb
     ins = ssd_bwd_inputs(shape, dtype, seed)
     Q, P = shape[5], shape[3]
     before = sb.launches
     got = sb.ssd_chunk_bwd(*ins, chunk=Q)
     torch.cuda.synchronize()
-    if sb.launches != before + sb.LAUNCHES_PER_CALL:
+    if sb.launches != before + sb.LAUNCHES_PER_CALL[dtype]:
         raise AssertionError("the SSD backward did not count its launches")
-    name = f"ssd_chunk_bwd<{'bf16' if dtype == torch.bfloat16 else 'f32'}" \
-        f",{P}>"
+    name = ssd_bwd_kernel_for(dtype, P)
     if sb.last_kernel() != name:
         raise AssertionError(f"ran {sb.last_kernel()}, expected {name}")
+
+    def leaf_rel(a_leaves, b_leaves, tol, what):
+        worst = (0.0, 0.0)
+        for leaf, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), a_leaves,
+                              b_leaves):
+            d = (a.float() - b.float()).abs().max().item()
+            r = d / (1 + b.float().abs().max().item())
+            if a.shape != b.shape or a.dtype != b.dtype or \
+                    not torch.isfinite(a).all() or r > tol:
+                raise AssertionError(f"SSD backward {leaf} disagrees with "
+                                     f"{what} at {shape} {dtype}: max err "
+                                     f"{d} ({r:.3g} of the leaf)")
+            worst = (max(worst[0], d), max(worst[1], r))
+        return worst
     want = sb.ssd_chunk_bwd_plain(*ins, chunk=Q)
-    err = rel = 0.0
-    for leaf, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
-        d = (a.float() - b.float()).abs().max().item()
-        r = d / (1 + b.float().abs().max().item())
-        if a.shape != b.shape or a.dtype != b.dtype or \
-                not torch.isfinite(a).all() or r > SSD_TOL[dtype]:
-            raise AssertionError(f"SSD backward {leaf} disagrees at {shape} "
-                                 f"{dtype}: max err {d} ({r:.3g} of the "
-                                 f"leaf)")
-        err, rel = max(err, d), max(rel, r)
+    err, rel = leaf_rel(got, want, SSD_TOL[dtype], "the plain version")
+    mma_rel = own_rel = 0.0
+    if dtype == torch.bfloat16:
+        rounded = sb.ssd_chunk_bwd_mma_plain(*ins, chunk=Q)
+        mma_rel = leaf_rel(got, rounded, SSD_BWD_MMA_TOL,
+                           "its rounding")[1]
+        own_rel = leaf_rel(rounded, want, SSD_TOL[dtype],
+                           "the plain version (its rounding)")[1]
     again = sb.ssd_chunk_bwd(*ins, chunk=Q)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"two SSD backward calls differ at {shape} "
                              f"{dtype}")
-    return err, rel
+    return err, rel, mma_rel, own_rel
+
+
+def ssd_bwd_kernel_for(dtype, P):
+    """The kernel the backward must launch for ``dtype``: bf16 on the
+    tensor cores, fp32 the SIMT chunk pass (then its reduce)."""
+    return (f"ssd_chunk_bwd_mma<bf16,{P}>" if dtype == torch.bfloat16
+            else f"ssd_chunk_bwd<f32,{P}>")
 
 
 def time_ssd_bwd(name, shape):
-    """At one bf16 shape, in turns (kernel, plain, kernel, plain): the
-    backward kernels back to back between CUDA events and on the device
-    from the profiler, and the plain backward; beside the bound."""
+    """At one bf16 shape, with dy a transposed view as the training path
+    hands it over, in turns: the tensor-core kernel, the first design's
+    SIMT pair on the same inputs (``simt=True``: it copies dy and casts
+    dx, dB and dC, as that design's call does) and the plain backward;
+    back to back between CUDA events and on the device from the
+    profiler; beside the bound and the kernel's resources on this
+    card."""
     from repro_torch.kernels import ssd_scan_bwd as sb
     B, S, H, P, N, Q = shape
-    ins = ssd_bwd_inputs(shape, torch.bfloat16, seed=96)
+    x, dts, A, Bm, Cm, cum, dy, dS, dcum = ssd_bwd_inputs(
+        shape, torch.bfloat16, seed=96)
+    view = dy.permute(0, 2, 3, 1, 4).contiguous().permute(0, 3, 1, 2, 4)
+    ins = (x, dts, A, Bm, Cm, cum, view, dS, dcum)
     kern = lambda: sb.ssd_chunk_bwd(*ins, chunk=Q)  # noqa: E731
+    simt = lambda: sb.ssd_chunk_bwd(*ins, chunk=Q, simt=True)  # noqa: E731
     plain = lambda: sb.ssd_chunk_bwd_plain(*ins, chunk=Q)  # noqa: E731
-    turns = [(time_calls(kern), time_calls(plain), device_ms(kern))
+    # the yardstick computes the same gradients
+    ran, other = kern(), simt()
+    if any((a.float() - b.float()).abs().max().item()
+           > SSD_TOL[torch.bfloat16] * (1 + b.float().abs().max().item())
+           for a, b in zip(other, ran)):
+        raise AssertionError(f"the SIMT call disagrees with the tensor-core "
+                             f"kernel at {shape}")
+    fns = {"kern": kern, "simt": simt, "plain": plain}
+    on_device = {"kern": kern, "simt": simt}
+    turns = [({key: time_calls(fn) for key, fn in fns.items()},
+              {key: device_ms(fn) for key, fn in on_device.items()})
              for _ in range(2)]
-    ms = statistics.median(turns[0][0] + turns[1][0])
-    plain_ms = statistics.median(turns[0][1] + turns[1][1])
-    dev = (turns[0][2] + turns[1][2]) / 2
+    ms = {key: statistics.median(turns[0][0][key] + turns[1][0][key])
+          for key in fns}
+    dev = {key: (turns[0][1][key] + turns[1][1][key]) / 2
+           for key in on_device}
+    host = host_ms(kern)
+    res = sb.mma_resources(P, N, H)
+    grid = B * H * (S // Q)
+    waves = -(-grid // (res["max_active_clusters"] * res["cluster"]))
+    kern()                  # last_kernel() names the kernel timed
     bound_ms, bound_by, nbytes, flops = ssd_bwd_bound_ms(B, S, H, P, N, Q,
                                                          2)
-    log(f"    {name} B={B} S={S} H={H} P={P} N={N} Q={Q} bf16 "
-        f"({B * H * (S // Q)} blocks): {sb.last_kernel()} + reduce back to "
-        f"back {ms:.4f} ms (turns {statistics.median(turns[0][0]):.4f}, "
-        f"{statistics.median(turns[1][0]):.4f}), device {dev:.4f} ms (turns "
-        f"{turns[0][2]:.4f}, {turns[1][2]:.4f}), plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
-        f"{flops / 1e9:.3f} GFLOP; {1e3 * flops / FP32_FLOP_PER_S:.5f} ms at "
-        f"the fp32 SIMT rate the kernel runs at); device {dev / bound_ms:.1f}"
-        f"x the bound; no single library call")
-    return {"ms": ms, "plain_ms": plain_ms, "device_ms": dev,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+    log(f"    {name} B={B} S={S} H={H} P={P} N={N} Q={Q} bf16, dy a "
+        f"transposed view ({grid} blocks in clusters of {res['cluster']}; "
+        f"{res['smem_bytes']} bytes of shared memory, {res['registers']} "
+        f"registers, {res['local_bytes']} bytes local a thread, "
+        f"{res['blocks_per_sm']} block(s) an SM, {res['max_active_clusters']}"
+        f" clusters at once: {waves} wave(s)): {sb.last_kernel()} back to "
+        f"back {ms['kern']:.4f} ms (turns "
+        f"{statistics.median(turns[0][0]['kern']):.4f}, "
+        f"{statistics.median(turns[1][0]['kern']):.4f}), device "
+        f"{dev['kern']:.4f} ms (turns {turns[0][1]['kern']:.4f}, "
+        f"{turns[1][1]['kern']:.4f}), host {host:.4f} ms to issue a call; "
+        f"SIMT pair (the first design's call) back to back "
+        f"{ms['simt']:.4f} ms, device {dev['simt']:.4f} ms (turns "
+        f"{turns[0][1]['simt']:.4f}, {turns[1][1]['simt']:.4f}); plain "
+        f"{ms['plain']:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); device "
+        f"{dev['kern'] / bound_ms:.1f}x the bound, "
+        f"{dev['simt'] / dev['kern']:.2f}x faster than the SIMT pair; no "
+        f"single library call")
+    if dev["kern"] >= dev["simt"]:
+        raise AssertionError(f"the tensor-core kernel ({dev['kern']:.4f} ms)"
+                             f" is not faster than the SIMT pair "
+                             f"({dev['simt']:.4f} ms) at {shape}")
+    return {"ms": ms["kern"], "plain_ms": ms["plain"],
+            "device_ms": dev["kern"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "simt_ms": ms["simt"],
+            "simt_device_ms": dev["simt"], "host_ms": host,
+            "resources": res, "waves": waves,
             "shape": f"B={B} S={S} H={H} P={P} N={N} Q={Q} bf16"}
 
 
 def phase_ssd_backward():
     """[2f] the SSD backward kernels against ``ssd_chunk_bwd_plain`` over
     the reference's SSD shapes, Q off the powers of two, and the two
-    training shapes, fp32 and bf16, random cotangents of all three
-    forward outputs; timed at both training shapes; returns the
-    kernels-line entry."""
+    training shapes, fp32 and bf16 (bf16 also against its rounding,
+    ``ssd_chunk_bwd_mma_plain``), random cotangents of all three forward
+    outputs; timed at both training shapes beside the SIMT pair; returns
+    the kernels-line entry."""
     from repro_torch.kernels import ssd_scan_bwd
     sweep = [(1, 64, 2, 64, 32, 32), (2, 128, 3, 64, 64, 32),
              (1, 128, 1, 32, 128, 64),               # tests/test_kernels.py
              (1, 200, 2, 64, 128, 100), (2, 14, 3, 32, 16, 7),
              SSD_ZAMBA2_TRAIN_SHAPE, SSD_TRAIN_SHAPE]  # the main path's last
     max_rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    mma_rel = own_rel = 0.0
     for i, shape in enumerate(sweep):
         for dt in (torch.float32, torch.bfloat16):
-            err, rel = check_ssd_bwd(shape, dt, seed=300 + 2 * i)
+            err, rel, mrel, orel = check_ssd_bwd(shape, dt, seed=300 + 2 * i)
             max_rel[dt] = max(max_rel[dt], rel)
+            mma_rel, own_rel = max(mma_rel, mrel), max(own_rel, orel)
             log(f"[2f] ssd backward {shape} {str(dt)[6:]}: "
-                f"{ssd_scan_bwd.last_kernel()}, max|err| {err:.3g} ({rel:.3g} of the "
-                f"leaf's scale); two calls bit-equal")
+                f"{ssd_scan_bwd.last_kernel()}, max|err| {err:.3g} ({rel:.3g}"
+                f" of the leaf's scale"
+                + (f"; against its rounding {mrel:.3g}, the rounding's own "
+                   f"{orel:.3g}" if dt == torch.bfloat16 else "")
+                + "); two calls bit-equal")
     train_err = err           # the training shape, bf16, is the last case
     log(f"    max error over the leaves' scale: f32 "
         f"{max_rel[torch.float32]:.3g} (tol {SSD_TOL[torch.float32]}), bf16 "
-        f"{max_rel[torch.bfloat16]:.3g} (tol {SSD_TOL[torch.bfloat16]})")
+        f"{max_rel[torch.bfloat16]:.3g} (tol {SSD_TOL[torch.bfloat16]}; "
+        f"against its rounding {mma_rel:.3g}, tol {SSD_BWD_MMA_TOL}; the "
+        f"rounding's own {own_rel:.3g})")
     by_shape = {"mamba2 training": time_ssd_bwd("mamba2 training",
                                                 SSD_TRAIN_SHAPE),
                 "zamba2 training": time_ssd_bwd("zamba2 training",
@@ -972,9 +1056,14 @@ def phase_ssd_backward():
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
             "device_ms": top["device_ms"],
-            "launches_per_call": ssd_scan_bwd.LAUNCHES_PER_CALL,
+            "simt_ms": top["simt_ms"],
+            "simt_device_ms": top["simt_device_ms"],
+            "launches_per_call": ssd_scan_bwd.LAUNCHES_PER_CALL[
+                torch.bfloat16],
             "max_err_of_leaf_f32": max_rel[torch.float32],
             "max_err_of_leaf_bf16": max_rel[torch.bfloat16],
+            "max_err_of_leaf_bf16_vs_rounding": mma_rel,
+            "rounding_err_of_leaf": own_rel,
             "shape": top["shape"], "by_shape": by_shape}
 
 
@@ -1684,7 +1773,8 @@ def phase_train_grads(arch, layers=None, batch=2, seq=256):
                         attn_impl="ref")
     n_attn = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
     want = {"ssd_chunk": cfg.num_layers,
-            "ssd_chunk_bwd": cfg.num_layers * ssd_scan_bwd.LAUNCHES_PER_CALL,
+            "ssd_chunk_bwd": cfg.num_layers
+            * ssd_scan_bwd.LAUNCHES_PER_CALL[torch.float32],
             "flash_attention": n_attn,
             "flash_attention_bwd": n_attn * attention_bwd.LAUNCHES_PER_CALL}
     params = kern.init(torch.Generator(device="cuda").manual_seed(0))
@@ -2434,11 +2524,13 @@ def expected_train_launches(arch, r):
     spec = TRAIN_MODELS[arch]
     per = spec["layers"] * TRAIN_STEPS * TRAIN_RANKS
     fwd, bwd = spec["kernels"]
-    bwd_mod = {"flash_attention_bwd": attention_bwd,
-               "ssd_chunk_bwd": ssd_scan_bwd}[bwd]
+    # the training step computes in bf16
+    bwd_per_call = {"flash_attention_bwd": attention_bwd.LAUNCHES_PER_CALL,
+                    "ssd_chunk_bwd":
+                    ssd_scan_bwd.LAUNCHES_PER_CALL[torch.bfloat16]}[bwd]
     want = {name: 0 for name in ("flash_attention", "flash_attention_bwd",
                                  "ssd_chunk", "ssd_chunk_bwd")}
-    want[fwd], want[bwd] = per, per * bwd_mod.LAUNCHES_PER_CALL
+    want[fwd], want[bwd] = per, per * bwd_per_call
     want["segment_combine"] = TRAIN_STEPS * r["plan_combines"]
     return want
 

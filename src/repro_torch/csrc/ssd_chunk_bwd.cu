@@ -22,51 +22,93 @@
 //   ddt    = colsum(F) + dw exp(cum_{Q-1} - cum) + A da
 //   dA     = sum_{b, c, t} dt da
 // (ssd_scan_bwd.ssd_chunk_bwd_plain is this algebra in plain PyTorch).
+// No float atomics anywhere: two calls give the same bits.
 //
-// Two launches, no float atomics, so two calls give the same bits:
-//
-// * ssd_chunk_bwd<T, P> (T = float or bf16 for x, B, C), one block of 256
-//   threads per (b, h, c), fp32 SIMT FMAs from fp32 tiles in shared
-//   memory: the x and dy tiles (Q x P), one Q x Q tile that holds G*L,
-//   then the scores, then dG, and B, C and dS staged in slices of 32 state
-//   dims (186,496 bytes at P = 64). Thread (ty, tx) owns rows ty + 16i and
-//   columns tx + 16j of every tile it computes. G is accumulated over the
-//   state slices in registers, masked and decayed into the tile; dscores
-//   in registers, which turn into dG after F's row and column sums are
-//   taken (rows by a shuffle over the 16 lanes of a row group, columns
-//   through shared memory in ty order). dx = scores^T dy, then per state
-//   slice dC, dB, x dS^T, dw and B dS. One thread runs the two length-Q
-//   scans (the reverse cumsum of dcum' and dA's sum). It writes dx (B, S,
-//   H, P) and ddt (B, S, H) once, fp32, and fp32 partials: dB and dC per
-//   head (B, H, S, N) and dA per (b, h, c).
-// * ssd_chunk_bwd_reduce: one thread per (b, s, n) sums the dB and dC
-//   partials over the heads in head order; H more threads sum dA's
-//   partials over b and c in that order.
+// * ssd_chunk_bwd_mma<P, NC> (bf16 x, B and C; every bf16 call), one
+//   launch. One block of 8 warps per (b, h, c); the blocks of one (b, c)
+//   and G heads (the largest of 8, 4, 2, 1 dividing H) form a thread
+//   block cluster. Tiles in shared memory as bf16, 128 rows (zero past Q)
+//   and NC = 64 or 128 state dims (zero past N), rows padded by 16 bytes
+//   so ldmatrix is free of bank conflicts: x, B and C by cp.async, dy and
+//   dS rounded from fp32 (dy is a bf16 output widened on the training
+//   path, so exact there; dS's rounding keeps every leaf within a sixth
+//   of the bf16 tolerance on the sweep, chip_smoke.py [2f]). Warp w owns
+//   rows s of one 16-row tile (0..3 for warps 0..3, 7..4 for warps 4..7)
+//   and takes the t-tiles t >= s in halves, 0..3 (if its tile is one of
+//   them) and 4..7, with no branch inside a half, so that its ldmatrix
+//   loads and products overlap (the tiles above the diagonal come out
+//   masked); the two warps of an SM sub-partition (w, w + 4) then share
+//   12 tile pairs. On mma.sync m16n8k16 (bf16 in, fp32 accumulators):
+//     G^T = B_s C_t^T and dscores^T = x_s dy_t^T;
+//     F's sums in fp32 from the accumulators (colsum on its rows, rowsum
+//     per s-tile into shared memory, summed in tile order); the scores^T
+//     and dG^T rounded to bf16 straight from the accumulators into A
+//     fragments over t (no branch: a masked entry takes exp(0) and is
+//     selected away), dG^T also into a 128 x 128 tile;
+//     dx = scores^T dy + w (B dS) (dy and dS by ldmatrix.trans), written
+//     in x's dtype; this head's dB = dG^T C + w (x dS^T) and dw.
+//   After a block barrier every warp forms this head's dC = dG B on rows t
+//   of its tile (dG from the tile by ldmatrix.trans; s-tiles in halves as
+//   above), and warp 0, which has the fewest, then runs the length-Q scans
+//   (dcum', its reverse cumsum, dA's and dw w's sums) as shuffles in a
+//   fixed order, four steps a lane, and writes ddt (fp32). The fp32 dB and
+//   dC of the block go over its tiles; the cluster sums them over its G
+//   heads through distributed shared memory, each rank its own Q/G rows,
+//   the blocks in rank order. With one cluster per (b, c) (H == G) the sum
+//   is written in bf16; else each cluster writes an fp32 partial and the
+//   last to arrive (integer counters, reset by their last reader) sums the
+//   H/G partials in cluster order and writes bf16. dA likewise: one fp32
+//   partial per (b, h, c), summed in (b, c) order by the last block of the
+//   head to arrive. 167 KB of shared memory at P = 64, NC = 128 (125 KB
+//   at NC = 64), 249 registers: one block an SM.
+// * ssd_chunk_bwd<T, P> + ssd_chunk_bwd_reduce (fp32 x, B and C, and
+//   bf16 with simt=True: the first design, kept as the fp32 engine, which
+//   bf16 products would not keep at 5e-5, and as the yardstick), two
+//   launches. One block of 256 threads per (b, h, c), fp32 SIMT FMAs from
+//   fp32 tiles in shared memory: the x and dy tiles (Q x P), one Q x Q
+//   tile that holds G*L, then the scores, then dG, and B, C and dS staged
+//   in slices of 32 state dims (186,496 bytes at P = 64). Thread (ty, tx)
+//   owns rows ty + 16i and columns tx + 16j of every tile it computes. G
+//   is accumulated over the state slices in registers, masked and decayed
+//   into the tile; dscores in registers, which turn into dG after F's row
+//   and column sums are taken (rows by a shuffle over the 16 lanes of a
+//   row group, columns through shared memory in ty order). dx = scores^T
+//   dy, then per state slice dC, dB, x dS^T, dw and B dS. One thread runs
+//   the two length-Q scans. It writes dx (B, S, H, P) and ddt (B, S, H)
+//   once, fp32, and fp32 partials: dB and dC per head (B, H, S, N) and dA
+//   per (b, h, c); ssd_chunk_bwd_reduce sums them, one thread per (b, s,
+//   n) in head order, H more threads over b and c.
 //
 // The masked entries (s > t, and rows and columns at or past Q) are never
 // passed through exp: cum_t - cum_s > 0 there, and an overflow times 0
 // would give NaN. x, B and C are read in place through their strides (the
-// model's are column slices of one conv output); dy, dS, dcum, cum and
-// dt as the wrapper passes them (contiguous fp32 except dt, strided).
+// model's are column slices of one conv output); in the tensor-core
+// kernel so are cum and the cotangents (the training path's dy is a
+// transposed view).
 //
 // Bound on the card at mamba2-130m's training shape per rank (B=2, S=256,
-// H=24, P=64, N=128, Q=128, bf16 x/B/C): 10.16 MB to read and write once
-// (3.03 us at 3.35 TB/s), 1.02 GFLOP (the lower-triangle products over P
-// and N per head, x dS^T and B dS per head, C B^T once per (b, c)):
-// 1.03 us at the bf16 tensor-core rate, so bound by bytes; the fp32 SIMT
-// FMAs this kernel runs take 15.2 us at their 67 TFLOP/s peak. What the
-// design does about it: a simple kernel first; every product runs from
-// shared memory without bank conflicts (padded x and dS rows), each
-// input is read once per block and each output written once; the dB/dC
-// partials cost 2 x B x H x S x N fp32 written and read once more (the
-// price of a fixed summation order). C B^T is recomputed by every head's
-// block. mma.sync / wgmma for bf16, and fewer partials, are later work.
+// H=24, P=64, N=128, Q=128, bf16 x/B/C): 10.16 MB to read and write once,
+// dx, dB and dC in bf16 (3.03 us at 3.35 TB/s), 1.02 GFLOP (the
+// lower-triangle products over P and N per head, x dS^T and B dS per
+// head, C B^T once per (b, c)): 1.03 us at the bf16 tensor-core rate, so
+// bound by bytes. What the tensor-core design does about it: each input
+// is read once per block (B and C again by each head's block, from L2)
+// and each output written once in its final dtype; the per-head dB/dC
+// partials of the first design (2 x B x H x S x N fp32, 12.6 MB here,
+// written and read again by a second launch) shrink to what crosses
+// clusters (2 x B x (H/G) x S x N fp32, 1.6 MB here); the products run
+// on the tensor cores. C B^T is recomputed by every head's block. What
+// it does not do yet: overlap the loads, the products and the cluster's
+// sums (one block an SM runs them in turn; tools/ssd_bwd_phases.py times
+// each from a build with -DSSD_BWD_PHASES), or use wgmma (PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libssd_chunk_bwd.so ssd_chunk_bwd.cu
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <atomic>
 
@@ -480,14 +522,672 @@ cudaError_t launch_p(const Params& p, int P, int grid, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: ssd_chunk_bwd_mma<P>
+// ---------------------------------------------------------------------------
+constexpr int PAD = 8;       // bf16 row padding (16 bytes): ldmatrix rows hit distinct banks
+constexpr int NMAX = 128;    // state dims the tensor-core kernel takes
+
+// Phase stamps of ssd_chunk_bwd_mma, for tools/ssd_bwd_phases.py: built
+// with -DSSD_BWD_PHASES, threads 0 and 128 (warps 0 and 4) write the
+// device's global timer (ns) at phase boundary k to
+// g_stamps[block * 32 + 16 * (thread / 128) + k]; otherwise empty.
+#ifdef SSD_BWD_PHASES
+__device__ unsigned long long* g_stamps;
+__device__ __forceinline__ void stamp(int k) {
+  if (threadIdx.x == 0 || threadIdx.x == 128) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_stamps[blockIdx.x * 32 + (threadIdx.x >> 3) + k] = t;
+  }
+}
+#define SSD_BWD_STAMP(k) stamp(k)
+#else
+#define SSD_BWD_STAMP(k) ((void)0)
+#endif
+
+struct MmaParams {
+  const __nv_bfloat16* x;
+  const float* dt;
+  const float* A;
+  const __nv_bfloat16* Bm;
+  const __nv_bfloat16* Cm;
+  const float* cum;     // (B, H, nc, Q)
+  const float* dy;      // (B, H, nc, Q, P)
+  const float* dst;     // (B, H, nc, N, P)
+  const float* dcum;    // (B, H, nc, Q)
+  __nv_bfloat16* dx;    // (B, S, H, P)
+  float* ddt;           // (B, S, H)
+  float* dA;            // (H)
+  __nv_bfloat16* dB;    // (B, S, N)
+  __nv_bfloat16* dC;    // (B, S, N)
+  float* part;          // (2, B, H/G, S, N) cluster partials of dB, dC (H > G)
+  float* dAp;           // (H, B*nc) partials of dA (B*nc > 1)
+  int* cnt;             // B*nc*G + H arrival counters, zero between calls
+  long long xb, xs, xh, db, ds, dh, bb, bs, cb, cs;   // element strides
+  long long ub, uh, uc, ut;           // cum over (B, H, nc, Q)
+  long long yb, yh, yc, yt, yp;       // dy over (B, H, nc, Q, P)
+  long long sb, sh, sc, sn, sp;       // dS over (B, H, nc, N, P)
+  long long qb, qh, qc, qt;           // dcum over (B, H, nc, Q)
+  int Bsz, S, H, N, Q, nc, G;
+  int vec;              // dy and dS rows contiguous and on 16 bytes: float4 loads
+};
+
+// Shared memory, bf16 tiles of QT rows (rows at or past Q and state dims
+// at or past N zero; rows padded by PAD): x and dy (QT x (P+PAD)), dS
+// (NC x (P+PAD)), B and C (QT x (NC+PAD)), dG^T (QT x (QT+PAD)); over
+// them, once the products are done, the block's fp32 dB and dC (QT x
+// (NC+PAD) each) that the cluster sums; then the fp32 vectors.
+constexpr int VEC_FLOATS = 15 * QT;   // dt, cum, w, e, dcum, colF, dw; rowE by s-tile
+__host__ __device__ constexpr size_t mma_tile_bytes(int P, int NC) {
+  return 2 * ((size_t)(2 * QT + NC) * (P + PAD) + 2 * (size_t)QT * (NC + PAD) +
+              (size_t)QT * (QT + PAD));
+}
+__host__ __device__ constexpr size_t mma_vec_offset(int P, int NC) {
+  return mma_tile_bytes(P, NC) > 8 * (size_t)QT * (NC + PAD) ? mma_tile_bytes(P, NC)
+                                                              : 8 * (size_t)QT * (NC + PAD);
+}
+__host__ __device__ constexpr size_t mma_smem_bytes(int P, int NC) {
+  return mma_vec_offset(P, NC) + sizeof(float) * VEC_FLOATS;
+}
+
+// v summed over the lanes that differ from this one in the bits from..to-1
+// of the lane index (a butterfly: every lane gets the same sum, in a
+// fixed order)
+__device__ __forceinline__ float xor_sum(float v, int from, int to) {
+#pragma unroll
+  for (int off = from; off < to; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// A warp's 16 rows x NC fp32 accumulators to a padded fp32 tile
+template <int NC>
+__device__ __forceinline__ void put_rows(const float (&acc)[NC / 8][4], float* dst,
+                                         int lane) {
+  constexpr int FP = NC + PAD;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    *reinterpret_cast<float2*>(dst + g * FP + j * 8 + 2 * t4) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(dst + (g + 8) * FP + j * 8 + 2 * t4) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+
+// The kernel of one (b, h, c). NC: the state dims the tiles hold (64 or
+// 128; N <= NC, zero past N).
+template <int P, int NC>
+__global__ void __launch_bounds__(NT, 1) ssd_chunk_bwd_mma(const MmaParams p) {
+  namespace cg = cooperative_groups;
+  constexpr int XP = P + PAD;   // x, dy and dS row pitch, elements
+  constexpr int CP = NC + PAD;  // B and C row pitch
+  constexpr int MP = QT + PAD;  // dG^T row pitch
+  constexpr int FP = NC + PAD;  // fp32 dB and dC row pitch
+  constexpr int PN = P / 8;     // 8-column tiles of dx
+  constexpr int JN = NC / 8;    // 8-column tiles of dB and dC
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Q = p.Q, N = p.N, H = p.H;
+  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ys = Xs + QT * XP;
+  __nv_bfloat16* Ds = Ys + QT * XP;
+  __nv_bfloat16* Bs = Ds + NC * XP;
+  __nv_bfloat16* Cs = Bs + QT * CP;
+  __nv_bfloat16* Ms = Cs + QT * CP;     // dG^T: row s, column t
+  float* DBs = reinterpret_cast<float*>(smem_raw);   // after the products
+  float* DCs = DBs + QT * FP;
+  float* dts = reinterpret_cast<float*>(smem_raw + mma_vec_offset(P, NC));
+  float* cums = dts + QT;
+  float* ws = cums + QT;
+  float* es = ws + QT;
+  float* dcs = es + QT;
+  float* colF = dcs + QT;
+  float* dws = colF + QT;
+  float* rowEp = dws + QT;              // 8 x QT: rowsum(F dt) by s-tile
+  __shared__ int is_last;
+
+  SSD_BWD_STAMP(0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3;
+  const int h = blockIdx.x % H;
+  const int bc = blockIdx.x / H;        // b * nc + c
+  const int c = bc % p.nc, b = bc / p.nc;
+  const long long s0 = (long long)c * Q;
+
+  const __nv_bfloat16* xg = p.x + b * p.xb + s0 * p.xs + h * p.xh;
+  const __nv_bfloat16* bg = p.Bm + b * p.bb + s0 * p.bs;
+  const __nv_bfloat16* cmg = p.Cm + b * p.cb + s0 * p.cs;
+  const float* dtg = p.dt + b * p.db + s0 * p.ds + h * p.dh;
+  const float* cumg = p.cum + b * p.ub + h * p.uh + c * p.uc;
+  const float* dyg = p.dy + b * p.yb + h * p.yh + c * p.yc;
+  const float* dsg = p.dst + b * p.sb + h * p.sh + c * p.sc;
+  const float* dcg = p.dcum + b * p.qb + h * p.qh + c * p.qc;
+
+  // ---- x, B and C by cp.async; dy and dS rounded to bf16; vectors -------
+  for (int i = tid; i < QT * (P / 8); i += NT) {
+    const int t = i / (P / 8), ch = i - t * (P / 8);
+    const bool in = t < Q;
+    cp_async16(smem_u32(Xs + t * XP + ch * 8), in ? xg + t * p.xs + ch * 8 : xg, in);
+  }
+#pragma unroll 4
+  for (int i = tid; i < QT * (NC / 8); i += NT) {
+    const int t = i / (NC / 8), ch = i - t * (NC / 8);
+    const bool in = t < Q && ch * 8 < N;
+    cp_async16(smem_u32(Bs + t * CP + ch * 8), in ? bg + t * p.bs + ch * 8 : bg, in);
+    cp_async16(smem_u32(Cs + t * CP + ch * 8), in ? cmg + t * p.cs + ch * 8 : cmg, in);
+  }
+  cp_async_commit();
+  if (p.vec) {
+    // every 16-byte piece of dy and dS this thread stages, loaded before
+    // any is stored, so the loads' latencies overlap
+    constexpr int IT = QT * (P / 4) / NT;
+    float4 vy[IT], vs[IT];
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = tid + it * NT;
+      const int r = i / (P / 4), col = 4 * (i - r * (P / 4));
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      vy[it] = r < Q ? __ldg(reinterpret_cast<const float4*>(dyg + r * p.yt + col)) : zero;
+      vs[it] = r < N ? __ldg(reinterpret_cast<const float4*>(dsg + r * p.sn + col)) : zero;
+    }
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = tid + it * NT;
+      const int r = i / (P / 4), col = 4 * (i - r * (P / 4));
+      *reinterpret_cast<uint2*>(Ys + r * XP + col) =
+          make_uint2(pack_bf16(vy[it].x, vy[it].y), pack_bf16(vy[it].z, vy[it].w));
+      if (r < NC)
+        *reinterpret_cast<uint2*>(Ds + r * XP + col) =
+            make_uint2(pack_bf16(vs[it].x, vs[it].y), pack_bf16(vs[it].z, vs[it].w));
+    }
+  } else {
+    for (int i = tid; i < QT * (P / 2); i += NT) {
+      const int t = i / (P / 2), col = 2 * (i - t * (P / 2));
+      float v0 = 0.f, v1 = 0.f;
+      if (t < Q) {
+        v0 = dyg[t * p.yt + col * p.yp];
+        v1 = dyg[t * p.yt + (col + 1) * p.yp];
+      }
+      *reinterpret_cast<uint32_t*>(Ys + t * XP + col) = pack_bf16(v0, v1);
+    }
+    for (int i = tid; i < NC * (P / 2); i += NT) {
+      const int n = i / (P / 2), col = 2 * (i - n * (P / 2));
+      float v0 = 0.f, v1 = 0.f;
+      if (n < N) {
+        v0 = dsg[n * p.sn + col * p.sp];
+        v1 = dsg[n * p.sn + (col + 1) * p.sp];
+      }
+      *reinterpret_cast<uint32_t*>(Ds + n * XP + col) = pack_bf16(v0, v1);
+    }
+  }
+  const float total = cumg[(Q - 1) * p.ut];
+  for (int i = tid; i < QT; i += NT) {
+    const bool in = i < Q;
+    const float cm = in ? cumg[i * p.ut] : 0.f, d = in ? dtg[i * p.ds] : 0.f;
+    const float e = in ? expf(total - cm) : 0.f;
+    dts[i] = d;
+    cums[i] = cm;
+    es[i] = e;
+    ws[i] = e * d;
+    dcs[i] = in ? dcg[i * p.qt] : 0.f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  SSD_BWD_STAMP(1);
+  // ---- warp w owns rows s of the 16-row tile st: 0..3 for warps 0..3,
+  // 7..4 for warps 4..7. It takes the t-tiles t >= s in halves, 0..3 (if
+  // st < 4) and 4..7, each without a branch inside, so its loads and
+  // products overlap (tiles above the diagonal come out masked to 0); the
+  // two warps of an SM sub-partition (w, w + 4) share 12 of the 64 tile
+  // pairs ---------------------------------------------------------------
+  const int st = warp < 4 ? warp : 11 - warp;
+  const int sr = st * 16;
+  const int h0 = st < 4 ? 0 : 1;       // the first half of t-tiles taken
+  // G^T = B_s C_t^T (over N) and dscores^T = x_s dy_t^T (over P)
+  float gacc[8][2][4], dacc[8][2][4];
+#pragma unroll
+  for (int tt = 0; tt < 8; ++tt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gacc[tt][hf][e] = dacc[tt][hf][e] = 0.f;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (hh < h0) continue;
+#pragma unroll
+    for (int kk = 0; kk < NC / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, smem_u32(Bs + (sr + (lane & 7) + (mi & 1) * 8) * CP + kk * 16 + (mi >> 1) * 8));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int tt = 4 * hh + j;
+        uint32_t bk[4];
+        ldsm_x4(bk, smem_u32(Cs + (tt * 16 + (lane & 7) + (mi >> 1) * 8) * CP + kk * 16 +
+                             (mi & 1) * 8));
+        mma_bf16(gacc[tt][0], a, bk[0], bk[1]);
+        mma_bf16(gacc[tt][1], a, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, smem_u32(Xs + (sr + (lane & 7) + (mi & 1) * 8) * XP + kk * 16 + (mi >> 1) * 8));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int tt = 4 * hh + j;
+        uint32_t bk[4];
+        ldsm_x4(bk, smem_u32(Ys + (tt * 16 + (lane & 7) + (mi >> 1) * 8) * XP + kk * 16 +
+                             (mi & 1) * 8));
+        mma_bf16(dacc[tt][0], a, bk[0], bk[1]);
+        mma_bf16(dacc[tt][1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+  SSD_BWD_STAMP(2);
+  // F = dscores G L, its sums in fp32; the scores^T = (G L dt_s)^T and
+  // dG^T = (dscores L dt_s)^T rounded to bf16 as A operands over t; dG^T
+  // also into its tile for dC
+  // (without a branch: a masked entry (s > t or t >= Q) takes exp(0) and
+  // is then selected away, so no entry waits on another's loads)
+  uint32_t sa[8][4], ga[8][4];
+  float cf[2] = {0.f, 0.f};         // colsum(F) on rows s = sr + g, sr + g + 8
+  const float cum_s[2] = {cums[sr + g], cums[sr + g + 8]};
+  const float dt_s[2] = {dts[sr + g], dts[sr + g + 8]};
+#pragma unroll
+  for (int tt = 0; tt < 8; ++tt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sa[tt][e] = ga[tt][e] = 0u;
+    if (tt < 4 * h0) continue;
+    float sv[2][4], gv[2][4], re[2][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int t0 = tt * 16 + hf * 8 + 2 * t4;
+      const float2 cum_t = *reinterpret_cast<const float2*>(cums + t0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int s = sr + g + 8 * (e >> 1), t = t0 + (e & 1);
+        const bool live = s <= t && t < Q;
+        const float L =
+            __expf(live ? ((e & 1) ? cum_t.y : cum_t.x) - cum_s[e >> 1] : 0.f);
+        const float gl = gacc[tt][hf][e] * L;
+        const float d = dacc[tt][hf][e];
+        const float f = live ? d * gl : 0.f;
+        cf[e >> 1] += f;
+        re[hf][e] = f * dt_s[e >> 1];
+        sv[hf][e] = live ? gl * dt_s[e >> 1] : 0.f;
+        gv[hf][e] = live ? d * L * dt_s[e >> 1] : 0.f;
+      }
+    }
+    // rowsum(F dt_s) over this tile's 16 rows s, per column t
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float v = xor_sum(re[hf][q] + re[hf][q + 2], 4, 32);
+        if (g == 0) rowEp[st * QT + tt * 16 + hf * 8 + 2 * t4 + q] = v;
+      }
+    sa[tt][0] = pack_bf16(sv[0][0], sv[0][1]);
+    sa[tt][1] = pack_bf16(sv[0][2], sv[0][3]);
+    sa[tt][2] = pack_bf16(sv[1][0], sv[1][1]);
+    sa[tt][3] = pack_bf16(sv[1][2], sv[1][3]);
+    ga[tt][0] = pack_bf16(gv[0][0], gv[0][1]);
+    ga[tt][1] = pack_bf16(gv[0][2], gv[0][3]);
+    ga[tt][2] = pack_bf16(gv[1][0], gv[1][1]);
+    ga[tt][3] = pack_bf16(gv[1][2], gv[1][3]);
+    __nv_bfloat16* mrow = Ms + (sr + g) * MP + tt * 16 + 2 * t4;
+    *reinterpret_cast<uint32_t*>(mrow) = ga[tt][0];
+    *reinterpret_cast<uint32_t*>(mrow + 8 * MP) = ga[tt][1];
+    *reinterpret_cast<uint32_t*>(mrow + 8) = ga[tt][2];
+    *reinterpret_cast<uint32_t*>(mrow + 8 * MP + 8) = ga[tt][3];
+  }
+  cf[0] = xor_sum(cf[0], 1, 4);   // the 4 lanes of a row differ in bits 0-1
+  cf[1] = xor_sum(cf[1], 1, 4);
+  if (t4 == 0) {
+    colF[sr + g] = cf[0];
+    colF[sr + g + 8] = cf[1];
+  }
+
+  SSD_BWD_STAMP(3);
+  // dx = scores^T dy + w (B dS), on rows s
+  float dxa[PN][4], bda[PN][4];
+#pragma unroll
+  for (int n = 0; n < PN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dxa[n][e] = bda[n][e] = 0.f;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (hh < h0) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int tt = 4 * hh + j;
+#pragma unroll
+      for (int pn = 0; pn < P / 16; ++pn) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, smem_u32(Ys + (tt * 16 + (lane & 7) + (mi & 1) * 8) * XP + pn * 16 +
+                                   (mi >> 1) * 8));
+        mma_bf16(dxa[2 * pn], sa[tt], bv[0], bv[1]);
+        mma_bf16(dxa[2 * pn + 1], sa[tt], bv[2], bv[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < NC / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, smem_u32(Bs + (sr + (lane & 7) + (mi & 1) * 8) * CP + kk * 16 + (mi >> 1) * 8));
+#pragma unroll
+    for (int pn = 0; pn < P / 16; ++pn) {
+      uint32_t bv[4];
+      ldsm_x4_trans(bv, smem_u32(Ds + (kk * 16 + (lane & 7) + (mi & 1) * 8) * XP + pn * 16 +
+                                 (mi >> 1) * 8));
+      mma_bf16(bda[2 * pn], a, bv[0], bv[1]);
+      mma_bf16(bda[2 * pn + 1], a, bv[2], bv[3]);
+    }
+  }
+  __nv_bfloat16* dxg = p.dx + ((b * (long long)p.S + s0 + sr) * H + h) * P;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = g + 8 * hf;
+    if (sr + r >= Q) continue;
+    const float w = ws[sr + r];
+#pragma unroll
+    for (int n = 0; n < PN; ++n)
+      *reinterpret_cast<uint32_t*>(dxg + (long long)r * H * P + n * 8 + 2 * t4) =
+          pack_bf16(dxa[n][2 * hf] + w * bda[n][2 * hf],
+                    dxa[n][2 * hf + 1] + w * bda[n][2 * hf + 1]);
+  }
+
+  SSD_BWD_STAMP(4);
+  // this head's dB = dG^T C + w (x dS^T) on rows s; dw = rowsum(B (x dS^T))
+  float dbh[JN][4], xd[JN][4];
+#pragma unroll
+  for (int j = 0; j < JN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbh[j][e] = xd[j][e] = 0.f;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (hh < h0) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int tt = 4 * hh + j;
+#pragma unroll
+      for (int nn = 0; nn < NC / 16; ++nn) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, smem_u32(Cs + (tt * 16 + (lane & 7) + (mi & 1) * 8) * CP + nn * 16 +
+                                   (mi >> 1) * 8));
+        mma_bf16(dbh[2 * nn], ga[tt], bv[0], bv[1]);
+        mma_bf16(dbh[2 * nn + 1], ga[tt], bv[2], bv[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < P / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, smem_u32(Xs + (sr + (lane & 7) + (mi & 1) * 8) * XP + kk * 16 + (mi >> 1) * 8));
+#pragma unroll
+    for (int nn = 0; nn < NC / 16; ++nn) {
+      uint32_t bk[4];
+      ldsm_x4(bk, smem_u32(Ds + (nn * 16 + (lane & 7) + (mi >> 1) * 8) * XP + kk * 16 +
+                           (mi & 1) * 8));
+      mma_bf16(xd[2 * nn], a, bk[0], bk[1]);
+      mma_bf16(xd[2 * nn + 1], a, bk[2], bk[3]);
+    }
+  }
+  SSD_BWD_STAMP(5);
+  float dw[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int s = sr + g + 8 * hf;
+    const float w = ws[s];
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const float2 bv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(Bs + s * CP + j * 8 + 2 * t4));
+      dw[hf] += bv.x * xd[j][2 * hf] + bv.y * xd[j][2 * hf + 1];
+      dbh[j][2 * hf] += w * xd[j][2 * hf];
+      dbh[j][2 * hf + 1] += w * xd[j][2 * hf + 1];
+    }
+  }
+  dw[0] = xor_sum(dw[0], 1, 4);
+  dw[1] = xor_sum(dw[1], 1, 4);
+  if (t4 == 0) {
+    dws[sr + g] = dw[0];
+    dws[sr + g + 8] = dw[1];
+  }
+  SSD_BWD_STAMP(6);
+  __syncthreads();   // dG^T, colF, rowsum(F dt) and dw complete
+
+  SSD_BWD_STAMP(7);
+  // ---- this head's dC = dG B on rows t of tile st: s-tiles 0..3, and
+  // 4..7 for t-tiles 4..7 (dG^T is 0 above the diagonal) ---------------
+  float dca[JN][4];
+#pragma unroll
+  for (int j = 0; j < JN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dca[j][e] = 0.f;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (hh > h0) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ks = 4 * hh + j;
+      uint32_t a[4];
+      ldsm_x4_trans(a, smem_u32(Ms + (ks * 16 + (lane & 7) + (mi >> 1) * 8) * MP + sr +
+                                (mi & 1) * 8));
+#pragma unroll
+      for (int nn = 0; nn < NC / 16; ++nn) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, smem_u32(Bs + (ks * 16 + (lane & 7) + (mi & 1) * 8) * CP + nn * 16 +
+                                   (mi >> 1) * 8));
+        mma_bf16(dca[2 * nn], a, bv[0], bv[1]);
+        mma_bf16(dca[2 * nn + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+  SSD_BWD_STAMP(8);
+  // ---- dcum', its reverse cumsum, ddt and dA on one warp (the one with
+  // the fewest dC products), four steps a lane, in a fixed order --------
+  if (warp == 0) {
+    float v[4], dwl = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = 4 * lane + j;
+      v[j] = 0.f;
+      if (t < Q) {
+        float rowE = rowEp[t];
+        for (int k = 1; k <= t / 16; ++k) rowE += rowEp[k * QT + t];
+        v[j] = dcs[t] + rowE - dts[t] * colF[t] - dws[t] * ws[t];
+        dwl += dws[t] * ws[t];
+      }
+    }
+    const float dwsum = xor_sum(dwl, 1, 32);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * lane + j == Q - 1) v[j] += dwsum;   // through cum_{Q-1} in w
+    float r[4];
+    r[3] = v[3];
+    r[2] = v[2] + r[3];
+    r[1] = v[1] + r[2];
+    r[0] = v[0] + r[1];
+    float inc = r[0];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_down_sync(0xffffffffu, inc, off);
+      if (lane + off < 32) inc += y;
+    }
+    float after = __shfl_down_sync(0xffffffffu, inc, 1);
+    if (lane == 31) after = 0.f;
+    const float A = p.A[h];
+    float dal = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = 4 * lane + j;
+      if (t < Q) {
+        const float da = r[j] + after;
+        p.ddt[(b * (long long)p.S + s0 + t) * H + h] = colF[t] + dws[t] * es[t] + A * da;
+        dal += dts[t] * da;
+      }
+    }
+    const float dAb = xor_sum(dal, 1, 32);
+    if (lane == 0) {   // dA itself, or its partial (summed at the end)
+      const int nbc = p.Bsz * p.nc;
+      if (nbc == 1) p.dA[h] = dAb;
+      else p.dAp[(long long)h * nbc + bc] = dAb;
+    }
+  }
+
+  __syncthreads();   // the tiles consumed: the fp32 dB and dC go over them
+  SSD_BWD_STAMP(9);
+  put_rows<NC>(dbh, DBs + sr * FP, lane);
+  put_rows<NC>(dca, DCs + sr * FP, lane);
+
+  // ---- dB and dC summed over the cluster's heads: rank r sums its rows
+  // over the blocks in rank order ---------------------------------------
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  SSD_BWD_STAMP(10);
+  const int G = p.G, rank = (int)cluster.block_rank();
+  const int ncl = H / G, ci = h / G;
+  const int r0 = rank * Q / G, r1 = (rank + 1) * Q / G;
+  const int n4 = N / 4;
+  const int items = (r1 - r0) * n4;
+  const long long rows_all = (long long)p.Bsz * ncl * p.S;   // one partial plane
+#pragma unroll 2
+  for (int i = tid; i < 2 * items; i += NT) {
+    const int which = i >= items;
+    const int j = i - which * items;
+    const int row = r0 + j / n4, col = 4 * (j - (j / n4) * n4);
+    const float* src = (which ? DCs : DBs) + row * FP + col;
+    float4 v[8];   // every rank's piece first, then the sum in rank order
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < G) v[k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(src, k));
+    float4 sum = v[0];
+#pragma unroll
+    for (int k = 1; k < 8; ++k)
+      if (k < G) add4(sum, v[k]);
+    const long long at = (b * (long long)p.S + s0 + row) * N + col;
+    if (ncl == 1) {
+      store_bf16x4((which ? p.dC : p.dB) + at, sum);
+    } else {
+      *reinterpret_cast<float4*>(
+          p.part + ((which * rows_all + (b * (long long)ncl + ci) * p.S + s0 + row) * N + col)) =
+          sum;
+    }
+  }
+  cluster.sync();    // no block leaves while another reads its shared memory
+  SSD_BWD_STAMP(11);
+  const int nbc = p.Bsz * p.nc;
+  if (ncl == 1 && nbc == 1) return;
+
+  // ---- the last block of a head to arrive sums dA's partials over (b, c)
+  // in order; the last cluster of (b, c) sums the clusters' dB and dC
+  // partials in cluster order, rank by rank -------------------------------
+  __threadfence();
+  __syncthreads();
+  int* arrive = p.cnt + (long long)bc * G + rank;
+  if (tid == 0 && ncl > 1) is_last = atomicAdd(arrive, 1) == ncl - 1;
+  if (tid == 32 && nbc > 1) {
+    int* arrive_h = p.cnt + (long long)nbc * G + h;
+    if (atomicAdd(arrive_h, 1) == nbc - 1) {
+      __threadfence();
+      float sum = 0.f;
+      for (int i = 0; i < nbc; ++i) sum += __ldcg(p.dAp + (long long)h * nbc + i);
+      p.dA[h] = sum;
+      *arrive_h = 0;
+    }
+  }
+  __syncthreads();
+  if (ncl == 1 || !is_last) return;
+  __threadfence();
+  for (int i = tid; i < 2 * items; i += NT) {
+    const int which = i >= items;
+    const int j = i - which * items;
+    const int row = r0 + j / n4, col = 4 * (j - (j / n4) * n4);
+    const float* src = p.part + (which * rows_all + b * (long long)ncl * p.S + s0 + row) * N + col;
+    float4 sum = __ldcg(reinterpret_cast<const float4*>(src));
+    for (int k = 1; k < ncl; ++k)
+      add4(sum, __ldcg(reinterpret_cast<const float4*>(src + (long long)k * p.S * N)));
+    store_bf16x4((which ? p.dC : p.dB) + (b * (long long)p.S + s0 + row) * N + col, sum);
+  }
+  SSD_BWD_STAMP(12);
+  if (tid == 0) *arrive = 0;
+}
+
+template <int P, int NC>
+cudaError_t launch_mma(const MmaParams& p, int grid, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done{0};
+  constexpr size_t smem = mma_smem_bytes(P, NC);
+  cudaError_t err = allow_smem(ssd_chunk_bwd_mma<P, NC>, smem, done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ssd_chunk_bwd_mma<P, NC>, p);
+  if (err == cudaSuccess)
+    g_last_kernel = P == 32 ? "ssd_chunk_bwd_mma<bf16,32>" : "ssd_chunk_bwd_mma<bf16,64>";
+  return err;
+}
+
+// what the tensor-core kernel takes on the card with clusters of G
+// blocks: out[0] dynamic shared memory (bytes), out[1] resident blocks per
+// SM, out[2] clusters resident at once, out[3] registers a thread, out[4]
+// local memory a thread (bytes; spills)
+template <int P, int NC>
+cudaError_t mma_info(int G, int* out) {
+  static std::atomic<unsigned long long> done{0};
+  constexpr size_t smem = mma_smem_bytes(P, NC);
+  cudaError_t err = allow_smem(ssd_chunk_bwd_mma<P, NC>, smem, done);
+  if (err != cudaSuccess) return err;
+  out[0] = (int)smem;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], ssd_chunk_bwd_mma<P, NC>, NT,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(&out[2], ssd_chunk_bwd_mma<P, NC>, &cfg);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, ssd_chunk_bwd_mma<P, NC>);
+  out[3] = fa.numRegs;
+  out[4] = (int)fa.localSizeBytes;
+  return err;
+}
+
 }  // namespace
 
 // dtype (of x, B and C): 0 = float32, 1 = bfloat16; dt, A, cum, dy,
 // dstates and dcum are float32 (cum, dy, dstates, dcum contiguous).
 // Strides are in elements. Outputs dx (B,S,H,P), ddt (B,S,H), dA (H), dB
 // and dC (B,S,N) are contiguous fp32; scratch holds 2*B*H*S*N + B*H*nc
-// floats. Two launches on `stream`. Returns the cudaError_t of the first
-// failure (0 = success).
+// floats. Two launches on `stream` (the SIMT kernel, then the reduce).
+// Returns the cudaError_t of the first failure (0 = success).
 extern "C" int repro_ssd_chunk_bwd(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* cum, const void* dy, const void* dstates,
@@ -524,5 +1224,82 @@ extern "C" int repro_ssd_chunk_bwd(
   return (int)cudaGetLastError();
 }
 
-// The name of the chunk-pass kernel the last successful launch ran.
+// bf16 x, B and C on the tensor cores (ssd_chunk_bwd_mma; rows on 16
+// bytes, N a multiple of 8 up to 128), one launch in clusters of G heads
+// (G divides H, at most 8). dt, A, cum and the cotangents dy, dstates and
+// dcum are float32, read through `strides` (elements): x (3), dt (3), B
+// (2), C (2), cum (4), dy (5), dstates (5), dcum (4). Outputs, contiguous:
+// dx (B,S,H,P) and dB, dC (B,S,N) bf16, ddt (B,S,H) and dA (H) fp32.
+// `part` holds 2*B*(H/G)*S*N floats when H > G, `dAp` H*B*(S/Q) when
+// B*(S/Q) > 1 (else either may be null); `cnt` B*(S/Q)*G + H ints, zero
+// on entry and left zero. Returns the cudaError_t of the launch.
+extern "C" int repro_ssd_chunk_bwd_mma(
+    const void* x, const void* dt, const void* A, const void* Bm,
+    const void* Cm, const void* cum, const void* dy, const void* dstates,
+    const void* dcum, void* dx, void* ddt, void* dA, void* dB, void* dC,
+    void* part, void* dAp, void* cnt, const long long* strides,
+    int Bsz, int S, int H, int P, int N, int Q, int G, void* stream) {
+  if (Q < 1 || Q > QT || S % Q != 0 || N < 8 || N > NMAX || N % 8 || H < 1 || Bsz < 1 ||
+      G < 1 || G > 8 || H % G)
+    return (int)cudaErrorInvalidValue;
+  const int nc = S / Q;
+  const long long grid = (long long)Bsz * H * nc;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if ((H > G && part == nullptr) || (Bsz * nc > 1 && dAp == nullptr) || cnt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long* s = strides;
+  MmaParams p{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
+              static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
+              static_cast<const __nv_bfloat16*>(Cm), static_cast<const float*>(cum),
+              static_cast<const float*>(dy), static_cast<const float*>(dstates),
+              static_cast<const float*>(dcum), static_cast<__nv_bfloat16*>(dx),
+              static_cast<float*>(ddt), static_cast<float*>(dA),
+              static_cast<__nv_bfloat16*>(dB), static_cast<__nv_bfloat16*>(dC),
+              static_cast<float*>(part), static_cast<float*>(dAp), static_cast<int*>(cnt),
+              s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
+              s[10], s[11], s[12], s[13],
+              s[14], s[15], s[16], s[17], s[18],
+              s[19], s[20], s[21], s[22], s[23],
+              s[24], s[25], s[26], s[27],
+              Bsz, S, H, N, Q, nc, G, 0};
+  // float4 loads of dy and dS: unit column stride, every other stride a
+  // multiple of 4 elements, the base on 16 bytes
+  const bool dy4 = s[18] == 1 && (s[14] | s[15] | s[16] | s[17]) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  const bool ds4 = s[23] == 1 && (s[19] | s[20] | s[21] | s[22]) % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(dstates) % 16 == 0;
+  p.vec = dy4 && ds4;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool narrow = N <= 64;   // the tiles hold 64 or 128 state dims
+  switch (P) {
+    case 32: return (int)(narrow ? launch_mma<32, 64>(p, (int)grid, st)
+                                 : launch_mma<32, 128>(p, (int)grid, st));
+    case 64: return (int)(narrow ? launch_mma<64, 64>(p, (int)grid, st)
+                                 : launch_mma<64, 128>(p, (int)grid, st));
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel's resources at (P, N) in clusters of G:
+// out[0..4] = dynamic shared memory bytes, resident blocks per SM,
+// clusters resident at once, registers a thread, local (spill) bytes a
+// thread. Returns the cudaError_t of the queries.
+extern "C" int repro_ssd_chunk_bwd_mma_info(int P, int N, int G, int* out) {
+  if (N < 8 || N > NMAX || G < 1 || G > 8) return (int)cudaErrorInvalidValue;
+  const bool narrow = N <= 64;
+  switch (P) {
+    case 32: return (int)(narrow ? mma_info<32, 64>(G, out) : mma_info<32, 128>(G, out));
+    case 64: return (int)(narrow ? mma_info<64, 64>(G, out) : mma_info<64, 128>(G, out));
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The name of the kernel the last successful launch ran.
 extern "C" const char* repro_ssd_chunk_bwd_last_kernel() { return g_last_kernel; }
+
+#ifdef SSD_BWD_PHASES
+// Where the stamped build writes its phase stamps (see SSD_BWD_STAMP).
+extern "C" int repro_ssd_chunk_bwd_set_stamps(void* buf) {
+  return (int)cudaMemcpyToSymbol(g_stamps, &buf, sizeof(buf));
+}
+#endif

@@ -44,7 +44,6 @@ from repro_torch.kernels import ssd_scan_bwd
 NEG_INF = -1e30
 Q_MAX = 128                   # chunk rows one kernel block covers
 HEAD_DIMS = (32, 64)          # P values the kernel is built for
-MMA_MAX_STATE = 128           # state dims the bf16 (tensor-core) kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py zeroes and reads it)
@@ -112,18 +111,7 @@ def _check(x, dt, A, Bm, Cm, chunk):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dim must be contiguous")
     if x.dtype == torch.bfloat16:
-        N = Bm.shape[-1]
-        if N > MMA_MAX_STATE or N % 8:
-            raise ValueError(f"the bf16 kernel takes a state dim that is a "
-                             f"multiple of 8 up to {MMA_MAX_STATE}, not {N}")
-        # cp.async copies whole 16-byte pieces of each x, B and C row
-        for name, t in (("x", x), ("B", Bm), ("C", Cm)):
-            if t.data_ptr() % 16 or any(
-                    st % 8 for st, n in zip(t.stride()[:-1], t.shape[:-1])
-                    if n > 1):
-                raise ValueError(f"the bf16 kernel reads 16-byte-aligned "
-                                 f"rows; {name} has data_ptr "
-                                 f"{t.data_ptr()} and strides {t.stride()}")
+        ssd_scan_bwd.check_mma_rows(x, Bm, Cm)
 
 
 def ssd_chunk(x, dt, A, Bm, Cm, *, chunk: int):

@@ -410,8 +410,7 @@ def _ssd_bwd_close(got, want, tol):
         assert err <= tol * (1 + w.float().abs().max().item()), (name, err)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+SSD_BWD_SWEEP = [
     (1, 64, 2, 64, 32, 32),             # tests/test_kernels.py's sweep
     (2, 128, 3, 64, 64, 32),
     (1, 128, 1, 32, 128, 64),
@@ -419,24 +418,143 @@ def _ssd_bwd_close(got, want, tol):
     (2, 14, 3, 32, 16, 7),              # Q = 7, N below one slice
     (2, 256, 24, 64, 128, 128),         # mamba2-130m training, per rank
     (2, 256, 80, 64, 64, 128),          # zamba2-2.7b
-])
-def test_ssd_backward_kernel_matches_plain(cuda, dtype, B, S, H, P, N,
-                                          chunk):
+]
+# the bf16 tensor-core kernel against ssd_chunk_bwd_mma_plain, which rounds
+# dy, dS, the scores and dG where the kernel does and sums the heads in the
+# clusters' order: what is left is the fp32 summation order inside the
+# products, which now and then moves a rounded score or dG by one bf16 ulp,
+# and the final rounding of dx, dB and dC, one bf16 ulp (2**-8 relative)
+SSD_BWD_MMA_TOL = 1e-2
+
+
+def _ssd_bwd_call(B, S, H, P, N, chunk, dtype):
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype, seed=S + H)
     cum, cts = _ssd_cotangents(x, dt, A, Bm, Cm, chunk, seed=S + N)
+    return (x, dt, A, Bm, Cm, cum, *cts)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_BWD_SWEEP)
+def test_ssd_backward_kernel_matches_plain(cuda, dtype, B, S, H, P, N,
+                                          chunk):
+    ins = _ssd_bwd_call(B, S, H, P, N, chunk, dtype)
     before = ssd_scan_bwd.launches
-    got = ssd_scan_bwd.ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, *cts,
-                                     chunk=chunk)
+    got = ssd_scan_bwd.ssd_chunk_bwd(*ins, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_scan_bwd.launches == before + ssd_scan_bwd.LAUNCHES_PER_CALL
-    assert ssd_scan_bwd.last_kernel() == \
-        f"ssd_chunk_bwd<{'bf16' if dtype == torch.bfloat16 else 'f32'},{P}>"
-    want = ssd_scan_bwd.ssd_chunk_bwd_plain(x, dt, A, Bm, Cm, cum, *cts,
-                                            chunk=chunk)
+    assert ssd_scan_bwd.launches == \
+        before + ssd_scan_bwd.LAUNCHES_PER_CALL[dtype]
+    assert ssd_scan_bwd.last_kernel() == (
+        f"ssd_chunk_bwd_mma<bf16,{P}>" if dtype == torch.bfloat16
+        else f"ssd_chunk_bwd<f32,{P}>")
+    want = ssd_scan_bwd.ssd_chunk_bwd_plain(*ins, chunk=chunk)
     _ssd_bwd_close(got, want, SSD_TOL[dtype])
-    again = ssd_scan_bwd.ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, *cts,
-                                       chunk=chunk)
+    again = ssd_scan_bwd.ssd_chunk_bwd(*ins, chunk=chunk)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_BWD_SWEEP)
+def test_ssd_backward_mma_matches_its_rounding(cuda, B, S, H, P, N, chunk):
+    ins = _ssd_bwd_call(B, S, H, P, N, chunk, torch.bfloat16)
+    got = ssd_scan_bwd.ssd_chunk_bwd(*ins, chunk=chunk)
+    want = ssd_scan_bwd.ssd_chunk_bwd_mma_plain(*ins, chunk=chunk)
+    _ssd_bwd_close(got, want, SSD_BWD_MMA_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (2, 128, 3, 64, 64, 32), (2, 256, 24, 64, 128, 128)])
+def test_ssd_backward_simt_still_runs(cuda, B, S, H, P, N, chunk):
+    """``simt=True`` runs the first design's SIMT pair on bf16 (the
+    yardstick ``chip_smoke.py`` times), two launches, within the bf16
+    tolerance of the plain version."""
+    ins = _ssd_bwd_call(B, S, H, P, N, chunk, torch.bfloat16)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd.ssd_chunk_bwd(*ins, chunk=chunk, simt=True)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == \
+        before + ssd_scan_bwd.LAUNCHES_PER_CALL[torch.float32]
+    assert ssd_scan_bwd.last_kernel() == f"ssd_chunk_bwd<bf16,{P}>"
+    want = ssd_scan_bwd.ssd_chunk_bwd_plain(*ins, chunk=chunk)
+    _ssd_bwd_close(got, want, SSD_TOL[torch.bfloat16])
+
+
+def test_ssd_backward_bf16_is_one_kernel(cuda):
+    """One bf16 call launches LAUNCHES_PER_CALL kernels on the device and
+    nothing else: no copy of a cotangent, no cast of an output."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ins = _ssd_bwd_call(2, 256, 24, 64, 128, 128, torch.bfloat16)
+    ssd_scan_bwd.ssd_chunk_bwd(*ins, chunk=128)      # the counters exist
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd_scan_bwd.ssd_chunk_bwd(*ins, chunk=128)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == ssd_scan_bwd.LAUNCHES_PER_CALL[torch.bfloat16], \
+        names
+    assert "ssd_chunk_bwd_mma" in names[0]
+
+
+def test_ssd_backward_reads_strided_dy(cuda):
+    """The training path hands dy over as a transposed view; the kernel
+    reads it through its strides, bit for bit as a contiguous copy."""
+    B, S, H, P, N, chunk = 2, 256, 24, 64, 128, 128
+    x, dt, A, Bm, Cm, cum, dy, ds, dc = _ssd_bwd_call(B, S, H, P, N, chunk,
+                                                      torch.bfloat16)
+    nc = S // chunk
+    view = dy.permute(0, 2, 3, 1, 4).contiguous().permute(0, 3, 1, 2, 4)
+    assert torch.equal(view, dy) and not view.is_contiguous()
+    got = ssd_scan_bwd.ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, view, ds, dc,
+                                     chunk=chunk)
+    want = ssd_scan_bwd.ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, dy, ds, dc,
+                                      chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert view.shape == (B, H, nc, chunk, P)
+
+
+def test_ssd_backward_calls_on_two_streams_at_once(cuda):
+    """Calls in flight on two streams at once keep their own arrival
+    counters: each gives the bits of the same call made alone, within
+    the kernel's tolerance of its rounding, and the calls after them on
+    the default stream still do."""
+    shapes = [(2, 256, 24, 64, 128, 128), (2, 128, 3, 64, 64, 32)]
+    ins = [_ssd_bwd_call(*shape, torch.bfloat16) for shape in shapes]
+    alone = [ssd_scan_bwd.ssd_chunk_bwd(*a, chunk=s[-1])
+             for a, s in zip(ins, shapes)]
+    streams = [torch.cuda.Stream() for _ in shapes]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(8):
+        for i, (a, s, shape) in enumerate(zip(ins, streams, shapes)):
+            with torch.cuda.stream(s):
+                got[i].append(ssd_scan_bwd.ssd_chunk_bwd(*a, chunk=shape[-1]))
+    torch.cuda.synchronize()
+    for i, shape in enumerate(shapes):
+        for out in got[i]:
+            assert all(torch.equal(a, b) for a, b in zip(out, alone[i])), \
+                shape
+        want = ssd_scan_bwd.ssd_chunk_bwd_mma_plain(*ins[i], chunk=shape[-1])
+        _ssd_bwd_close(alone[i], want, SSD_BWD_MMA_TOL)
+        after = ssd_scan_bwd.ssd_chunk_bwd(*ins[i], chunk=shape[-1])
+        assert all(torch.equal(a, b) for a, b in zip(after, alone[i]))
+
+
+@pytest.mark.parametrize("case", ["state_136", "state_20",
+                                  "misaligned_rows"])
+def test_ssd_backward_mma_refuses_what_it_does_not_take(cuda, case):
+    N = {"state_136": 136, "state_20": 20}.get(case, 16)
+    # cum from the fp32 forward: the bf16 one refuses these N as well
+    x, dt, A, Bm, Cm, cum, *cts = _ssd_bwd_call(1, 64, 2, 64, N, 32,
+                                                torch.float32)
+    x, Bm, Cm = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    if case == "misaligned_rows":        # x rows 2 bytes off 16
+        x = torch.zeros((1, 64, 2 * 64 + 1), dtype=torch.bfloat16,
+                        device="cuda")[..., 1:].reshape(1, 64, 2, 64)
+    before = ssd_scan_bwd.launches
+    with pytest.raises(ValueError):
+        ssd_scan_bwd.ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, *cts, chunk=32)
+    assert ssd_scan_bwd.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -466,7 +584,7 @@ def test_ssd_autograd_runs_both_kernels(cuda, dtype):
         n = 1 if impl == "auto" else 0
         assert ssd_scan.launches == f0 + n
         assert ssd_scan_bwd.launches == \
-            b0 + n * ssd_scan_bwd.LAUNCHES_PER_CALL
+            b0 + n * ssd_scan_bwd.LAUNCHES_PER_CALL[dtype]
     for a, b in zip(grads["auto"], grads["xla"]):
         assert a.dtype == b.dtype and torch.isfinite(a).all()
         err = (a.float() - b.float()).abs().max().item()

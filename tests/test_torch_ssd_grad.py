@@ -21,6 +21,16 @@ autograd function against autograd and the JAX package.
   recurrence.
 * (c) two calls of the forward and backward give equal bits with more
   than one intra-op thread.
+* (d) the bf16 tensor-core kernel's rounding,
+  ``ssd_scan_bwd.ssd_chunk_bwd_mma_plain``: the gradients of the port's
+  ``ssd_chunked`` with bf16 x, B and C, its backward swapped for the
+  rounding-aware version, against ``jax.grad`` of ``ref.ssd_chunked`` on
+  the same bf16-representable values in fp32, each leaf within the bf16
+  tolerance (5e-2) of its scale, over ``SHAPES`` and one case at
+  mamba2-130m's width and chunk; and against ``ssd_chunk_bwd_plain`` on
+  random cotangents of the three chunk outputs within half of it (the
+  bound under which the kernel rounds dS to plain bf16), also at
+  zamba2-2.7b's state width.
 """
 import numpy as np
 import pytest
@@ -152,3 +162,70 @@ def test_forward_and_backward_bit_equal_across_calls_with_threads():
             assert torch.equal(a, b)
     finally:
         torch.set_num_threads(prev)
+
+
+# the bf16 tolerance of the SSD kernels, per leaf: max |err| <= tol (1 +
+# max |want|) (tests/test_torch_cuda.py, chip_smoke.py)
+BF16_TOL = 5e-2
+MAMBA2_WIDTH = (1, 256, 2, 64, 128, 128)     # P 64, N 128, Q 128, 2 heads
+ZAMBA2_WIDTH = (1, 256, 2, 64, 64, 128)      # N 64
+
+
+def _bf16_values(a):
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def _leaf_close(got, want, tol, name):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want).max()
+    assert err <= tol * (1 + np.abs(want).max()), (name, err)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SHAPES + [MAMBA2_WIDTH],
+                         ids=IDS + ["mamba2-width"])
+def test_mma_rounding_gradients_match_the_reference(B, S, H, P, N, chunk,
+                                                    monkeypatch):
+    arrs = _inputs(B, S, H, P, N, seed=S + H + 1)
+    for i in (0, 3, 4):                       # x, B and C in bf16
+        arrs[i] = _bf16_values(arrs[i])
+    dy = _bf16_values(np.random.default_rng(5).normal(
+        size=(B, S, H, P)).astype(np.float32))
+    ja = [jnp.asarray(a) for a in arrs]
+    want = jax.jit(jax.grad(lambda *a: (jref.ssd_chunked(
+        *a, chunk=chunk) * jnp.asarray(dy)).sum(), argnums=tuple(range(6))))(
+        *ja)
+    monkeypatch.setattr(ssd_scan_bwd, "ssd_chunk_bwd",
+                        lambda *a, chunk: ssd_scan_bwd.ssd_chunk_bwd_mma_plain(
+                            *a, chunk=chunk))
+    ins = [torch.tensor(a, requires_grad=True) for a in arrs]
+    for i in (0, 3, 4):
+        ins[i] = torch.tensor(arrs[i], dtype=torch.bfloat16,
+                              requires_grad=True)
+    y = ssd_scan.ssd_chunked(*ins, chunk=chunk)
+    assert y.dtype == torch.bfloat16
+    got = torch.autograd.grad(y, ins, torch.from_numpy(dy).bfloat16())
+    for name, g, w, t in zip(("x", "dt", "A", "B", "C", "D"), got, want,
+                             ins):
+        assert g.dtype == t.dtype, name
+        _leaf_close(g.float().numpy(), w, BF16_TOL, name)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk",
+                         SHAPES + [MAMBA2_WIDTH, ZAMBA2_WIDTH],
+                         ids=IDS + ["mamba2-width", "zamba2-width"])
+def test_mma_rounding_matches_the_plain_backward(B, S, H, P, N, chunk):
+    arrs = _inputs(B, S, H, P, N, seed=S + N + 2)
+    x, dt, A, Bm, Cm = [torch.from_numpy(a) for a in arrs[:5]]
+    x, Bm, Cm = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    _, _, cum = ssd_scan.ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    nc = S // chunk
+    rng = np.random.default_rng(9)
+    cts = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+           for s in ((B, H, nc, chunk, P), (B, H, nc, N, P),
+                     (B, H, nc, chunk))]
+    ins = (x, dt, A, Bm, Cm, cum, *cts)
+    got = ssd_scan_bwd.ssd_chunk_bwd_mma_plain(*ins, chunk=chunk)
+    want = ssd_scan_bwd.ssd_chunk_bwd_plain(*ins, chunk=chunk)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _leaf_close(g.float().numpy(), w.float().numpy(), BF16_TOL / 2, name)
