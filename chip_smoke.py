@@ -61,7 +61,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       and row log-sum-exp, over the forward's sweep (windows, the decode
       offset, fully masked rows, T != S, S and T off the tile heights,
       MQA and GQA, D 64/80/128 with query groups of 1, 2 and 3) and
-      smollm-135m's training shape, f32 at 1e-4 and bf16 at 2e-2, bf16
+      olmoe-1b-7b's and smollm-135m's training shapes, f32 at 1e-4 and
+      bf16 at 2e-2, bf16
       also against ``flash_attention_bwd_mma_plain`` (the kernels'
       rounding) at 1e-2, each case called twice and held bit-equal, the
       forward's lse held to the plain one and the serving forward's bits
@@ -70,8 +71,9 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       plain version, the forward and backward through autograd, and
       SDPA's forward alone and forward and backward through autograd (a
       yardstick only; its backward alone is the difference of the two
-      device times) at the training shape (2, 256, 9, 3, 64) and the
-      serving shape, beside the backward's bound; the tensor-core
+      device times) at smollm's training shape (2, 256, 9, 3, 64), its
+      serving shape and olmoe's training shape (4, 256, 16, 16, 128),
+      beside the backward's bound; the tensor-core
       kernels must not spill at D = 64 (ptxas, [1]);
    f. the SSD chunk backward (bf16: the tensor-core ``ssd_chunk_bwd_mma``,
       one launch; fp32: the SIMT ``ssd_chunk_bwd`` then
@@ -127,6 +129,17 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    for every prefill, one paged-attention launch per attention layer for
    every decode step of a continuous path (none on a fixed path), and
    zero for a kernel off the path;
+   t. tensor-parallel decode: smollm-135m served by ``--tensor-parallel
+   4 --tuning-table examples/artifacts/tuned_decision.json`` (4 ranks on
+   the card, each step's logits reassembled through the tuned
+   collective), fixed batch through ``all_gather`` and ``all_reduce``,
+   continuous through ``all_gather``, each held to [4]'s one-process run
+   of the same argv: tokens equal, the fixed loop's last logits
+   bit-equal, every rank's equal rank 0's, the executed collective the
+   printed one, launches summed over the ranks (flash per prefill layer
+   a rank, paged per attention layer a decode step a rank, the
+   ``all_reduce`` plan's combines a step a rank); per-token p50/p99
+   beside the one-process run's;
 5. where the time goes: torch.profiler over one full-width prefill and
    over decode steps of each model, dense and, where the model has a KV
    cache, through the paged kernel (device busy share, top kernels, and
@@ -136,8 +149,9 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    through the host, every reduce step in the segment-combine kernel):
    every algorithm and synthesized program held against the oracle at
    4 MB and an odd size; every (algorithm, segments) candidate of
-   all_reduce and broadcast timed at 4 KB, 256 KB, 4 MB and 64 MB over 3
-   trials, the exhaustive tuner's table printed, saved and loaded back,
+   all_reduce and broadcast timed at 4 KB, 256 KB, 4 MB and 64 MB over 2
+   trials (a third was cut for the script's time), the exhaustive
+   tuner's table printed, saved and loaded back,
    with the launch counts gathered from the ranks (zeroed just before the
    tuning run, read just after: every reducing algorithm launches the
    kernel exactly as its schedule says); then a gradient of
@@ -147,9 +161,11 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    the float64 oracle mean and timed, with its launches held to its
    plan's;
    b. every tuner family of ``core.tuning.TUNERS``
-   (``measure_collectives --tuners all``, 4 ranks, [6]'s ops and sizes)
-   fitted over one measured session: per family its new experiments,
-   cache hits, empirical penalty, seconds and ``segment_combine``
+   (``measure_collectives --tuners all``, 4 ranks, [6]'s ops, its sizes
+   up to 4 MB, 2 trials: 64 MB and a third trial were cut for the
+   script's time) fitted over one measured session: per family its new
+   experiments, cache hits, empirical penalty, seconds and
+   ``segment_combine``
    launches (zeroed just before its fit, read just after, summed over
    the ranks): a family that only refits the cache launches nothing,
    and every family's launches (STAR's and feedback's fresh samples)
@@ -180,7 +196,7 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    winner's summary;
 8. training: ``repro_torch.launch.train --arch smollm-135m --ranks 4
    --topology 2x2 --tuning-table examples/artifacts/
-   hierarchical_decision.json --steps 4 --seq 256 --batch 8`` (full
+   hierarchical_decision.json --steps 3 --seq 256 --batch 8`` (full
    width and depth, fp32 master weights, bf16 compute, 4 host-staged
    ranks on the card), then the same with ``--collective xla`` as the
    oracle: each step's loss and its split into forward+backward,
@@ -206,7 +222,7 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    release's cotangent checksummed in the sink before its sync, the
    residual before its sync), step 0's synced gradients within
    ``TRAIN_GRAD_TOL``, the losses within ``TRAIN_LOSS_TOL``, the
-   combines 4 x ``explain_gradients(overlap_backward=True)``'s plan,
+   combines 3 x ``explain_gradients(overlap_backward=True)``'s plan,
    the flash launches the tuned run's, the releases in order 29...0 in
    every rank and step, each step's trace and summary written, parsed
    and holding one span a plan entry; each step's compute / exposed sync
@@ -219,6 +235,25 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    step;
    sc. [8s]'s tuned run with ``--overlap-backward --trace-dir``, held to
    it as [8c] is held to [8] (the SSD launches its, releases 23...0);
+   m. MoE expert parallelism: ``--arch olmoe-1b-7b --ranks 4
+   --model-parallel 2 --steps 3 --seq 256 --batch 8`` at full width, cut
+   to 2 of its 16 layers (``train.main(..., config={"num_layers": 2})``:
+   a rank's fp32 params, gradients and Adam moments take ~10 GB; 32 of
+   the 64 experts a rank), tuned (``tuned_decision.json``) and ``"xla"``,
+   held to each other as [8] (the replicas: non-expert params on every
+   rank, each expert slice on its two data ranks; the launches: the
+   flash kernels a layer a rank-step and the plan's combines), the
+   dispatch all-to-all the table resolved printed, and the three faults
+   of ``steps.planted_ep_fault`` (expert gradients left undivided by tp,
+   replicated gradients not averaged over ``model``, the reverse
+   exchange replaced by identity), each planted in a 2-rank tuned step
+   of one layer, its synced step-0 gradients read against the correct
+   step's: each must exceed ``TRAIN_GRAD_TOL``;
+   mc. [8m]'s tuned run with ``--overlap-backward``, two steps: under
+   expert parallelism each layer's release syncs it inside the backward
+   (one fused sync a layer, no sync thread, as the launcher prints),
+   held to [8m]'s tuned run (step 0's synced gradients, losses, releases 1, 0
+   in every rank and step, no second on a sync thread);
 9. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
@@ -264,8 +299,16 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_MMA_TOL = 1e-2
 # smollm-135m's training attention: 2 rows a rank of the 8 x 256 batch
 TRAIN_ATTN_SHAPE = (2, 256, 9, 3, 64)
+# olmoe-1b-7b's ([8m]): 4 rows a rank of the 8 x 256 batch on 2 x 2
+# ("data", "model"), 16/16 heads of 128
+OLMOE_TRAIN_ATTN_SHAPE = (4, 256, 16, 16, 128)
 COMBINE_N = 1 << 24              # 16M elements: 64 MB of fp32 per operand
 RANKS = 4                        # processes on the card for the collectives
+# the tuning sessions' depth: [6] at every size, [6b] (which measures the
+# same grid again for every tuner family) up to 4 MB; the 64 MB points
+# and a third trial took ~110 s of the script's 1200 on a slow host
+TUNE_TRIALS = 2
+TUNER_SIZES = (4096, 262144, 4194304)
 SERVE_SHAPE = dict(B=8, S=512, H=9, KV=3, D=64)
 # the prefill attention calls of the serving paths, (B, S, H, KV, D), bf16
 ATTN_TIMED_SHAPES = {
@@ -786,6 +829,8 @@ def phase_flash_backward():
               ((2, 200, 264, 4, 2, 80), {"q_offset": 64}),
               ((2, 200, 264, 4, 2, 128), {}),
               ((1, 200, 264, 6, 2, 128), {"q_offset": 64, "window": 96})]
+    B, S, H, KV, D = OLMOE_TRAIN_ATTN_SHAPE
+    sweep.append(((B, S, S, H, KV, D), {}))
     B, S, H, KV, D = TRAIN_ATTN_SHAPE
     sweep.append(((B, S, S, H, KV, D), {}))
     max_err = {dt: 0.0 for dt in both}
@@ -812,7 +857,9 @@ def phase_flash_backward():
                                                   TRAIN_ATTN_SHAPE),
                 "smollm serving": time_flash_bwd(
                     fa, fb, "smollm serving",
-                    (s["B"], s["S"], s["H"], s["KV"], s["D"]))}
+                    (s["B"], s["S"], s["H"], s["KV"], s["D"])),
+                "olmoe training": time_flash_bwd(fa, fb, "olmoe training",
+                                                 OLMOE_TRAIN_ATTN_SHAPE)}
     top = by_shape["smollm training"]
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -1958,8 +2005,8 @@ def paged_cache(cache, bs=16):
 
 def phase_breakdown(arch, B, S):
     """Where a fixed-batch path's time goes: torch.profiler over one
-    full-width bf16 prefill (B x S) and over 8 decode steps, and, for a
-    family with a KV cache, over 8 decode steps through the same cache
+    full-width bf16 prefill (B x S) and over 3 decode steps, and, for a
+    family with a KV cache, over 3 decode steps through the same cache
     in the continuous engine's paged form (the paged kernel's path); the
     device's busy share of the wall time, the kernels that fill it, and
     the port's own kernels wherever they rank."""
@@ -1979,11 +2026,11 @@ def phase_breakdown(arch, B, S):
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         api.decode_step(params, cache, tok)
         runs = [("prefill", 1, lambda: api.prefill(params, prompt, S + 64)),
-                ("decode", 8, lambda: api.decode_step(params, cache, tok))]
+                ("decode", 3, lambda: api.decode_step(params, cache, tok))]
         if "k" in cache:
             pcache = paged_cache(cache)
             api.decode_step(params, pcache, tok)
-            runs.append(("paged decode", 8,
+            runs.append(("paged decode", 3,
                          lambda: api.decode_step(params, pcache, tok)))
         torch.cuda.synchronize()
         for name, reps, fn in runs:
@@ -2106,7 +2153,7 @@ def phase_collectives(ranks=RANKS):
     n_grad = gradient_elems()
     out_path = os.path.join(ROOT, "device_measured_decision.json")
     argv = ["--ranks", str(ranks), "--check", "--grad-elems", str(n_grad),
-            "--out", out_path]
+            "--trials", str(TUNE_TRIALS), "--out", out_path]
     log(f"[6] measure_collectives {' '.join(argv)}")
     t0 = time.perf_counter()
     res = mc.main(argv)
@@ -2267,7 +2314,9 @@ def phase_tuners(ranks=RANKS):
     from repro_torch.launch import measure_collectives as mc
     with tempfile.TemporaryDirectory() as d:
         out_path = os.path.join(d, "tuners_measured_decision.json")
-        argv = ["--ranks", str(ranks), "--tuners", "all", "--out", out_path]
+        argv = ["--ranks", str(ranks), "--tuners", "all", "--trials",
+                str(TUNE_TRIALS), "--sizes", *map(str, TUNER_SIZES),
+                "--out", out_path]
         log(f"[6b] measure_collectives {' '.join(argv[:-2])}")
         t0 = time.perf_counter()
         res = mc.main(argv)
@@ -2283,7 +2332,7 @@ def phase_tuners(ranks=RANKS):
                              f"table {table.meta}")
     log(f"    {res['samples']} samples, {res['n_experiments']} experiments "
         f"in {res['tune_seconds']:.1f}s (host-staged ranks); sizes "
-        f"{list(mc.SIZES)} B, ops {list(mc.OPS)}")
+        f"{list(TUNER_SIZES)} B, ops {list(mc.OPS)}")
     log(f"    {'tuner':14s} {'new exps':>9s} {'cache hits':>11s} "
         f"{'penalty':>9s} {'seconds':>8s} {'segment_combine':>16s}")
     paths = {}
@@ -2391,7 +2440,7 @@ def phase_remapped(n_params, identity_bucketed):
 # ---------------------------------------------------------------------------
 # [8] the data-parallel training step
 # ---------------------------------------------------------------------------
-TRAIN_STEPS = 4
+TRAIN_STEPS = 3
 TRAIN_RANKS = 4
 TRAIN_ARGS = ["--ranks", "4", "--topology", "2x2", "--steps",
               str(TRAIN_STEPS), "--seq", "256", "--batch", "8"]
@@ -2419,7 +2468,7 @@ TRAIN_GRAD_TOL = 1e-6
 # gradient is near 0 the order of the sum can flip its update (two steps
 # apart), which a flip in 1 of 10^5 params would read at ~1e-2
 TRAIN_CHANGE_TOL = 1e-2
-# lr_scale is 0, .01, .02, .03 over the 4 warmup steps (lr 3e-4), so a
+# lr_scale is 0, .01, .02 over the 3 warmup steps (lr 3e-4), so a
 # param moves at most a few times 1.8e-5 in all; a param that crosses a
 # bf16 rounding boundary moves the bf16 forward's loss by ~1e-4
 TRAIN_LOSS_TOL = 5e-3
@@ -2449,13 +2498,17 @@ def change_reading(final, init, want) -> float:
 
 def sync_readings(tuned, xla):
     """[8]'s readings of the tuned run against the xla run, and the same
-    readings of faults planted in the tuned run's trees."""
+    readings of faults planted in the tuned run's trees (each tree moved
+    to the card in float64 once)."""
     from repro_torch import pytree
-    gt, gx = pytree.leaves(tuned["grads0"]), pytree.leaves(xla["grads0"])
-    init = pytree.leaves(tuned["init_params"])
-    ft, fx = pytree.leaves(tuned["params"]), pytree.leaves(xla["params"])
+
+    def card(tree):
+        return [t.to("cuda", torch.float64) for t in pytree.leaves(tree)]
+    gt, gx = card(tuned["grads0"]), card(xla["grads0"])
+    init = card(tuned["init_params"])
+    ft, fx = card(tuned["params"]), card(xla["params"])
     if not all(torch.equal(a, b) for a, b in
-               zip(init, pytree.leaves(xla["init_params"]))) or \
+               zip(init, card(xla["init_params"]))) or \
             tuned["local_grads0_fingerprint"] != \
             xla["local_grads0_fingerprint"]:
         raise AssertionError("[8] the runs' initial params or rank 0's "
@@ -2483,21 +2536,28 @@ def sync_readings(tuned, xla):
         "update lost": change_reading(init, init, fx),
         "update reversed": change_reading([2 * i - f for i, f in
                                            zip(init, ft)], init, fx)}
-    return {"grad": grad_reading(gt, gx),
-            "change": change_reading(ft, init, fx),
-            "max_abs_param": max((a.double() - b.double()).abs().max().item()
-                                 for a, b in zip(ft, fx)),
-            "planted": planted}
+    out = {"grad": grad_reading(gt, gx),
+           "change": change_reading(ft, init, fx),
+           "max_abs_param": max((a - b).abs().max().item()
+                                for a, b in zip(ft, fx)),
+           "planted": planted}
+    # the card's copies go back to the device before the ranks of the
+    # next run need it (olmoe's: ~31 GB)
+    del gt, gx, init, ft, fx, shifted, halved
+    torch.cuda.empty_cache()
+    return out
 
 
-def train_run(tag, label, argv):
+def train_run(tag, label, argv, config=None):
     """One ``repro_torch.launch.train`` run (its counts are zeroed in
     every rank just before the steps and summed over the ranks just
-    after); returns rank 0's result with its final params."""
+    after); returns rank 0's result with its final params. ``config``
+    replaces fields of the model's config (a depth cut)."""
     from repro_torch.launch import train
-    log(f"[{tag}] {label}: train {' '.join(argv)}")
+    log(f"[{tag}] {label}: train {' '.join(argv)}"
+        + (f" (config {config})" if config else ""))
     t0 = time.perf_counter()
-    res = train.main(argv, keep_params=True)
+    res = train.main(argv, keep_params=True, config=config)
     res["wall_s"] = time.perf_counter() - t0
     mem = ", ".join(f"{b / 2**30:.2f}" for b in res["peak_mem_bytes"])
     log(f"    losses {' '.join(f'{x:.6f}' for x in res['losses'])}; s per "
@@ -2697,6 +2757,277 @@ def phase_training_overlapped(arch, tuned):
              "loss_diff": loss_diff, **traces}, r["launches"])
 
 
+# ---------------------------------------------------------------------------
+# [8m] MoE expert parallelism in the training step
+# ---------------------------------------------------------------------------
+FLAT_TABLE = os.path.join(ROOT, "examples", "artifacts",
+                          "tuned_decision.json")
+MOE_TRAIN_STEPS = 3
+# [8mc]'s steps: held to [8m]'s first two
+MOE_OVERLAP_STEPS = 2
+# olmoe-1b-7b at full width on 4 ranks, ("data", "model") = 2 x 2: each
+# rank holds 32 of the 64 experts of every layer, 4 rows of the 8 x 256
+# batch and routes a 128-token chunk of each
+MOE_TRAIN_ARGS = ["--arch", "olmoe-1b-7b", "--ranks", "4",
+                  "--model-parallel", "2", "--steps", str(MOE_TRAIN_STEPS),
+                  "--seq", "256", "--batch", "8"]
+# depth cut 16 -> 2: at 16 B a param (fp32 param, gradient, Adam m and v)
+# a rank's 642M params are 10.3 GB, four ranks ~41 GB of the card
+MOE_TRAIN_CONFIG = {"num_layers": 2}
+MOE_EXPERTS = [[0, 32], [32, 64], [0, 32], [32, 64]]
+
+
+def expected_moe_launches(r, steps):
+    """Each kernel's launches over a run's ``steps``, summed over the
+    ranks: one flash forward and LAUNCHES_PER_CALL backward launches a
+    layer a rank-step, and the tuned plan's combines every step."""
+    from repro_torch.kernels import attention_bwd
+    per = MOE_TRAIN_CONFIG["num_layers"] * steps * TRAIN_RANKS
+    return {"flash_attention": per,
+            "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
+            "ssd_chunk": 0, "ssd_chunk_bwd": 0,
+            "segment_combine": steps * r["plan_combines"]}
+
+
+def check_moe_run(tag, label, r, steps=MOE_TRAIN_STEPS):
+    want = expected_moe_launches(r, steps)
+    bad = [k for k, ok in (
+        ("device", r["device"] == "cuda:0" and r["ranks"] == TRAIN_RANKS),
+        ("mesh", r["mesh"] == {"data": 2, "model": 2}),
+        ("experts", r["experts"] == MOE_EXPERTS),
+        ("replicas", r["replicas_equal_at_init"]
+         and all(r["replicas_equal"])),
+        ("losses", len(r["losses"]) == steps and all(
+            x == x and 0 < x < 20 for x in r["losses"])),
+        ("launches", r["launches"] == want)) if not ok]
+    if bad:
+        raise AssertionError(f"[{tag}] {label}: {bad}; launches "
+                             f"{r['launches']} vs {want}")
+
+
+def _moe_fault_rank(layers):
+    """One rank of a 2-rank ("data", "model") = 1 x 2 mesh: olmoe's
+    tuned training step at full width (4 rows x 256, [8m]'s rows a
+    rank), and the same step with each fault of
+    ``steps.planted_ep_fault`` planted; returns rank 0's readings of each
+    faulty step's synced step-0 gradients against the correct step's
+    (`grad_reading`, per leaf)."""
+    from repro_torch import pytree
+    from repro_torch.comms import Communicator
+    from repro_torch.configs import ARCHITECTURES, ParallelConfig, \
+        ShapeConfig
+    from repro_torch.configs.base import CollectiveConfig
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.data import batch_to_tensors
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import make_train_batch
+    dev = grp.device_of("cuda")
+    mesh = make_local_mesh(2, device=dev)
+    cfg = ARCHITECTURES["olmoe-1b-7b"].replace(num_layers=layers)
+    shape = ShapeConfig(name="faults", seq_len=256, global_batch=4,
+                        kind="train")
+    comm = Communicator.create(mesh, artifact=FLAT_TABLE)
+    step = steps.build_train_step(cfg, shape, ParallelConfig(),
+                                  CollectiveConfig(decision=FLAT_TABLE),
+                                  mesh, communicator=comm, device=dev)
+    params = step.init(torch.Generator(device=dev).manual_seed(0))
+    batch = batch_to_tensors(make_train_batch(cfg, shape, seed=0), dev,
+                             rows=step.rows)
+
+    def grads():        # the step updates its params in place
+        p = pytree.tree_map(torch.clone, params)
+        m = step.fn(p, step.opt.init(p), batch, keep_grads=True)[2]
+        return pytree.leaves(m["grads"])
+    good = grads()
+    readings = {}
+    for fault in steps.EP_FAULTS:
+        with steps.planted_ep_fault(fault):
+            readings[fault] = grad_reading(grads(), good)
+    return readings
+
+
+def phase_training_moe():
+    """[8m] olmoe-1b-7b at full width (2 of 16 layers) trained with
+    expert parallelism on 4 host-staged ranks, tuned (the flat table)
+    and through "xla", held to each other as [8] is; faults planted in
+    the expert-parallel correction must read above the gradient
+    tolerance; then [8mc], the tuned run overlapped. Returns the summary
+    and the launch counts by path."""
+    from repro_torch.core.collectives import group as grp
+    t0 = time.perf_counter()
+    tuned = train_run("8m", "tuned", [*MOE_TRAIN_ARGS, "--tuning-table",
+                                      FLAT_TABLE], config=MOE_TRAIN_CONFIG)
+    xla = train_run("8m", "xla", [*MOE_TRAIN_ARGS, "--collective", "xla"],
+                    config=MOE_TRAIN_CONFIG)
+    for label, r in (("tuned", tuned), ("xla", xla)):
+        check_moe_run("8m", label, r)
+    if not tuned["tuned"] or xla["tuned"] or tuned["plan_combines"] <= 0 \
+            or xla["a2a_algorithm"] != "xla":
+        raise AssertionError(f"[8m] plans: tuned {tuned['plan_combines']} "
+                             f"combines, xla a2a {xla['a2a_algorithm']}")
+    log(f"    dispatch: {tuned['dispatch_bytes']} B each way a layer; the "
+        f"table resolved the all-to-all to {tuned['a2a_algorithm']!r} "
+        f"(xla run: {xla['a2a_algorithm']!r}); {tuned['leaves']} leaves, "
+        f"{tuned['param_elems']} params a rank")
+    loss_diff = max(abs(a - b) for a, b in zip(tuned["losses"],
+                                               xla["losses"]))
+    rd = sync_readings(tuned, xla)
+    # the host keeps of both runs only what [8mc] is held to
+    for k in ("init_params", "params"):
+        tuned.pop(k), xla.pop(k)
+    xla.pop("grads0")
+    t1 = time.perf_counter()
+    # one layer is enough to read each fault, and costs less set-up
+    faults = grp.spawn(_moe_fault_rank, 2, (1,))
+    rd["planted_ep"] = faults
+    log(f"    tuned vs xla: step 0's synced gradients within {rd['grad']:.3g}"
+        f" (tol {TRAIN_GRAD_TOL}), the params' change within "
+        f"{rd['change']:.3g} (tol {TRAIN_CHANGE_TOL}), losses within "
+        f"{loss_diff:.3g} (tol {TRAIN_LOSS_TOL}), final params within "
+        f"{rd['max_abs_param']:.3g}")
+    log("    planted in the tuned run's trees: " + "; ".join(
+        f"{k} {v:.3g}" for k, v in rd["planted"].items()))
+    log(f"    planted in the expert-parallel step (2 ranks, 1 layer, "
+        f"step 0's synced gradients against the correct step's, "
+        f"{time.perf_counter() - t1:.1f}s): "
+        + "; ".join(f"{k} {v:.3g}" for k, v in faults.items()))
+    if rd["grad"] > TRAIN_GRAD_TOL or rd["change"] > TRAIN_CHANGE_TOL \
+            or loss_diff > TRAIN_LOSS_TOL:
+        raise AssertionError("[8m] the tuned run departs from the xla run")
+    for k, v in {**rd["planted"], **faults}.items():
+        if v <= (TRAIN_CHANGE_TOL if k.startswith("update")
+                 else TRAIN_GRAD_TOL):
+            raise AssertionError(f"[8m] the planted fault '{k}' reads {v}, "
+                                 f"inside the tolerance")
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "peak_mem_bytes", "launches", "plan_entries", "plan_combines",
+            "describe", "wall_s", "a2a_algorithm", "dispatch_bytes",
+            "param_elems", "leaves")
+    summary = {"tuned": {k: tuned[k] for k in keep},
+               "xla": {k: xla[k] for k in keep},
+               "loss_diff": loss_diff, "readings": rd}
+    paths = {"train_olmoe_tuned": tuned["launches"],
+             "train_olmoe_xla": xla["launches"]}
+    r = train_run("8mc", "tuned, overlapped",
+                  [*MOE_TRAIN_ARGS[:-5], str(MOE_OVERLAP_STEPS),
+                   *MOE_TRAIN_ARGS[-4:], "--tuning-table", FLAT_TABLE,
+                   "--overlap-backward"], config=MOE_TRAIN_CONFIG)
+    check_moe_run("8mc", "overlapped", r, MOE_OVERLAP_STEPS)
+    from repro_torch import pytree
+    order = list(reversed(range(MOE_TRAIN_CONFIG["num_layers"])))
+    grad = grad_reading(pytree.leaves(r["grads0"]),
+                        pytree.leaves(tuned["grads0"]))
+    o_loss = max(abs(a - b) for a, b in zip(r["losses"], tuned["losses"]))
+    bad = [k for k, ok in (
+        ("release order", r["release_events"]
+         == [[order] * TRAIN_RANKS] * MOE_OVERLAP_STEPS),
+        ("combines", r["plan_combines"] > 0),
+        ("no sync thread", not any(r["release_sync_s"])),
+        ("gradients before the sync", r["local_grads0_fingerprint"]
+         == tuned["local_grads0_fingerprint"])) if not ok]
+    log(f"    overlapped vs [8m] tuned: step 0's synced gradients within "
+        f"{grad:.3g} (tol {TRAIN_GRAD_TOL}), losses within {o_loss:.3g}; "
+        f"{r['plan_entries']} sync collectives and {r['plan_combines']} "
+        f"combines a step ([8m]: {tuned['plan_entries']}, "
+        f"{tuned['plan_combines']})")
+    for i in range(MOE_OVERLAP_STEPS):
+        log(f"    step {i}: compute / exposed sync / optimizer s, "
+            f"overlapped {r['compute_s'][i]:.4f} / {r['sync_s'][i]:.4f} / "
+            f"{r['opt_s'][i]:.4f} (sync thread {r['release_sync_s'][i]:.4f})"
+            f", [8m] tuned {tuned['compute_s'][i]:.4f} / "
+            f"{tuned['sync_s'][i]:.4f} / {tuned['opt_s'][i]:.4f}")
+    if bad or grad > TRAIN_GRAD_TOL or o_loss > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[8mc] the overlapped run departs from [8m]'s "
+                             f"tuned run: {bad}, gradients {grad}, losses "
+                             f"{o_loss}")
+    summary["overlapped"] = {**{k: r[k] for k in keep + (
+        "release_sync_s",)}, "grad_reading": grad, "loss_diff": o_loss}
+    paths["train_olmoe_overlapped"] = r["launches"]
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"    [8m] + [8mc] {summary['phase_s']:.1f}s")
+    return summary, paths
+
+
+# ---------------------------------------------------------------------------
+# [4t] tensor-parallel decode through the tuned Communicator
+# ---------------------------------------------------------------------------
+TP_ARGS = ["--arch", "smollm-135m", "--tensor-parallel", "4",
+           "--tuning-table", FLAT_TABLE]
+
+
+def phase_tp_decode(one_process):
+    """[4t] smollm-135m at full width and depth served by 4 ranks on the
+    card, each step's logits reassembled through the tuned collective:
+    the fixed batch through all_gather and all_reduce, the continuous
+    trace through all_gather. Each held to the one-process run of the
+    same argv (``one_process``: [4]'s results by label): tokens equal,
+    the fixed loop's last logits bit-equal, every rank's equal rank
+    0's; the executed collective the printed one; the launches (summed
+    over the ranks) the plan's. Returns the summary and the launches by
+    path."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.measure_collectives import combines_per_rank
+    fixed = ["--prompt-len", "512", "--gen", "64", "--batch", "8"]
+    cont = ["--continuous", "--num-requests", "32", "--poisson-rate", "20",
+            "--prompt-len", "512", "--gen", "64", "--max-active", "8",
+            "--block-size", "16"]
+    runs = [("tp_fixed_all_gather", "smollm_fixed", fixed, "all_gather"),
+            ("tp_fixed_all_reduce", "smollm_fixed", fixed, "all_reduce"),
+            ("tp_continuous_all_gather", "smollm_continuous", cont,
+             "all_gather")]
+    t0 = time.perf_counter()
+    summary, paths = {}, {}
+    for label, base, argv, coll in runs:
+        full = [*TP_ARGS, *argv, "--tp-collective", coll]
+        log(f"[4t] {label}: serve {' '.join(full)}")
+        t1 = time.perf_counter()
+        res = serve.main(full)
+        wall = time.perf_counter() - t1
+        one = one_process[base]
+        nbytes, alg, seg = res["executed_spec"]
+        p = 4
+        if "tokens" in res:
+            same = bool((res["tokens"] == one["tokens"]).all()) and \
+                torch.equal(res["last_logits"], one["last_logits"])
+            flash, paged = 30 * p, 0
+        else:
+            same = res["generated"] == one["generated"]
+            flash = 32 * 30 * p
+            paged = res["decode_steps"] * 30 * p
+        combines = combines_per_rank(coll, alg, seg, p) * p * \
+            res["decode_steps"]
+        want = {"flash_attention": flash, "flash_attention_bwd": 0,
+                "ssd_chunk": 0, "ssd_chunk_bwd": 0,
+                "segment_combine": combines, "paged_attention": paged}
+        log(f"    executed {res['executed']} (printed {nbytes} B -> {alg} "
+            f"segments={seg}); per-token p50 {res['token_ms_p50']:.3f} p99 "
+            f"{res['token_ms_p99']:.3f} ms (one process: "
+            f"{one['token_ms_p50']:.3f} / {one['token_ms_p99']:.3f}), "
+            f"{res['tok_per_s']:.1f} tok/s ({one['tok_per_s']:.1f}); "
+            f"{res['decode_steps']} decode steps; tokens and logits equal to "
+            f"the one-process run: {same}; ranks equal: "
+            f"{res['ranks_equal']}; launches {res['launches']}; "
+            f"{wall:.1f}s with set-up")
+        bad = [k for k, ok in (
+            ("one-process bits", same), ("ranks", res["ranks_equal"]),
+            ("executed", res["executed"] == [(nbytes, alg, seg)]),
+            ("launches", res["launches"] == want)) if not ok]
+        if bad:
+            raise AssertionError(f"[4t] {label}: {bad}; launches "
+                                 f"{res['launches']} vs {want}")
+        summary[label] = {k: res[k] for k in (
+            "token_ms_p50", "token_ms_p90", "token_ms_p99", "tok_per_s",
+            "decode_steps", "executed_spec") if k in res}
+        summary[label].update(wall_s=wall, one_process={
+            k: one[k] for k in ("token_ms_p50", "token_ms_p99",
+                                "tok_per_s")})
+        paths[label] = res["launches"]
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"    [4t] {summary['phase_s']:.1f}s")
+    return summary, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2707,6 +3038,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+
+    def mark(label):
+        log(f"[t] {time.perf_counter() - t0:.1f}s after {label}")
     smi = phase_device()
     kernels = {"flash_attention": phase_kernel(),
                "flash_attention_bwd": phase_flash_backward(),
@@ -2714,6 +3048,7 @@ def main() -> int:
                "ssd_chunk_bwd": phase_ssd_backward(),
                "segment_combine": phase_combine_kernel(),
                "paged_attention": phase_paged_kernel()}
+    mark("[1]-[2f] kernels")
     diffs = {"smollm-135m": phase_model(),
              "mamba2-130m": phase_ssm_model("mamba2-130m", 2),
              "zamba2-2.7b": phase_ssm_model("zamba2-2.7b", 2)}
@@ -2722,11 +3057,14 @@ def main() -> int:
                    "zamba2-2.7b": phase_train_grads("zamba2-2.7b", layers=6)}
     moe = phase_moe_model()
     diffs["olmoe-1b-7b"] = moe["prefill_logit_diff"]
-    serving = {}
+    mark("[3] models, [3t], [3c]")
+    serving, one_process = {}, {}
     for k in kernels.values():
         k["launches"], k["launches_by_path"] = 0, {}
     for label, argv, expect in serving_paths():
         got, res = serve_path(label, argv, expect)
+        if label.startswith("smollm"):
+            one_process[label] = res
         for name, n in got.items():
             if n:
                 kernels[name]["launches"] += n
@@ -2737,21 +3075,37 @@ def main() -> int:
             if k in res}
         if "generated" in res:
             serving[label]["requests"] = len(res["generated"])
+    mark("[4] serving")
+    tp_decode, tp_paths = phase_tp_decode(one_process)
+    mark("[4t]")
+    for path, counts in tp_paths.items():
+        for name, n in counts.items():
+            if n:
+                kernels[name]["launches_by_path"][path] = n
     breakdown = {"smollm-135m": phase_breakdown("smollm-135m", 8, 512),
                  "mamba2-130m": phase_breakdown("mamba2-130m", 8, 512),
                  "zamba2-2.7b": phase_breakdown("zamba2-2.7b", 4, 512),
                  "olmoe-1b-7b": phase_breakdown("olmoe-1b-7b", 4, 512)}
+    mark("[5] breakdown")
     coll, coll_paths = phase_collectives()
+    mark("[6]")
     tuners, tuner_paths = phase_tuners()
+    mark("[6b]")
     coll_paths.update(tuner_paths)
     comm, comm_paths = phase_communicator(coll["grad_sync"]["elems"])
     comm["comm_2x2x2_mapped"], mapped_paths = phase_remapped(
         coll["grad_sync"]["elems"],
         comm["comm_2x2x2"]["variants"]["bucketed"]["seconds"])
     comm_paths.update(mapped_paths)
+    mark("[7], [7d]")
     training, train_paths = phase_training("smollm-135m")
+    mark("[8], [8c]")
     training_ssm, ssm_paths = phase_training("mamba2-130m")
     train_paths.update(ssm_paths)
+    mark("[8s], [8sc]")
+    training_moe, moe_paths = phase_training_moe()
+    train_paths.update(moe_paths)
+    mark("[8m], [8mc]")
     for path, counts in train_paths.items():
         for name, n in counts.items():
             kernels[name]["launches_by_path"][path] = n
@@ -2779,6 +3133,8 @@ def main() -> int:
                       "tuners": tuners,
                       "communicator": comm, "training": training,
                       "training_mamba2": training_ssm,
+                      "training_olmoe_ep": training_moe,
+                      "tp_decode": tp_decode,
                       "train_grads_fp32": train_grads}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

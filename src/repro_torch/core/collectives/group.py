@@ -30,8 +30,11 @@ every rank must issue its collectives in one order. `SyncThread` is the
 one place the port calls them off the main thread: the
 backward-overlapped gradient sync hands it one job a released layer
 while autograd runs the layers below, and the main thread issues no
-collective until it has joined the thread. On the card the thread works
-on a CUDA stream of its own, so the host staging's stream synchronizes
+collective until it has joined the thread. (Under expert parallelism
+the backward issues collectives of its own, so there the layers sync
+inside the backward and no thread runs: ``launch/steps.py``.) On the
+card the thread works on a CUDA stream of its own, so the host
+staging's stream synchronizes
 (``.to("cpu")``, ``.to(device)``) wait for the sync's own copies and
 kernels, not for the backward queued on the main stream.
 
@@ -191,6 +194,14 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
         blocks = out.chunk(len(order))
         out = torch.cat([blocks[g] for g in order])
     return out.to(x.device)
+
+
+def broadcast_object(obj, group=None):
+    """``obj`` (picklable) of the rank at index 0 along ``group``, on
+    every rank; the other ranks' ``obj`` is ignored."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=_peer(group, 0), group=_pg(group))
+    return box[0]
 
 
 def max_over_ranks(values: Sequence[float], group=None) -> list:

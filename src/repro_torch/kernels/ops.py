@@ -19,10 +19,19 @@
 from __future__ import annotations
 
 from repro_torch.kernels import attention as _fa
+from repro_torch.kernels import attention_bwd as _fab
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as _sr
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_scan_bwd as _ssdb
+
+#: the kernels of the training path, by the name the launch counts use
+#: (each module's ``launches``); serving adds the paged decode kernel
+TRAIN_COUNTERS = {"flash_attention": _fa, "flash_attention_bwd": _fab,
+                  "ssd_chunk": _ssd, "ssd_chunk_bwd": _ssdb,
+                  "segment_combine": _sr}
+SERVE_COUNTERS = {**TRAIN_COUNTERS, "paged_attention": _pa}
 
 
 def attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None,

@@ -35,15 +35,46 @@ residual sync), ``opt_s`` the optimizer; with overlap,
 ``release_sync_s`` adds the sync thread's busy seconds and
 ``release_events`` the released layers in release order.
 
-The dense, SSM and hybrid families train; the hybrid's mamba layers
-release under their global indices, its shared block syncs with the
-residual. Not ported (each raises ``NotImplementedError`` naming its
-ROADMAP.md Queue 1 step): expert and tensor parallelism (a ``model``
-axis over 1, step 8), the MoE family (step 8) and FSDP param sharding
-(step 10).
+The dense, MoE, SSM and hybrid families train; the hybrid's mamba
+layers release under their global indices, its shared block syncs with
+the residual.
+
+Expert parallelism (the MoE family on a ``model`` axis above 1). The
+reference runs it inside the one manual program of its tuned step
+(``ep_manual``) and, untuned, in a nested ``shard_map`` that XLA
+partitions. The port's ranks are processes, so every path takes the
+manual form (`models.moe_model`): the rows of the batch split over the
+data axes as before and replicated over ``model``, each rank's
+sequence chunk through its local experts. Its per-rank backward is the
+gradient of the SUM of the tp model ranks' (equal) losses, as the
+reference's transposes make it: expert-shard gradients carry a factor
+tp, and each rank's replicated-param gradients hold only its own
+chunk's expert-path part. `ep_correct` fixes that replica factor on
+both paths (expert gradients divided by tp, replicated ones averaged
+over ``model``), then the sync runs over the data tiers only, so an
+expert slice is synced among the ranks that hold it. Under
+``overlap_backward`` the correction follows
+``sync_gradients_streamed``: it is linear, so the values are the
+reference's (which corrects before its streamed sync) up to reduction
+order. The backward itself issues ``model``-axis collectives there (the
+exchange's and the sequence gather's gradients), so the release points
+sync each layer inside the backward, as the reference's form does,
+instead of on the sync thread: the launcher says so when it starts.
+With the sync thread, the card lost a gloo connection in the second
+overlapped step once, and a machine once; neither is root-caused
+(ROADMAP.md Queue 3). AdamW clips by the whole tree's norm
+(`ep_global_norm`), so the replicated params stay equal on every rank.
+The reference's untuned path, XLA's partitioning, is the oracle the
+tests hold the port's ``"xla"`` path to.
+
+Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
+Queue 1 step): a ``model`` axis above 1 for any other family (tensor
+parallelism in training, which the reference does not have either,
+step 10) and FSDP param sharding (step 10).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Optional
@@ -62,6 +93,7 @@ from repro_torch.configs.base import (
 )
 from repro_torch.core.collectives import group as grp
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.registry import build_model
 from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.parallel import sharding as sh
@@ -75,10 +107,14 @@ class TrainStep:
     over this rank's rows ``rows`` of the global batch (``fn(...,
     keep_grads=True)``: ``metrics["local_grads_fingerprint"]`` is the
     `pytree.fingerprint` of this rank's gradients before the sync, and
-    ``["grads"]`` the synced tree), with the model
+    ``["grads"]`` the synced tree; the update writes into ``params`` and
+    ``opt_state``, as `AdamW.update` does), with the model
     (``api``) and optimizer (``opt``) it was built over; ``grad(params,
     batch) -> ((loss, aux), grads)`` is its first phase alone, this
-    rank's gradients before the sync."""
+    rank's gradients before `ep_correct` and the sync. ``init(gen)``
+    draws the params this rank holds: all of them, or, with
+    ``ep_axis``, all but the other ranks' experts (`sharding.ep_shard`
+    of the full draw)."""
 
     fn: Callable
     grad: Callable
@@ -86,6 +122,88 @@ class TrainStep:
     opt: AdamW
     tuned: bool
     rows: slice
+    mesh: Any = None
+    ep_axis: Optional[str] = None
+
+    def init(self, gen: torch.Generator):
+        params = self.api.init(gen)
+        if self.ep_axis is None:
+            return params
+        return sh.ep_shard(params, self.mesh, self.ep_axis)
+
+
+def ep_correct(grads, mesh, ep_axis: str = "model"):
+    """Fix the expert-parallel replica factor of this rank's gradients
+    (the reference's ``ep_correct``, ``repro/launch/steps.py``): expert
+    shards divided by tp, replicated leaves averaged over ``ep_axis``
+    (their sum over the ranks is tp x the true gradient)."""
+    tp = mesh.shape[ep_axis]
+    return sh.map_ep(grads, lambda g: g / tp,
+                     lambda g: _pmean(g, mesh, (ep_axis,)))
+
+
+#: the faults of the expert-parallel step `planted_ep_fault` plants
+EP_FAULTS = ("undivided", "not_pmeaned", "identity_reverse")
+
+
+def _undivided(grads, mesh, ep_axis: str = "model"):
+    return sh.map_ep(grads, lambda g: g,
+                     lambda g: _pmean(g, mesh, (ep_axis,)))
+
+
+def _not_pmeaned(grads, mesh, ep_axis: str = "model"):
+    tp = mesh.shape[ep_axis]
+    return sh.map_ep(grads, lambda g: g / tp, lambda g: g)
+
+
+def _reshaped(buf, axis, tp, algorithm):
+    """The reverse exchange's shape change with no exchange."""
+    return buf.reshape(-1, buf.shape[1] // tp, buf.shape[2])
+
+
+def _reshaped_back(buf, axis, tp, algorithm):
+    return buf.reshape(buf.shape[0] // tp, -1, buf.shape[2])
+
+
+@contextlib.contextmanager
+def planted_ep_fault(fault: str):
+    """Plant one fault of the expert-parallel step in this process for
+    the length of the block, so that a check can show it fails:
+    ``"undivided"`` leaves the expert gradients undivided by tp and
+    ``"not_pmeaned"`` the replicated ones unaveraged over the model axis
+    (`ep_correct`); ``"identity_reverse"`` replaces the reverse dispatch
+    exchange, and its gradient, by a reshape. Adam's first step hides a
+    gradient's scale, so the step's synced gradients show each fault,
+    its params need not."""
+    saved = globals()["ep_correct"], moe._DIRECTIONS["rev"]
+    if fault == "undivided":
+        globals()["ep_correct"] = _undivided
+    elif fault == "not_pmeaned":
+        globals()["ep_correct"] = _not_pmeaned
+    elif fault == "identity_reverse":
+        moe._DIRECTIONS["rev"] = (_reshaped, _reshaped_back)
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {EP_FAULTS}")
+    try:
+        yield
+    finally:
+        globals()["ep_correct"], moe._DIRECTIONS["rev"] = saved
+
+
+def ep_global_norm(grads, mesh, ep_axis: str = "model") -> torch.Tensor:
+    """The global norm of the whole gradient tree from a rank that holds
+    a slice of its experts: the replicated leaves' sum of squares plus
+    the expert slices' summed over ``ep_axis``, the same bits on every
+    rank. (The reference's tuned step clips each rank by its own
+    slice's norm and keeps one rank's replicated params; its untuned
+    step, the oracle, clips by this norm.)"""
+    rep, exp = sh.ep_split(grads)
+
+    def sum_sq(tree):
+        return sum(torch.sum(torch.square(x.to(torch.float32)))
+                   for x in pytree.leaves(tree))
+    return torch.sqrt(sum_sq(rep) + grp.psum(sum_sq(exp),
+                                             mesh.axis(ep_axis)))
 
 
 def _pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -139,10 +257,15 @@ def build_train_step(
     tuned = comm.is_tuned
     validate_collectives(coll, parallel, tuned=tuned)
     overlap = coll.overlap_backward     # tuned: validate_collectives
+    ep_axis = None
     if sh.model_size(mesh) > 1:
-        raise NotImplementedError(
-            "a model-parallel axis (expert or tensor parallelism inside "
-            "the training step) comes with ROADMAP.md Queue 1 step 8")
+        if cfg.family != "moe":
+            raise NotImplementedError(
+                f"a model-parallel axis trains the MoE family (expert "
+                f"parallelism); tensor parallelism of the {cfg.family} "
+                f"family is not in the reference either and comes with "
+                f"ROADMAP.md Queue 1 step 10")
+        ep_axis = "model"
     if parallel.shard_params_over_data:
         raise NotImplementedError(
             "FSDP param sharding comes with ROADMAP.md Queue 1 step 10")
@@ -150,7 +273,8 @@ def build_train_step(
     cd = _DTYPES[parallel.compute_dtype]
     api = build_model(cfg, compute_dtype=cd,
                       param_dtype=_DTYPES[parallel.param_dtype],
-                      remat=parallel.remat != "none", device=dev)
+                      remat=parallel.remat != "none", device=dev,
+                      ep_axis=ep_axis, mesh=mesh, a2a_algorithm=comm)
     opt = AdamW(lr=lr)
     dpx = sh.dp_axes(mesh)
     dp = sh.dp_size(mesh)
@@ -171,6 +295,7 @@ def build_train_step(
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
+        aux = pytree.tree_map(lambda t: t.detach(), aux)
         return (loss.detach(), aux), treedef.unflatten(grads)
 
     def grad_fn(params, batch):
@@ -200,16 +325,24 @@ def build_train_step(
     def sync(grads):
         if tuned:
             return comm.sync_gradients(grads, mean=True)
-        # the backend's all-reduce over the data-parallel ranks (the
-        # whole group: no model axis), averaged
-        return pytree.tree_map(lambda g: grp.psum(g) / dp, grads)
+        if ep_axis is None:
+            # the backend's all-reduce over the data-parallel ranks (the
+            # whole group: no model axis), averaged
+            return pytree.tree_map(lambda g: grp.psum(g) / dp, grads)
+        return pytree.tree_map(lambda g: _pmean(g, mesh, dpx), grads)
+
+    def correct(grads):
+        return grads if ep_axis is None else ep_correct(grads, mesh,
+                                                        ep_axis)
 
     def overlapped(params, batch, keep_grads):
         """Forward and backward under a release sink whose thread syncs
-        each layer as autograd releases it; the step's phase-1 result and
-        the sink, whose syncs may still run."""
-        sink = comm.release_sink(coll.bucket_bytes, overlap=True,
-                                 device=dev, fingerprint=keep_grads)
+        each layer as autograd releases it (with experts split over
+        ``model``, in the backward itself: see the module's text); the
+        step's phase-1 result and the sink, whose syncs may still run."""
+        sink = comm.release_sink(coll.bucket_bytes,
+                                 overlap=ep_axis is None, device=dev,
+                                 fingerprint=keep_grads)
         with L.release_scope(sink):
             (loss, aux), grads = value_and_grad(params, batch)
         if dev.type == "cuda":      # the backward's stream, not the sync's
@@ -234,14 +367,20 @@ def build_train_step(
             grads = comm.sync_gradients_streamed(grads, sink, mean=True)
             kept["release_sync_s"] = sink.busy_s
             kept["release_events"] = [i for _, i in sink.events]
+            del sink                    # its synced layers, before correct
+            grads = correct(grads)
         else:
+            grads = correct(grads)      # the raw tree freed before the sync
             grads = sync(grads)
         loss = _pmean(loss, mesh, dpx)
         aux = pytree.tree_map(lambda v: _pmean(v, mesh, dpx), aux)
         _synchronize(dev)
         t2 = time.perf_counter()
+        gnorm = None if ep_axis is None or not opt.grad_clip \
+            else ep_global_norm(grads, mesh, ep_axis)
         new_params, new_opt = opt.update(grads, opt_state, params,
-                                         lr_scale=lr_scale(opt_state.step))
+                                         lr_scale=lr_scale(opt_state.step),
+                                         gnorm=gnorm)
         _synchronize(dev)
         t3 = time.perf_counter()
         metrics = {"loss": loss, **aux, "compute_s": t1 - t0,
@@ -251,4 +390,4 @@ def build_train_step(
         return new_params, new_opt, metrics
 
     return TrainStep(fn=fn, grad=grad_fn, api=api, opt=opt, tuned=tuned,
-                     rows=rows)
+                     rows=rows, mesh=mesh, ep_axis=ep_axis)

@@ -36,10 +36,20 @@ writes rank 0's ``step{NNN}.trace.json`` (Perfetto) and
 ``step{NNN}.summary.json`` into DIR, and, with a ``--topology``, prints
 the drift line the re-tune loop watches, as the reference does.
 
-The dense, SSM (mamba2) and hybrid (zamba2) families train. Not ported
-yet (each raises ``NotImplementedError`` naming its ROADMAP.md Queue 1
-step): ``--model-parallel`` above 1 (step 8), FSDP (step 10), the MoE
-family (step 8), and the VLM and enc-dec families (step 10).
+The dense, MoE (olmoe), SSM (mamba2) and hybrid (zamba2) families
+train. ``--model-parallel`` above 1 adds a ``model`` axis to the mesh
+(``--ranks`` defaults to the topology's size, else 1, times it) over
+which the MoE family's experts are split (expert parallelism,
+`steps.build_train_step`): each rank holds its slice of every layer's
+experts, the dispatch all-to-all runs as the Communicator (or
+``"xla"``) resolves it, and the replica check reads the non-expert
+params on every rank and each expert slice on the data ranks that hold
+it; ``--ckpt`` gathers the experts over ``model`` first, so rank 0
+writes every expert. Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP.md Queue 1 step): a
+``model`` axis for the other families (tensor parallelism, which the
+reference does not train either), FSDP, and the VLM and enc-dec
+families (all step 10).
 
 Examples:
     python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
@@ -54,6 +64,10 @@ Examples:
         --topology 2x2 \\
         --tuning-table examples/artifacts/hierarchical_decision.json \\
         --steps 4 --seq 256 --batch 8
+    python -m repro_torch.launch.train --arch olmoe-1b-7b --ranks 4 \\
+        --model-parallel 2 \\
+        --tuning-table examples/artifacts/tuned_decision.json \\
+        --steps 3 --seq 256 --batch 8
     python -m repro_torch.launch.train --arch smollm-135m --reduced \\
         --device cpu --ranks 2 --steps 2 --seq 64 --batch 4
 """
@@ -79,23 +93,21 @@ from repro_torch.configs.base import (
 )
 from repro_torch.core.collectives import group as grp
 from repro_torch.data import SyntheticPipeline, batch_to_tensors, stream_ids
-from repro_torch.kernels import attention, attention_bwd, segment_reduce, \
-    ssd_scan, ssd_scan_bwd
+from repro_torch.kernels.ops import TRAIN_COUNTERS as COUNTERS
 from repro_torch.launch.mesh import local_mesh_spec, make_local_mesh
 from repro_torch.launch.steps import build_train_step
+from repro_torch.models import moe
 from repro_torch.models.registry import check_trainable
-
-#: the kernels of the training path, by the name the launch counts use
-COUNTERS = {"flash_attention": attention,
-            "flash_attention_bwd": attention_bwd,
-            "ssd_chunk": ssd_scan, "ssd_chunk_bwd": ssd_scan_bwd,
-            "segment_combine": segment_reduce}
+from repro_torch.parallel import sharding as sh
 
 #: where each unported option comes from (ROADMAP.md Queue 1)
 LATER = {
-    "model_parallel": "a model-parallel axis (--model-parallel > 1: expert "
-                      "or tensor parallelism in the training step) comes "
-                      "with step 8",
+    "tensor_parallel": "a model-parallel axis for a family without "
+                       "experts (--model-parallel > 1: tensor parallelism "
+                       "in the training step, which the reference does "
+                       "not have either) comes with step 10",
+    "fsdp": "FSDP param sharding (ParallelConfig.shard_params_over_data) "
+            "comes with step 10",
 }
 
 
@@ -104,7 +116,8 @@ def _later(key: str):
 
 
 def _to_host(tree):
-    return pytree.tree_map(lambda t: t.detach().cpu(), tree)
+    """A host copy (the steps update the params in place)."""
+    return pytree.tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
 
 
 def _counts() -> dict:
@@ -155,6 +168,21 @@ def _write_step_trace(args, comm, params, runner, topology, step,
               f"(measured {resid.measured_tasks()}/{len(resid.tasks)} "
               f"tasks, exposed comm "
               f"{resid.modeled_exposed * 1e6:.0f} us modeled)", flush=True)
+
+
+def _replicas(params, mesh, ep_axis) -> bool:
+    """Whether the ranks hold equal params: every leaf on every rank, or,
+    with ``ep_axis``, the non-expert leaves on every rank and each
+    expert slice on the ranks that hold it (one bit checksum a rank,
+    gathered)."""
+    if ep_axis is None:
+        fps = _gather(pytree.fingerprint(params))
+        return all(f == fps[0] for f in fps)
+    rep, exp = sh.ep_split(params)
+    fps = _gather((pytree.fingerprint(rep), pytree.fingerprint(exp),
+                   grp.rank(mesh.axis(ep_axis))))
+    return all(f[0] == fps[0][0] for f in fps) and all(
+        f[1] == g[1] for f in fps for g in fps if f[2] == g[2])
 
 
 def _build_mesh(args, device, topology):
@@ -221,13 +249,18 @@ def _rank_main(opts: dict):
     coll = CollectiveConfig(algorithm=args.collective, decision=table_path,
                             bucket_bytes=comm.bucket_bytes,
                             overlap_backward=args.overlap_backward)
-    if args.overlap_backward:
-        say("gradient sync: backward-overlapped release streams")
     parallel = opts["parallel"]
     step = build_train_step(cfg, shape, parallel, coll, mesh, lr=args.lr,
                             total_steps=args.steps, communicator=comm,
                             device=device)
-    params = step.api.init(torch.Generator(device=device).manual_seed(0))
+    if args.overlap_backward and step.ep_axis is None:
+        say("gradient sync: backward-overlapped release streams")
+    elif args.overlap_backward:
+        say(f"gradient sync: per-layer release points, each layer synced "
+            f"inside the backward (expert parallelism over "
+            f"{step.ep_axis}: no sync thread, so the layers' syncs are "
+            f"fused, not overlapped; ROADMAP.md Queue 3)")
+    params = step.init(torch.Generator(device=device).manual_seed(0))
     opt_state = step.opt.init(params)
     pipe = SyntheticPipeline(cfg, shape, seed=0, streams=opts["streams"])
 
@@ -269,8 +302,23 @@ def _rank_main(opts: dict):
            "losses": [], "step_s": [], "compute_s": [], "sync_s": [],
            "opt_s": [], "replicas_equal": [], "release_sync_s": [],
            "release_events": []}
-    replicas = _gather(pytree.fingerprint(params))
-    res["replicas_equal_at_init"] = all(r == replicas[0] for r in replicas)
+    if step.ep_axis is not None:
+        tp = mesh.shape[step.ep_axis]
+        lo, hi = sh.expert_range(mesh, cfg.num_experts, step.ep_axis)
+        # one layer's dispatch buffer (E, C, d) in the compute dtype,
+        # C from this rank's rows x its S/tp sequence chunk
+        tokens = (step.rows.stop - step.rows.start) * shape.seq_len // tp
+        res["dispatch_bytes"] = cfg.num_experts * cfg.d_model * \
+            moe.capacity(cfg, tokens) * \
+            pytree.itemsize(opts["parallel"].compute_dtype)
+        res["a2a_algorithm"] = comm.a2a_algorithm_for(
+            res["dispatch_bytes"], step.ep_axis, tp)
+        res["experts"] = _gather([lo, hi])
+        say(f"expert parallelism: {cfg.num_experts} experts over "
+            f"{step.ep_axis}={tp}, {hi - lo} a rank; dispatch all-to-all "
+            f"of {res['dispatch_bytes']} B each way a layer: "
+            f"{res['a2a_algorithm']}")
+    res["replicas_equal_at_init"] = _replicas(params, mesh, step.ep_axis)
     keep = opts["keep_params"] and lead
     if keep:
         res["init_params"] = _to_host(params)
@@ -293,8 +341,7 @@ def _rank_main(opts: dict):
         split = grp.max_over_ranks([metrics["compute_s"], metrics["sync_s"],
                                     metrics["opt_s"],
                                     metrics.get("release_sync_s", 0.0)])
-        replicas = _gather(pytree.fingerprint(params))
-        equal = all(r == replicas[0] for r in replicas)
+        equal = _replicas(params, mesh, step.ep_axis)
         for key, v in zip(("losses", "step_s", "compute_s", "sync_s",
                            "opt_s", "release_sync_s", "replicas_equal"),
                           (loss, wall, *split, equal)):
@@ -310,7 +357,7 @@ def _rank_main(opts: dict):
                 + f", optimizer {split[2]:.3f} s (slowest rank's)")
         if not equal:
             raise AssertionError(f"step {i}: the ranks' params differ "
-                                 f"({len(replicas)} checksums)")
+                                 f"({grp.size()} checksums)")
         if runner is not None:
             # the replay's launches are not the step's: counted apart
             before = _counts()
@@ -328,15 +375,23 @@ def _rank_main(opts: dict):
         torch.cuda.max_memory_allocated(device)
         if device.type == "cuda" else 0)
     say(f"done: {args.steps} steps in {done:.1f}s")
-    say(f"replicas: params bit-identical over {grp.size()} ranks after "
-        f"every step; launches over the steps, summed over the ranks: "
+    held = f"params bit-identical over {grp.size()} ranks" \
+        if step.ep_axis is None else (
+            f"non-expert params bit-identical over {grp.size()} ranks, "
+            f"each expert slice over the {sh.dp_size(mesh)} data ranks "
+            f"that hold it,")
+    say(f"replicas: {held} after every step; launches over the steps, "
+        f"summed over the ranks: "
         + ", ".join(f"{k} {v}" for k, v in res["launches"].items()))
     if device.type == "cuda":
         say("peak device memory per rank: " + ", ".join(
             f"{b / 2**30:.2f} GiB" for b in res["peak_mem_bytes"]))
-    if args.ckpt and lead:
-        save(args.ckpt, {"params": params, "opt": opt_state},
-             step=args.steps, extra={"arch": cfg.name})
+    if args.ckpt:
+        tree = {"params": params, "opt": opt_state}
+        if step.ep_axis is not None:    # every expert, on every rank
+            tree = sh.ep_gather(tree, mesh, step.ep_axis)
+        if lead:
+            save(args.ckpt, tree, step=args.steps, extra={"arch": cfg.name})
         say(f"checkpoint -> {args.ckpt}")
     if keep:
         res["params"] = _to_host(params)
@@ -344,13 +399,15 @@ def _rank_main(opts: dict):
 
 
 def main(argv=None, *, keep_params: bool = False,
-         parallel: ParallelConfig = None) -> dict:
+         parallel: ParallelConfig = None, config: dict = None) -> dict:
     """Run the launch; returns rank 0's result (``keep_params``: with its
     initial and final params and step 0's synced gradients, on the host,
     as ``init_params``, ``params`` and ``grads0``, and the bit checksums
     of its step-0 gradients before the sync as
     ``local_grads0_fingerprint``). ``parallel`` replaces the default
-    `ParallelConfig` (fp32 master weights, bf16 compute)."""
+    `ParallelConfig` (fp32 master weights, bf16 compute); ``config``
+    replaces fields of the model's config (``{"num_layers": 2}``: a
+    full-width model cut in depth to fit one card)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="smollm-135m",
                     choices=sorted(ARCHITECTURES))
@@ -400,12 +457,16 @@ def main(argv=None, *, keep_params: bool = False,
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise _later("model_parallel")
     cfg = ARCHITECTURES[args.arch]
     check_trainable(cfg.family)
+    if args.model_parallel > 1 and cfg.family != "moe":
+        raise _later("tensor_parallel")
+    if parallel is not None and parallel.shard_params_over_data:
+        raise _later("fsdp")
     if args.reduced:
         cfg = cfg.reduced()
+    if config:
+        cfg = cfg.replace(**config)
     shape = ShapeConfig(name="cli", seq_len=args.seq,
                         global_batch=args.batch, kind="train")
     topology = None
@@ -421,8 +482,8 @@ def main(argv=None, *, keep_params: bool = False,
             topology = type(topology)(tuple(
                 dataclasses.replace(lv, axis=ax)
                 for lv, ax in zip(topology.levels, SYNC_AXES)))
-    ranks = args.ranks or (topology.total_size * args.model_parallel
-                           if topology else 1)
+    ranks = args.ranks or ((topology.total_size if topology else 1)
+                           * args.model_parallel)
     if topology is not None:
         by_axis = {lv.axis: lv.size for lv in topology.levels}
         pods, dcn = by_axis.get("pod", 1), by_axis.get("dcn", 1)
@@ -437,6 +498,13 @@ def main(argv=None, *, keep_params: bool = False,
                 f"({ranks} ranks / {dcn} dcn / {pods} pods / "
                 f"{args.model_parallel} model-parallel); a table tuned at "
                 f"fan-out {data_spec} would silently mis-decide")
+        model_lv = next((lv for lv in topology.levels
+                         if lv.axis == "model"), None)
+        if model_lv is not None and model_lv.size != args.model_parallel:
+            raise SystemExit(
+                f"--topology names {model_lv.size} model-parallel ranks "
+                f"({model_lv.name}) but --model-parallel is "
+                f"{args.model_parallel}")
         desc = " > ".join(f"{lv.name}({lv.size})"
                           for lv in reversed(topology.levels))
         print(f"topology: {desc}", flush=True)

@@ -1,10 +1,12 @@
 """Uniform model API (port of ``repro/models/registry.py``): the dense,
 MoE, SSM and hybrid families, and the training batches.
 
-Training (``ModelAPI.loss``) is ported for the dense, SSM and hybrid
-families; the MoE family's ``loss`` raises ``NotImplementedError``
-naming the ROADMAP.md Queue 1 step that brings it (step 8), as do the
-VLM and enc-dec families, which the port does not have yet (step 10)."""
+Training (``ModelAPI.loss``) is ported for the dense, MoE, SSM and
+hybrid families; the MoE family's takes expert parallelism
+(``ep_axis``, ``mesh``, ``a2a_algorithm``: a name or a `Communicator`).
+The VLM and enc-dec families, which the port does not have yet, raise
+``NotImplementedError`` naming the ROADMAP.md Queue 1 step that brings
+them (step 10)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,7 +32,6 @@ _LATER = {
 # families the port cannot train yet, and the ROADMAP.md Queue 1 step
 # that brings each
 _TRAIN_LATER = {
-    "moe": "step 8 (MoE expert parallelism inside the training step)",
     "vlm": "step 10 (the remaining families)",
     "encdec": "step 10 (the remaining families)",
 }
@@ -38,7 +39,8 @@ _TRAIN_LATER = {
 
 def check_trainable(family: str) -> None:
     """Raise ``NotImplementedError`` naming the step that brings the
-    family's training, unless the port trains it (dense, SSM, hybrid)."""
+    family's training, unless the port trains it (dense, MoE, SSM,
+    hybrid)."""
     if family in _TRAIN_LATER:
         raise NotImplementedError(
             f"training the {family} family is not ported yet: it comes "
@@ -78,7 +80,15 @@ def build_model(
     ssd_impl: str = "auto",
     device="cuda",
     remat: bool = False,
+    ep_axis: str = None,
+    mesh=None,
+    a2a_algorithm="xla",
 ) -> ModelAPI:
+    """The family's API. ``ep_axis`` (the MoE family's training only):
+    expert parallelism over that axis of ``mesh``, the dispatch
+    all-to-all through ``a2a_algorithm`` (a name or a `Communicator`);
+    the params ``loss`` takes then hold this rank's experts
+    (`sharding.ep_shard`)."""
     if cfg.family not in _FAMILY:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: it comes with "
@@ -94,10 +104,13 @@ def build_model(
         pkw["attn_impl"] = attn_impl
     if cfg.family in ("ssm", "hybrid"):
         pkw["ssd_impl"] = ssd_impl
-    if cfg.family in ("dense", "ssm", "hybrid"):
-        loss = functools.partial(mod.loss_fn, cfg=cfg, remat=remat, **pkw)
-    else:
-        loss = functools.partial(_loss_later, cfg.family)
+    if ep_axis is not None and cfg.family != "moe":
+        raise ValueError(f"expert parallelism needs the MoE family, not "
+                         f"{cfg.family!r}")
+    lkw = dict(pkw)
+    if cfg.family == "moe":
+        lkw.update(ep_axis=ep_axis, mesh=mesh, a2a_algorithm=a2a_algorithm)
+    loss = functools.partial(mod.loss_fn, cfg=cfg, remat=remat, **lkw)
     return ModelAPI(
         cfg=cfg,
         device=dev,
@@ -109,10 +122,6 @@ def build_model(
             params, tokens, cfg, cache_len, **pkw),
         loss=loss,
     )
-
-
-def _loss_later(family, *args, **kw):
-    check_trainable(family)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """AdamW with decoupled weight decay and global-norm clipping, port of
 ``repro/optim/adamw.py``: over the port's parameter trees (dicts and
-lists of tensors, ``repro_torch.pytree``), tensors in, new tensors out,
-with the reference's operations in its order."""
+lists of tensors, ``repro_torch.pytree``), updated in place, with the
+reference's operations in its order."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,32 +37,39 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, *,
-               lr_scale=1.0):
+               lr_scale=1.0, gnorm=None):
+        """One step, written into ``params`` and ``state``'s moments leaf
+        by leaf (as the reference's step donates its buffers to XLA: the
+        caller reads the old values no more); returns them with the new
+        step count. ``gnorm``: the clip's global norm, where ``grads`` is
+        a slice of the tree it is taken over (an expert-parallel rank's);
+        default ``global_norm(grads)``."""
         step = state.step + 1
+        scale = None
         if self.grad_clip > 0:
-            gnorm = global_norm(grads)
+            if gnorm is None:
+                gnorm = global_norm(grads)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-            grads = pytree.tree_map(lambda g: g * scale, grads)
 
         b1, b2 = self.beta1, self.beta2
-        mu = pytree.tree_map(lambda m, g: b1 * m + (1 - b1) * g,
-                             state.mu, grads)
-        nu = pytree.tree_map(lambda v, g: b2 * v + (1 - b2) * g * g,
-                             state.nu, grads)
         t = step.to(torch.float32)
         bc1 = 1 - b1 ** t
         bc2 = 1 - b2 ** t
         lr = self.lr * torch.as_tensor(lr_scale, dtype=torch.float32,
                                        device=t.device)
-
-        def upd(p, m, v):
+        for p, m, v, g in zip(pytree.leaves(params),
+                              pytree.leaves(state.mu),
+                              pytree.leaves(state.nu),
+                              pytree.leaves(grads)):
+            if scale is not None:
+                g = g * scale
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
             mh = m / bc1
             vh = v / bc2
-            return (p - lr * (mh / (torch.sqrt(vh) + self.eps)
-                              + self.weight_decay * p)).to(p.dtype)
-
-        new_params = pytree.tree_map(upd, params, mu, nu)
-        return new_params, AdamWState(step=step, mu=mu, nu=nu)
+            p.sub_(lr * (mh / (torch.sqrt(vh) + self.eps)
+                         + self.weight_decay * p))
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
 
 
 def global_norm(tree) -> torch.Tensor:

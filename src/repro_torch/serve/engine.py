@@ -47,9 +47,27 @@ of the template becomes fp32 after the first step in both.
 
 Timing is injected: with ``cost_model=None`` the run loop uses the wall
 clock; a ``cost_model(kind, n) -> seconds`` callable switches every
-duration (and the arrival clock) to deterministic simulated time. The
-tensor-parallel decode of the reference comes with the collectives
-slice.
+duration (and the arrival clock) to deterministic simulated time.
+
+Tensor-parallel decode. With a ``mesh`` and a `Communicator` (``comm``)
+every rank of the mesh's ``axis`` runs an engine over the same params
+and trace, the model compute replicated, and each decode step's logits
+are reassembled through the tuned ``collective`` from each rank's own
+V/p columns (`launch.tp_decode.assemble_logits`, built from the same
+requests ``Communicator.explain`` renders, so the reported decode plan
+is exactly the executed plan): bit-identical to the one-process decode.
+Decode logits at serving batch sizes are KB-scale messages, the
+small-message end of the tuning grid. Every rank must then run the same
+steps in the same order, or the logits collective hangs; but admission
+reads a clock (arrivals against the wall clock, the SLO guard's gap
+since the last decode and its prefill EMA) that differs between
+processes. So rank 0 of the axis decides: each iteration of `run` it
+reads the clock, takes the scheduler's admissions, and broadcasts the
+clock value and the admitted requests over the axis, and the other
+ranks admit exactly those (retirement follows from the tokens, equal
+on every rank). That is one extra host round (a ``gloo`` broadcast) a
+step. ``decisions`` keeps each iteration's (clock, admitted ids) as
+every rank applied them, ``executed`` the logits collectives run.
 """
 from __future__ import annotations
 
@@ -60,6 +78,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import group as grp
 from repro_torch.serve.paged_kv import PagedKV
 
 PAGED_LEAVES = ("k", "v")
@@ -90,7 +109,9 @@ class ServeEngine:
     @torch.inference_mode()
     def __init__(self, api, params, *, max_active: int = 4,
                  view_len: int = 64, block_size: int = 8,
-                 num_blocks: Optional[int] = None, attn_impl: str = "auto"):
+                 num_blocks: Optional[int] = None, attn_impl: str = "auto",
+                 mesh=None, comm=None, collective: str = "all_gather",
+                 axis: str = "model"):
         self.api = api
         self.attn_impl = attn_impl
         self.params = params
@@ -118,6 +139,25 @@ class ServeEngine:
         self._active_mask = np.zeros((R,), bool)
         self._slot_req: dict[int, object] = {}
         self.decode_steps = 0               # batched decode steps run
+
+        self._mesh = mesh
+        self._comm = comm
+        self._collective = collective
+        self._axis = axis
+        self._tp = mesh.shape[axis] if (mesh is not None and
+                                        comm is not None) else 0
+        self.decisions: list = []           # (clock, admitted rids) a step
+        self.executed: set = set()          # (nbytes, algorithm, segments)
+
+    # -- tuned decode plan -------------------------------------------------
+
+    def decode_requests(self):
+        """The decode-step collective requests (for ``explain()``) — same
+        builders as the executed step, batch = the slot count."""
+        from repro_torch.launch.tp_decode import decode_requests
+        cfg = self.api.cfg
+        return decode_requests(self.max_active, cfg.d_model, cfg.vocab_size,
+                               max(self._tp, 2), axis=self._axis)
 
     # -- request lifecycle -------------------------------------------------
 
@@ -172,6 +212,12 @@ class ServeEngine:
             cache["length"] = self.lengths
         logits, nc = self.api.decode_step(self.params, cache,
                                           self.cur_tokens[:, None], **kw)
+        if self._tp:
+            from repro_torch.launch.tp_decode import assemble_logits
+            logits = assemble_logits(logits, self._mesh, self._comm,
+                                     collective=self._collective,
+                                     axis=self._axis,
+                                     executed=self.executed)
         self.decode_steps += 1
         active = torch.from_numpy(self._active_mask).to(self.device)
         self.opaque = _map(
@@ -199,16 +245,41 @@ class ServeEngine:
         sim = cost_model is not None
         wall0 = time.perf_counter()
         now = 0.0 if sim else time.perf_counter()
+        ax = self._mesh.axis(self._axis) if self._tp else None
+        lead = ax is None or grp.rank(ax) == 0
+        if ax is not None:              # one clock: rank 0's
+            now = grp.broadcast_object(now, ax)
 
         def idle_until(t):
             nonlocal now
             if sim:
                 now = max(now, t)
-            else:
+            elif lead:                  # the others wait in the broadcast
                 wait = t - time.perf_counter()
                 if wait > 0:
                     time.sleep(wait)
                 now = time.perf_counter()
+
+        def admissions():
+            """This iteration's admitted requests: the scheduler's, or,
+            under tensor parallelism, rank 0's decision (clock value and
+            request ids), broadcast over the axis and applied."""
+            nonlocal now
+            if ax is None:
+                return sched.admissible(now)
+            if lead:
+                reqs = sched.admissible(now)
+                now, rids = grp.broadcast_object(
+                    (now, [r.rid for r in reqs]), ax)
+            else:
+                now, rids = grp.broadcast_object(None, ax)
+                reqs = [sched.pending.popleft() for _ in rids]
+                if [r.rid for r in reqs] != rids:
+                    raise RuntimeError(f"rank 0 admitted {rids}; this "
+                                       f"rank's queue holds "
+                                       f"{[r.rid for r in reqs]}")
+            self.decisions.append((now, rids))
+            return reqs
 
         if not sim:
             # express trace arrivals relative to run start
@@ -223,7 +294,7 @@ class ServeEngine:
                 nxt = sched.next_arrival()
                 if nxt is not None and nxt > now:
                     idle_until(nxt)
-            for req in sched.admissible(now):
+            for req in admissions():
                 t0 = now if sim else time.perf_counter()
                 slot = self.admit(req)
                 # first token is produced by the prefill itself (and

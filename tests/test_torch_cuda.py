@@ -173,6 +173,7 @@ BWD_CASES = [
     (2, 200, 264, 4, 2, 80, {"q_offset": 64}),
     (2, 200, 264, 4, 2, 128, {}),
     (1, 200, 264, 6, 2, 128, {"q_offset": 64, "window": 96}),
+    (2, 256, 256, 16, 16, 128, {}),   # olmoe-1b-7b's heads (16/16 of 128)
 ]
 
 
@@ -685,6 +686,49 @@ def test_two_rank_host_staged_ring_all_reduce_on_the_card(cuda):
                    "rs_equal": True, "rs_launches": 1}
 
 
+def _exchange_on_card(seed):
+    """One rank of a 2-rank ``("model",)`` mesh: the expert-parallel
+    block's dispatch exchange there and back, and its gradient, on the
+    card and on the host for each all-to-all; the card's bits against
+    the host's."""
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.models import moe
+    mesh = grp.RankMesh((2,), ("model",), device=grp.device_of("cuda"))
+    ax = mesh.axis("model")
+    g = torch.Generator().manual_seed(seed + grp.rank())
+    buf = torch.randn((8, 5, 16), generator=g).to(torch.bfloat16)
+    ct = torch.randn((4, 10, 16), generator=g).to(torch.bfloat16)
+    out = {}
+    for algo in ("xla", "pairwise", "bruck"):
+        got = []
+        for dev in ("cuda", "cpu"):
+            x = buf.to(dev).requires_grad_()
+            y = moe._exchange(x, ax, 2, "fwd", algo)
+            back = moe._exchange(y, ax, 2, "rev", algo)
+            (gx,) = torch.autograd.grad(y, x, ct.to(dev))
+            got.append((y.detach().cpu(), back.detach().cpu(), gx.cpu(),
+                        y.device.type))
+        (yc, bc, gc, dc), (yh, bh, gh, _) = got
+        out[algo] = {"device": dc, "equal": torch.equal(yc, yh)
+                     and torch.equal(bc, bh) and torch.equal(gc, gh),
+                     "round_trip": torch.equal(bc, buf)}
+    return out
+
+
+def test_expert_exchange_and_its_gradient_on_the_card(cuda):
+    """The dispatch all-to-all of expert parallelism (``moe._exchange``,
+    each direction an autograd function whose backward is the other
+    direction) over two ranks on one card: bit-equal to the same
+    exchange of host tensors, back home after the round trip, for every
+    all-to-all."""
+    from repro_torch.core.collectives import group as grp
+    res = grp.spawn(_exchange_on_card, 2, (5,))
+    assert set(res) == {"xla", "pairwise", "bruck"}
+    for algo, r in res.items():
+        assert r == {"device": "cuda", "equal": True, "round_trip": True}, \
+            algo
+
+
 def _communicator_on_card(artifact, bucket_bytes, device="cuda"):
     import torch.distributed as dist
     from repro_torch import pytree
@@ -785,8 +829,8 @@ def _overlapped_on_card(device="cuda"):
         out[f"events{overlap}"] = [i for _, i in sink.events]
     step_grads = {}
     for overlap, step in steps.items():
-        _, _, m = step.fn(params, step.opt.init(params), batch,
-                          keep_grads=True)
+        p = pytree.tree_map(torch.clone, params)    # updated in place
+        _, _, m = step.fn(p, step.opt.init(p), batch, keep_grads=True)
         step_grads[overlap] = (m["local_grads_fingerprint"],
                                pytree.leaves(m["grads"]))
     worst = max(((a.double() - b.double()).norm()

@@ -142,12 +142,58 @@ def test_per_row_routing_is_the_vmap_of_one_row_blocks(arch, cf):
         _close(got[b:b + 1], alone)
 
 
-def test_expert_parallel_axis_names_the_collectives_slice():
+def _ep_block_rank(path, out_dir):
+    """One rank of a 2-rank ``("model",)`` mesh: its tokens through the
+    expert-parallel block over its experts, for each dispatch
+    algorithm, and the gradient of the output's sum."""
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.parallel import sharding as sh
+    data = dict(np.load(path))
     _, cfg = _cfgs("olmoe-1b-7b")
-    p = _to_torch(_block_params(_cfgs("olmoe-1b-7b")[0]))
-    with pytest.raises(NotImplementedError, match="step 8"):
-        moe.moe_block(torch.zeros((1, 2, cfg.d_model)), p, cfg,
-                      ep_axis="model")
+    mesh = grp.RankMesh((2,), ("model",), device="cpu")
+    r = grp.rank()
+    p = sh.ep_shard({"moe": _to_torch({k[2:]: v for k, v in data.items()
+                                       if k.startswith("p|")})}, mesh)["moe"]
+    out = {}
+    for algo in ("xla", "pairwise", "bruck"):
+        x = torch.from_numpy(data["x"][r]).requires_grad_()
+        y, aux = moe.moe_block(x, p, cfg, ep_axis="model", mesh=mesh,
+                               a2a_algorithm=algo,
+                               compute_dtype=torch.float32)
+        (gx,) = torch.autograd.grad(y.sum(), x)
+        out[f"{algo}|y"], out[f"{algo}|gx"] = y.detach().numpy(), gx.numpy()
+        for name in ("lb_loss", "z_loss"):
+            out[f"{algo}|{name}"] = aux[name].detach().numpy()
+    np.savez(f"{out_dir}/r{r}.npz", **out)
+
+
+def test_expert_parallel_axis_names_the_collectives_slice(tmp_path):
+    """``ep_axis="model"`` on a spawned 2-rank group: each rank's tokens
+    routed with its own capacity, dispatched to the rank that holds
+    their experts and back, equal the reference's block on that rank's
+    tokens (the reference's expert-parallel semantics: capacity per
+    shard), for every dispatch all-to-all, with the input's gradient
+    equal to jax.grad's."""
+    from repro_torch.core.collectives import group as grp
+    cfg_j, cfg = _cfgs("olmoe-1b-7b")
+    p = _block_params(cfg_j, seed=6)
+    x = _x((2, 2, 5, cfg.d_model), seed=7)          # (rank, B, S, d)
+    np.savez(tmp_path / "in.npz", x=x, **{f"p|{k}": v for k, v in p.items()})
+    grp.spawn(_ep_block_rank, 2, (str(tmp_path / "in.npz"), str(tmp_path)))
+    jp = _to_jax(p)
+    for r in range(2):
+        got = dict(np.load(tmp_path / f"r{r}.npz"))
+        xr = jnp.asarray(x[r])
+        want, jaux = jmoe.moe_block(xr, jp, cfg_j, compute_dtype=jnp.float32)
+        gx = jax.grad(lambda v: jmoe.moe_block(
+            v, jp, cfg_j, compute_dtype=jnp.float32)[0].sum())(xr)
+        for algo in ("xla", "pairwise", "bruck"):
+            _close(got[f"{algo}|y"], want)
+            _close(got[f"{algo}|gx"], gx)
+            np.testing.assert_array_equal(got[f"{algo}|y"], got["xla|y"])
+        # the block's aux losses are this rank's (the layer averages them)
+        for name in ("lb_loss", "z_loss"):
+            _close(got[f"xla|{name}"], jaux[name])
 
 
 # ---------------------------------------------------------------------------

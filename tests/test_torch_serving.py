@@ -398,8 +398,24 @@ def test_cli_request_trace(capsys, tmp_path):
 @pytest.mark.parametrize("flag", [["--tensor-parallel", "2"],
                                   ["--tuning-table", "t.json"],
                                   ["--device", "tpu"]])
-def test_cli_rejects_flags_of_later_slices(flag, capsys):
-    with pytest.raises(SystemExit):
-        launch_serve.parse_args(["--reduced", *flag])
-    assert "unrecognized arguments" in capsys.readouterr().err or \
-        flag[0] == "--device"
+def test_cli_rejects_flags_of_later_slices(flag, capsys, tmp_path):
+    """The tensor-parallel flags came with the collectives slice: the
+    parser takes them, and the launch refuses what the reference
+    refuses (``--tensor-parallel`` without a table) or cannot load (a
+    table that is not there); ``--device`` still takes cuda or cpu
+    only."""
+    argv = ["--reduced", "--device", "cpu", *flag]
+    if flag[0] == "--device":
+        with pytest.raises(SystemExit):
+            launch_serve.parse_args(["--reduced", *flag])
+        assert "invalid choice: 'tpu'" in capsys.readouterr().err
+    elif flag[0] == "--tensor-parallel":
+        assert launch_serve.parse_args(argv).tensor_parallel == 2
+        with pytest.raises(SystemExit,
+                           match="--tensor-parallel needs --tuning-table"):
+            launch_serve.main(argv)
+    else:
+        argv[-1] = str(tmp_path / "t.json")
+        assert launch_serve.parse_args(argv).tuning_table == argv[-1]
+        with pytest.raises(FileNotFoundError):
+            launch_serve.main(argv)
