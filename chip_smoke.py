@@ -16,10 +16,13 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       rows (before position 0 and past the window), T > S with
       q_offset, S not a multiple of 64, MQA and GQA, q/k/v as views of
       one fused projection, zamba2's shared-attention shapes (D=80,
-      H=KV=32) and smollm's serving shape; times the kernel, the plain
-      version and ``F.scaled_dot_product_attention`` (a yardstick only:
-      the port never calls it) in turns at four prefill shapes (smollm's
-      serving batch and one request, olmoe's and zamba2's), on the device
+      H=KV=32), whisper's encoder (4 x 1500 frames, 20/20 heads of 64,
+      no mask: a 28-key last tile), llava's prefix (2880 patches + 128
+      tokens, 32/8 heads of 128) and smollm's serving shape; times the
+      kernel, the plain version and ``F.scaled_dot_product_attention``
+      (a yardstick only: the port never calls it) in turns at six
+      prefill shapes (smollm's serving batch and one request, olmoe's,
+      zamba2's, whisper's encoder and llava's prefix), on the device
       alone (torch.profiler) and back to back between CUDA events,
       beside the bound and the host's time to issue one call;
    b. the SSD chunk kernels against ``ssd_chunked_plain`` (all three
@@ -46,9 +49,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       launches) against ``ref.paged_attention_ref`` (the gather path)
       over the reference's sweep (partial, full, wrapped and
       several-wraps-deep views, windows 0 and 6, shuffled tables) at head
-      dims 64, 80 and 128, the three serving shapes (smollm, zamba2,
-      olmoe) and the splits' edges (an empty row, splits with no valid
-      slot, a wrapped window across a split boundary), f32 at 2e-5 and
+      dims 64, 80 and 128, the five serving shapes (smollm, zamba2,
+      olmoe, whisper's decoder, llava) and the splits' edges (an empty
+      row, splits with no valid slot, a wrapped window across a split
+      boundary), f32 at 2e-5 and
       bf16 within one bf16 ulp (2**-7); sharp scores on which fp32 q and
       P would miss that by 4x; two calls bit-equal; times the kernel
       (warm back to back and on the device, and cold) and the plain
@@ -60,8 +64,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       against ``flash_attention_bwd_plain`` on the forward's own output
       and row log-sum-exp, over the forward's sweep (windows, the decode
       offset, fully masked rows, T != S, S and T off the tile heights,
-      MQA and GQA, D 64/80/128 with query groups of 1, 2 and 3) and
-      olmoe-1b-7b's and smollm-135m's training shapes, f32 at 1e-4 and
+      MQA and GQA, D 64/80/128 with query groups of 1, 2 and 3),
+      whisper's training encoder rows (2, 1500, 20, 20, 64, no mask),
+      llava's prefix at 8/2 heads, and olmoe-1b-7b's and smollm-135m's
+      training shapes, f32 at 1e-4 and
       bf16 at 2e-2, bf16
       also against ``flash_attention_bwd_mma_plain`` (the kernels'
       rounding) at 1e-2, each case called twice and held bit-equal, the
@@ -72,8 +78,9 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       SDPA's forward alone and forward and backward through autograd (a
       yardstick only; its backward alone is the difference of the two
       device times) at smollm's training shape (2, 256, 9, 3, 64), its
-      serving shape and olmoe's training shape (4, 256, 16, 16, 128),
-      beside the backward's bound; the tensor-core
+      serving shape, olmoe's training shape (4, 256, 16, 16, 128) and
+      whisper's training encoder (2, 1500, 20, 20, 64, no mask), beside
+      the backward's bound; the tensor-core
       kernels must not spill at D = 64 (ptxas, [1]);
    f. the SSD chunk backward (bf16: the tensor-core ``ssd_chunk_bwd_mma``,
       one launch; fp32: the SIMT ``ssd_chunk_bwd`` then
@@ -110,23 +117,38 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    difference printed beside PR 14's 0.271 and beside the gather path
    run twice; above 0.05 the first decode layer whose MoE input or
    output departs is traced and printed), the launches one per layer per
-   decode step; [3t] the training loss and every leaf's gradient of
-   mamba2-130m at full width and depth and of zamba2-2.7b at full width
-   and 6 mamba layers (one group, one shared-attention application),
-   2 x 256 tokens, fp32, one process: ``ssd_impl``/``attn_impl="auto"``
-   (SSD forward and backward kernels, flash forward and backward)
-   against ``"xla"``/``"ref"`` under autograd, the loss within 1e-5 and
-   each leaf within 1e-3 (relative 2-norm), the launches of the
-   kernels' call held to one SSD forward and ``LAUNCHES_PER_CALL``
-   (fp32) backward launches a layer, one flash forward and backward a
-   shared application;
+   decode step; whisper-large-v3 at full width and depth: the prefill of
+   2 x 64 tokens over 2 x 1500 frames through the flash kernel (the
+   encoder's non-causal self-attention, the decoder's causal one) vs
+   plain attention, logits within 1e-3, 64 launches (cross-attention is
+   plain in both, as the reference's); [3v] llava-next-mistral-7b at
+   full width and depth: ``vlm.prefill`` over 2880 patches and 128
+   tokens, kernel vs plain, logits within 1e-3, 32 launches; [3t] the
+   training loss and every leaf's gradient of mamba2-130m at full width
+   and depth, of zamba2-2.7b at full width and 6 mamba layers (one
+   group, one shared-attention application), 2 x 256 tokens, of
+   whisper-large-v3 at full width and 2 + 2 layers (2 x 64 tokens over
+   2 x 1500 frames) and of llava-next-mistral-7b at full width and 2
+   layers (1 x (2880 patches + 128 tokens)), fp32, one process:
+   ``ssd_impl``/``attn_impl="auto"`` (SSD forward and backward kernels,
+   flash forward and backward) against ``"xla"``/``"ref"`` under
+   autograd, the loss within 1e-5 and each leaf within 1e-3 (relative
+   2-norm), the launches of the kernels' call held to one SSD forward
+   and ``LAUNCHES_PER_CALL`` (fp32) backward launches a layer, one flash
+   forward and backward a shared application or self-attention layer;
 4. serving through ``repro_torch.launch.serve`` at full width, bf16, each
    path with every launch count zeroed just before it and read just
    after: smollm-135m, mamba2-130m, zamba2-2.7b (full depth: 54 SSM
-   layers, 9 shared-attention applications) and olmoe-1b-7b (full
-   depth: 16 layers of 64 experts), each in the fixed-batch and the
-   continuous mode; the counts must be one flash or SSD launch per layer
-   for every prefill, one paged-attention launch per attention layer for
+   layers, 9 shared-attention applications), olmoe-1b-7b (full
+   depth: 16 layers of 64 experts), whisper-large-v3 (full depth: 32
+   encoder and 32 decoder layers; fixed 4 x 64-token prompts over 1500
+   frames each, 32 new; continuous 8 requests at 20 req/s, 32 new, 4
+   slots; cross-attention plain, its KV per slot as the engine's opaque
+   state) and llava-next-mistral-7b (full depth: 32 layers, 7.24B fp32
+   parameters; fixed 2 x 512, 16 new; continuous as zamba2's), each in
+   the fixed-batch and the continuous mode; the counts must be one flash
+   or SSD launch per layer (whisper: per encoder and decoder layer) for
+   every prefill, one paged-attention launch per attention layer for
    every decode step of a continuous path (none on a fixed path), and
    zero for a kernel off the path;
    t. tensor-parallel decode: smollm-135m served by ``--tensor-parallel
@@ -149,8 +171,9 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    through the host, every reduce step in the segment-combine kernel):
    every algorithm and synthesized program held against the oracle at
    4 MB and an odd size; every (algorithm, segments) candidate of
-   all_reduce and broadcast timed at 4 KB, 256 KB, 4 MB and 64 MB over 2
-   trials (a third was cut for the script's time), the exhaustive
+   all_reduce and broadcast timed at 4 KB, 256 KB, 4 MB and 64 MB over
+   one trial (a second and a third were cut for the script's time), the
+   exhaustive
    tuner's table printed, saved and loaded back,
    with the launch counts gathered from the ranks (zeroed just before the
    tuning run, read just after: every reducing algorithm launches the
@@ -162,8 +185,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    plan's;
    b. every tuner family of ``core.tuning.TUNERS``
    (``measure_collectives --tuners all``, 4 ranks, [6]'s ops, its sizes
-   up to 4 MB, 2 trials: 64 MB and a third trial were cut for the
-   script's time) fitted over one measured session: per family its new
+   up to 4 MB, one trial: 64 MB and a second and third trial were cut
+   for the script's time) fitted over one measured session: per family its new
    experiments, cache hits, empirical penalty, seconds and
    ``segment_combine``
    launches (zeroed just before its fit, read just after, summed over
@@ -185,8 +208,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    (zeroed just before it, read just after, summed over the ranks)
    against what its plan's reduce phases imply; the bucketed result is
    held to each bucket's own sequential composition bit for bit and to
-   the per-leaf result at 2e-4; every variant is timed; (d) [7b]'s tree
-   and artifact with a tuned mesh mapping stamped into every level's
+   the per-leaf result at 2e-4; every variant is timed (one run after
+   its traced run, ``measure_collectives.GRAD_TRIALS``, as [6]'s
+   gradient: the second was cut for the enc-dec and VLM phases); (d)
+   [7b]'s tree and artifact with a tuned mesh mapping stamped into every level's
    meta (the first non-identity candidate of ``enumerate_mappings`` on
    2x2x2, written to a temporary file): the Communicator rebuilds the
    mesh in the mapping's rank order, every rank is checked at its
@@ -196,7 +221,7 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    winner's summary;
 8. training: ``repro_torch.launch.train --arch smollm-135m --ranks 4
    --topology 2x2 --tuning-table examples/artifacts/
-   hierarchical_decision.json --steps 3 --seq 256 --batch 8`` (full
+   hierarchical_decision.json --steps 2 --seq 256 --batch 8`` (full
    width and depth, fp32 master weights, bf16 compute, 4 host-staged
    ranks on the card), then the same with ``--collective xla`` as the
    oracle: each step's loss and its split into forward+backward,
@@ -236,7 +261,7 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    sc. [8s]'s tuned run with ``--overlap-backward --trace-dir``, held to
    it as [8c] is held to [8] (the SSD launches its, releases 23...0);
    m. MoE expert parallelism: ``--arch olmoe-1b-7b --ranks 4
-   --model-parallel 2 --steps 3 --seq 256 --batch 8`` at full width, cut
+   --model-parallel 2 --steps 2 --seq 256 --batch 8`` at full width, cut
    to 2 of its 16 layers (``train.main(..., config={"num_layers": 2})``:
    a rank's fp32 params, gradients and Adam moments take ~10 GB; 32 of
    the 64 experts a rank), tuned (``tuned_decision.json``) and ``"xla"``,
@@ -254,6 +279,15 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    (one fused sync a layer, no sync thread, as the launcher prints),
    held to [8m]'s tuned run (step 0's synced gradients, losses, releases 1, 0
    in every rank and step, no second on a sync thread);
+   w. [8]'s runs and checks for ``--arch whisper-large-v3`` at full width
+   cut to 2 encoder and 2 decoder layers (``config={"num_layers": 2,
+   "encoder_layers": 2}``: 231,980,800 params, 59 leaves, a 0.93 GB
+   fp32 gradient a step; full depth takes 25.7 GB a rank of params,
+   gradients and Adam moments, so four ranks do not fit one card), tuned
+   and ``"xla"``: 4 flash forwards (the encoder's over 1500 frames, no
+   mask) and their backwards a rank-step, the tuned plan's combines, the
+   tuned run held to the xla run and the planted faults read, no
+   overlapped run;
 9. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
@@ -306,17 +340,27 @@ COMBINE_N = 1 << 24              # 16M elements: 64 MB of fp32 per operand
 RANKS = 4                        # processes on the card for the collectives
 # the tuning sessions' depth: [6] at every size, [6b] (which measures the
 # same grid again for every tuner family) up to 4 MB; the 64 MB points
-# and a third trial took ~110 s of the script's 1200 on a slow host
-TUNE_TRIALS = 2
+# and a third trial took ~110 s of the script's 1200 on a slow host, and
+# the second trial was cut for the enc-dec and VLM phases
+TUNE_TRIALS = 1
 TUNER_SIZES = (4096, 262144, 4194304)
 SERVE_SHAPE = dict(B=8, S=512, H=9, KV=3, D=64)
-# the prefill attention calls of the serving paths, (B, S, H, KV, D), bf16
+# the prefill attention calls of the serving paths, (B, S, H, KV, D[,
+# causal]), bf16: whisper's encoder over the fixed path's 4 x 1500 frames
+# (non-causal), llava's 2880 patches and 128 tokens (GQA 4)
 ATTN_TIMED_SHAPES = {
     "smollm serving": (8, 512, 9, 3, 64),
     "olmoe prefill": (4, 512, 16, 16, 128),
     "zamba2 prefill": (4, 512, 32, 32, 80),
     "smollm one request": (1, 512, 9, 3, 64),
+    "whisper encoder": (4, 1500, 20, 20, 64, False),
+    "llava patch prefix": (1, 3008, 32, 8, 128),
 }
+# whisper-large-v3's training encoder attention ([8w]): 2 rows a rank of
+# the 8-row batch, 1500 frames, 20 heads of 64, no mask
+WHISPER_TRAIN_ATTN_SHAPE = (2, 1500, 20, 20, 64, False)
+# llava-next-mistral-7b's prefix: 2880 patches and 128 tokens
+LLAVA_PREFIX = 2880 + 128
 # mamba2-130m's SSD call at the fixed-batch serving shape (8 x 512 prompts)
 SSD_SERVE_SHAPE = dict(B=8, S=512, H=24, P=64, N=128, Q=128)
 # and at the continuous path's one-request prefills
@@ -327,6 +371,8 @@ PAGED_SERVE_SHAPES = {
     "smollm-135m": dict(R=8, H=9, KV=3, D=64, bs=16, T=576),
     "zamba2-2.7b": dict(R=4, H=32, KV=32, D=80, bs=16, T=528),
     "olmoe-1b-7b": dict(R=4, H=16, KV=16, D=128, bs=16, T=528),
+    "whisper-large-v3": dict(R=4, H=20, KV=20, D=64, bs=16, T=96),
+    "llava-next-mistral-7b": dict(R=4, H=32, KV=8, D=128, bs=16, T=528),
 }
 
 
@@ -527,6 +573,12 @@ def phase_kernel():
     cases += [((4, 512, 512, 32, 32, 80), torch.bfloat16, {}),
               ((1, 128, 128, 32, 32, 80), torch.bfloat16, {}),
               ((1, 512, 512, 32, 32, 80), torch.bfloat16, {})]
+    # whisper's encoder (4 x 1500 frames, 20 heads of 64, no mask) and
+    # llava's prefix (2880 patches + 128 tokens, 32/8 heads of 128)
+    cases += [((4, 1500, 1500, 20, 20, 64), dt, {"causal": False})
+              for dt in both]
+    cases += [((1, LLAVA_PREFIX, LLAVA_PREFIX, 32, 8, 128), dt, {})
+              for dt in both]
     s = SERVE_SHAPE
     serve_case = ((s["B"], s["S"], s["S"], s["H"], s["KV"], s["D"]),
                   torch.bfloat16, {})
@@ -603,13 +655,14 @@ def time_attention(fa, name, shape):
     device), on the device alone from the profiler (``device_ms``,
     ``library_device_ms``), and the host's time to issue one call."""
     import torch.nn.functional as F
-    B, S, H, KV, D = shape
+    B, S, H, KV, D, causal = (*shape, True)[:6]
     q, k, v = rand_qkv(B, S, S, H, KV, D, torch.bfloat16, seed=99)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: fa.flash_attention_plain(q, k, v, causal=True)  # noqa: E731
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(  # noqa: E731
+        q, k, v, causal=causal)
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+        qt, kt, vt, is_causal=causal, enable_gqa=KV != H)
     # in turns (kernel, plain, library, kernel, plain, library): one card
     k1, p1, l1 = time_calls(kern), time_calls(plain), time_calls(lib)
     dk1, dl1 = device_ms(kern), device_ms(lib)
@@ -620,8 +673,9 @@ def time_attention(fa, name, shape):
     dev, library_dev = (dk1 + dk2) / 2, (dl1 + dl2) / 2
     host, library_host = host_ms(kern), host_ms(lib)
     bound_ms, bound_by, nbytes, flops = attention_bound_ms(
-        B, S, S, H, KV, D, 2)
-    log(f"    {name} B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
+        B, S, S, H, KV, D, 2, causal=causal)
+    mask = "causal" if causal else "no mask"
+    log(f"    {name} B={B} S={S} H={H} KV={KV} D={D} bf16 {mask}: "
         f"{fa.last_kernel()} back to back: kernel {ms:.4f} ms (turns "
         f"{statistics.median(k1):.4f}, {statistics.median(k2):.4f}), plain "
         f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; device: kernel "
@@ -635,7 +689,7 @@ def time_attention(fa, name, shape):
             "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": dev,
             "library_device_ms": library_dev, "host_ms": host,
             "library_host_ms": library_host,
-            "shape": f"B={B} S={S} H={H} KV={KV} D={D}"}
+            "shape": f"B={B} S={S} H={H} KV={KV} D={D} {mask}"}
 
 
 # ---------------------------------------------------------------------------
@@ -731,29 +785,30 @@ def time_flash_bwd(fa, fb, name, shape):
     times, derived); back to back between CUDA events and on the device
     from the profiler; beside the backward's bound."""
     import torch.nn.functional as F
-    B, S, H, KV, D = shape
+    B, S, H, KV, D, causal = (*shape, True)[:6]
     q, k, v = rand_qkv(B, S, S, H, KV, D, torch.bfloat16, seed=98)
-    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, causal=causal)
     g = torch.Generator(device="cuda").manual_seed(97)
     dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     qt, kt, vt = (t.transpose(1, 2).clone().requires_grad_()
                   for t in (q, k, v))
     doutt = dout.transpose(1, 2)
-    bwd = lambda: fb.flash_attention_bwd(q, k, v, out, dout, lse)  # noqa: E731
+    bwd = lambda: fb.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, dout, lse, causal=causal)
     simt = lambda: fb.flash_attention_bwd(  # noqa: E731
-        q, k, v, out, dout, lse, simt=True)
+        q, k, v, out, dout, lse, causal=causal, simt=True)
     plain = lambda: fb.flash_attention_bwd_plain(  # noqa: E731
-        q, k, v, out, dout, lse)
+        q, k, v, out, dout, lse, causal=causal)
     lib_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=KV != H)
+        qt, kt, vt, is_causal=causal, enable_gqa=KV != H)
 
     def ours():
-        o = fa.flash_attention(qg, kg, vg)
+        o = fa.flash_attention(qg, kg, vg, causal=causal)
         return torch.autograd.grad(o, (qg, kg, vg), dout)
 
     def lib():
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                            enable_gqa=KV != H)
         return torch.autograd.grad(o, (qt, kt, vt), doutt)
     # the yardstick computes the same gradients, on its own kernels
@@ -776,9 +831,10 @@ def time_flash_bwd(fa, fb, name, shape):
            for key in on_device}
     lib_bwd_dev = dev["lib"] - dev["lib_fwd"]
     bwd()                  # last_kernel() names the kernels timed
-    bound_ms, bound_by, nbytes, flops = flash_bwd_bound_ms(B, S, S, H, KV,
-                                                           D, 2)
-    log(f"    {name} B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
+    bound_ms, bound_by, nbytes, flops = flash_bwd_bound_ms(
+        B, S, S, H, KV, D, 2, causal=causal)
+    mask = "causal" if causal else "no mask"
+    log(f"    {name} B={B} S={S} H={H} KV={KV} D={D} bf16 {mask}: "
         f"{fb.last_kernel()} back to back: backward {ms['bwd']:.4f} ms "
         f"(turns {statistics.median(turns[0][0]['bwd']):.4f}, "
         f"{statistics.median(turns[1][0]['bwd']):.4f}), SIMT "
@@ -801,7 +857,7 @@ def time_flash_bwd(fa, fb, name, shape):
             "library_ms": ms["lib"], "library_device_ms": dev["lib"],
             "library_fwd_device_ms": dev["lib_fwd"],
             "library_bwd_device_ms": lib_bwd_dev,
-            "shape": f"B={B} S={S} H={H} KV={KV} D={D}"}
+            "shape": f"B={B} S={S} H={H} KV={KV} D={D} {mask}"}
 
 
 def phase_flash_backward():
@@ -831,6 +887,11 @@ def phase_flash_backward():
               ((1, 200, 264, 6, 2, 128), {"q_offset": 64, "window": 96})]
     B, S, H, KV, D = OLMOE_TRAIN_ATTN_SHAPE
     sweep.append(((B, S, S, H, KV, D), {}))
+    # whisper's training encoder rows (1500 frames: a 28-key last tile,
+    # no mask) and llava's prefix (GQA 4, D 128), 8 of its 32 heads
+    B, S, H, KV, D, _ = WHISPER_TRAIN_ATTN_SHAPE
+    sweep.append(((B, S, S, H, KV, D), {"causal": False}))
+    sweep.append(((1, LLAVA_PREFIX, LLAVA_PREFIX, 8, 2, 128), {}))
     B, S, H, KV, D = TRAIN_ATTN_SHAPE
     sweep.append(((B, S, S, H, KV, D), {}))
     max_err = {dt: 0.0 for dt in both}
@@ -859,7 +920,10 @@ def phase_flash_backward():
                     fa, fb, "smollm serving",
                     (s["B"], s["S"], s["H"], s["KV"], s["D"])),
                 "olmoe training": time_flash_bwd(fa, fb, "olmoe training",
-                                                 OLMOE_TRAIN_ATTN_SHAPE)}
+                                                 OLMOE_TRAIN_ATTN_SHAPE),
+                "whisper encoder training": time_flash_bwd(
+                    fa, fb, "whisper encoder training",
+                    WHISPER_TRAIN_ATTN_SHAPE)}
     top = by_shape["smollm training"]
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -884,7 +948,7 @@ def phase_flash_backward():
             "max_err_bf16": max_err[torch.bfloat16],
             "max_err_bf16_vs_rounding": mma_err,
             "max_lse_err": lse_err,
-            "shape": top["shape"] + " bf16 causal", "by_shape": by_shape}
+            "shape": top["shape"] + " bf16", "by_shape": by_shape}
 
 
 # ---------------------------------------------------------------------------
@@ -1481,8 +1545,9 @@ def phase_paged_kernel():
                           f"{s} lengths {lens}")
         max_err[dt] = max(max_err[dt], err)
     log(f"[2d] paged_attention: {len(cases)} cases (head dims 64/80/128, "
-        f"windows 0/6, partial/full/wrapped views, one split, the 3 serving "
-        f"shapes, the splits' edges), max|err| f32 {max_err[torch.float32]:.3g} "
+        f"windows 0/6, partial/full/wrapped views, one split, the "
+        f"{len(PAGED_SERVE_SHAPES)} serving shapes, the splits' edges), "
+        f"max|err| f32 {max_err[torch.float32]:.3g} "
         f"(tol 2e-5), bf16 {max_err[torch.bfloat16]:.3g} (tol 2**-7)")
     # sharp scores (q and K x 8) at the serving shapes: fp32 q and P (the
     # TPU kernel's rounding) would miss the gather path by 4 tolerances
@@ -1776,6 +1841,100 @@ def phase_ssm_model(arch: str, batch: int):
     return diff
 
 
+def phase_encdec_model():
+    """[3] whisper-large-v3 at full width and depth, fp32: the prefill of
+    2 x 64 tokens over 2 x 1500 frames through the flash kernel
+    (``attn_impl="auto"``: the encoder's non-causal self-attention and
+    the decoder's causal one) against plain attention (``"ref"``);
+    logits and the cross KV compared, the launches of the kernel prefill
+    (zeroed just before it, read just after) one a self-attention layer,
+    none for cross-attention, which is plain in both."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models.registry import build_model
+    cfg = get_config("whisper-large-v3")
+    kern = build_model(cfg, compute_dtype=torch.float32, attn_impl="auto")
+    plain = build_model(cfg, compute_dtype=torch.float32, attn_impl="ref")
+    want = cfg.encoder_layers + cfg.num_layers
+    with torch.inference_mode():
+        params = kern.init(torch.Generator(device="cuda").manual_seed(0))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                               device="cuda")
+        audio = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g,
+                            device="cuda").to(torch.bfloat16)
+        attention.launches = 0
+        lk, ck = kern.prefill(params, tokens, 96, audio=audio)
+        got = attention.launches
+        lp, cp = plain.prefill(params, tokens, 96, audio=audio)
+        torch.cuda.synchronize()
+        valid = slice(0, cfg.vocab_size)
+        diff = (lk[..., valid] - lp[..., valid]).abs().max().item()
+        scale = lp[..., valid].abs().max().item()
+        xdiff = max((ck[n].float() - cp[n].float()).abs().max().item()
+                    for n in ("xk", "xv"))
+    log(f"[3] whisper-large-v3 full width/depth fp32 prefill (2x64 tokens, "
+        f"2x{cfg.encoder_seq} frames): logits kernel vs plain max|diff| "
+        f"{diff:.3g} (max|logit| {scale:.3g}, tol {MODEL_TOL}); bf16 cross "
+        f"KV max|diff| {xdiff:.3g}; flash launches {got} (expected {want}:"
+        f" {cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+        f"self-attention, cross-attention plain)")
+    if not (torch.isfinite(lk).all() and diff <= MODEL_TOL):
+        raise AssertionError(f"whisper logits through the kernel differ by "
+                             f"{diff} > {MODEL_TOL}")
+    if got != want:
+        raise AssertionError(f"whisper prefill launched {got}, expected "
+                             f"{want}")
+    del params, lk, lp, ck, cp
+    torch.cuda.empty_cache()
+    return diff, got
+
+
+def phase_vlm_model():
+    """[3v] llava-next-mistral-7b at full width and depth, fp32:
+    ``vlm.prefill`` over 1 x (2880 patches + 128 tokens) through the
+    flash kernel against plain attention; logits compared, the launches
+    one a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models import vlm
+    from repro_torch.models.registry import build_model
+    cfg = get_config("llava-next-mistral-7b")
+    api = build_model(cfg, compute_dtype=torch.float32)
+    with torch.inference_mode():
+        params = api.init(torch.Generator(device="cuda").manual_seed(0))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        batch = {"patches": torch.randn(
+            (1, cfg.num_patches, cfg.d_model), generator=g,
+            device="cuda").to(torch.bfloat16),
+            "tokens": torch.randint(0, cfg.vocab_size,
+                                    (1, LLAVA_PREFIX - cfg.num_patches),
+                                    generator=g, device="cuda")}
+        attention.launches = 0
+        lk, _ = vlm.prefill(params, batch, cfg, LLAVA_PREFIX,
+                            compute_dtype=torch.float32, attn_impl="auto")
+        got = attention.launches
+        lp, _ = vlm.prefill(params, batch, cfg, LLAVA_PREFIX,
+                            compute_dtype=torch.float32, attn_impl="ref")
+        torch.cuda.synchronize()
+        diff = (lk - lp).abs().max().item()
+        scale = lp.abs().max().item()
+    log(f"[3v] llava-next-mistral-7b full width/depth fp32 vlm.prefill "
+        f"(1x({cfg.num_patches} patches + "
+        f"{LLAVA_PREFIX - cfg.num_patches} tokens)): logits kernel vs "
+        f"plain max|diff| {diff:.3g} (max|logit| {scale:.3g}, tol "
+        f"{MODEL_TOL}); flash launches {got} (expected {cfg.num_layers})")
+    if not (torch.isfinite(lk).all() and diff <= MODEL_TOL):
+        raise AssertionError(f"llava logits through the kernel differ by "
+                             f"{diff} > {MODEL_TOL}")
+    if got != cfg.num_layers:
+        raise AssertionError(f"llava prefill launched {got}, expected "
+                             f"{cfg.num_layers}")
+    del params, lk, lp
+    torch.cuda.empty_cache()
+    return diff, got
+
+
 # ---------------------------------------------------------------------------
 # [3t] gradients with the kernels inside the models
 # ---------------------------------------------------------------------------
@@ -1799,28 +1958,32 @@ def leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def phase_train_grads(arch, layers=None, batch=2, seq=256):
+def phase_train_grads(arch, config=None, batch=2, seq=256):
     """Loss and every leaf's gradient of ``arch`` at full width (depth cut
-    to ``layers``), fp32, one process: ``ssd_impl``/``attn_impl="auto"``
+    by ``config``), fp32, one process: ``ssd_impl``/``attn_impl="auto"``
     (the SSD and flash kernels, forward and backward) against
     ``"xla"``/``"ref"`` (plain PyTorch under autograd); the launches of
-    the kernels' call zeroed just before it and read just after."""
+    the kernels' call zeroed just before it and read just after: one
+    SSD forward a mamba layer, one flash forward an attention layer (a
+    shared application; every self-attention layer of the VLM and
+    enc-dec families), each with its backward's launches."""
     from repro_torch import pytree
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import batch_to_tensors
     from repro_torch.kernels import attention_bwd, ssd_scan_bwd
     from repro_torch.models.registry import build_model, make_train_batch
-    cfg = get_config(arch)
-    if layers:
-        cfg = cfg.replace(num_layers=layers)
+    cfg = get_config(arch).replace(**(config or {}))
     kern = build_model(cfg, compute_dtype=torch.float32, ssd_impl="auto",
                        attn_impl="auto")
     plain = build_model(cfg, compute_dtype=torch.float32, ssd_impl="xla",
                         attn_impl="ref")
-    n_attn = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
-    want = {"ssd_chunk": cfg.num_layers,
-            "ssd_chunk_bwd": cfg.num_layers
+    n_ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    n_attn = {"hybrid": cfg.num_layers // max(cfg.attn_every, 1),
+              "ssm": 0, "encdec": cfg.encoder_layers + cfg.num_layers
+              }.get(cfg.family, cfg.num_layers)
+    want = {"ssd_chunk": n_ssd,
+            "ssd_chunk_bwd": n_ssd
             * ssd_scan_bwd.LAUNCHES_PER_CALL[torch.float32],
             "flash_attention": n_attn,
             "flash_attention_bwd": n_attn * attention_bwd.LAUNCHES_PER_CALL}
@@ -1858,7 +2021,9 @@ def phase_train_grads(arch, layers=None, batch=2, seq=256):
             worst, worst_leaf = r, i
     loss_rel = abs(lk - lp) / abs(lp)
     where = leaf_names(params)[worst_leaf]
-    log(f"[3t] {arch} full width, {cfg.num_layers} layers, fp32 loss and "
+    depth = f"{cfg.encoder_layers} + {cfg.num_layers}" \
+        if cfg.family == "encdec" else cfg.num_layers
+    log(f"[3t] {arch} full width, {depth} layers, fp32 loss and "
         f"gradients ({batch}x{seq}; {len(gk)} leaves, "
         f"{sum(t.numel() for t in gk)} elements): loss kernels {lk:.6f} "
         f"plain {lp:.6f} (relative {loss_rel:.3g}, tol {GRAD_LOSS_TOL}); "
@@ -1956,6 +2121,10 @@ def serving_paths():
     z_cont = ["--continuous", "--num-requests", "8", "--poisson-rate", "20",
               "--prompt-len", "512", "--gen", "16", "--max-active", "4",
               "--block-size", "16"]
+    w_fixed = ["--prompt-len", "64", "--gen", "32", "--batch", "4"]
+    w_cont = ["--continuous", "--num-requests", "8", "--poisson-rate", "20",
+              "--prompt-len", "64", "--gen", "32", "--max-active", "4",
+              "--block-size", "16"]
     return [
         ("smollm_fixed", ["--arch", "smollm-135m", *fixed],
          {"flash_attention": 30}),
@@ -1975,6 +2144,20 @@ def serving_paths():
          {"flash_attention": 16}),
         ("olmoe_continuous", ["--arch", "olmoe-1b-7b", *z_cont],
          {"flash_attention": 8 * 16, "paged_attention": per_step(16)}),
+        # whisper: each prefill encodes its 1500 frames (32 encoder
+        # layers) and runs the prompt (32 decoder layers); decode reads
+        # the paged self-attention KV, the cross KV plainly
+        ("whisper_fixed", ["--arch", "whisper-large-v3", *w_fixed],
+         {"flash_attention": 64}),
+        ("whisper_continuous", ["--arch", "whisper-large-v3", *w_cont],
+         {"flash_attention": 8 * 64, "paged_attention": per_step(32)}),
+        # llava: 7.24B fp32 parameters, text prompts through the dense
+        # family's prefill; cut like zamba2, the fixed batch to 2
+        ("llava_fixed", ["--arch", "llava-next-mistral-7b", "--prompt-len",
+                         "512", "--gen", "16", "--batch", "2"],
+         {"flash_attention": 32}),
+        ("llava_continuous", ["--arch", "llava-next-mistral-7b", *z_cont],
+         {"flash_attention": 8 * 32, "paged_attention": per_step(32)}),
     ]
 
 
@@ -2440,7 +2623,7 @@ def phase_remapped(n_params, identity_bucketed):
 # ---------------------------------------------------------------------------
 # [8] the data-parallel training step
 # ---------------------------------------------------------------------------
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 TRAIN_RANKS = 4
 TRAIN_ARGS = ["--ranks", "4", "--topology", "2x2", "--steps",
               str(TRAIN_STEPS), "--seq", "256", "--batch", "8"]
@@ -2454,6 +2637,17 @@ TRAIN_MODELS = {
     "mamba2-130m": {"tag": "8s", "layers": 24, "param_elems": 167832000,
                     "leaves": 219, "combines": None,
                     "kernels": ("ssd_chunk", "ssd_chunk_bwd")},
+    # full width, depth cut 32 + 32 -> 2 + 2 (at 16 B a param, full depth
+    # is 25.7 GB a rank: four ranks do not fit one card); 4 flash
+    # launches a rank-step (2 encoder, 2 decoder self-attention); the
+    # tuned run is held to "xla", not overlapped
+    "whisper-large-v3": {"tag": "8w", "layers": 4,
+                         "param_elems": 231980800, "leaves": 59,
+                         "combines": None,
+                         "kernels": ("flash_attention",
+                                     "flash_attention_bwd"),
+                         "config": {"num_layers": 2, "encoder_layers": 2},
+                         "overlap": False},
 }
 # the tuned run against the "xla" run. Both start from the same params
 # and batches, and rank 0's step-0 gradients before the sync are checked
@@ -2468,8 +2662,8 @@ TRAIN_GRAD_TOL = 1e-6
 # gradient is near 0 the order of the sum can flip its update (two steps
 # apart), which a flip in 1 of 10^5 params would read at ~1e-2
 TRAIN_CHANGE_TOL = 1e-2
-# lr_scale is 0, .01, .02 over the 3 warmup steps (lr 3e-4), so a
-# param moves at most a few times 1.8e-5 in all; a param that crosses a
+# lr_scale is 0, .01 over the 2 warmup steps (lr 3e-4), so a param
+# moves at most a few times 3e-6 in all; a param that crosses a
 # bf16 rounding boundary moves the bf16 forward's loss by ~1e-4
 TRAIN_LOSS_TOL = 5e-3
 
@@ -2606,8 +2800,11 @@ def phase_training(arch):
     argv = ["--arch", arch, *TRAIN_ARGS]
     hier = os.path.join(ROOT, "examples", "artifacts",
                         "hierarchical_decision.json")
-    tuned = train_run(tag, "tuned", [*argv, "--tuning-table", hier])
-    xla = train_run(tag, "xla", [*argv, "--collective", "xla"])
+    config = spec.get("config")
+    tuned = train_run(tag, "tuned", [*argv, "--tuning-table", hier],
+                      config=config)
+    xla = train_run(tag, "xla", [*argv, "--collective", "xla"],
+                    config=config)
     for label, r in (("tuned", tuned), ("xla", xla)):
         want = expected_train_launches(arch, r)
         bad = (r["device"] != "cuda:0" or r["ranks"] != TRAIN_RANKS
@@ -2659,8 +2856,9 @@ def phase_training(arch):
     prefix = "train" if arch == "smollm-135m" else f"train_{arch}"
     paths = {f"{prefix}_tuned": tuned["launches"],
              f"{prefix}_xla": xla["launches"]}
-    summary["overlapped"], paths[f"{prefix}_overlapped"] = \
-        phase_training_overlapped(arch, tuned)
+    if spec.get("overlap", True):
+        summary["overlapped"], paths[f"{prefix}_overlapped"] = \
+            phase_training_overlapped(arch, tuned)
     return summary, paths
 
 
@@ -2762,8 +2960,8 @@ def phase_training_overlapped(arch, tuned):
 # ---------------------------------------------------------------------------
 FLAT_TABLE = os.path.join(ROOT, "examples", "artifacts",
                           "tuned_decision.json")
-MOE_TRAIN_STEPS = 3
-# [8mc]'s steps: held to [8m]'s first two
+MOE_TRAIN_STEPS = 2
+# [8mc]'s steps: held to [8m]'s
 MOE_OVERLAP_STEPS = 2
 # olmoe-1b-7b at full width on 4 ranks, ("data", "model") = 2 x 2: each
 # rank holds 32 of the 64 experts of every layer, 4 rows of the 8 x 256
@@ -3052,15 +3250,37 @@ def main() -> int:
     diffs = {"smollm-135m": phase_model(),
              "mamba2-130m": phase_ssm_model("mamba2-130m", 2),
              "zamba2-2.7b": phase_ssm_model("zamba2-2.7b", 2)}
-    # zamba2 at full width, one group: 6 mamba layers, one shared block
-    train_grads = {"mamba2-130m": phase_train_grads("mamba2-130m"),
-                   "zamba2-2.7b": phase_train_grads("zamba2-2.7b", layers=6)}
+    # the model phases' paths, added to the kernels line below
+    model_paths = {}
+    diffs["whisper-large-v3"], n = phase_encdec_model()
+    model_paths["prefill_whisper_fp32"] = {"flash_attention": n}
+    diffs["llava-next-mistral-7b"], n = phase_vlm_model()
+    model_paths["prefill_llava_fp32"] = {"flash_attention": n}
+    # zamba2 at full width, one group: 6 mamba layers, one shared block;
+    # whisper 2 + 2 layers over 2 x 64 tokens; llava 2 layers over
+    # 2880 patches and 128 tokens
+    train_grads = {
+        "mamba2-130m": phase_train_grads("mamba2-130m"),
+        "zamba2-2.7b": phase_train_grads("zamba2-2.7b",
+                                         {"num_layers": 6}),
+        "whisper-large-v3": phase_train_grads(
+            "whisper-large-v3", {"num_layers": 2, "encoder_layers": 2},
+            seq=64),
+        "llava-next-mistral-7b": phase_train_grads(
+            "llava-next-mistral-7b", {"num_layers": 2}, batch=1,
+            seq=LLAVA_PREFIX)}
+    for arch, r in train_grads.items():
+        model_paths[f"grads_{arch}_fp32"] = r["launches"]
     moe = phase_moe_model()
     diffs["olmoe-1b-7b"] = moe["prefill_logit_diff"]
-    mark("[3] models, [3t], [3c]")
+    mark("[3] models, [3v], [3t], [3c]")
     serving, one_process = {}, {}
     for k in kernels.values():
         k["launches"], k["launches_by_path"] = 0, {}
+    for path, counts in model_paths.items():
+        for name, n in counts.items():
+            if n:
+                kernels[name]["launches_by_path"][path] = n
     for label, argv, expect in serving_paths():
         got, res = serve_path(label, argv, expect)
         if label.startswith("smollm"):
@@ -3103,6 +3323,9 @@ def main() -> int:
     training_ssm, ssm_paths = phase_training("mamba2-130m")
     train_paths.update(ssm_paths)
     mark("[8s], [8sc]")
+    training_whisper, whisper_paths = phase_training("whisper-large-v3")
+    train_paths.update(whisper_paths)
+    mark("[8w]")
     training_moe, moe_paths = phase_training_moe()
     train_paths.update(moe_paths)
     mark("[8m], [8mc]")
@@ -3134,6 +3357,7 @@ def main() -> int:
                       "communicator": comm, "training": training,
                       "training_mamba2": training_ssm,
                       "training_olmoe_ep": training_moe,
+                      "training_whisper": training_whisper,
                       "tp_decode": tp_decode,
                       "train_grads_fp32": train_grads}))
     print(json.dumps({"kernels": list(kernels.values())}))

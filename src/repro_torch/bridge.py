@@ -3,10 +3,13 @@ as numpy arrays, into the port, and the port's trees back into the
 reference's layout.
 
 The reference keeps per-layer leaves stacked along a leading ``(L, ...)``
-axis under ``params["layers"]`` (nested dicts included: the SSM family's
-``{"ssm": {...}, "ln"}``); the port keeps a list of per-layer dicts.
-Every other top-level entry (``embed``, the hybrid's unstacked
-``shared`` block) crosses as it is. Every leaf keeps its layout (``wq``
+axis under each key of ``STACKED`` (``params["layers"]``, and the enc-dec
+family's ``encoder`` and ``decoder``; nested dicts included: the SSM
+family's ``{"ssm": {...}, "ln"}``, the decoder's ``{"self_attn",
+"cross_attn", ...}``); the port keeps a list of per-layer dicts under
+the same key. Every other top-level entry (``embed``, the hybrid's
+unstacked ``shared`` block, the enc-dec ``enc_pos`` and ``enc_final``)
+crosses as it is. Every leaf keeps its layout (``wq``
 ``(d, H, Dh)``, ``wo`` ``(H, Dh, d)``, ``embed.out`` ``(d, Vp)``), so no
 weight is transposed. This module imports neither JAX nor the JAX
 package: callers hand it ``jax.tree.map(np.asarray, params)``, and get
@@ -39,23 +42,30 @@ def _first_leaf(tree):
     return tree
 
 
+#: the top-level keys whose leaves the reference stacks over layers
+STACKED = ("layers", "encoder", "decoder")
+
+
 def from_jax(params_np: dict, *, device="cpu", dtype=None) -> dict:
-    """``{"layers": {stacked (L, ...) leaves}, **rest}`` (numpy) ->
-    ``{"layers": [per-layer dict] * L, **rest}`` (torch)."""
-    stacked = params_np["layers"]
-    nl = len(_first_leaf(stacked))
-    out = {k: _map(v, lambda a: _tensor(a, device, dtype))
-           for k, v in params_np.items() if k != "layers"}
-    out["layers"] = [_map(stacked, lambda a, i=i: _tensor(np.asarray(a)[i],
-                                                          device, dtype))
-                     for i in range(nl)]
+    """``{key: {stacked (L, ...) leaves}, **rest}`` (numpy) ->
+    ``{key: [per-layer dict] * L, **rest}`` (torch), for every ``key``
+    of ``STACKED`` in the tree."""
+    out = {}
+    for k, v in params_np.items():
+        if k not in STACKED:
+            out[k] = _map(v, lambda a: _tensor(a, device, dtype))
+            continue
+        nl = len(_first_leaf(v))
+        out[k] = [_map(v, lambda a, i=i: _tensor(np.asarray(a)[i], device,
+                                                   dtype))
+                  for i in range(nl)]
     return out
 
 
 def to_reference(tree) -> dict:
-    """``{"layers": [per-layer dict] * L, **rest}`` (torch: params or
-    gradients) -> ``{"layers": {stacked (L, ...) leaves}, **rest}`` (fp32
-    numpy), the reference's layout."""
+    """``{key: [per-layer dict] * L, **rest}`` (torch: params or
+    gradients) -> ``{key: {stacked (L, ...) leaves}, **rest}`` (fp32
+    numpy), the reference's layout, for every ``key`` of ``STACKED``."""
     def host(t):
         return t.detach().float().cpu().numpy()
 
@@ -68,14 +78,14 @@ def to_reference(tree) -> dict:
             return {k: zip_map([t[k] for t in trees]) for k in first}
         return stack(*trees)
 
-    out = {k: _map(v, host) for k, v in tree.items() if k != "layers"}
-    out["layers"] = zip_map(list(tree["layers"]))
-    return out
+    return {k: zip_map(list(v)) if k in STACKED else _map(v, host)
+            for k, v in tree.items()}
 
 
 def opt_state_from_jax(state_np, *, device="cpu"):
     """The reference's ``AdamWState(step, mu, nu)`` (numpy leaves, mu and
-    nu in its stacked layout) -> the port's `AdamWState`."""
+    nu in its stacked layout: the keys of ``STACKED``) -> the port's
+    `AdamWState`."""
     from repro_torch.optim import AdamWState
     return AdamWState(
         step=torch.tensor(np.asarray(state_np.step), dtype=torch.int32,

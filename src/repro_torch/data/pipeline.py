@@ -79,14 +79,28 @@ class SyntheticPipeline:
 
     # ------------------------------------------------------------------
     def batch_at(self, step: int) -> dict:
+        """Global batch ``step``: ids hashed into [0, vocab) (the VLM's
+        labels -1 over the patch positions), float entries (audio
+        frames, patches) from the entry's stream ``^ 0x5555`` hashed to
+        16 bits and scaled to [-1, 1), as the reference draws them."""
         cfg = self.cfg
         out = {}
-        for name, (shp, _) in self._shapes.items():
+        for name, (shp, dt) in self._shapes.items():
             n = int(np.prod(shp))
-            # next-token labels = tokens shifted, approximated by an
-            # independent stream for synthetic data
-            out[name] = _hash_tokens(self.seed, self.streams[name], step * n,
-                                     n, cfg.vocab_size).reshape(shp)
+            stream = self.streams[name]
+            if dt == torch.int32:
+                arr = _hash_tokens(self.seed, stream, step * n, n,
+                                   cfg.vocab_size).reshape(shp)
+                if name == "labels" and cfg.family == "vlm":
+                    # next-token labels = tokens shifted (approximated by
+                    # an independent stream for synthetic data) with the
+                    # image positions masked
+                    arr[:, :cfg.num_patches] = -1
+            else:
+                bits = _hash_tokens(self.seed, stream ^ 0x5555, step * n, n,
+                                    1 << 16).astype(np.float32)
+                arr = ((bits / (1 << 15)) - 1.0).reshape(shp)
+            out[name] = arr
         return out
 
     def __iter__(self) -> Iterator[dict]:

@@ -28,10 +28,14 @@ artifact resolves to the matching profile's table.
 Runs on the GPU (``--device cuda``, the default; no GPU is an error) or,
 when asked, on the CPU, where the kernels take their plain PyTorch
 versions. Weights are random, drawn by a ``torch.Generator`` with seed 0
-on the serving device (the same in every rank). For the SSM and hybrid
-families (mamba2-130m, zamba2-2.7b) a prompt longer than the scan's
-chunk (``ssm_chunk``, 128; 32 with ``--reduced``) must be a multiple of
-it.
+on the serving device (the same in every rank). The enc-dec family
+(whisper-large-v3) takes each request's audio frames as the reference
+draws them (precomputed frame embeddings: its conv front end is a
+stub); the VLM family (llava-next-mistral-7b) serves text prompts
+through the dense family's prefill, as the reference's serving does.
+For the SSM and hybrid families (mamba2-130m, zamba2-2.7b) a prompt
+longer than the scan's chunk (``ssm_chunk``, 128; 32 with
+``--reduced``) must be a multiple of it.
 
 Examples:
     python -m repro_torch.launch.serve --arch smollm-135m \\
@@ -45,6 +49,11 @@ Examples:
         --num-requests 8 --poisson-rate 20 --prompt-len 512 --gen 16
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --continuous \\
         --num-requests 8 --poisson-rate 20 --prompt-len 512 --gen 16
+    python -m repro_torch.launch.serve --arch whisper-large-v3 \\
+        --batch 4 --prompt-len 64 --gen 32
+    python -m repro_torch.launch.serve --arch llava-next-mistral-7b \\
+        --continuous --num-requests 8 --poisson-rate 20 --prompt-len 512 \\
+        --gen 16
     python -m repro_torch.launch.serve --arch smollm-135m \\
         --batch 8 --prompt-len 512 --gen 64 --tensor-parallel 4 \\
         --tuning-table examples/artifacts/tuned_decision.json \\
@@ -79,6 +88,20 @@ def _say(msg: str) -> None:
         print(msg, flush=True)
 
 
+def _prefill_extra_fn(cfg, device):
+    """Per-request inputs beyond the token prompt (encdec: audio frames,
+    bf16, drawn from numpy's generator seeded with ``1000 + rid``, as the
+    reference draws them)."""
+    if cfg.family != "encdec":
+        return None
+
+    def mk(req):
+        rng = np.random.default_rng(1000 + req.rid)
+        audio = rng.normal(size=(1, cfg.encoder_seq, cfg.d_model))
+        return {"audio": torch.from_numpy(audio).to(device, torch.bfloat16)}
+    return mk
+
+
 def _serve_continuous(args, cfg, api, params, comm=None, mesh=None):
     from repro_torch.serve import ServeEngine, Scheduler, load_trace, \
         synthetic_trace
@@ -99,7 +122,8 @@ def _serve_continuous(args, cfg, api, params, comm=None, mesh=None):
     view_len = -(-longest // bs) * bs
     engine = ServeEngine(api, params, max_active=args.max_active,
                          view_len=view_len, block_size=bs, mesh=mesh,
-                         comm=comm, collective=args.tp_collective)
+                         comm=comm, collective=args.tp_collective,
+                         prefill_extra=_prefill_extra_fn(cfg, api.device))
     sched = Scheduler(trace, max_active=args.max_active,
                       token_budget=args.max_active * view_len,
                       slo_ms=args.slo_ms)
@@ -168,8 +192,14 @@ def _serve_fixed(args, cfg, api, params, comm=None, mesh=None):
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (B, args.prompt_len))).to(api.device)
 
+    extra = {}
+    if cfg.family == "encdec":      # the frames, after the prompt
+        audio = rng.normal(size=(B, cfg.encoder_seq, cfg.d_model))
+        extra["audio"] = torch.from_numpy(audio).to(api.device,
+                                                    torch.bfloat16)
+
     t0 = time.perf_counter()
-    logits, cache = api.prefill(params, prompt, cache_len)
+    logits, cache = api.prefill(params, prompt, cache_len, **extra)
     logits = logits[:, -1]
     _sync(api.device)
     t_prefill = time.perf_counter() - t0

@@ -35,9 +35,12 @@ residual sync), ``opt_s`` the optimizer; with overlap,
 ``release_sync_s`` adds the sync thread's busy seconds and
 ``release_events`` the released layers in release order.
 
-The dense, MoE, SSM and hybrid families train; the hybrid's mamba
-layers release under their global indices, its shared block syncs with
-the residual.
+Every family trains: dense, VLM (the dense stack over ``[patches |
+tokens]``), MoE, SSM, hybrid and enc-dec. The hybrid's mamba layers
+release under their global indices, its shared block syncs with the
+residual; the enc-dec family's layers release as ``("decoder", i)`` and
+then ``("encoder", i)``, each stack under its own key, and its
+``enc_pos``, ``enc_final`` and embeddings sync with the residual.
 
 Expert parallelism (the MoE family on a ``model`` axis above 1). The
 reference runs it inside the one manual program of its tuned step
@@ -67,10 +70,10 @@ overlapped step once, and a machine once; neither is root-caused
 The reference's untuned path, XLA's partitioning, is the oracle the
 tests hold the port's ``"xla"`` path to.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-Queue 1 step): a ``model`` axis above 1 for any other family (tensor
-parallelism in training, which the reference does not have either,
-step 10) and FSDP param sharding (step 10).
+Not ported (each raises ``NotImplementedError`` naming ROADMAP.md
+Queue 1 step 10): a ``model`` axis above 1 for a family without experts
+(tensor parallelism in training, which the reference does not have
+either) and FSDP param sharding.
 """
 from __future__ import annotations
 
@@ -83,7 +86,6 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.comms import Communicator
-from repro_torch.comms.bucketing import RELEASE_KEY
 from repro_torch.configs.base import (
     CollectiveConfig,
     ModelConfig,
@@ -223,10 +225,13 @@ def _synchronize(device) -> None:
 def _local_fingerprint(grads, sink) -> list:
     """`pytree.fingerprint` of this rank's gradients before any sync,
     leaf by leaf in tree order: each released layer's as the sink took it
-    at its release, the residual's from ``grads``."""
+    at its release (the layers under every released key: ``layers``, or
+    the enc-dec family's ``encoder`` and ``decoder``), the residual's
+    from ``grads``."""
+    released = {tag[0] for tag in sink.fingerprints}
     out = []
     for key in sorted(grads):           # pytree's order of a dict
-        if key == RELEASE_KEY:
+        if key in released:
             for i in range(len(grads[key])):
                 out.extend(sink.fingerprints[(key, i)])
         else:

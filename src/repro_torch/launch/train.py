@@ -36,20 +36,21 @@ writes rank 0's ``step{NNN}.trace.json`` (Perfetto) and
 ``step{NNN}.summary.json`` into DIR, and, with a ``--topology``, prints
 the drift line the re-tune loop watches, as the reference does.
 
-The dense, MoE (olmoe), SSM (mamba2) and hybrid (zamba2) families
-train. ``--model-parallel`` above 1 adds a ``model`` axis to the mesh
-(``--ranks`` defaults to the topology's size, else 1, times it) over
-which the MoE family's experts are split (expert parallelism,
+Every family trains: dense, VLM (llava-next-mistral-7b: patch
+embeddings in front of the text, labels -1 over them), MoE (olmoe), SSM
+(mamba2), hybrid (zamba2) and enc-dec (whisper-large-v3: audio frames
+into the encoder). ``--model-parallel`` above 1 adds a ``model`` axis
+to the mesh (``--ranks`` defaults to the topology's size, else 1, times
+it) over which the MoE family's experts are split (expert parallelism,
 `steps.build_train_step`): each rank holds its slice of every layer's
 experts, the dispatch all-to-all runs as the Communicator (or
 ``"xla"``) resolves it, and the replica check reads the non-expert
 params on every rank and each expert slice on the data ranks that hold
 it; ``--ckpt`` gathers the experts over ``model`` first, so rank 0
 writes every expert. Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP.md Queue 1 step): a
-``model`` axis for the other families (tensor parallelism, which the
-reference does not train either), FSDP, and the VLM and enc-dec
-families (all step 10).
+``NotImplementedError`` naming ROADMAP.md Queue 1 step 10): a ``model``
+axis for a family without experts (tensor parallelism, which the
+reference does not train either) and FSDP.
 
 Examples:
     python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
@@ -70,6 +71,10 @@ Examples:
         --steps 3 --seq 256 --batch 8
     python -m repro_torch.launch.train --arch smollm-135m --reduced \\
         --device cpu --ranks 2 --steps 2 --seq 64 --batch 4
+    python -m repro_torch.launch.train --arch whisper-large-v3 --reduced \\
+        --device cpu --ranks 2 --steps 2 --seq 64 --batch 4
+    python -m repro_torch.launch.train --arch llava-next-mistral-7b \\
+        --reduced --device cpu --ranks 2 --steps 2 --seq 64 --batch 4
 """
 from __future__ import annotations
 
@@ -97,7 +102,6 @@ from repro_torch.kernels.ops import TRAIN_COUNTERS as COUNTERS
 from repro_torch.launch.mesh import local_mesh_spec, make_local_mesh
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import moe
-from repro_torch.models.registry import check_trainable
 from repro_torch.parallel import sharding as sh
 
 #: where each unported option comes from (ROADMAP.md Queue 1)
@@ -458,7 +462,6 @@ def main(argv=None, *, keep_params: bool = False,
     args = ap.parse_args(argv)
 
     cfg = ARCHITECTURES[args.arch]
-    check_trainable(cfg.family)
     if args.model_parallel > 1 and cfg.family != "moe":
         raise _later("tensor_parallel")
     if parallel is not None and parallel.shard_params_over_data:

@@ -317,11 +317,16 @@ def embed_params(gen, cfg: ModelConfig, dtype=torch.float32,
                  device="cpu") -> Params:
     vp = pad_vocab(cfg.vocab_size)
     kw = dict(dtype=dtype, device=device)
-    return {
+    p = {
         "tok": dense_init(gen, (vp, cfg.d_model), cfg.d_model, **kw),
         "out": dense_init(gen, (cfg.d_model, vp), cfg.d_model, **kw),
         "final_norm": torch.ones((cfg.d_model,), **kw),
     }
+    if cfg.learned_pos:
+        # the enc-dec decoder's learned positions (whisper)
+        p["pos"] = dense_init(gen, (cfg.max_positions, cfg.d_model),
+                              cfg.d_model, **kw)
+    return p
 
 
 def unembed(x: torch.Tensor, p: Params, cfg: ModelConfig,

@@ -1,12 +1,11 @@
-"""Uniform model API (port of ``repro/models/registry.py``): the dense,
-MoE, SSM and hybrid families, and the training batches.
+"""Uniform model API over the six architecture families (port of
+``repro/models/registry.py``), and the training batches.
 
-Training (``ModelAPI.loss``) is ported for the dense, MoE, SSM and
-hybrid families; the MoE family's takes expert parallelism
-(``ep_axis``, ``mesh``, ``a2a_algorithm``: a name or a `Communicator`).
-The VLM and enc-dec families, which the port does not have yet, raise
-``NotImplementedError`` naming the ROADMAP.md Queue 1 step that brings
-them (step 10)."""
+Every family serves and trains: dense, MoE (whose training takes expert
+parallelism: ``ep_axis``, ``mesh``, ``a2a_algorithm``, a name or a
+`Communicator`), SSM, hybrid, enc-dec (whisper: ``prefill`` takes
+``audio=``) and VLM (llava: served through the dense family's token
+``prefill``; ``vlm.prefill`` runs the ``[patches | tokens]`` batch)."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,34 +16,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import hybrid, moe_model, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe_model, ssm, transformer, vlm
 
-_FAMILY = {"dense": transformer, "moe": moe_model, "ssm": ssm,
-           "hybrid": hybrid}
-
-# families the port does not have yet, and the ROADMAP.md Queue 1 step
-# that brings each
-_LATER = {
-    "encdec": "step 10 (the remaining families)",
-    "vlm": "step 10 (the remaining families)",
-}
-
-# families the port cannot train yet, and the ROADMAP.md Queue 1 step
-# that brings each
-_TRAIN_LATER = {
-    "vlm": "step 10 (the remaining families)",
-    "encdec": "step 10 (the remaining families)",
-}
-
-
-def check_trainable(family: str) -> None:
-    """Raise ``NotImplementedError`` naming the step that brings the
-    family's training, unless the port trains it (dense, MoE, SSM,
-    hybrid)."""
-    if family in _TRAIN_LATER:
-        raise NotImplementedError(
-            f"training the {family} family is not ported yet: it comes "
-            f"with ROADMAP.md Queue 1 {_TRAIN_LATER[family]}")
+_FAMILY = {"dense": transformer, "vlm": vlm, "moe": moe_model, "ssm": ssm,
+           "hybrid": hybrid, "encdec": encdec}
 
 
 @dataclasses.dataclass
@@ -54,7 +29,9 @@ class ModelAPI:
     init: Callable[[torch.Generator], Any]             # generator -> params
     init_cache: Callable[..., dict]                    # (batch, cache_len) -> cache
     decode_step: Callable[..., tuple]                  # (params, cache, tokens)
-    prefill: Callable[..., tuple]                      # (params, tokens, cache_len)
+    # (params, tokens, cache_len, **extra): extra carries per-family
+    # inputs (encdec: audio=...)
+    prefill: Callable[..., tuple]
     loss: Callable[..., tuple] = None                  # (params, batch)
 
 
@@ -90,17 +67,17 @@ def build_model(
     the params ``loss`` takes then hold this rank's experts
     (`sharding.ep_shard`)."""
     if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: it comes with "
-            f"{_LATER.get(cfg.family, 'a later step')} (ROADMAP.md Queue 1)")
+        raise ValueError(f"unknown family {cfg.family!r}; one of "
+                         f"{sorted(_FAMILY)}")
     dev = resolve_device(device)
     mod = _FAMILY[cfg.family]
-    # the per-family keywords, as the reference passes them
+    # the per-family keywords, as the reference passes them (encdec
+    # takes no window)
     dkw: dict = {"compute_dtype": compute_dtype}
-    if cfg.family in ("dense", "moe", "hybrid"):
+    if cfg.family in ("dense", "vlm", "moe", "hybrid"):
         dkw["window"] = window
     pkw = dict(dkw)
-    if cfg.family in ("dense", "moe", "hybrid"):
+    if cfg.family in ("dense", "vlm", "moe", "hybrid", "encdec"):
         pkw["attn_impl"] = attn_impl
     if cfg.family in ("ssm", "hybrid"):
         pkw["ssd_impl"] = ssd_impl
@@ -111,6 +88,14 @@ def build_model(
     if cfg.family == "moe":
         lkw.update(ep_axis=ep_axis, mesh=mesh, a2a_algorithm=a2a_algorithm)
     loss = functools.partial(mod.loss_fn, cfg=cfg, remat=remat, **lkw)
+    # token-prompt prefill for serving; vlm decodes past the prefix as
+    # pure text, so its serving prefill is the dense one (the batch-dict
+    # [patches|tokens] prefill stays available as vlm.prefill)
+    pmod = transformer if cfg.family == "vlm" else mod
+
+    def prefill(params, tokens, cache_len, **extra):
+        return pmod.prefill(params, tokens, cfg, cache_len, **pkw, **extra)
+
     return ModelAPI(
         cfg=cfg,
         device=dev,
@@ -118,8 +103,7 @@ def build_model(
                                device=dev),
         init_cache=functools.partial(mod.init_cache, cfg, device=dev),
         decode_step=functools.partial(mod.decode_step, cfg=cfg, **dkw),
-        prefill=lambda params, tokens, cache_len: mod.prefill(
-            params, tokens, cfg, cache_len, **pkw),
+        prefill=prefill,
         loss=loss,
     )
 
@@ -129,11 +113,25 @@ def build_model(
 # ---------------------------------------------------------------------------
 def train_batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     """Shapes/dtypes of a global training (or prefill) batch: tokens and
-    labels. The VLM and enc-dec batches (patches, audio) come with their
-    families' training, ROADMAP.md Queue 1 step 10."""
-    if cfg.family in ("vlm", "encdec"):
-        check_trainable(cfg.family)
+    labels, with the enc-dec family's ``audio`` frames and the VLM's
+    ``patches`` in front of ``S - P`` text tokens."""
     B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        return {
+            "audio": ((B, cfg.encoder_seq, cfg.d_model), torch.bfloat16),
+            "tokens": ((B, S), torch.int32),
+            "labels": ((B, S), torch.int32),
+        }
+    if cfg.family == "vlm":
+        P = cfg.num_patches
+        if S <= P:
+            raise ValueError(f"a VLM batch of {S} positions holds no text "
+                             f"after its {P} patches")
+        return {
+            "patches": ((B, P, cfg.d_model), torch.bfloat16),
+            "tokens": ((B, S - P), torch.int32),
+            "labels": ((B, S), torch.int32),
+        }
     return {
         "tokens": ((B, S), torch.int32),
         "labels": ((B, S), torch.int32),
@@ -143,7 +141,17 @@ def train_batch_shapes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
 def make_train_batch(cfg: ModelConfig, shape: ShapeConfig,
                      seed: int = 0) -> dict:
     """A random global batch from numpy's generator seeded with ``seed``
-    (the reference's draws), as int32 numpy arrays."""
+    (the reference's draws, in its order), as numpy arrays: ids int32,
+    the VLM's labels -1 over the patch positions, frames and patches
+    standard normal in float32."""
     rng = np.random.default_rng(seed)
-    return {name: rng.integers(0, cfg.vocab_size, size=shp, dtype=np.int32)
-            for name, (shp, _) in train_batch_shapes(cfg, shape).items()}
+    out = {}
+    for name, (shp, dt) in train_batch_shapes(cfg, shape).items():
+        if dt == torch.int32:
+            arr = rng.integers(0, cfg.vocab_size, size=shp, dtype=np.int32)
+            if name == "labels" and cfg.family == "vlm":
+                arr[:, :cfg.num_patches] = -1      # ignore image positions
+        else:
+            arr = rng.normal(size=shp).astype(np.float32)
+        out[name] = arr
+    return out

@@ -10,9 +10,9 @@ reference, into:
     family has them, stored in a :class:`~repro_torch.serve.paged_kv.PagedKV`
     block pool (the SSM family has none: ``self.paged`` is ``None``);
   * opaque per-request state — every other leaf, nested dicts included
-    (the SSM conv/ssd state), one batched tensor per leaf with the slot
-    on axis 1, after the layer axis, where every family's cache keeps
-    its batch;
+    (the SSM conv/ssd state, the enc-dec family's cross KV ``xk``/``xv``),
+    one batched tensor per leaf with the slot on axis 1, after the layer
+    axis, where every family's cache keeps its batch;
   * lengths — one engine-owned ``(max_active,)`` vector, passed as the
     cache's ``length`` where the template has one.
 
@@ -44,6 +44,11 @@ reference's ``.at[slot].set`` casts), and after each step the store
 takes ``decode_step``'s output dtype, as the reference's
 ``self.opaque = new_opq`` does: at fp32 compute the bf16 conv history
 of the template becomes fp32 after the first step in both.
+
+``prefill_extra(req)`` gives a request's inputs beyond its prompt,
+passed to ``api.prefill`` at admit (the enc-dec family's ``audio``; its
+cross KV then rides as opaque state, which a step returns unchanged and
+the engine keeps without a copy).
 
 Timing is injected: with ``cost_model=None`` the run loop uses the wall
 clock; a ``cost_model(kind, n) -> seconds`` callable switches every
@@ -111,7 +116,8 @@ class ServeEngine:
                  view_len: int = 64, block_size: int = 8,
                  num_blocks: Optional[int] = None, attn_impl: str = "auto",
                  mesh=None, comm=None, collective: str = "all_gather",
-                 axis: str = "model"):
+                 axis: str = "model",
+                 prefill_extra: Optional[Callable] = None):
         self.api = api
         self.attn_impl = attn_impl
         self.params = params
@@ -119,6 +125,8 @@ class ServeEngine:
         self.view_len = view_len
         self.block_size = block_size
         self.device = api.device
+        # per-request inputs beyond the token prompt (encdec: audio)
+        self.prefill_extra = prefill_extra or (lambda req: {})
 
         tmpl = api.init_cache(1, view_len)
         self._has_length = "length" in tmpl
@@ -176,7 +184,8 @@ class ServeEngine:
         self._free_slots.pop()
         tokens = torch.tensor(np.asarray(req.prompt, np.int64),
                               device=self.device)[None]
-        logits, cache = self.api.prefill(self.params, tokens, self.view_len)
+        logits, cache = self.api.prefill(self.params, tokens, self.view_len,
+                                         **self.prefill_extra(req))
         if self.paged is not None:
             self.paged.write_view(slot, {n: cache[n]
                                          for n in self.paged_names})
@@ -220,9 +229,11 @@ class ServeEngine:
                                      executed=self.executed)
         self.decode_steps += 1
         active = torch.from_numpy(self._active_mask).to(self.device)
+        # a leaf the step passed through unchanged (the enc-dec cross KV)
+        # is kept as it is, not copied
         self.opaque = _map(
-            self.opaque, lambda old, new: torch.where(_rows(active, new),
-                                                      new, old),
+            self.opaque, lambda old, new: old if new is old else torch.where(
+                _rows(active, new), new, old),
             {n: nc[n] for n in self.opaque})
         new_len = nc["length"] if self._has_length else self.lengths + 1
         self.lengths = torch.where(active, new_len, self.lengths)

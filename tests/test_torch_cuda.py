@@ -235,6 +235,45 @@ def test_forward_lse_matches_plain(cuda, dtype, B, S, T, H, KV, D, kw):
     assert torch.equal(serving, out)
 
 
+# the enc-dec and VLM families' prefill attention: whisper's encoder
+# (non-causal over 1500 frames, a 28-key last tile; D = 64, no grouping;
+# 4 of its 20 heads) and llava's patch prefix with text (causal over
+# 2880 + 128 rows, D = 128, GQA 4; 8 of its 32 query heads)
+MODEL_PREFILL_CASES = [
+    (2, 1500, 1500, 4, 4, 64, {"causal": False}),
+    (1, 3008, 3008, 8, 2, 128, {}),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,D,kw", MODEL_PREFILL_CASES)
+def test_model_prefill_shapes_forward_and_backward(cuda, dtype, B, S, T, H,
+                                                   KV, D, kw):
+    """The forward (with its lse) and the backward at the enc-dec and VLM
+    prefill shapes against their plain versions, at the sweep's
+    tolerances; the bf16 backward also against its rounding."""
+    kw = {"causal": True, **kw}
+    q, k, v = _qkv(B, S, T, H, KV, D, dtype, seed=S + H)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    args = _bwd_inputs(B, S, T, H, KV, D, dtype, kw, seed=S + H)
+    assert torch.equal(args[3], got)
+    grads = fa_bwd.flash_attention_bwd(*args, **kw)
+    assert fa_bwd.last_kernel() == _bwd_name(dtype, D)
+    for g, w in zip(grads, fa_bwd.flash_attention_bwd_plain(*args, **kw)):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+    if dtype == torch.bfloat16:
+        mma = fa_bwd.flash_attention_bwd_mma_plain(*args, **kw)
+        for g, w in zip(grads, mma):
+            torch.testing.assert_close(g.float(), w.float(),
+                                       atol=BWD_MMA_TOL, rtol=BWD_MMA_TOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_runs_both_kernels(cuda, dtype):
     """A CUDA input that requires a gradient runs the forward kernel once

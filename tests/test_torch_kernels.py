@@ -198,7 +198,8 @@ def test_import_loads_no_jax_and_no_reference_package():
         "'configs.shapes', 'optim', 'optim.adamw', 'optim.schedule', "
         "'data', 'data.pipeline', 'parallel.sharding', 'launch.mesh', "
         "'launch.steps', 'launch.train', 'checkpoint', 'checkpoint.ckpt', "
-        "'bridge'):\n"
+        "'bridge', 'models.encdec', 'models.vlm', "
+        "'configs.whisper_large_v3', 'configs.llava_next_mistral_7b'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('imported', sum(n.startswith('repro_torch') for n in sys.modules))\n")
     root = os.path.join(HERE, "..")

@@ -298,13 +298,23 @@ def test_batched_decode_per_row_lengths_equals_scalar_calls():
             tok = torch.argmax(bl, -1)[:, None]
 
 
-def test_non_dense_family_names_its_slice():
-    from repro_torch.configs.base import ModelConfig
-    cfg = ModelConfig(name="m", family="vlm", num_layers=1, d_model=8,
-                      num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=8,
-                      num_patches=4)
-    with pytest.raises(NotImplementedError, match="step 10"):
-        build_model(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ["smollm-135m", "llava-next-mistral-7b",
+                                  "olmoe-1b-7b", "mamba2-130m",
+                                  "zamba2-2.7b", "whisper-large-v3"])
+def test_non_dense_family_names_its_slice(arch):
+    """Every one of the six families builds on the CPU: params drawn,
+    a two-token prefill and one decode step give finite logits."""
+    cfg = ARCHITECTURES[arch].reduced()
+    api = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    with torch.inference_mode():
+        params = api.init(torch.Generator().manual_seed(0))
+        extra = {"audio": torch.zeros((1, cfg.encoder_seq, cfg.d_model))} \
+            if cfg.family == "encdec" else {}
+        logits, cache = api.prefill(params, torch.tensor([[1, 2]]), 4,
+                                    **extra)
+        step, _ = api.decode_step(params, cache, torch.tensor([[3]]))
+    assert logits.shape[:2] == (1, 2) and step.shape[0] == 1
+    assert torch.isfinite(step[:, :cfg.vocab_size]).all()
 
 
 def test_cuda_without_gpu_raises():

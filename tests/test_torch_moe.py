@@ -375,13 +375,23 @@ def test_request_served_alone_equals_request_served_beside_others():
 
 
 def test_registry_builds_olmoe_and_the_other_families_still_raise():
+    """olmoe builds; so do the VLM and enc-dec families (ported with
+    ROADMAP.md Queue 1 step 10), and expert parallelism outside the MoE
+    family and an unknown family still raise."""
     api = build_model(ARCHITECTURES["olmoe-1b-7b"], device="cpu")
     assert api.cfg.num_experts == 64 and api.cfg.experts_per_token == 8
     for family in ("vlm", "encdec"):
         cfg = ModelConfig(name="m", family=family, num_layers=1, d_model=8,
-                          num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=8)
-        with pytest.raises(NotImplementedError, match="step 10"):
-            build_model(cfg, device="cpu")
+                          num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=8,
+                          encoder_layers=1, encoder_seq=4, learned_pos=True,
+                          num_patches=2)
+        assert build_model(cfg, device="cpu").cfg.family == family
+        with pytest.raises(ValueError, match="expert parallelism"):
+            build_model(cfg, device="cpu", ep_axis="model")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(ModelConfig(name="m", family="rnn", num_layers=1,
+                                d_model=8, num_heads=2, num_kv_heads=2,
+                                d_ff=8, vocab_size=8), device="cpu")
 
 
 def test_cli_serves_olmoe_in_both_modes(capsys, tmp_path):

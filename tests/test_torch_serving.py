@@ -196,8 +196,8 @@ def test_synthetic_trace_matches_reference(seed, kw):
 # ---------------------------------------------------------------------------
 # engine bit-identity vs the port's dense oracle
 # ---------------------------------------------------------------------------
-def _model(window=0, compute=torch.bfloat16):
-    cfg = ARCHITECTURES["smollm-135m"].reduced()
+def _model(window=0, compute=torch.bfloat16, arch="smollm-135m"):
+    cfg = ARCHITECTURES[arch].reduced()
     api = build_model(cfg, window=window, compute_dtype=compute, device="cpu")
     with torch.inference_mode():
         params = api.init(torch.Generator().manual_seed(0))
@@ -216,7 +216,9 @@ def _clone(trace):
 
 def _engine_tokens(api, params, trace, *, max_active, view_len):
     engine = ServeEngine(api, params, max_active=max_active,
-                         view_len=view_len, block_size=BLOCK)
+                         view_len=view_len, block_size=BLOCK,
+                         prefill_extra=launch_serve._prefill_extra_fn(
+                             api.cfg, "cpu"))
     sched = Scheduler(trace, max_active=max_active,
                       token_budget=max_active * view_len)
     engine.run(sched, cost_model=lambda kind, n: 1e-3)
@@ -228,25 +230,29 @@ def _engine_tokens(api, params, trace, *, max_active, view_len):
 def _dense_batched_tokens(api, params, reqs, view_len, width):
     """The paging oracle: each request's dense batch-1 prefill cache, cast
     to the pool dtype, stacked into one dense ``(L, width, view_len, KV,
-    Dh)`` cache with per-row lengths, and decoded by the same batched
+    Dh)`` cache with per-row lengths (and the enc-dec family's cross KV
+    stacked on the same axis), and decoded by the same batched
     ``decode_step`` the engine runs over its ``width`` slots (spare rows
     hold an empty cache)."""
     tmpl = api.init_cache(1, view_len)
-    ks, vs, lens, toks = [], [], [], []
+    extra = launch_serve._prefill_extra_fn(api.cfg, "cpu") or (
+        lambda req: {})
+    names = [n for n in tmpl if n != "length"]
+    rows, lens, toks = {n: [] for n in names}, [], []
     for req in reqs:
         prompt = torch.tensor(req.prompt)[None]
-        logits, cache = api.prefill(params, prompt, view_len)
-        ks.append(cache["k"].to(tmpl["k"].dtype))
-        vs.append(cache["v"].to(tmpl["v"].dtype))
+        logits, cache = api.prefill(params, prompt, view_len, **extra(req))
+        for n in names:
+            rows[n].append(cache[n].to(tmpl[n].dtype))
         lens.append(req.prompt_len)
         toks.append(int(torch.argmax(logits[0, -1])))
     for _ in range(width - len(reqs)):
-        ks.append(torch.zeros_like(tmpl["k"]))
-        vs.append(torch.zeros_like(tmpl["v"]))
+        for n in names:
+            rows[n].append(torch.zeros_like(tmpl[n]))
         lens.append(0)
         toks.append(0)
-    cache = {"k": torch.cat(ks, dim=1), "v": torch.cat(vs, dim=1),
-             "length": torch.tensor(lens)}
+    cache = {n: torch.cat(rows[n], dim=1) for n in names}
+    cache["length"] = torch.tensor(lens)
     outs = [[t] for t in toks]
     tok = torch.tensor(toks)[:, None]
     for _ in range(max(r.max_new for r in reqs) - 1):
@@ -265,8 +271,10 @@ def _oracle(api, params, trace, view_len, width):
     return want
 
 
-def test_engine_bit_identical_to_dense_oracle():
-    cfg, api, params = _model()
+@pytest.mark.parametrize("arch", ["smollm-135m", "whisper-large-v3",
+                                  "llava-next-mistral-7b"])
+def test_engine_bit_identical_to_dense_oracle(arch):
+    cfg, api, params = _model(arch=arch)
     trace = _trace(cfg.vocab_size)
     view_len = -(-max(r.prompt_len + r.max_new for r in trace)
                  // BLOCK) * BLOCK
@@ -327,19 +335,35 @@ def test_engine_preempt_release_readmit_matches_uninterrupted():
     assert list(req.prompt[8:]) + resumed == full
 
 
-def test_engine_tokens_match_jax_engine_fp32():
+@pytest.mark.parametrize("arch", ["smollm-135m", "whisper-large-v3",
+                                  "llava-next-mistral-7b"])
+def test_engine_tokens_match_jax_engine_fp32(arch):
     """Same params (through the bridge), same trace, same simulated clock:
-    the port's engine and the JAX package's engine emit the same tokens.
-    Both keep bf16 KV pools (``init_cache``'s default)."""
-    cfg_j = JARCH["smollm-135m"].reduced()
+    the port's engine and the JAX package's engine emit the same tokens
+    (whisper's requests with the reference's audio frames). Both keep
+    bf16 KV pools (``init_cache``'s default), but for whisper fp32 ones:
+    there request 4's fourth token is a near tie (its top two logits
+    5.7e-4 apart over bf16 caches) that one bf16 ulp of a written k entry
+    reverses, and the two packages' fp32 k differ by ~1e-6 before that
+    rounding."""
+    import dataclasses
+    import functools
+
+    from repro.launch.serve import _prefill_extra_fn as jextra
+    cfg_j = JARCH[arch].reduced()
     japi = jbuild(cfg_j, compute_dtype=jnp.float32, attn_impl="xla")
+    pools = torch.float32 if arch == "whisper-large-v3" else torch.bfloat16
+    if pools == torch.float32:
+        japi = dataclasses.replace(japi, init_cache=functools.partial(
+            japi.init_cache, dtype=jnp.float32))
     pn = jax.tree.map(np.asarray, japi.init(jax.random.PRNGKey(0)))
     trace_kw = dict(rate_rps=500.0, vocab=cfg_j.vocab_size,
                     prompt_lens=(4, 6), max_new=6, seed=0)
     view_len = 12
 
     jengine = JServeEngine(japi, jax.tree.map(jnp.asarray, pn), max_active=2,
-                           view_len=view_len, block_size=BLOCK)
+                           view_len=view_len, block_size=BLOCK,
+                           prefill_extra=jextra(cfg_j))
     jsched = JScheduler(jsynthetic_trace(5, **trace_kw), max_active=2,
                         token_budget=2 * view_len)
     with warnings.catch_warnings():
@@ -349,8 +373,10 @@ def test_engine_tokens_match_jax_engine_fp32():
         jengine.run(jsched, cost_model=lambda kind, n: 1e-3)
     want = {r.rid: list(r.generated) for r in jsched.finished}
 
-    cfg = ARCHITECTURES["smollm-135m"].reduced()
+    cfg = ARCHITECTURES[arch].reduced()
     api = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    api = dataclasses.replace(api, init_cache=functools.partial(
+        api.init_cache, dtype=pools))
     got = _engine_tokens(api, bridge.from_jax(pn),
                          synthetic_trace(5, **trace_kw), max_active=2,
                          view_len=view_len)

@@ -601,19 +601,18 @@ def test_two_ranks_reduced_mamba2_tuned_equals_xla(capfd):
 
 def test_unported_options_raise_naming_their_step():
     """Tensor parallelism of a family without experts (``--model-parallel``
-    above 1 for smollm), FSDP, and the VLM and enc-dec families (which
-    the port's ``--arch`` does not list yet; the launcher's
-    ``check_trainable`` names their step) raise before any rank starts."""
-    from repro_torch.models.registry import check_trainable
+    above 1 for smollm, and for the VLM and enc-dec families, which the
+    launcher now trains) and FSDP raise before any rank starts."""
     with pytest.raises(NotImplementedError, match="tensor parallel.*step 10"):
         train.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
     with pytest.raises(NotImplementedError, match="FSDP.*step 10"):
         train.main(["--reduced", "--device", "cpu"],
                    parallel=ParallelConfig(shard_params_over_data=True))
-    for family in ("vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match="step 10"):
-            check_trainable(family)
-    check_trainable("moe")
+    for arch in ("llava-next-mistral-7b", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError,
+                           match="tensor parallel.*step 10"):
+            train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--model-parallel", "2"])
 
 
 @pytest.mark.slow
