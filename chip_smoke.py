@@ -194,9 +194,11 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    and every family's launches (STAR's and feedback's fresh samples)
    equal what its runs' schedules imply; every rank ends with the same
    table for every family;
-7. the tuned Communicator over smollm-135m's whole fp32 gradient tree
-   (the port's per-layer layout, leaves drawn from a seed), through
-   ``measure_collectives --grad-arch smollm-135m``: (a) a 2x2
+7. the tuned Communicator over smollm-135m's fp32 gradient tree at full
+   width cut to 10 of its 30 layers (``COMM_GRAD_LAYERS``, cut for the
+   script's time; the port's per-layer layout, leaves drawn from a
+   seed), through ``measure_collectives --grad-arch smollm-135m
+   --grad-layers 10``: (a) a 2x2
    ``("pod", "data")`` mesh of 4 ranks with
    ``examples/artifacts/hierarchical_decision.json``, per leaf, the
    sync tiers probed first; (b) a 2x2x2 ``("dcn", "pod", "data")`` mesh
@@ -252,19 +254,20 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    every rank and step, each step's trace and summary written, parsed
    and holding one span a plan entry; each step's compute / exposed sync
    / optimizer seconds printed beside the tuned run's;
-   s. [8]'s runs and checks for ``--arch mamba2-130m`` (24 layers, d 768,
-   24 SSD heads of 64, N 128, vocab 50280; 167,832,000 fp32 params, 219
-   leaves), tuned and ``"xla"``: the launches held to 24 SSD forwards
-   and 24 x ``ssd_scan_bwd.LAUNCHES_PER_CALL`` (bf16: one) backward
-   launches a rank-step, no flash, and the tuned plan's combines every
-   step;
+   s. [8]'s runs and checks for ``--arch mamba2-130m`` at full width (d
+   768, 24 SSD heads of 64, N 128, vocab 50280) cut to 12 of its 24
+   layers for the script's time (``config={"num_layers": 12}``:
+   122,648,160 fp32 params, 111 leaves), tuned and ``"xla"``: the
+   launches held to 12 SSD forwards and 12 x
+   ``ssd_scan_bwd.LAUNCHES_PER_CALL`` (bf16: one) backward launches a
+   rank-step, no flash, and the tuned plan's combines every step;
    sc. [8s]'s tuned run with ``--overlap-backward --trace-dir``, held to
-   it as [8c] is held to [8] (the SSD launches its, releases 23...0);
+   it as [8c] is held to [8] (the SSD launches its, releases 11...0);
    m. MoE expert parallelism: ``--arch olmoe-1b-7b --ranks 4
    --model-parallel 2 --steps 2 --seq 256 --batch 8`` at full width, cut
-   to 2 of its 16 layers (``train.main(..., config={"num_layers": 2})``:
-   a rank's fp32 params, gradients and Adam moments take ~10 GB; 32 of
-   the 64 experts a rank), tuned (``tuned_decision.json``) and ``"xla"``,
+   to 1 of its 16 layers (``train.main(..., config={"num_layers": 1})``;
+   2 before the script's time took [8t]'s; 32 of the 64 experts a
+   rank), tuned (``tuned_decision.json``) and ``"xla"``,
    held to each other as [8] (the replicas: non-expert params on every
    rank, each expert slice on its two data ranks; the launches: the
    flash kernels a layer a rank-step and the plan's combines), the
@@ -277,7 +280,7 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    mc. [8m]'s tuned run with ``--overlap-backward``, two steps: under
    expert parallelism each layer's release syncs it inside the backward
    (one fused sync a layer, no sync thread, as the launcher prints),
-   held to [8m]'s tuned run (step 0's synced gradients, losses, releases 1, 0
+   held to [8m]'s tuned run (step 0's synced gradients, losses, releases 0
    in every rank and step, no second on a sync thread);
    w. [8]'s runs and checks for ``--arch whisper-large-v3`` at full width
    cut to 2 encoder and 2 decoder layers (``config={"num_layers": 2,
@@ -288,6 +291,27 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    mask) and their backwards a rank-step, the tuned plan's combines, the
    tuned run held to the xla run and the planted faults read, no
    overlapped run;
+   t. tensor parallelism: ``--arch smollm-135m --ranks 4
+   --model-parallel 2 --seq 256 --batch 8`` at full width and depth
+   (``{"data": 2, "model": 2}``; 94,701,888 params a rank: the FFN
+   columns and the vocab split, the attention whole on every rank since
+   9 heads do not divide 2), tuned (``tuned_decision.json``, 2 steps)
+   and ``"xla"`` (1 step), their launches zeroed just before the steps
+   and read just after (30 flash forwards and their backwards a
+   rank-step, the plan's combines); the replicated leaves bit-equal on
+   all 4 ranks and each slice on its 2 data ranks after every step;
+   tuned held to ``"xla"`` as [8] (step 0's synced gradients, rank 0's
+   slices, within ``TRAIN_GRAD_TOL``, the losses within
+   ``TRAIN_LOSS_TOL``), both runs' step-0 loss to [8]'s ``"xla"`` step
+   0 (the same global batch and initial params, no model axis) within
+   ``TRAIN_LOSS_TOL``, their gathered gradients' reading against it
+   printed (bf16 sets two data partitions ~2e-2 apart already); then,
+   in one spawned group at fp32 compute and full width, cut to
+   ``TP_FP32_LAYERS`` layers, the split step's synced gradients gathered
+   over ``model`` against the unsplit step's (4 x 1, [8]'s layout)
+   within ``TP_GRAD_TOL`` a leaf, and the fault of
+   ``steps.planted_tp_fault`` that the card's layout runs
+   (``copy_not_summed``) at least 10 x ``TP_GRAD_TOL``;
 9. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
@@ -424,8 +448,16 @@ def device_ms(fn, reps: int = 20) -> float:
                    if e.device_type == DeviceType.CUDA]
         if len(kernels) >= reps:
             return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
-    raise AssertionError(f"the profiler saw {len(kernels)} device events "
-                         f"over {reps} calls")
+    # and in some processes every trace lacks one event (19 over 20 calls
+    # in five traces in a row): the mean of the events seen, times the
+    # events a call, where at most one call's worth is missing
+    n = len(kernels)
+    per_call = round(n / reps)
+    if per_call >= 1 and n >= per_call * (reps - 1):
+        return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n * \
+            per_call
+    raise AssertionError(f"the profiler saw {n} device events over {reps} "
+                         f"calls")
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -2102,6 +2134,20 @@ def serve_path(label, argv, expect):
     return got, res
 
 
+# smollm-135m's and mamba2-130m's serving argv ([4]; smollm's also [4t],
+# held to [4]'s run): fixed 8 x 512 prompts; continuous Poisson requests
+# at 20 a second, 8 slots. New tokens 64 -> 32 and requests 32 -> 16 in
+# PR 26 for the script's time
+SERVE_NEW_TOKENS = 32
+SERVE_REQUESTS = 16
+SERVE_FIXED = ["--prompt-len", "512", "--gen", str(SERVE_NEW_TOKENS),
+               "--batch", "8"]
+SERVE_CONTINUOUS = ["--continuous", "--num-requests", str(SERVE_REQUESTS),
+                    "--poisson-rate", "20", "--prompt-len", "512", "--gen",
+                    str(SERVE_NEW_TOKENS), "--max-active", "8",
+                    "--block-size", "16"]
+
+
 def per_step(n_attention):
     """Expected paged-attention launches of a continuous path: one per
     attention application for every decode step of the engine."""
@@ -2113,10 +2159,7 @@ def serving_paths():
     launch per attention layer (flash_attention) or SSM layer
     (ssd_chunk) for every prefill, and one paged_attention launch per
     attention layer for every decode step of the continuous engine."""
-    fixed = ["--prompt-len", "512", "--gen", "64", "--batch", "8"]
-    cont = ["--continuous", "--num-requests", "32", "--poisson-rate", "20",
-            "--prompt-len", "512", "--gen", "64", "--max-active", "8",
-            "--block-size", "16"]
+    fixed, cont = SERVE_FIXED, SERVE_CONTINUOUS
     z_fixed = ["--prompt-len", "512", "--gen", "16", "--batch", "4"]
     z_cont = ["--continuous", "--num-requests", "8", "--poisson-rate", "20",
               "--prompt-len", "512", "--gen", "16", "--max-active", "4",
@@ -2129,11 +2172,12 @@ def serving_paths():
         ("smollm_fixed", ["--arch", "smollm-135m", *fixed],
          {"flash_attention": 30}),
         ("smollm_continuous", ["--arch", "smollm-135m", *cont],
-         {"flash_attention": 32 * 30, "paged_attention": per_step(30)}),
+         {"flash_attention": SERVE_REQUESTS * 30,
+          "paged_attention": per_step(30)}),
         ("mamba2_fixed", ["--arch", "mamba2-130m", *fixed],
          {"ssd_chunk": 24}),
         ("mamba2_continuous", ["--arch", "mamba2-130m", *cont],
-         {"ssd_chunk": 32 * 24}),
+         {"ssd_chunk": SERVE_REQUESTS * 24}),
         ("zamba2_fixed", ["--arch", "zamba2-2.7b", *z_fixed],
          {"ssd_chunk": 54, "flash_attention": 9}),
         ("zamba2_continuous", ["--arch", "zamba2-2.7b", *z_cont],
@@ -2307,11 +2351,14 @@ def check_grad_sync(gs, world, tag):
     return paths
 
 
-def gradient_elems():
-    """smollm-135m's parameter count, from the port's model."""
+def gradient_elems(num_layers=None):
+    """smollm-135m's parameter count, from the port's model (cut to
+    ``num_layers`` layers)."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
-    api = build_model(get_config("smollm-135m"))
+    cfg = get_config("smollm-135m")
+    api = build_model(cfg.replace(num_layers=num_layers) if num_layers
+                      else cfg)
     with torch.inference_mode():
         params = api.init(torch.Generator(device="cuda").manual_seed(0))
 
@@ -2408,6 +2455,9 @@ def phase_collectives(ranks=RANKS):
 
 
 #: the Communicator phase: (path, topology, committed artifact, variants)
+#: [7]'s tree: smollm-135m at full width cut to 10 of its 30 layers
+#: (92,024,640 fp32 elements, 93 leaves) in PR 26 for the script's time
+COMM_GRAD_LAYERS = 10
 COMMUNICATOR_PATHS = (
     ("comm_2x2", "2x2", "hierarchical_decision.json",
      ["per_leaf", "xla"]),
@@ -2418,13 +2468,15 @@ COMMUNICATOR_PATHS = (
 
 def communicator_run(tag, topo, artifact, variants, n_params, probe=False):
     """One ``measure_collectives --tuning-table`` run of smollm-135m's
-    whole fp32 gradient tree (``n_params`` elements, as [6] counted
-    them) on the ``topo`` mesh, each variant checked; returns the
+    fp32 gradient tree at ``COMM_GRAD_LAYERS`` layers (``n_params``
+    elements, as `gradient_elems` counts them) on the ``topo`` mesh, each
+    variant checked; returns the
     launcher's gradient-sync result, its summary and the launch counts
     by path."""
     from repro_torch.launch import measure_collectives as mc
     argv = ["--topology", topo, "--tuning-table", artifact,
-            "--grad-arch", "smollm-135m"]
+            "--grad-arch", "smollm-135m", "--grad-layers",
+            str(COMM_GRAD_LAYERS)]
     if probe:
         argv.append("--probe-fabric")
     log(f"[7] measure_collectives {' '.join(argv)}")
@@ -2462,8 +2514,8 @@ def communicator_run(tag, topo, artifact, variants, n_params, probe=False):
 
 
 def phase_communicator(n_params):
-    """smollm-135m's whole fp32 gradient tree through the tuned
-    Communicator on the 2x2 and 2x2x2 meshes (``measure_collectives
+    """smollm-135m's fp32 gradient tree (``COMM_GRAD_LAYERS`` layers)
+    through the tuned Communicator on the 2x2 and 2x2x2 meshes (``measure_collectives
     --tuning-table``), each variant checked and timed; returns the
     results and the launch counts by path."""
     out, paths = {}, {}
@@ -2634,8 +2686,10 @@ TRAIN_MODELS = {
     "smollm-135m": {"tag": "8", "layers": 30, "param_elems": 162826560,
                     "leaves": 273, "combines": 2184,
                     "kernels": ("flash_attention", "flash_attention_bwd")},
-    "mamba2-130m": {"tag": "8s", "layers": 24, "param_elems": 167832000,
-                    "leaves": 219, "combines": None,
+    # full width, depth cut 24 -> 12 for the script's time ([8t] took it)
+    "mamba2-130m": {"tag": "8s", "layers": 12, "param_elems": 122648160,
+                    "leaves": 111, "combines": None,
+                    "config": {"num_layers": 12},
                     "kernels": ("ssd_chunk", "ssd_chunk_bwd")},
     # full width, depth cut 32 + 32 -> 2 + 2 (at 16 B a param, full depth
     # is 25.7 GB a rank: four ranks do not fit one card); 4 flash
@@ -2666,6 +2720,11 @@ TRAIN_CHANGE_TOL = 1e-2
 # moves at most a few times 3e-6 in all; a param that crosses a
 # bf16 rounding boundary moves the bf16 forward's loss by ~1e-4
 TRAIN_LOSS_TOL = 5e-3
+
+
+#: each [8] run's "xla" step 0 (synced gradients, loss, initial params,
+#: on the host), by arch: what [8t] is held to
+STEP0_ORACLE = {}
 
 
 def grad_reading(got, want) -> float:
@@ -2829,6 +2888,10 @@ def phase_training(arch):
     loss_diff = max(abs(a - b) for a, b in zip(tuned["losses"],
                                                xla["losses"]))
     rd = sync_readings(tuned, xla)
+    # [8t] holds its step 0 to this run's (the host's copies)
+    STEP0_ORACLE[arch] = {"grads0": xla["grads0"],
+                          "loss": xla["losses"][0],
+                          "init_params": xla["init_params"]}
     log(f"    tuned vs xla: step 0's synced gradients within {rd['grad']:.3g}"
         f" (tol {TRAIN_GRAD_TOL}), the params' change within "
         f"{rd['change']:.3g} (tol {TRAIN_CHANGE_TOL}), losses within "
@@ -2905,7 +2968,8 @@ def phase_training_overlapped(arch, tuned):
     with tempfile.TemporaryDirectory() as d:
         r = train_run(tag, "tuned, overlapped",
                       ["--arch", arch, *TRAIN_ARGS, "--tuning-table", hier,
-                       "--overlap-backward", "--trace-dir", d])
+                       "--overlap-backward", "--trace-dir", d],
+                      config=spec.get("config"))
         traces = check_step_traces(d, r)
     order = list(reversed(range(spec["layers"])))
     bad = [k for k, ok in (
@@ -2969,9 +3033,10 @@ MOE_OVERLAP_STEPS = 2
 MOE_TRAIN_ARGS = ["--arch", "olmoe-1b-7b", "--ranks", "4",
                   "--model-parallel", "2", "--steps", str(MOE_TRAIN_STEPS),
                   "--seq", "256", "--batch", "8"]
-# depth cut 16 -> 2: at 16 B a param (fp32 param, gradient, Adam m and v)
-# a rank's 642M params are 10.3 GB, four ranks ~41 GB of the card
-MOE_TRAIN_CONFIG = {"num_layers": 2}
+# depth cut 16 -> 1 (2 until [8t] took the script's time): at 16 B a
+# param (fp32 param, gradient, Adam m and v) a rank's 2-layer 643M params
+# were 10.3 GB, four ranks ~41 GB of the card
+MOE_TRAIN_CONFIG = {"num_layers": 1}
 MOE_EXPERTS = [[0, 32], [32, 64], [0, 32], [32, 64]]
 
 
@@ -3046,7 +3111,7 @@ def _moe_fault_rank(layers):
 
 
 def phase_training_moe():
-    """[8m] olmoe-1b-7b at full width (2 of 16 layers) trained with
+    """[8m] olmoe-1b-7b at full width (1 of 16 layers) trained with
     expert parallelism on 4 host-staged ranks, tuned (the flat table)
     and through "xla", held to each other as [8] is; faults planted in
     the expert-parallel correction must read above the gradient
@@ -3148,6 +3213,238 @@ def phase_training_moe():
 
 
 # ---------------------------------------------------------------------------
+# [8t] tensor parallelism in the training step
+# ---------------------------------------------------------------------------
+TP_TRAIN_ARGS = ["--arch", "smollm-135m", "--ranks", "4",
+                 "--model-parallel", "2", "--seq", "256", "--batch", "8"]
+TP_TRAIN_STEPS = {"tuned": 2, "xla": 1}
+# smollm-135m on ("data", "model") = 2 x 2: the attention (26,542,080)
+# and the norms (34,560, with the final norm's 576) whole on every rank,
+# half the MLP (39,813,120) and half of tok + out (28,311,552)
+TP_PARAM_ELEMS = 94701888
+TP_SPLIT = {"heads": False, "kv_heads": False, "ffn": True, "vocab": True}
+# [8t]'s gradients against a run without a model axis ([8]'s layout):
+# the same batch and params, but the split products sum their fp32
+# partials over model and a rank takes 4 rows, not 2, so fp32 sums run
+# in other orders. At bf16 that sets bf16 roundings apart, and 30 layers
+# spread them: two data-parallel partitions of the same step (4 x 2
+# rows, 2 x 4) already read about 2e-2 apart (`allclose_reading`,
+# tools/tp_grad_probe.py), so no bf16 tolerance within the reference's
+# 2e-2 can hold. The gradients are held at fp32 compute
+# (`_tp_fp32_rank`), where only the sums' order separates them (a few
+# 1e-6 at full depth); at bf16 the loss is held ([8]'s TRAIN_LOSS_TOL)
+# and the gradients' reading is printed. A planted fault must read 10x.
+TP_GRAD_TOL = 1e-4
+
+
+def allclose_reading(got, want) -> dict:
+    """Per leaf, max_i |got_i - want_i| / (max|want| + |want_i|): the
+    least ``tol`` at which ``assert_allclose(got, want, atol=tol *
+    max|want|, rtol=tol)`` holds, the reference's form of a tolerance
+    with atol scaled to the leaf (float64 on the card)."""
+    out = {}
+    for j, (g, w) in enumerate(zip(got, want)):
+        g, w = g.to("cuda", torch.float64), w.to("cuda", torch.float64)
+        den = w.abs().max() + w.abs()
+        out[j] = ((g - w).abs() / den.clamp_min(1e-300)).max().item()
+    return out
+
+
+def expected_tp_launches(r, steps):
+    """Every rank runs smollm's 30 attention layers whole: one flash
+    forward and LAUNCHES_PER_CALL backward launches a layer a
+    rank-step, and the tuned plan's combines every step."""
+    from repro_torch.kernels import attention_bwd
+    per = 30 * steps * TRAIN_RANKS
+    return {"flash_attention": per,
+            "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
+            "ssd_chunk": 0, "ssd_chunk_bwd": 0,
+            "segment_combine": steps * r["plan_combines"]}
+
+
+#: the fp32 check's depth: full width, 2 of smollm's 30 layers (the
+#: script's time; tools/tp_grad_probe.py runs it at 30)
+TP_FP32_LAYERS = 2
+
+
+def _tp_fp32_rank(layers):
+    """One of 4 ranks: smollm-135m's "xla" training step at full width
+    and ``layers`` layers, fp32 compute, [8t]'s batch (8 x 256, seed 0) and params
+    (seed 0), on ("data", "model") = 4 x 1 ([8]'s layout, no model
+    axis), then 2 x 2 (tensor-parallel), then 2 x 2 with each fault of
+    ``steps.planted_tp_fault`` that the layout runs; returns rank 0's
+    losses and its readings of each split step's synced step-0
+    gradients, gathered over model, against the unsplit step's
+    (`allclose_reading`, per leaf)."""
+    import contextlib
+    from repro_torch import pytree
+    from repro_torch.configs import ARCHITECTURES, ParallelConfig, \
+        ShapeConfig
+    from repro_torch.configs.base import CollectiveConfig
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.data import batch_to_tensors
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import make_train_batch
+    from repro_torch.parallel import sharding as sh
+    dev = grp.device_of("cuda")
+    cfg = ARCHITECTURES["smollm-135m"].replace(num_layers=layers)
+    shape = ShapeConfig(name="tp_fp32", seq_len=256, global_batch=8,
+                        kind="train")
+    batch_np = make_train_batch(cfg, shape, seed=0)
+
+    def synced(model_parallel, fault=None):
+        mesh = make_local_mesh(model_parallel, device=dev)
+        step = steps.build_train_step(
+            cfg, shape, ParallelConfig(compute_dtype="float32"),
+            CollectiveConfig(), mesh, device=dev)
+        params = step.init(torch.Generator(device=dev).manual_seed(0))
+        batch = batch_to_tensors(batch_np, dev, rows=step.rows)
+        plant = steps.planted_tp_fault(fault) if fault \
+            else contextlib.nullcontext()
+        with plant:
+            m = step.fn(params, step.opt.init(params), batch,
+                        keep_grads=True)[2]
+        return float(m["loss"]), step.gather(m["grads"])
+    loss, tree = synced(1)
+    whole = pytree.leaves(tree)
+    out = {"loss": loss, "faults": {}, "names": leaf_names(tree)}
+    del tree
+    out["tp_loss"], got = synced(2)
+    out["grad"] = allclose_reading(pytree.leaves(got), whole)
+    del got
+    for fault in steps.TP_FAULTS:
+        if fault == "kv_not_summed" and not sh.tp_mixed(cfg, 2):
+            continue        # smollm's kv heads are never read split here
+        got = pytree.leaves(synced(2, fault)[1])
+        out["faults"][fault] = max(allclose_reading(got, whole).values())
+        del got
+    return out
+
+
+def first_slice(whole, shape):
+    """The first block of ``shape`` of ``whole`` (split on at most one
+    dimension)."""
+    for d, (n, m) in enumerate(zip(whole.shape, shape)):
+        if n != m:
+            return whole.narrow(d, 0, m)
+    return whole
+
+
+def phase_training_tp():
+    """[8t] smollm-135m at full width and depth trained tensor-parallel
+    on 4 host-staged ranks (``("data", "model")`` = 2 x 2), tuned and
+    through "xla", held to each other as [8] is and to [8]'s "xla" step
+    0; at fp32 compute, the split step's gradients held to the unsplit
+    step's and a planted fault read 10x above the tolerance. Returns the
+    summary and the launch counts by path."""
+    from repro_torch import pytree
+    from repro_torch.core.collectives import group as grp
+    t0 = time.perf_counter()
+    runs = {}
+    for label, extra in (("tuned", ["--tuning-table", FLAT_TABLE]),
+                         ("xla", ["--collective", "xla"])):
+        steps_n = TP_TRAIN_STEPS[label]
+        r = train_run("8t", label, [*TP_TRAIN_ARGS, "--steps", str(steps_n),
+                                    *extra])
+        want = expected_tp_launches(r, steps_n)
+        bad = [k for k, ok in (
+            ("device", r["device"] == "cuda:0"
+             and r["ranks"] == TRAIN_RANKS),
+            ("mesh", r["mesh"] == {"data": 2, "model": 2}),
+            ("params a rank", r["param_elems"] == TP_PARAM_ELEMS),
+            ("layout", r["tp_split"] == TP_SPLIT),
+            ("replicas", r["replicas_equal_at_init"]
+             and all(r["replicas_equal"])),
+            ("losses", len(r["losses"]) == steps_n and all(
+                x == x and 0 < x < 20 for x in r["losses"])),
+            ("launches", r["launches"] == want)) if not ok]
+        if bad:
+            raise AssertionError(f"[8t] {label}: {bad}; launches "
+                                 f"{r['launches']} vs {want}; mesh "
+                                 f"{r['mesh']}, {r['param_elems']} params")
+        runs[label] = r
+    tuned, xla = runs["tuned"], runs["xla"]
+    if not tuned["tuned"] or xla["tuned"] or tuned["plan_combines"] <= 0:
+        raise AssertionError(f"[8t] plans: tuned {tuned['plan_combines']} "
+                             f"combines, xla tuned={xla['tuned']}")
+
+    def card(tree):
+        return [t.to("cuda", torch.float64) for t in pytree.leaves(tree)]
+    oracle = STEP0_ORACLE["smollm-135m"]
+    # the same start: both runs, and [8]'s draw (rank 0 holds the first
+    # slice of each split leaf); rank 0's gradients before the sync
+    same_start = all(torch.equal(a, b) for a, b in zip(
+        card(tuned["init_params"]), card(xla["init_params"]))) and \
+        tuned["local_grads0_fingerprint"] == \
+        xla["local_grads0_fingerprint"] and all(
+            torch.equal(held, first_slice(whole, held.shape))
+            for held, whole in zip(pytree.leaves(tuned["init_params"]),
+                                   pytree.leaves(oracle["init_params"])))
+    grad = grad_reading(card(tuned["grads0"]), card(xla["grads0"]))
+    loss_diff = abs(tuned["losses"][0] - xla["losses"][0])
+    gx8 = card(oracle["grads0"])
+    vs8 = {}
+    for label, r in runs.items():
+        per_leaf = allclose_reading(card(r["grads0_whole"]), gx8)
+        vs8[label] = {"grad_bf16": max(per_leaf.values()),
+                      "loss": abs(r["losses"][0] - oracle["loss"])}
+    del gx8
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fp32 = grp.spawn(_tp_fp32_rank, TRAIN_RANKS, (TP_FP32_LAYERS,))
+    fp32_s = time.perf_counter() - t1
+    names = fp32["names"]
+    worst = sorted(fp32["grad"], key=fp32["grad"].get, reverse=True)[:3]
+    fp32_grad = max(fp32["grad"].values())
+    fp32_loss = abs(fp32["tp_loss"] - fp32["loss"])
+    log(f"    tuned vs xla: step 0's synced gradients (rank 0's slices) "
+        f"within {grad:.3g} (tol {TRAIN_GRAD_TOL}), step 0's losses "
+        f"within {loss_diff:.3g} (tol {TRAIN_LOSS_TOL}); the same start "
+        f"(and [8]'s, sliced) and rank 0's gradients before the sync "
+        f"bit-equal: {same_start}")
+    for label, v in vs8.items():
+        log(f"    {label} vs [8] xla step 0 (bf16): loss within "
+            f"{v['loss']:.3g} (tol {TRAIN_LOSS_TOL}); synced gradients "
+            f"gathered over model {v['grad_bf16']:.3g} (not held: bf16's "
+            f"floor, see TP_GRAD_TOL)")
+    log(f"    fp32, {TP_FP32_LAYERS} layers, 4 ranks, 2 x 2 against 4 x 1 "
+        f"({fp32_s:.1f}s): synced "
+        f"gradients gathered over model within {fp32_grad:.3g} (tol "
+        f"{TP_GRAD_TOL}; worst "
+        + ", ".join(f"{names[j]} {fp32['grad'][j]:.3g}" for j in worst)
+        + f"), loss within {fp32_loss:.3g}; planted: " + "; ".join(
+            f"{k} {v:.3g} (>= {10 * TP_GRAD_TOL})"
+            for k, v in fp32["faults"].items()))
+    if not same_start or grad > TRAIN_GRAD_TOL or \
+            loss_diff > TRAIN_LOSS_TOL:
+        raise AssertionError("[8t] the tuned run departs from the xla run")
+    if any(v["loss"] > TRAIN_LOSS_TOL for v in vs8.values()) or \
+            fp32_grad > TP_GRAD_TOL or fp32_loss > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[8t] the split step departs from the "
+                             f"unsplit one: {vs8}, fp32 {fp32_grad}")
+    if not fp32["faults"] or any(v < 10 * TP_GRAD_TOL
+                                 for v in fp32["faults"].values()):
+        raise AssertionError(f"[8t] a planted fault reads under 10x the "
+                             f"tolerance: {fp32['faults']}")
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "peak_mem_bytes", "launches", "plan_entries", "plan_combines",
+            "describe", "wall_s", "param_elems", "leaves", "tp_split")
+    summary = {"tuned": {k: tuned[k] for k in keep},
+               "xla": {k: xla[k] for k in keep},
+               "tuned_vs_xla": {"grad": grad, "loss": loss_diff},
+               "vs_8_xla_step0": vs8,
+               "fp32": {"grad": fp32_grad, "loss": fp32_loss,
+                        "worst": {names[j]: fp32["grad"][j]
+                                  for j in worst},
+                        "planted": fp32["faults"], "seconds": fp32_s},
+               "phase_s": time.perf_counter() - t0}
+    log(f"    [8t] {summary['phase_s']:.1f}s")
+    return summary, {"train_tp_tuned": tuned["launches"],
+                     "train_tp_xla": xla["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # [4t] tensor-parallel decode through the tuned Communicator
 # ---------------------------------------------------------------------------
 TP_ARGS = ["--arch", "smollm-135m", "--tensor-parallel", "4",
@@ -3166,10 +3463,7 @@ def phase_tp_decode(one_process):
     path."""
     from repro_torch.launch import serve
     from repro_torch.launch.measure_collectives import combines_per_rank
-    fixed = ["--prompt-len", "512", "--gen", "64", "--batch", "8"]
-    cont = ["--continuous", "--num-requests", "32", "--poisson-rate", "20",
-            "--prompt-len", "512", "--gen", "64", "--max-active", "8",
-            "--block-size", "16"]
+    fixed, cont = SERVE_FIXED, SERVE_CONTINUOUS
     runs = [("tp_fixed_all_gather", "smollm_fixed", fixed, "all_gather"),
             ("tp_fixed_all_reduce", "smollm_fixed", fixed, "all_reduce"),
             ("tp_continuous_all_gather", "smollm_continuous", cont,
@@ -3191,7 +3485,7 @@ def phase_tp_decode(one_process):
             flash, paged = 30 * p, 0
         else:
             same = res["generated"] == one["generated"]
-            flash = 32 * 30 * p
+            flash = SERVE_REQUESTS * 30 * p
             paged = res["decode_steps"] * 30 * p
         combines = combines_per_rank(coll, alg, seg, p) * p * \
             res["decode_steps"]
@@ -3312,9 +3606,10 @@ def main() -> int:
     tuners, tuner_paths = phase_tuners()
     mark("[6b]")
     coll_paths.update(tuner_paths)
-    comm, comm_paths = phase_communicator(coll["grad_sync"]["elems"])
+    n_comm = gradient_elems(COMM_GRAD_LAYERS)
+    comm, comm_paths = phase_communicator(n_comm)
     comm["comm_2x2x2_mapped"], mapped_paths = phase_remapped(
-        coll["grad_sync"]["elems"],
+        n_comm,
         comm["comm_2x2x2"]["variants"]["bucketed"]["seconds"])
     comm_paths.update(mapped_paths)
     mark("[7], [7d]")
@@ -3329,6 +3624,10 @@ def main() -> int:
     training_moe, moe_paths = phase_training_moe()
     train_paths.update(moe_paths)
     mark("[8m], [8mc]")
+    training_tp, tp_train_paths = phase_training_tp()
+    train_paths.update(tp_train_paths)
+    STEP0_ORACLE.clear()
+    mark("[8t]")
     for path, counts in train_paths.items():
         for name, n in counts.items():
             kernels[name]["launches_by_path"][path] = n
@@ -3358,6 +3657,7 @@ def main() -> int:
                       "training_mamba2": training_ssm,
                       "training_olmoe_ep": training_moe,
                       "training_whisper": training_whisper,
+                      "training_tp": training_tp,
                       "tp_decode": tp_decode,
                       "train_grads_fp32": train_grads}))
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -21,7 +21,8 @@ receiving, and a pair ``(i, i)`` is a local copy. Sources and
 destinations must each be unique, as in JAX.
 
 The ``"xla"`` algorithms use the backend's built-ins: ``psum``,
-``all_gather`` and ``all_to_all``.
+``all_gather`` and ``all_to_all``; ``pmax`` serves the vocab-parallel
+loss's row max.
 
 Threads. Every function here may be called from any one thread of a
 rank, as long as no other thread of that rank issues a collective at
@@ -30,9 +31,10 @@ every rank must issue its collectives in one order. `SyncThread` is the
 one place the port calls them off the main thread: the
 backward-overlapped gradient sync hands it one job a released layer
 while autograd runs the layers below, and the main thread issues no
-collective until it has joined the thread. (Under expert parallelism
-the backward issues collectives of its own, so there the layers sync
-inside the backward and no thread runs: ``launch/steps.py``.) On the
+collective until it has joined the thread. (On a ``model`` axis,
+expert or tensor parallelism, the backward issues collectives of its
+own, so there the layers sync inside the backward and no thread runs:
+``launch/steps.py``.) On the
 card the thread works on a CUDA stream of its own, so the host
 staging's stream synchronizes
 (``.to("cpu")``, ``.to(device)``) wait for the sync's own copies and
@@ -60,6 +62,7 @@ import datetime
 import os
 import pickle
 import queue
+import sys
 import tempfile
 import threading
 import time
@@ -74,6 +77,10 @@ from repro_torch import pytree
 #: how long a rank waits on a collective (and on sub-group creation)
 #: before it fails instead of hanging
 TIMEOUT_S = 600.0
+#: what the ``forkserver`` imports once for every group `spawn` starts
+#: (torch alone: a module that ran a parallel op at import would leave
+#: the forked ranks a dead OpenMP pool)
+FORKSERVER_PRELOAD = ["torch"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -164,6 +171,13 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-reduce (sum), out of place."""
     buf = _to_host(x)
     dist.all_reduce(buf, group=_pg(group))
+    return buf.to(x.device)
+
+
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The backend's all-reduce (elementwise max), out of place."""
+    buf = _to_host(x)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=_pg(group))
     return buf.to(x.device)
 
 
@@ -358,23 +372,55 @@ def spawn(fn: Callable, world: int, args: tuple = (), *,
     """Run ``fn(*args)`` in ``world`` new processes that form one ``gloo``
     group, and return rank 0's return value (picklable).
 
-    The processes start with the ``spawn`` method (CUDA forbids ``fork``
-    once initialised) and meet through a ``FileStore`` in a temporary
-    directory, so concurrent runs on one host need no free port. If a
-    rank raises, the others are stopped and the error is raised here.
+    The processes start with the ``forkserver`` method: CUDA forbids
+    ``fork`` once initialised, and the server, started on the first call
+    of this process, imports torch once and never touches the card, so
+    each group forks from it instead of importing torch in every rank
+    (seconds a rank); each rank takes the caller's current standard
+    output, error and environment, as a spawned one would. The ranks
+    meet through a ``FileStore`` in a temporary directory, so concurrent
+    runs on one host need no free port. If a rank raises, the others are
+    stopped and the error is raised here.
     """
+    torch.multiprocessing.set_forkserver_preload(FORKSERVER_PRELOAD)
+    sys.stdout.flush()
+    sys.stderr.flush()
     with tempfile.TemporaryDirectory() as d:
         init = "file://" + os.path.join(d, "store")
         result = os.path.join(d, "rank0.pkl")
         torch.multiprocessing.start_processes(
-            _entry, args=(fn, world, init, result, args, timeout_s),
-            nprocs=world, join=True, start_method="spawn")
+            _entry, args=(fn, world, init, result, args, timeout_s,
+                          _Caller()),
+            nprocs=world, join=True, start_method="forkserver")
         with open(result, "rb") as f:
             return pickle.load(f)
 
 
+class _Caller:
+    """The caller's standard output and error and its environment,
+    handed to a rank: a forkserver's child inherits the server's (the
+    caller's at its first `spawn`), not the caller's at this one."""
+
+    def __init__(self, fds=None, env=None):
+        self.fds, self.env = fds, env
+
+    def __reduce__(self):
+        from multiprocessing import reduction
+        return (_Caller, ((reduction.DupFd(1), reduction.DupFd(2)),
+                          dict(os.environ)))
+
+    def attach(self) -> None:
+        for src, dst in zip(self.fds, (1, 2)):
+            fd = src.detach()
+            os.dup2(fd, dst)
+            os.close(fd)
+        os.environ.clear()
+        os.environ.update(self.env)
+
+
 def _entry(r: int, fn: Callable, world: int, init: str, result: str,
-           args: tuple, timeout_s: float) -> None:
+           args: tuple, timeout_s: float, caller: _Caller) -> None:
+    caller.attach()
     # the ranks share the host's cores: with each rank's default of one
     # intra-op thread per core, their spinning thread pools starve each
     # other (a 64K-element add took 27 ms instead of 0.04 at 4 ranks)
@@ -386,7 +432,9 @@ def _entry(r: int, fn: Callable, world: int, init: str, result: str,
         out = fn(*args)
         if r == 0:
             with open(result, "wb") as f:
-                pickle.dump(out, f)
+                # protocol 5 writes a tensor's bytes at half protocol
+                # 4's cost (a run's kept params are gigabytes)
+                pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
     finally:
         dist.destroy_process_group()
 

@@ -248,9 +248,10 @@ def mesh_spec(topology, ranks: int):
     return tuple(lv.size for lv in levels), tuple(lv.axis for lv in levels)
 
 
-def _gradient_structure(arch, reduced, n, device):
+def _gradient_structure(arch, reduced, n, device, layers=None):
     """Shapes of the synced gradient: ``arch``'s parameter tree in the
-    port's layout (per-layer dicts), or one flat (n,) leaf."""
+    port's layout (per-layer dicts; ``layers``: its depth cut to that
+    many layers), or one flat (n,) leaf."""
     if not arch:
         return {"grad": pytree.LeafStruct((n,), torch.float32)}
     from repro_torch.configs import get_config
@@ -258,6 +259,8 @@ def _gradient_structure(arch, reduced, n, device):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     with torch.inference_mode():
         params = build_model(cfg, device=device.type).init(
             torch.Generator(device=device).manual_seed(0))
@@ -557,7 +560,8 @@ def _rank_main(opts: dict):
         if opts["probe_fabric"]:
             res["probed"] = describe_topology(probe_mesh_topology(mesh))
         struct = _gradient_structure(opts["grad_arch"], opts["reduced"],
-                                     opts["grad_elems"], device)
+                                     opts["grad_elems"], device,
+                                     opts["grad_layers"])
         res["grad_sync"] = grad_sync(
             mesh, artifact, struct, device, bucket_bytes=opts["bucket_bytes"],
             trials=GRAD_TRIALS)
@@ -642,6 +646,9 @@ def main(argv=None) -> dict:
                     help="sync this model's whole gradient tree")
     ap.add_argument("--reduced", action="store_true",
                     help="with --grad-arch: the model's reduced config")
+    ap.add_argument("--grad-layers", type=int, default=None,
+                    help="with --grad-arch: the model cut to this many "
+                         "layers (its widths kept)")
     ap.add_argument("--grad-elems", type=int, default=0,
                     help="sync one flat gradient of this many fp32 "
                          "elements (without --grad-arch)")
@@ -671,7 +678,7 @@ def main(argv=None) -> dict:
         bucket_bytes=None if args.bucket_mb is None
         else int(args.bucket_mb * (1 << 20)),
         grad_arch=args.grad_arch, reduced=args.reduced,
-        grad_elems=args.grad_elems,
+        grad_elems=args.grad_elems, grad_layers=args.grad_layers,
         probe_fabric=args.probe_fabric)
     res = grp.spawn(_rank_main, ranks, (opts,))
     print_table(res)

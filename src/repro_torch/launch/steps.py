@@ -8,7 +8,8 @@ over the data axes; the tuned path runs forward, backward, the
 Communicator's gradient sync and the optimizer inside one ``shard_map``.
 The port's ranks are processes (`group.RankMesh`), each holding its rows
 of the global batch (`sharding.batch_rows`) and a full replica of the
-params, so both paths are the same three phases in every rank:
+params (or, on a ``model`` axis, its slices of them: below), so both
+paths are the same three phases in every rank:
 
   1. forward and backward of this rank's rows (``torch.autograd.grad``;
      attention through the flash kernels, the SSD scan of the SSM and
@@ -70,10 +71,29 @@ overlapped step once, and a machine once; neither is root-caused
 The reference's untuned path, XLA's partitioning, is the oracle the
 tests hold the port's ``"xla"`` path to.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP.md
-Queue 1 step 10): a ``model`` axis above 1 for a family without experts
-(tensor parallelism in training, which the reference does not have
-either) and FSDP param sharding.
+Tensor parallelism (every other family on a ``model`` axis above 1).
+The reference stores the params Megatron-style over ``model``
+(``param_specs``: heads, FFN columns and vocab split where the axis
+divides them) in both its steps; XLA partitions the model axis, also
+inside its tuned step's manual region, which is manual over the data
+axes only, so its Communicator syncs over data. The port's ranks hold
+their `sharding.tp_shard` slices and run the blocks column- and
+row-parallel with explicit all-reduces over ``model`` (the backend's,
+`layers.copy_to_model` and `layers.reduce_from_model`: the
+reference's model-axis collectives are XLA's, never its
+Communicator's). After the backward, `tp_correct` sums over ``model``
+the gradients of the replicated key/value leaves that split query
+heads only partly use; every other gradient is already whole (a
+replicated leaf's, equal on every rank) or this rank's slice of it.
+Then the sync runs over the data tiers only, tuned or ``"xla"``, among
+the ranks that hold each slice, and AdamW clips by the whole tree's
+norm (`split_global_norm` over `sharding.tp_split`). Under
+``overlap_backward`` the backward issues model-axis collectives, so
+the release points sync each layer inside the backward, as under
+expert parallelism.
+
+Not ported (raises ``NotImplementedError`` naming ROADMAP.md Queue 1
+step 10): FSDP param sharding.
 """
 from __future__ import annotations
 
@@ -113,10 +133,12 @@ class TrainStep:
     ``opt_state``, as `AdamW.update` does), with the model
     (``api``) and optimizer (``opt``) it was built over; ``grad(params,
     batch) -> ((loss, aux), grads)`` is its first phase alone, this
-    rank's gradients before `ep_correct` and the sync. ``init(gen)``
-    draws the params this rank holds: all of them, or, with
-    ``ep_axis``, all but the other ranks' experts (`sharding.ep_shard`
-    of the full draw)."""
+    rank's gradients before `ep_correct` / `tp_correct` and the sync.
+    ``init(gen)`` draws the params this rank holds: all of them, or,
+    with ``ep_axis``, all but the other ranks' experts
+    (`sharding.ep_shard` of the full draw), or, with ``tp_axis``, this
+    rank's tensor-parallel slices (`sharding.tp_shard` of the full
+    draw)."""
 
     fn: Callable
     grad: Callable
@@ -126,12 +148,40 @@ class TrainStep:
     rows: slice
     mesh: Any = None
     ep_axis: Optional[str] = None
+    tp_axis: Optional[str] = None
 
     def init(self, gen: torch.Generator):
         params = self.api.init(gen)
-        if self.ep_axis is None:
-            return params
-        return sh.ep_shard(params, self.mesh, self.ep_axis)
+        if self.ep_axis is not None:
+            return sh.ep_shard(params, self.mesh, self.ep_axis)
+        if self.tp_axis is not None:
+            return sh.tp_shard(params, self.mesh, self.tp_axis)
+        return params
+
+    @property
+    def model_axis(self) -> Optional[str]:
+        """The ``model`` axis this step splits params over, or None."""
+        return self.ep_axis or self.tp_axis
+
+    def split(self, tree):
+        """``(replicated, split)`` halves of a held tree (`sharding.ep_split`
+        or `sharding.tp_split`), or None without a model axis."""
+        if self.ep_axis is not None:
+            return sh.ep_split(tree)
+        if self.tp_axis is not None:
+            return sh.tp_split(tree, self.api.cfg,
+                               self.mesh.shape[self.tp_axis])
+        return None
+
+    def gather(self, tree):
+        """A held tree with every split leaf gathered whole over the model
+        axis, on every rank (collective over it); the tree itself
+        without one."""
+        if self.ep_axis is not None:
+            return sh.ep_gather(tree, self.mesh, self.ep_axis)
+        if self.tp_axis is not None:
+            return sh.tp_gather(tree, self.mesh, self.api.cfg, self.tp_axis)
+        return tree
 
 
 def ep_correct(grads, mesh, ep_axis: str = "model"):
@@ -192,20 +242,63 @@ def planted_ep_fault(fault: str):
         globals()["ep_correct"], moe._DIRECTIONS["rev"] = saved
 
 
-def ep_global_norm(grads, mesh, ep_axis: str = "model") -> torch.Tensor:
+def split_global_norm(halves, axis) -> torch.Tensor:
     """The global norm of the whole gradient tree from a rank that holds
-    a slice of its experts: the replicated leaves' sum of squares plus
-    the expert slices' summed over ``ep_axis``, the same bits on every
-    rank. (The reference's tuned step clips each rank by its own
-    slice's norm and keeps one rank's replicated params; its untuned
-    step, the oracle, clips by this norm.)"""
-    rep, exp = sh.ep_split(grads)
+    a slice of it, ``halves`` = ``(replicated, split)``: the replicated
+    leaves' sum of squares plus the split leaves' summed over ``axis``
+    (a `group.Axis`), the same bits on every rank. (The reference's
+    untuned step, the oracle, clips by this norm; under expert
+    parallelism its tuned step clips each rank by its own slice's norm,
+    under tensor parallelism it sees whole leaves.)"""
+    rep, split = halves
 
     def sum_sq(tree):
         return sum(torch.sum(torch.square(x.to(torch.float32)))
                    for x in pytree.leaves(tree))
-    return torch.sqrt(sum_sq(rep) + grp.psum(sum_sq(exp),
-                                             mesh.axis(ep_axis)))
+    return torch.sqrt(sum_sq(rep) + grp.psum(sum_sq(split), axis))
+
+
+def ep_global_norm(grads, mesh, ep_axis: str = "model") -> torch.Tensor:
+    """`split_global_norm` of a rank holding a slice of its experts."""
+    return split_global_norm(sh.ep_split(grads), mesh.axis(ep_axis))
+
+
+def tp_correct(grads, mesh, cfg, tp_axis: str = "model"):
+    """Sum over ``tp_axis`` the gradients of the replicated key/value
+    leaves that the split query heads only partly use (`sharding.tp_mixed`:
+    each rank's backward gives the part of its own query heads). Every
+    other replicated leaf's gradient comes out whole and equal on every
+    rank (the blocks' `layers.copy_to_model` sums the cotangents), and
+    each split leaf's is its slice of the whole gradient."""
+    axis = mesh.axis(tp_axis)
+    return sh.tp_partial(grads, lambda g: grp.psum(g, axis), cfg,
+                         mesh.shape[tp_axis])
+
+
+#: the faults of the tensor-parallel step `planted_tp_fault` plants
+TP_FAULTS = ("copy_not_summed", "kv_not_summed")
+
+
+@contextlib.contextmanager
+def planted_tp_fault(fault: str):
+    """Plant one fault of the tensor-parallel step in this process for
+    the length of the block: ``"copy_not_summed"`` skips the all-reduce
+    in `layers.copy_to_model`'s backward (each rank keeps its own part
+    of a replicated activation's cotangent); ``"kv_not_summed"`` skips
+    `tp_correct` (the key/value gradients of the mixed layout stay
+    partial)."""
+    saved = globals()["tp_correct"], L._COPY_BACKWARD["fn"]
+    if fault == "copy_not_summed":
+        L._COPY_BACKWARD["fn"] = lambda ct, axis: ct
+    elif fault == "kv_not_summed":
+        globals()["tp_correct"] = lambda grads, mesh, cfg, tp_axis="model": \
+            grads
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {TP_FAULTS}")
+    try:
+        yield
+    finally:
+        globals()["tp_correct"], L._COPY_BACKWARD["fn"] = saved
 
 
 def _pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -262,15 +355,12 @@ def build_train_step(
     tuned = comm.is_tuned
     validate_collectives(coll, parallel, tuned=tuned)
     overlap = coll.overlap_backward     # tuned: validate_collectives
-    ep_axis = None
+    ep_axis = tp_axis = None
     if sh.model_size(mesh) > 1:
-        if cfg.family != "moe":
-            raise NotImplementedError(
-                f"a model-parallel axis trains the MoE family (expert "
-                f"parallelism); tensor parallelism of the {cfg.family} "
-                f"family is not in the reference either and comes with "
-                f"ROADMAP.md Queue 1 step 10")
-        ep_axis = "model"
+        if cfg.family == "moe":
+            ep_axis = "model"
+        else:
+            tp_axis = "model"
     if parallel.shard_params_over_data:
         raise NotImplementedError(
             "FSDP param sharding comes with ROADMAP.md Queue 1 step 10")
@@ -279,8 +369,10 @@ def build_train_step(
     api = build_model(cfg, compute_dtype=cd,
                       param_dtype=_DTYPES[parallel.param_dtype],
                       remat=parallel.remat != "none", device=dev,
-                      ep_axis=ep_axis, mesh=mesh, a2a_algorithm=comm)
+                      ep_axis=ep_axis, tp_axis=tp_axis, mesh=mesh,
+                      a2a_algorithm=comm)
     opt = AdamW(lr=lr)
+    model_axis = ep_axis or tp_axis
     dpx = sh.dp_axes(mesh)
     dp = sh.dp_size(mesh)
     rows = sh.batch_rows(mesh, shape.global_batch)
@@ -330,23 +422,27 @@ def build_train_step(
     def sync(grads):
         if tuned:
             return comm.sync_gradients(grads, mean=True)
-        if ep_axis is None:
+        if model_axis is None:
             # the backend's all-reduce over the data-parallel ranks (the
             # whole group: no model axis), averaged
             return pytree.tree_map(lambda g: grp.psum(g) / dp, grads)
+        # over the data axes only: among the ranks that hold each slice
         return pytree.tree_map(lambda g: _pmean(g, mesh, dpx), grads)
 
     def correct(grads):
-        return grads if ep_axis is None else ep_correct(grads, mesh,
-                                                        ep_axis)
+        if ep_axis is not None:
+            return ep_correct(grads, mesh, ep_axis)
+        if tp_axis is not None:
+            return tp_correct(grads, mesh, cfg, tp_axis)
+        return grads
 
     def overlapped(params, batch, keep_grads):
         """Forward and backward under a release sink whose thread syncs
-        each layer as autograd releases it (with experts split over
-        ``model``, in the backward itself: see the module's text); the
-        step's phase-1 result and the sink, whose syncs may still run."""
+        each layer as autograd releases it (on a ``model`` axis, in the
+        backward itself: see the module's text); the step's phase-1
+        result and the sink, whose syncs may still run."""
         sink = comm.release_sink(coll.bucket_bytes,
-                                 overlap=ep_axis is None, device=dev,
+                                 overlap=model_axis is None, device=dev,
                                  fingerprint=keep_grads)
         with L.release_scope(sink):
             (loss, aux), grads = value_and_grad(params, batch)
@@ -381,8 +477,8 @@ def build_train_step(
         aux = pytree.tree_map(lambda v: _pmean(v, mesh, dpx), aux)
         _synchronize(dev)
         t2 = time.perf_counter()
-        gnorm = None if ep_axis is None or not opt.grad_clip \
-            else ep_global_norm(grads, mesh, ep_axis)
+        gnorm = None if model_axis is None or not opt.grad_clip \
+            else split_global_norm(step.split(grads), mesh.axis(model_axis))
         new_params, new_opt = opt.update(grads, opt_state, params,
                                          lr_scale=lr_scale(opt_state.step),
                                          gnorm=gnorm)
@@ -394,5 +490,6 @@ def build_train_step(
             metrics["grads"] = grads
         return new_params, new_opt, metrics
 
-    return TrainStep(fn=fn, grad=grad_fn, api=api, opt=opt, tuned=tuned,
-                     rows=rows, mesh=mesh, ep_axis=ep_axis)
+    step = TrainStep(fn=fn, grad=grad_fn, api=api, opt=opt, tuned=tuned,
+                     rows=rows, mesh=mesh, ep_axis=ep_axis, tp_axis=tp_axis)
+    return step

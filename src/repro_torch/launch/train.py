@@ -41,16 +41,19 @@ embeddings in front of the text, labels -1 over them), MoE (olmoe), SSM
 (mamba2), hybrid (zamba2) and enc-dec (whisper-large-v3: audio frames
 into the encoder). ``--model-parallel`` above 1 adds a ``model`` axis
 to the mesh (``--ranks`` defaults to the topology's size, else 1, times
-it) over which the MoE family's experts are split (expert parallelism,
+it). The MoE family splits its experts over it (expert parallelism,
 `steps.build_train_step`): each rank holds its slice of every layer's
-experts, the dispatch all-to-all runs as the Communicator (or
-``"xla"``) resolves it, and the replica check reads the non-expert
-params on every rank and each expert slice on the data ranks that hold
-it; ``--ckpt`` gathers the experts over ``model`` first, so rank 0
-writes every expert. Not ported yet (each raises
-``NotImplementedError`` naming ROADMAP.md Queue 1 step 10): a ``model``
-axis for a family without experts (tensor parallelism, which the
-reference does not train either) and FSDP.
+experts and the dispatch all-to-all runs as the Communicator (or
+``"xla"``) resolves it. Every other family trains tensor-parallel, as
+the reference's ``param_specs`` lays it out: each rank holds its slice
+of the heads, FFN columns and vocab wherever the axis divides them
+(smollm-135m's 9 heads do not divide 2, so its attention runs whole on
+every rank), and the blocks all-reduce over ``model``. The gradient
+sync runs over the data axes. The replica check reads the replicated
+params on every rank and each slice on the data ranks that hold it;
+``--ckpt`` gathers the slices over ``model`` first, so rank 0 writes
+whole leaves. Not ported yet (raises ``NotImplementedError`` naming
+ROADMAP.md Queue 1 step 10): FSDP.
 
 Examples:
     python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
@@ -69,6 +72,13 @@ Examples:
         --model-parallel 2 \\
         --tuning-table examples/artifacts/tuned_decision.json \\
         --steps 3 --seq 256 --batch 8
+    python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
+        --model-parallel 2 \\
+        --tuning-table examples/artifacts/tuned_decision.json \\
+        --steps 2 --seq 256 --batch 8
+    python -m repro_torch.launch.train --arch smollm-135m --reduced \\
+        --device cpu --ranks 4 --model-parallel 2 --collective ring \\
+        --steps 2 --seq 64 --batch 8
     python -m repro_torch.launch.train --arch smollm-135m --reduced \\
         --device cpu --ranks 2 --steps 2 --seq 64 --batch 4
     python -m repro_torch.launch.train --arch whisper-large-v3 --reduced \\
@@ -101,15 +111,12 @@ from repro_torch.data import SyntheticPipeline, batch_to_tensors, stream_ids
 from repro_torch.kernels.ops import TRAIN_COUNTERS as COUNTERS
 from repro_torch.launch.mesh import local_mesh_spec, make_local_mesh
 from repro_torch.launch.steps import build_train_step
+from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.parallel import sharding as sh
 
 #: where each unported option comes from (ROADMAP.md Queue 1)
 LATER = {
-    "tensor_parallel": "a model-parallel axis for a family without "
-                       "experts (--model-parallel > 1: tensor parallelism "
-                       "in the training step, which the reference does "
-                       "not have either) comes with step 10",
     "fsdp": "FSDP param sharding (ParallelConfig.shard_params_over_data) "
             "comes with step 10",
 }
@@ -174,17 +181,18 @@ def _write_step_trace(args, comm, params, runner, topology, step,
               f"{resid.modeled_exposed * 1e6:.0f} us modeled)", flush=True)
 
 
-def _replicas(params, mesh, ep_axis) -> bool:
+def _replicas(params, step) -> bool:
     """Whether the ranks hold equal params: every leaf on every rank, or,
-    with ``ep_axis``, the non-expert leaves on every rank and each
-    expert slice on the ranks that hold it (one bit checksum a rank,
-    gathered)."""
-    if ep_axis is None:
+    on a ``model`` axis, the replicated leaves on every rank and each
+    slice (of experts, or tensor-parallel) on the data ranks that hold
+    it (`TrainStep.split`; one bit checksum a rank, gathered)."""
+    halves = step.split(params)
+    if halves is None:
         fps = _gather(pytree.fingerprint(params))
         return all(f == fps[0] for f in fps)
-    rep, exp = sh.ep_split(params)
-    fps = _gather((pytree.fingerprint(rep), pytree.fingerprint(exp),
-                   grp.rank(mesh.axis(ep_axis))))
+    rep, split = halves
+    fps = _gather((pytree.fingerprint(rep), pytree.fingerprint(split),
+                   grp.rank(step.mesh.axis(step.model_axis))))
     return all(f[0] == fps[0][0] for f in fps) and all(
         f[1] == g[1] for f in fps for g in fps if f[2] == g[2])
 
@@ -257,12 +265,13 @@ def _rank_main(opts: dict):
     step = build_train_step(cfg, shape, parallel, coll, mesh, lr=args.lr,
                             total_steps=args.steps, communicator=comm,
                             device=device)
-    if args.overlap_backward and step.ep_axis is None:
+    if args.overlap_backward and step.model_axis is None:
         say("gradient sync: backward-overlapped release streams")
     elif args.overlap_backward:
+        kind = "expert" if step.ep_axis else "tensor"
         say(f"gradient sync: per-layer release points, each layer synced "
-            f"inside the backward (expert parallelism over "
-            f"{step.ep_axis}: no sync thread, so the layers' syncs are "
+            f"inside the backward ({kind} parallelism over "
+            f"{step.model_axis}: no sync thread, so the layers' syncs are "
             f"fused, not overlapped; ROADMAP.md Queue 3)")
     params = step.init(torch.Generator(device=device).manual_seed(0))
     opt_state = step.opt.init(params)
@@ -322,7 +331,17 @@ def _rank_main(opts: dict):
             f"{step.ep_axis}={tp}, {hi - lo} a rank; dispatch all-to-all "
             f"of {res['dispatch_bytes']} B each way a layer: "
             f"{res['a2a_algorithm']}")
-    res["replicas_equal_at_init"] = _replicas(params, mesh, step.ep_axis)
+    if step.tp_axis is not None:
+        tp = mesh.shape[step.tp_axis]
+        counts = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                  "ffn": cfg.d_ff, "vocab": L.pad_vocab(cfg.vocab_size)}
+        res["tp_split"] = {n: c % tp == 0 for n, c in counts.items()}
+        say(f"tensor parallelism over {step.tp_axis}={tp}: "
+            + ", ".join(f"{n} {c} "
+                        + ("split" if res["tp_split"][n] else "whole")
+                        for n, c in counts.items())
+            + f"; {res['param_elems']} params a rank")
+    res["replicas_equal_at_init"] = _replicas(params, step)
     keep = opts["keep_params"] and lead
     if keep:
         res["init_params"] = _to_host(params)
@@ -334,18 +353,28 @@ def _rank_main(opts: dict):
     for i in range(args.steps):
         batch = batch_to_tensors(pipe.batch_at(i), device, rows=step.rows)
         t0 = time.time()
-        params, opt_state, metrics = step.fn(params, opt_state, batch,
-                                             keep_grads=keep and i == 0)
+        params, opt_state, metrics = step.fn(
+            params, opt_state, batch,
+            keep_grads=opts["keep_params"] and i == 0)
         loss = float(metrics["loss"])
         wall = time.time() - t0
         if "grads" in metrics:
-            res["grads0"] = _to_host(metrics.pop("grads"))
-            res["local_grads0_fingerprint"] = metrics.pop(
-                "local_grads_fingerprint")
+            grads = metrics.pop("grads")
+            # tensor-parallel: every rank gathers the whole tree (rank 0
+            # keeps it), to hold the slices' gradients against a run
+            # without a model axis
+            whole = step.gather(grads) if step.tp_axis else None
+            if keep:
+                res["grads0"] = _to_host(grads)
+                res["local_grads0_fingerprint"] = metrics.pop(
+                    "local_grads_fingerprint")
+                if whole is not None:
+                    res["grads0_whole"] = _to_host(whole)
+            del grads, whole
         split = grp.max_over_ranks([metrics["compute_s"], metrics["sync_s"],
                                     metrics["opt_s"],
                                     metrics.get("release_sync_s", 0.0)])
-        equal = _replicas(params, mesh, step.ep_axis)
+        equal = _replicas(params, step)
         for key, v in zip(("losses", "step_s", "compute_s", "sync_s",
                            "opt_s", "release_sync_s", "replicas_equal"),
                           (loss, wall, *split, equal)):
@@ -380,10 +409,10 @@ def _rank_main(opts: dict):
         if device.type == "cuda" else 0)
     say(f"done: {args.steps} steps in {done:.1f}s")
     held = f"params bit-identical over {grp.size()} ranks" \
-        if step.ep_axis is None else (
-            f"non-expert params bit-identical over {grp.size()} ranks, "
-            f"each expert slice over the {sh.dp_size(mesh)} data ranks "
-            f"that hold it,")
+        if step.model_axis is None else (
+            f"replicated params bit-identical over {grp.size()} ranks, "
+            f"each {'expert' if step.ep_axis else 'tensor-parallel'} slice "
+            f"over the {sh.dp_size(mesh)} data ranks that hold it,")
     say(f"replicas: {held} after every step; launches over the steps, "
         f"summed over the ranks: "
         + ", ".join(f"{k} {v}" for k, v in res["launches"].items()))
@@ -391,9 +420,8 @@ def _rank_main(opts: dict):
         say("peak device memory per rank: " + ", ".join(
             f"{b / 2**30:.2f} GiB" for b in res["peak_mem_bytes"]))
     if args.ckpt:
-        tree = {"params": params, "opt": opt_state}
-        if step.ep_axis is not None:    # every expert, on every rank
-            tree = sh.ep_gather(tree, mesh, step.ep_axis)
+        # whole leaves (every expert, every slice), on every rank
+        tree = step.gather({"params": params, "opt": opt_state})
         if lead:
             save(args.ckpt, tree, step=args.steps, extra={"arch": cfg.name})
         say(f"checkpoint -> {args.ckpt}")
@@ -462,8 +490,6 @@ def main(argv=None, *, keep_params: bool = False,
     args = ap.parse_args(argv)
 
     cfg = ARCHITECTURES[args.arch]
-    if args.model_parallel > 1 and cfg.family != "moe":
-        raise _later("tensor_parallel")
     if parallel is not None and parallel.shard_params_over_data:
         raise _later("fsdp")
     if args.reduced:

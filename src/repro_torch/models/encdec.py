@@ -68,19 +68,26 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
             "enc_final": _ln(d, kw), "decoder": decoder}
 
 
-def _cross_attn(x, p, kv, compute_dtype):
+def _cross_attn(x, p, kv, compute_dtype, tp=None):
     """x: (B,S,d); kv: precomputed {"k","v"}: (B,T,H,Dh) from the encoder.
-    Plain attention, as the reference's ``impl="xla"``."""
+    Plain attention, as the reference's ``impl="xla"``. ``tp``: the axis
+    ``p``'s heads split over (`layers.split`), kv this rank's heads."""
     cd = compute_dtype
-    q = torch.einsum("bsd,dhk->bshk", x.to(cd), p["wq"].to(cd))
+    q = L.split_matmul("bsd,dhk->bshk", x, p["wq"], cd, tp)
     out = ops.attention(q, kv["k"], kv["v"], causal=False, impl="xla")
-    return torch.einsum("bshk,hkd->bsd", out.to(cd), p["wo"].to(cd))
+    return L.split_matmul("bshk,hkd->bsd", out, p["wo"], cd, tp,
+                          reduce=True)
 
 
-def _cross_kv(enc_out, p, compute_dtype):
+def _cross_kv(enc_out, p, compute_dtype, cfg=None, tp=None):
+    """The cross-attention's keys and values of ``enc_out``; over ``tp``
+    (heads split) this rank's kv heads (`layers.local_heads`), each a
+    column-parallel product (`layers.split_matmul`)."""
     cd = compute_dtype
-    k = torch.einsum("btd,dhk->bthk", enc_out.to(cd), p["wk"].to(cd))
-    v = torch.einsum("btd,dhk->bthk", enc_out.to(cd), p["wv"].to(cd))
+    if tp is not None:
+        p = L.local_heads(p, cfg, tp)
+    k = L.split_matmul("btd,dhk->bthk", enc_out, p["wk"], cd, tp)
+    v = L.split_matmul("btd,dhk->bthk", enc_out, p["wv"], cd, tp)
     return {"k": k, "v": v}
 
 
@@ -96,7 +103,7 @@ def _stack(params, key, body, x, remat):
 
 
 def encode(params, audio, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-           attn_impl="auto", remat: bool = False):
+           attn_impl="auto", remat: bool = False, tp=None):
     cd = compute_dtype
     Senc = audio.shape[1]
     x = audio.to(cd) + params["enc_pos"][None, :Senc].to(cd)
@@ -106,58 +113,67 @@ def encode(params, audio, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
         h = _apply_ln(x, lp["ln1"], cfg.norm_eps)
         attn, _ = L.attention_block(h, lp["attn"], cfg, positions,
                                     causal=False, compute_dtype=cd,
-                                    attn_impl=attn_impl)
+                                    attn_impl=attn_impl, tp=tp)
         x = x + attn
         h = _apply_ln(x, lp["ln2"], cfg.norm_eps)
-        return x + L.mlp_block(h, lp["mlp"], gated=False, compute_dtype=cd)
+        return x + L.mlp_block(h, lp["mlp"], gated=False, compute_dtype=cd,
+                               tp=L.split(tp, cfg.d_ff))
 
     x = _stack(params, "encoder", body, x, remat)
     return _apply_ln(x, params["enc_final"], cfg.norm_eps)
 
 
-def _embed(params, tokens, positions, compute_dtype):
-    """Token embedding plus the learned position of each entry of
+def _embed(params, tokens, positions, compute_dtype, tp=None):
+    """Token embedding (over ``tp`` vocab-parallel,
+    `layers.vocab_embedding`) plus the learned position of each entry of
     ``positions`` ((S,) shared, or (B, 1) per row), modulo the table."""
     pos_tab = params["embed"]["pos"]
     pos = pos_tab[positions % pos_tab.shape[0]].to(compute_dtype)
-    tok = F.embedding(tokens, params["embed"]["tok"].to(compute_dtype))
+    tok = L.vocab_embedding(tokens, params["embed"]["tok"].to(compute_dtype),
+                            tp)
     return tok + (pos[None] if positions.dim() == 1 else pos)
 
 
 def decode_train(params, tokens, enc_out, cfg: ModelConfig, *,
                  compute_dtype=torch.bfloat16, attn_impl="auto",
-                 remat: bool = False):
+                 remat: bool = False, tp=None):
+    """The decoder over ``tokens`` and the encoder's output; over ``tp``
+    the blocks and the cross-attention are tensor-parallel."""
     cd = compute_dtype
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
-    x = _embed(params, tokens, positions, cd)
+    x = _embed(params, tokens, positions, cd,
+               tp=L.split(tp, L.pad_vocab(cfg.vocab_size)))
+    xtp = L.split(tp, cfg.num_heads)
 
     def body(x, lp):
         h = _apply_ln(x, lp["ln1"], cfg.norm_eps)
         attn, _ = L.attention_block(h, lp["self_attn"], cfg, positions,
                                     causal=True, compute_dtype=cd,
-                                    attn_impl=attn_impl)
+                                    attn_impl=attn_impl, tp=tp)
         x = x + attn
         h = _apply_ln(x, lp["ln2"], cfg.norm_eps)
-        kv = _cross_kv(enc_out, lp["cross_attn"], cd)
-        x = x + _cross_attn(h, lp["cross_attn"], kv, cd)
+        kv = _cross_kv(enc_out, lp["cross_attn"], cd, cfg, xtp)
+        x = x + _cross_attn(h, lp["cross_attn"], kv, cd, xtp)
         h = _apply_ln(x, lp["ln3"], cfg.norm_eps)
-        return x + L.mlp_block(h, lp["mlp"], gated=False, compute_dtype=cd)
+        return x + L.mlp_block(h, lp["mlp"], gated=False, compute_dtype=cd,
+                               tp=L.split(tp, cfg.d_ff))
 
     return _stack(params, "decoder", body, x, remat)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-            attn_impl="auto", remat: bool = False):
+            attn_impl="auto", remat: bool = False, tp=None):
     """(mean next-token NLL, {}) of ``batch`` (``audio``, ``tokens``,
-    ``labels``)."""
+    ``labels``); over ``tp``, tensor-parallel (`sharding.tp_shard`'s
+    params)."""
     enc = encode(params, batch["audio"], cfg, compute_dtype=compute_dtype,
-                 attn_impl=attn_impl, remat=remat)
+                 attn_impl=attn_impl, remat=remat, tp=tp)
     h = decode_train(params, batch["tokens"], enc, cfg,
                      compute_dtype=compute_dtype, attn_impl=attn_impl,
-                     remat=remat)
+                     remat=remat, tp=tp)
     loss = L.lm_head_loss(h, params["embed"], batch["labels"], cfg,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, tp=tp)
     return loss, {}
 
 

@@ -46,22 +46,23 @@ def _groups(cfg: ModelConfig):
 
 
 def _shared_attn(x, sp, cfg, positions, *, window, kv, compute_dtype,
-                 attn_impl, return_kv=False):
+                 attn_impl, return_kv=False, tp=None):
     h = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
     attn, new_kv = L.attention_block(h, sp["attn"], cfg, positions,
                                      causal=True, window=window, kv_cache=kv,
                                      return_kv=return_kv,
                                      compute_dtype=compute_dtype,
-                                     attn_impl=attn_impl)
+                                     attn_impl=attn_impl, tp=tp)
     x = x + attn
     h = L.rms_norm(x, sp["ln2"], cfg.norm_eps)
-    x = x + L.mlp_block(h, sp["mlp"], gated=True, compute_dtype=compute_dtype)
+    x = x + L.mlp_block(h, sp["mlp"], gated=True, compute_dtype=compute_dtype,
+                        tp=L.split(tp, cfg.d_ff))
     return x, new_kv
 
 
 def forward(params, embeds, cfg: ModelConfig, *, window=0,
             compute_dtype=torch.bfloat16, ssd_impl="auto", attn_impl="auto",
-            remat: bool = False):
+            remat: bool = False, tp=None):
     """embeds: (B, S, d) already-embedded inputs. Returns final hidden
     (B,S,d). Each mamba layer's params pass the release point
     ``("layers", i)`` with its GLOBAL index i (the reference's per-group
@@ -69,7 +70,10 @@ def forward(params, embeds, cfg: ModelConfig, *, window=0,
     keys layers by tag, so the tags must be unique), so the backward
     releases them deepest first, L-1 ... 0. The shared block is used once
     a group and stays in the residual. ``remat`` recomputes each mamba
-    layer in the backward, as the reference checkpoints its scan body."""
+    layer in the backward, as the reference checkpoints its scan body.
+    Over ``tp`` the shared block is tensor-parallel and the mamba layers
+    run whole on every rank (``param_specs`` splits no SSM leaf over
+    ``model``)."""
     positions = torch.arange(embeds.shape[1], device=embeds.device)
     x = embeds
     for grp in _groups(cfg):
@@ -77,20 +81,21 @@ def forward(params, embeds, cfg: ModelConfig, *, window=0,
                            ssd_impl=ssd_impl, remat=remat)
         x, _ = _shared_attn(x, params["shared"], cfg, positions,
                             window=window, kv=None,
-                            compute_dtype=compute_dtype, attn_impl=attn_impl)
+                            compute_dtype=compute_dtype, attn_impl=attn_impl,
+                            tp=tp)
     return x
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
             window=0, ssd_impl="auto", attn_impl="auto",
-            remat: bool = False):
+            remat: bool = False, tp=None):
     """(mean next-token NLL, {}) of ``batch`` (``tokens``, ``labels``), as
-    the reference's ``hybrid.loss_fn``."""
-    x = T.embed_tokens(params, batch["tokens"], cfg, compute_dtype)
+    the reference's ``hybrid.loss_fn``; over ``tp``, tensor-parallel."""
+    x = T.embed_tokens(params, batch["tokens"], cfg, compute_dtype, tp=tp)
     h = forward(params, x, cfg, window=window, compute_dtype=compute_dtype,
-                ssd_impl=ssd_impl, attn_impl=attn_impl, remat=remat)
+                ssd_impl=ssd_impl, attn_impl=attn_impl, remat=remat, tp=tp)
     loss = L.lm_head_loss(h, params["embed"], batch["labels"], cfg,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, tp=tp)
     return loss, {}
 
 

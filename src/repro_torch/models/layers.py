@@ -9,6 +9,21 @@ points of the backward-overlapped sync (``release_scope``,
 ``grad_release``: an identity ``torch.autograd.Function`` over one
 layer's param dict in place of the reference's ``custom_vjp``). The
 sharding constraints, which are identities on one device, are left out.
+
+Tensor parallelism (training on a ``model`` axis, ``tp``: that axis, a
+`group.Axis`). The reference stores the params Megatron-style and XLA
+inserts the collectives; the port's blocks issue them: `copy_to_model`
+(identity forward, the backend's all-reduce of the cotangent backward)
+where a replicated activation enters a split product, and
+`reduce_from_model` (all-reduce forward, identity backward) where the
+ranks' partial sums leave it (`split_matmul`). The attention block runs this rank's
+heads and the MLP its FFN columns wherever the axis divides their count
+(`split`, the reference's divisibility guard); the embedding looks up
+this rank's vocab rows and the fused loss runs on this rank's vocab
+columns (`lm_head_loss`). Where the query heads split and the kv heads
+do not, each rank reads the kv heads of its query heads out of the
+replicated ``wk``/``wv`` (`local_heads`), whose gradients the training
+step then sums over the axis.
 """
 from __future__ import annotations
 
@@ -17,10 +32,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import group as grp
 from repro_torch.kernels import ops
 # the dense decode's contraction and ring rule are the paged gather path's
 from repro_torch.kernels.ref import cache_attention, ring_slot_positions
@@ -95,6 +110,129 @@ def grad_release(tag, tree):
     leaves, treedef = pytree.flatten(tree)
     return treedef.unflatten(list(
         _GradRelease.apply(tag, sink, treedef, *leaves)))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+def _psum(ct, axis):
+    return grp.psum(ct.contiguous(), axis)
+
+
+#: the backward of `copy_to_model` (a planted fault swaps it:
+#: ``launch.steps.planted_tp_fault``)
+_COPY_BACKWARD = {"fn": _psum}
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the all-reduce of the cotangent over ``axis``
+    backward (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _COPY_BACKWARD["fn"](ct, ctx.axis), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The all-reduce over ``axis`` forward; identity backward
+    (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return grp.psum(x.contiguous(), axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` (the same on every rank of ``axis``) entering a computation
+    split over the axis: each rank's cotangent holds only its part."""
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial ``x``."""
+    return _ReduceFromModel.apply(x, axis)
+
+
+def split_matmul(eq: str, a: torch.Tensor, w: torch.Tensor, compute_dtype,
+                 tp=None, *, reduce: bool = False) -> torch.Tensor:
+    """``einsum(eq, a, w)`` in the compute dtype. Over ``tp`` (``w`` this
+    rank's slice) the compute-dtype operands multiply and accumulate in
+    fp32, as the tensor cores do, and the product is rounded once, where
+    the unsplit product is: a column-parallel product (``a`` the same on
+    every rank) takes ``a`` through its own `copy_to_model`, so the
+    ranks' fp32 partial input gradients are summed before they are
+    rounded, each product's apart, as autograd rounds each unsplit
+    product's input gradient before it adds them; a row-parallel one
+    (``reduce=True``, ``a`` this rank's split activation) is rounded
+    after `reduce_from_model` sums the ranks' fp32 partials. So the
+    split changes the order of fp32 sums, not where bf16 rounds (two
+    bf16 partials summed would round twice)."""
+    cd = compute_dtype
+    if tp is None:
+        return torch.einsum(eq, a.to(cd), w.to(cd))
+    a = a.to(cd).float()
+    if not reduce:
+        a = copy_to_model(a, tp)
+    out = torch.einsum(eq, a, w.to(cd).float())
+    if reduce:
+        out = reduce_from_model(out, tp)
+    return out.to(cd)
+
+
+def split(tp, n: int):
+    """``tp`` where ``n`` (heads, FFN columns, vocab rows) divides over
+    the axis, else None: the leaves stay whole on every rank and the
+    computation runs whole, with no collective."""
+    return tp if tp is not None and n % tp.size == 0 else None
+
+
+def _kv_index(cfg: ModelConfig, hl: int, m: int):
+    """The kv heads that query heads ``[m*hl, (m+1)*hl)`` read, as a
+    slice where they form a group layout of their own, else one kv head
+    per query head."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    idx = [(m * hl + j) // g for j in range(hl)]
+    uniq = sorted(set(idx))
+    per = hl // len(uniq)
+    if hl % len(uniq) == 0 and idx == [uniq[j // per] for j in range(hl)]:
+        return slice(uniq[0], uniq[-1] + 1)
+    return idx
+
+
+def local_heads(p: Params, cfg: ModelConfig, tp) -> Params:
+    """The attention leaves this rank computes with over ``tp`` (the
+    heads split by `split`): its slices as held, and, where the kv heads
+    stay whole (``num_kv_heads`` not divisible), the kv heads its query
+    heads read."""
+    if cfg.num_kv_heads % tp.size == 0:
+        return p
+    idx = _kv_index(cfg, p["wq"].shape[1], grp.rank(tp))
+    out = dict(p)
+    for n, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if n in p:
+            out[n] = p[n][(slice(None),) * dim + (idx,)]
+    return out
+
+
+def vocab_embedding(tokens: torch.Tensor, tok: torch.Tensor, tp=None):
+    """``F.embedding(tokens, tok)``, or, over ``tp``, with ``tok`` this
+    rank's rows of the vocab: ids outside them look up zeros, and the
+    ranks' lookups are summed (one rank holds each id)."""
+    if tp is None:
+        return F.embedding(tokens, tok)
+    lo = grp.rank(tp) * tok.shape[0]
+    own = (tokens >= lo) & (tokens < lo + tok.shape[0])
+    e = F.embedding(torch.where(own, tokens - lo, 0), tok)
+    return reduce_from_model(torch.where(own[..., None], e, 0), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +321,14 @@ def attention_block(
     return_kv: bool = False,      # prefill: return this block's k/v for caching
     compute_dtype=torch.bfloat16,
     attn_impl: str = "auto",
+    tp=None,                      # training: the tensor-parallel axis
 ):
     """Returns (out, new_kv) — new_kv is None unless kv_cache/return_kv given.
+
+    With ``tp`` (training) and heads that split over it, ``p`` holds
+    this rank's heads (`local_heads`); the q, k and v products are
+    column-parallel and the output projection row-parallel
+    (`split_matmul`).
 
     Decode (``kv_cache`` given, one new token) takes one of two forms:
 
@@ -203,10 +347,13 @@ def attention_block(
     PLACE; the returned dict holds those same tensors and ``length + 1``.
     """
     cd = compute_dtype
+    tp = split(tp, cfg.num_heads)
+    if tp is not None:
+        p = local_heads(p, cfg, tp)
     xc = x.to(cd)
-    q = torch.einsum("bsd,dhk->bshk", xc, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", xc, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", xc, p["wv"].to(cd))
+    q = split_matmul("bsd,dhk->bshk", xc, p["wq"], cd, tp)
+    k = split_matmul("bsd,dhk->bshk", xc, p["wk"], cd, tp)
+    v = split_matmul("bsd,dhk->bshk", xc, p["wv"], cd, tp)
     if "bq" in p:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -242,7 +389,7 @@ def attention_block(
                             impl=attn_impl)
         if return_kv:
             new_kv = {"k": k, "v": v}
-    out = torch.einsum("bshk,hkd->bsd", out.to(cd), p["wo"].to(cd))
+    out = split_matmul("bshk,hkd->bsd", out, p["wo"], cd, tp, reduce=True)
     return out.to(x.dtype), new_kv
 
 
@@ -292,16 +439,18 @@ def mlp_params(gen, d: int, ff: int, gated: bool = True,
 
 
 def mlp_block(x: torch.Tensor, p: Params, *, gated: bool = True,
-              compute_dtype=torch.bfloat16) -> torch.Tensor:
+              compute_dtype=torch.bfloat16, tp=None) -> torch.Tensor:
+    """``tp``: the axis ``p``'s FFN columns are split over (the caller's
+    `split`), or None."""
     cd = compute_dtype
     xc = x.to(cd)
-    up = torch.einsum("bsd,df->bsf", xc, p["w_up"].to(cd))
+    up = split_matmul("bsd,df->bsf", xc, p["w_up"], cd, tp)
     if gated:
-        gate = torch.einsum("bsd,df->bsf", xc, p["w_gate"].to(cd))
+        gate = split_matmul("bsd,df->bsf", xc, p["w_gate"], cd, tp)
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")      # jax.nn.gelu's default
-    out = torch.einsum("bsf,fd->bsd", h, p["w_down"].to(cd))
+    out = split_matmul("bsf,fd->bsd", h, p["w_down"], cd, tp, reduce=True)
     return out.to(x.dtype)
 
 
@@ -341,35 +490,83 @@ def unembed(x: torch.Tensor, p: Params, cfg: ModelConfig,
     return logits
 
 
-def _chunk_nll(x, labels, w, V: int, compute_dtype):
+def _chunk_nll(x, labels, w, V: int, compute_dtype, tp=None, lo: int = 0):
     """(sum of the masked NLL, count of counted labels) of one chunk of
-    rows: its logits exist only inside this call."""
-    logits = torch.einsum("bsd,dv->bsv", x.to(compute_dtype), w)
-    if logits.shape[-1] != V:
-        col = torch.arange(logits.shape[-1], device=logits.device)
+    rows: its logits exist only inside this call. Over ``tp``, ``w`` is
+    this rank's vocab columns ``[lo, lo + w.shape[1])``: the row max,
+    the sum of exps and the picked logit are reduced over the axis."""
+    logits = split_matmul("bsd,dv->bsv", x, w, compute_dtype, tp)
+    if lo + logits.shape[-1] > V:       # padded columns, by global index
+        col = lo + torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(col < V, logits,
                              torch.full((), NEG_INF, dtype=logits.dtype,
                                         device=logits.device))
     lf = logits.float()
     m = lf.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    if tp is not None:
+        m = grp.pmax(m, tp)
+    sumexp = torch.sum(torch.exp(lf - m), dim=-1)
+    if tp is not None:
+        sumexp = reduce_from_model(sumexp, tp)
+    lse = torch.log(sumexp) + m[..., 0]
     mask = (labels >= 0) & (labels < V)
+    own = mask & (labels >= lo) & (labels < lo + lf.shape[-1])
     picked = torch.gather(lf, -1,
-                          torch.where(mask, labels, 0).long()[..., None])
+                          torch.where(own, labels - lo, 0).long()[..., None])
+    if tp is not None:
+        picked = reduce_from_model(torch.where(own[..., None], picked, 0.0),
+                                   tp)
     maskf = mask.float()
     return torch.sum((lse - picked[..., 0]) * maskf), torch.sum(maskf)
 
 
+class _RecomputedChunkNLL(torch.autograd.Function):
+    """`_chunk_nll` that keeps only its inputs and computes the chunk
+    again in the backward (what ``torch.utils.checkpoint`` does, whose
+    first call imports the compiler stack: seconds in every new
+    process; this imports nothing). The recompute issues the chunk's reductions over ``tp``
+    again, in the same order on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, V, compute_dtype, tp, lo):
+        ctx.save_for_backward(x, w, labels)
+        ctx.args = (V, compute_dtype, tp, lo)
+        nll, cnt = _chunk_nll(x, labels, w, V, compute_dtype, tp, lo)
+        ctx.mark_non_differentiable(cnt)
+        return nll, cnt
+
+    @staticmethod
+    def backward(ctx, ct, _):
+        x, w, labels = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xr, wr = (t.detach().requires_grad_(n) for t, n in zip((x, w),
+                                                                    need))
+            nll, _ = _chunk_nll(xr, labels, wr, *ctx.args)
+            # ``nll * ct``, not ``grad_outputs=ct`` (the same bits: its
+            # backward starts from 1 * ct), whose shape check imports
+            # sympy on first use
+            got = iter(torch.autograd.grad(
+                nll * ct, [t for t, n in zip((xr, wr), need) if n]))
+        return (*(next(got) if n else None for n in need),
+                None, None, None, None, None)
+
+
 def lm_head_loss(hidden: torch.Tensor, p: Params, labels: torch.Tensor,
                  cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512, tp=None) -> torch.Tensor:
     """Fused final-norm + unembed + CE, chunked over the sequence with
-    recomputation (``torch.utils.checkpoint`` per chunk, as the
-    reference's ``jax.checkpoint``): the (tokens x vocab) logits exist
+    recomputation (`_RecomputedChunkNLL` per chunk, as the reference's
+    ``jax.checkpoint``): the (tokens x vocab) logits exist
     at most ``chunk`` rows at a time, in the forward and the backward.
     Padded vocab columns are -1e30; labels outside [0, V) count as no
-    token."""
+    token. Over ``tp``, ``p["out"]`` holds this rank's vocab columns
+    (vocab-parallel): each chunk's logits are a column-parallel product
+    (`split_matmul`) and the chunk reduces over the axis, in its
+    recompute too (the same collectives in the same order on every
+    rank)."""
     x = rms_norm(hidden, p["final_norm"], cfg.norm_eps)
+    tp = split(tp, pad_vocab(cfg.vocab_size))
     B, S, d = x.shape
     c = min(chunk, S)
     pad = (-S) % c
@@ -377,11 +574,12 @@ def lm_head_loss(hidden: torch.Tensor, p: Params, labels: torch.Tensor,
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
     w = p["out"].to(compute_dtype)
+    lo = 0 if tp is None else grp.rank(tp) * w.shape[1]
     nlls, cnts = [], []
     for i in range(0, S + pad, c):
-        nll, cnt = checkpoint(_chunk_nll, x[:, i:i + c], labels[:, i:i + c],
-                              w, cfg.vocab_size, compute_dtype,
-                              use_reentrant=False)
+        nll, cnt = _RecomputedChunkNLL.apply(
+            x[:, i:i + c], w, labels[:, i:i + c], cfg.vocab_size,
+            compute_dtype, tp, lo)
         nlls.append(nll)
         cnts.append(cnt)
     return torch.stack(nlls).sum() / torch.clamp(torch.stack(cnts).sum(),

@@ -3,7 +3,8 @@
 
 Every family serves and trains: dense, MoE (whose training takes expert
 parallelism: ``ep_axis``, ``mesh``, ``a2a_algorithm``, a name or a
-`Communicator`), SSM, hybrid, enc-dec (whisper: ``prefill`` takes
+`Communicator`; every other family's takes tensor parallelism:
+``tp_axis``, ``mesh``), SSM, hybrid, enc-dec (whisper: ``prefill`` takes
 ``audio=``) and VLM (llava: served through the dense family's token
 ``prefill``; ``vlm.prefill`` runs the ``[patches | tokens]`` batch)."""
 from __future__ import annotations
@@ -58,6 +59,7 @@ def build_model(
     device="cuda",
     remat: bool = False,
     ep_axis: str = None,
+    tp_axis: str = None,
     mesh=None,
     a2a_algorithm="xla",
 ) -> ModelAPI:
@@ -65,7 +67,9 @@ def build_model(
     expert parallelism over that axis of ``mesh``, the dispatch
     all-to-all through ``a2a_algorithm`` (a name or a `Communicator`);
     the params ``loss`` takes then hold this rank's experts
-    (`sharding.ep_shard`)."""
+    (`sharding.ep_shard`). ``tp_axis`` (training of every other
+    family): tensor parallelism over that axis of ``mesh``; the params
+    ``loss`` takes then hold this rank's slices (`sharding.tp_shard`)."""
     if cfg.family not in _FAMILY:
         raise ValueError(f"unknown family {cfg.family!r}; one of "
                          f"{sorted(_FAMILY)}")
@@ -84,9 +88,14 @@ def build_model(
     if ep_axis is not None and cfg.family != "moe":
         raise ValueError(f"expert parallelism needs the MoE family, not "
                          f"{cfg.family!r}")
+    if tp_axis is not None and cfg.family == "moe":
+        raise ValueError("the MoE family trains on a model axis through "
+                         "expert parallelism (ep_axis)")
     lkw = dict(pkw)
     if cfg.family == "moe":
         lkw.update(ep_axis=ep_axis, mesh=mesh, a2a_algorithm=a2a_algorithm)
+    elif tp_axis is not None:
+        lkw.update(tp=mesh.axis(tp_axis))
     loss = functools.partial(mod.loss_fn, cfg=cfg, remat=remat, **lkw)
     # token-prompt prefill for serving; vlm decodes past the prefix as
     # pure text, so its serving prefill is the dense one (the batch-dict

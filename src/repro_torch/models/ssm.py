@@ -212,14 +212,16 @@ def forward(params, embeds, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-            ssd_impl="auto", remat: bool = False):
+            ssd_impl="auto", remat: bool = False, tp=None):
     """(mean next-token NLL, {}) of ``batch`` (``tokens``, ``labels``), as
-    the reference's ``ssm.loss_fn``."""
-    x = T.embed_tokens(params, batch["tokens"], cfg, compute_dtype)
+    the reference's ``ssm.loss_fn``. Over ``tp`` only the embedding and
+    the head are split (vocab-parallel); the mamba layers run whole on
+    every rank."""
+    x = T.embed_tokens(params, batch["tokens"], cfg, compute_dtype, tp=tp)
     h = forward(params, x, cfg, compute_dtype=compute_dtype,
                 ssd_impl=ssd_impl, remat=remat)
     loss = L.lm_head_loss(h, params["embed"], batch["labels"], cfg,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, tp=tp)
     return loss, {}
 
 

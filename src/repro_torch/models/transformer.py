@@ -7,7 +7,9 @@ the reference's stacked ``(L, ...)`` leaves become a Python list, and its
 around each layer, as ``jax.checkpoint`` around the scan body; each
 layer's params pass a gradient release point, ``("layers", i)``, as in
 the reference's unrolled stack). Training:
-``loss_fn``. Serving: ``init_cache``, ``prefill`` and
+``loss_fn``, on a ``model`` axis too (``tp``: tensor parallelism, the
+blocks' and the vocab-parallel head's collectives in
+``models/layers.py``). Serving: ``init_cache``, ``prefill`` and
 ``decode_step``, whose ``length`` is a scalar or a per-row ``(B,)``
 tensor and whose cache is dense or paged (block pools read through the
 paged-attention kernel).
@@ -38,31 +40,33 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def _layer(x, lp, cfg: ModelConfig, positions, *, window, kv, compute_dtype,
-           attn_impl, return_kv=False):
+           attn_impl, return_kv=False, tp=None):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     attn, new_kv = L.attention_block(
         h, lp["attn"], cfg, positions, causal=True, window=window,
         kv_cache=kv, return_kv=return_kv, compute_dtype=compute_dtype,
-        attn_impl=attn_impl)
+        attn_impl=attn_impl, tp=tp)
     x = x + attn
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    x = x + L.mlp_block(h, lp["mlp"], gated=True, compute_dtype=compute_dtype)
+    x = x + L.mlp_block(h, lp["mlp"], gated=True, compute_dtype=compute_dtype,
+                        tp=L.split(tp, cfg.d_ff))
     return x, new_kv
 
 
 def forward(params, embeds: torch.Tensor, cfg: ModelConfig, *,
             positions: Optional[torch.Tensor] = None, window: int = 0,
             compute_dtype=torch.bfloat16, attn_impl: str = "auto",
-            remat: bool = False):
+            remat: bool = False, tp=None):
     """embeds: (B, S, d) already-embedded inputs. Returns final hidden
     (B,S,d). ``remat`` recomputes each layer in the backward instead of
-    keeping its activations."""
+    keeping its activations (its collectives over ``tp`` included)."""
     if positions is None:
         positions = torch.arange(embeds.shape[1], device=embeds.device)
 
     def body(x, lp):
         y, _ = _layer(x, lp, cfg, positions, window=window, kv=None,
-                      compute_dtype=compute_dtype, attn_impl=attn_impl)
+                      compute_dtype=compute_dtype, attn_impl=attn_impl,
+                      tp=tp)
         return y
 
     x = embeds
@@ -75,12 +79,15 @@ def forward(params, embeds: torch.Tensor, cfg: ModelConfig, *,
     return x
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16):
+def embed_tokens(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
+                 tp=None):
     # F.embedding, not indexing: the same forward bits, and a CPU backward
     # that sums the rows of repeated tokens in index order (the indexing's
     # accumulating index_put_ sums them in an order that varies between
-    # calls when more than one intra-op thread runs)
-    return F.embedding(tokens, params["embed"]["tok"].to(compute_dtype))
+    # calls when more than one intra-op thread runs); over ``tp`` this
+    # rank's vocab rows (`layers.vocab_embedding`)
+    return L.vocab_embedding(tokens, params["embed"]["tok"].to(compute_dtype),
+                             L.split(tp, L.pad_vocab(cfg.vocab_size)))
 
 
 def logits_fn(params, hidden, cfg: ModelConfig, compute_dtype=torch.bfloat16):
@@ -88,13 +95,16 @@ def logits_fn(params, hidden, cfg: ModelConfig, compute_dtype=torch.bfloat16):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
-            window: int = 0, attn_impl: str = "auto", remat: bool = False):
-    """(mean next-token NLL, {}) of ``batch`` (``tokens``, ``labels``)."""
-    x = embed_tokens(params, batch["tokens"], cfg, compute_dtype)
+            window: int = 0, attn_impl: str = "auto", remat: bool = False,
+            tp=None):
+    """(mean next-token NLL, {}) of ``batch`` (``tokens``, ``labels``);
+    over ``tp`` (a `group.Axis`), ``params`` are this rank's
+    `sharding.tp_shard` slices."""
+    x = embed_tokens(params, batch["tokens"], cfg, compute_dtype, tp=tp)
     h = forward(params, x, cfg, window=window, compute_dtype=compute_dtype,
-                attn_impl=attn_impl, remat=remat)
+                attn_impl=attn_impl, remat=remat, tp=tp)
     loss = L.lm_head_loss(h, params["embed"], batch["labels"], cfg,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, tp=tp)
     return loss, {}
 
 

@@ -5,7 +5,7 @@ projector stubbed, as in the reference).
 Sequence layout: [patch embeddings (num_patches) | text tokens]. Labels
 over image positions are ignored (-1). Params, cache and decode are the
 dense family's; training goes through ``transformer.forward``, so it has
-that family's release points and ``remat``.
+that family's release points, ``remat`` and tensor parallelism.
 """
 from __future__ import annotations
 
@@ -21,22 +21,26 @@ init_cache = T.init_cache
 decode_step = T.decode_step  # decoding past the prefix is pure-text
 
 
-def assemble_embeds(params, batch, cfg: ModelConfig, compute_dtype):
-    """Concatenate patch embeddings with text token embeddings."""
+def assemble_embeds(params, batch, cfg: ModelConfig, compute_dtype,
+                    tp=None):
+    """Concatenate patch embeddings with text token embeddings (over
+    ``tp`` the text's vocab-parallel; the patches are the same on every
+    rank)."""
     patches = batch["patches"].to(compute_dtype)         # (B, P, d)
-    text = T.embed_tokens(params, batch["tokens"], cfg, compute_dtype)
+    text = T.embed_tokens(params, batch["tokens"], cfg, compute_dtype,
+                          tp=tp)
     return torch.cat([patches, text], dim=1)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, window: int = 0,
             compute_dtype=torch.bfloat16, attn_impl: str = "auto",
-            remat: bool = False):
-    x = assemble_embeds(params, batch, cfg, compute_dtype)
+            remat: bool = False, tp=None):
+    x = assemble_embeds(params, batch, cfg, compute_dtype, tp=tp)
     h = T.forward(params, x, cfg, window=window, compute_dtype=compute_dtype,
-                  attn_impl=attn_impl, remat=remat)
+                  attn_impl=attn_impl, remat=remat, tp=tp)
     # labels: (B, P + S_text); image positions must be -1 (ignored)
     loss = L.lm_head_loss(h, params["embed"], batch["labels"], cfg,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, tp=tp)
     return loss, {}
 
 

@@ -1,7 +1,8 @@
 """Data-parallel axes, each rank's rows of the batch, and each rank's
-experts (port of the non-FSDP part of ``repro/parallel/sharding.py``:
-``dp_axes``, ``dp_size``, ``model_size``, ``batch_specs``, and
-``ep_param_specs`` as `map_ep`).
+experts or tensor-parallel slices (port of the non-FSDP part of
+``repro/parallel/sharding.py``: ``dp_axes``, ``dp_size``,
+``model_size``, ``batch_specs``, ``ep_param_specs`` as `map_ep`, and
+``param_specs``' ``model`` half as `tp_dim`).
 
 The reference shards a global batch over the data-parallel mesh axes
 (``P(("pod", "data"), ...)``) and replicates the params; ``shard_map``
@@ -21,13 +22,34 @@ rank draws the full params from the same generator and keeps its slice
 (`ep_shard`), so each rank's layout equals a one-rank draw's, sliced;
 `ep_gather` puts the slices back together (checkpoints).
 
+Tensor parallelism (every other family on a ``model`` axis above 1):
+the reference stores the params Megatron-style (``param_specs``'
+``model`` half): attention heads (``wq``/``wk``/``wv``, their biases
+and ``wo``), the dense FFN's hidden columns and the vocab rows of
+``tok`` and columns of ``out`` split over ``model``, each only where
+the axis divides the count, everything else (norms, positions, the SSM
+projections and parameters) replicated. `tp_dim` is that rule for one
+of the port's per-layer leaves (the reference's stacked leaves carry a
+lead layer dimension, so its split dimension is one higher), `tp_shard`
+cuts every leaf of a full draw to this rank's slice, and `tp_gather`
+puts the slices of a held tree back together (checkpoints, tests).
+`tp_held_dim` reads the same layout off a held leaf, from the config's
+counts. `tp_split` and `tp_partial` name the leaves the training step
+treats apart: those split over ``model`` (the clip's norm, the replica
+check) and the replicated key/value leaves that split query heads only
+partly use (their gradients are summed over ``model``).
+
 The mesh is always passed in: there is no module-level current mesh
-(the reference's ``set_current_mesh`` / ``_CURRENT_MESH``). FSDP and
-tensor-parallel param sharding are not ported.
+(the reference's ``set_current_mesh`` / ``_CURRENT_MESH``). The
+reference's ``constrain_*`` helpers and its sequence sharding of the
+residual stream are XLA layout hints that change no value beyond the
+order of a reduction, so the port has none: its blocks run their
+collectives explicitly (``models/layers.py``). FSDP (the data half of
+``param_specs``) and ``cache_specs`` are not ported.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -142,3 +164,123 @@ def ep_split(tree):
     with the other's leaves set to ``None`` (an empty node)."""
     return (map_ep(tree, lambda t: None, lambda t: t),
             map_ep(tree, lambda t: t, lambda t: None))
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+#: the attention leaves whose head dimension may split over ``model``
+#: (``wq``/``wk``/``wv`` ``(d, H, Dh)``, biases ``(H, Dh)``, ``wo``
+#: ``(H, Dh, d)``), and the dimension
+_HEAD_DIM = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+             "wo": 0}
+#: the key/value leaves: replicated where the kv heads do not divide
+#: the axis and the query heads do (`tp_partial`)
+KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+def _tp_candidate(path, ndim: int) -> Optional[int]:
+    """The dimension of a per-layer leaf that ``param_specs`` would put
+    on ``model`` if the axis divided it, from the leaf's name."""
+    name = path[-1] if path else None
+    if not isinstance(name, str):
+        return None
+    if name == "tok":                       # (Vp, d): vocab rows
+        return 0
+    if name == "out":                       # (d, Vp): vocab columns
+        return 1
+    if name in ("w_gate", "w_up", "w_down"):
+        if ndim != 2:                       # a MoE expert stack (E, ...)
+            return None
+        return 0 if name == "w_down" else 1     # (ff, d) / (d, ff)
+    return _HEAD_DIM.get(name)
+
+
+def tp_dim(path, shape, tp: int) -> Optional[int]:
+    """The dimension of the full per-layer leaf at ``path`` (its keys)
+    with ``shape`` that a ``model`` axis of ``tp`` splits, or None (the
+    leaf is replicated): ``param_specs``' rule, with its divisibility
+    guard."""
+    d = _tp_candidate(path, len(shape))
+    if tp > 1 and d is not None and shape[d] % tp == 0:
+        return d
+    return None
+
+
+def _tp_count(name: str, cfg) -> int:
+    """The full size of the split dimension of leaf ``name``."""
+    if name in ("tok", "out"):
+        from repro_torch.models.layers import pad_vocab
+        return pad_vocab(cfg.vocab_size)
+    if name in ("w_gate", "w_up", "w_down"):
+        return cfg.d_ff
+    return cfg.num_kv_heads if name in KV_LEAVES else cfg.num_heads
+
+
+def tp_held_dim(path, shape, cfg, tp: int) -> Optional[int]:
+    """The dimension of a HELD leaf (a rank's `tp_shard` slice) that is
+    split over a ``model`` axis of ``tp``, or None."""
+    d = _tp_candidate(path, len(shape))
+    if tp > 1 and d is not None and shape[d] * tp == _tp_count(path[-1],
+                                                               cfg):
+        return d
+    return None
+
+
+def tp_mixed(cfg, tp: int) -> bool:
+    """Whether the query heads split over ``tp`` and the kv heads do not
+    (the key/value leaves stay replicated, each rank reading the kv
+    heads of its query heads)."""
+    return tp > 1 and cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp != 0
+
+
+def tp_shard(params, mesh, tp_axis: str = "model"):
+    """``params`` (full leaves) with every leaf that `tp_dim` splits cut
+    to this rank's slice along the axis (a copy, so the full tensor can
+    be freed)."""
+    tp = mesh.shape[tp_axis]
+    m = grp.rank(mesh.axis(tp_axis))
+
+    def cut(path, t):
+        d = tp_dim(path, t.shape, tp)
+        if d is None:
+            return t
+        n = t.shape[d] // tp
+        return t.narrow(d, m * n, n).clone()
+    return _map_with_path(params, cut)
+
+
+def tp_gather(tree, mesh, cfg, tp_axis: str = "model"):
+    """The inverse of `tp_shard` on a held tree (params, or anything of
+    their structure: gradients, Adam's moments): every split leaf
+    gathered over the axis in axis order, on every rank. Collective over
+    ``tp_axis``."""
+    axis, tp = mesh.axis(tp_axis), mesh.shape[tp_axis]
+
+    def gather(path, t):
+        d = tp_held_dim(path, t.shape, cfg, tp)
+        if d is None:
+            return t
+        whole = grp.all_gather(t.movedim(d, 0).contiguous(), axis)
+        return whole.movedim(0, d).contiguous()
+    return _map_with_path(tree, gather)
+
+
+def tp_split(tree, cfg, tp: int):
+    """``(replicated, split)``: two trees of ``tree``'s (held) structure,
+    each with the other's leaves set to ``None``."""
+    def part(keep_split):
+        return _map_with_path(
+            tree, lambda path, t: t if (tp_held_dim(path, t.shape, cfg, tp)
+                                        is not None) == keep_split
+            else None)
+    return part(False), part(True)
+
+
+def tp_partial(tree, fn, cfg, tp: int):
+    """``fn(leaf)`` on the key/value leaves that the split query heads
+    only partly use (`tp_mixed`), every other leaf as it is."""
+    if not tp_mixed(cfg, tp):
+        return tree
+    return _map_with_path(
+        tree, lambda path, t: fn(t) if path[-1] in KV_LEAVES else t)

@@ -772,3 +772,26 @@ def test_measure_collectives_syncs_a_model_tree_from_an_artifact():
     assert b["buckets_bit_equal"] == b["buckets"]
     assert gs["variants"]["per_leaf"]["plan_combines"] > 0
     assert "probed" not in res and "best" not in res    # no tuning sweep
+
+
+def test_measure_collectives_grad_layers_cuts_the_tree_in_depth():
+    """``--grad-layers 1``: the reduced smollm-135m's tree with one of
+    its layers (the widths kept), synced within the launcher's 2e-4 of
+    the float64 mean on 2 ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import measure_collectives as mc
+    from repro_torch.models.registry import build_model
+    res = mc.main(["--device", "cpu", "--ranks", "2", "--topology", "2",
+                   "--tuning-table", HIER, "--grad-arch", "smollm-135m",
+                   "--reduced", "--grad-layers", "1"])
+    gs = res["grad_sync"]
+    cfg = get_config("smollm-135m").reduced().replace(num_layers=1)
+    leaves = pytree.leaves(build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)))
+    assert (gs["leaves"], gs["elems"]) == \
+        (len(leaves), sum(t.numel() for t in leaves))
+    assert gs["elems"] < sum(t.numel() for t in pytree.leaves(
+        build_model(get_config("smollm-135m").reduced(), device="cpu").init(
+            torch.Generator().manual_seed(0))))
+    for v in gs["variants"].values():
+        assert v["max_abs_err"] <= mc.GRAD_TOL

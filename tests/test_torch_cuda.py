@@ -300,6 +300,63 @@ def test_autograd_runs_both_kernels(cuda, dtype):
                                    atol=BWD_TOL[dtype], rtol=BWD_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,tp", [(4, 1, 2), (12, 3, 2)])
+def test_tensor_parallel_mixed_heads_through_both_kernels(cuda, dtype, H,
+                                                          KV, tp):
+    """One tensor-parallel rank's attention where the query heads split
+    over the model axis and the kv heads do not (reduced smollm's 4 over
+    1; 12 over 3, whose rank reads one kv head per query head): each
+    rank's H/tp heads and the kv heads they read (`layers._kv_index`)
+    through the forward and backward kernels, against the plain version
+    under autograd on the same slices; the ranks' outputs summed are the
+    whole block's."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import layers as L
+    B, S, d, D = 2, 256, 128, 64
+    cfg = ModelConfig(name="mixed", family="dense", num_layers=1,
+                      d_model=d, num_heads=H, num_kv_heads=KV, head_dim=D,
+                      d_ff=256, vocab_size=256)
+    g = torch.Generator().manual_seed(H)
+    x = torch.randn((B, S, d), generator=g).to(dtype).cuda()
+    w = {n: (torch.randn((d, h, D), generator=g) * d ** -0.5).to(dtype)
+         .cuda() for n, h in (("wq", H), ("wk", KV), ("wv", KV))}
+    whole = fa.flash_attention_plain(*(
+        torch.einsum("bsd,dhk->bshk", x, w[n]) for n in ("wq", "wk", "wv")),
+        causal=True)
+    hl = H // tp
+    parts = []
+    for m in range(tp):
+        idx = L._kv_index(cfg, hl, m)
+        leaves = [t.clone().requires_grad_() for t in (
+            x, w["wq"][:, m * hl:(m + 1) * hl], w["wk"], w["wv"])]
+
+        def run(attend):
+            xx, wq, wk, wv = leaves
+            q = torch.einsum("bsd,dhk->bshk", xx, wq)
+            k = torch.einsum("bsd,dhk->bshk", xx, wk[:, idx])
+            v = torch.einsum("bsd,dhk->bshk", xx, wv[:, idx])
+            out = attend(q, k, v, causal=True)
+            dout = torch.randn(out.shape, generator=torch.Generator()
+                               .manual_seed(m)).to(dtype).cuda()
+            return out, torch.autograd.grad(out, leaves, dout)
+        f0, b0 = fa.launches, fa_bwd.launches
+        got, got_g = run(fa.flash_attention)
+        assert fa.launches == f0 + 1
+        assert fa_bwd.launches == b0 + fa_bwd.LAUNCHES_PER_CALL
+        want, want_g = run(fa.flash_attention_plain)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        for a, b in zip(got_g, want_g):
+            assert torch.isfinite(a).all()
+            scale = b.float().abs().max().item()
+            assert (a.float() - b.float()).abs().max().item() <= \
+                BWD_TOL[dtype] * max(scale, 1.0)
+        parts.append(got.float())
+    torch.testing.assert_close(torch.cat(parts, dim=2), whole.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
 @pytest.mark.parametrize("case", ["k_offset_2_bytes", "dout_row_stride_68",
                                   "q_and_out_offset_2_bytes"])
 def test_backward_copies_rows_off_16_bytes(cuda, case):

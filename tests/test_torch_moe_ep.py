@@ -276,7 +276,7 @@ def _rank_work(ref_path, out_dir):
         out[f"step_{name}|gnorm"] = np.asarray(
             float(steps.ep_global_norm(m["grads"], mesh)))
         out[f"step_{name}|replicas"] = np.asarray(
-            train._replicas(new_p, mesh, "model"))
+            train._replicas(new_p, step))
         save(f"step_{name}|params", new_p)
         save(f"step_{name}|grad", m["grads"])
     np.savez(os.path.join(out_dir, f"r{grp.rank()}.npz"), **out)

@@ -600,19 +600,21 @@ def test_two_ranks_reduced_mamba2_tuned_equals_xla(capfd):
 
 
 def test_unported_options_raise_naming_their_step():
-    """Tensor parallelism of a family without experts (``--model-parallel``
-    above 1 for smollm, and for the VLM and enc-dec families, which the
-    launcher now trains) and FSDP raise before any rank starts."""
-    with pytest.raises(NotImplementedError, match="tensor parallel.*step 10"):
-        train.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+    """FSDP raises before any rank starts, naming its step; a model axis
+    for a family without experts (``--model-parallel 2`` for smollm, the
+    VLM and the enc-dec family) now trains tensor-parallel, as the
+    reference does: one step on 2 x 2 ranks, the replicas equal."""
     with pytest.raises(NotImplementedError, match="FSDP.*step 10"):
         train.main(["--reduced", "--device", "cpu"],
                    parallel=ParallelConfig(shard_params_over_data=True))
-    for arch in ("llava-next-mistral-7b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError,
-                           match="tensor parallel.*step 10"):
-            train.main(["--arch", arch, "--reduced", "--device", "cpu",
-                        "--model-parallel", "2"])
+    for arch in ("smollm-135m", "llava-next-mistral-7b", "whisper-large-v3"):
+        res = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                          "--ranks", "4", "--model-parallel", "2",
+                          "--steps", "1", "--seq", "32", "--batch", "8"])
+        assert res["mesh"] == {"data": 2, "model": 2}, arch
+        assert res["tp_split"]["heads"] and res["tp_split"]["vocab"], arch
+        assert res["replicas_equal_at_init"] and all(res["replicas_equal"])
+        assert len(res["losses"]) == 1 and 0 < res["losses"][0] < 20
 
 
 @pytest.mark.slow
