@@ -291,6 +291,24 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    mask) and their backwards a rank-step, the tuned plan's combines, the
    tuned run held to the xla run and the planted faults read, no
    overlapped run;
+   f. FSDP (``train.main(..., parallel=ParallelConfig(
+   shard_params_over_data=True))``; each rank holds a quarter of every
+   weight the 2 x 2 data axes divide, gathers each layer's in one
+   all-gather where it enters the model and reduce-scatters its
+   gradient in the backward): [8w]'s ``"xla"`` run again under FSDP
+   (63,389,440 params a rank, 34 leaves sharded and 25 replicated),
+   held to [8w]'s ``"xla"`` run (the same start, step 0's loss
+   bit-equal, its synced gradients gathered whole within
+   ``TRAIN_GRAD_TOL``, the params' change within ``TRAIN_CHANGE_TOL``,
+   the losses within ``TRAIN_LOSS_TOL``), then whisper-large-v3 at full
+   width and depth (32 + 32 layers, 407,837,440 params a rank, 514
+   leaves sharded and 325 replicated), one step over 4 x 256 tokens
+   with bf16 gathers (``gather_in_compute_dtype``): each run's
+   launches (the flash kernels a layer a rank-step: 4 and 64 layers),
+   its gathers and reduce-scatters (one a layer and one for the rest
+   of the tree), the replicated leaves bit-equal, a finite loss; the
+   full-depth run's peak memory a rank and its seconds in gathers and
+   reduce-scatters printed;
    t. tensor parallelism: ``--arch smollm-135m --ranks 4
    --model-parallel 2 --seq 256 --batch 8`` at full width and depth
    (``{"data": 2, "model": 2}``; 94,701,888 params a rank: the FFN
@@ -2692,7 +2710,8 @@ TRAIN_MODELS = {
                     "config": {"num_layers": 12},
                     "kernels": ("ssd_chunk", "ssd_chunk_bwd")},
     # full width, depth cut 32 + 32 -> 2 + 2 (at 16 B a param, full depth
-    # is 25.7 GB a rank: four ranks do not fit one card); 4 flash
+    # is 25.7 GB a rank: four replicas do not fit one card; [8f] trains
+    # it at full depth under FSDP); 4 flash
     # launches a rank-step (2 encoder, 2 decoder self-attention); the
     # tuned run is held to "xla", not overlapped
     "whisper-large-v3": {"tag": "8w", "layers": 4,
@@ -2722,8 +2741,9 @@ TRAIN_CHANGE_TOL = 1e-2
 TRAIN_LOSS_TOL = 5e-3
 
 
-#: each [8] run's "xla" step 0 (synced gradients, loss, initial params,
-#: on the host), by arch: what [8t] is held to
+#: each [8] run's "xla" run (step 0's synced gradients and loss, the
+#: initial and final params and the losses, on the host), by arch: what
+#: [8t] and [8f] are held to
 STEP0_ORACLE = {}
 
 
@@ -2801,16 +2821,19 @@ def sync_readings(tuned, xla):
     return out
 
 
-def train_run(tag, label, argv, config=None):
+def train_run(tag, label, argv, config=None, parallel=None, keep=True):
     """One ``repro_torch.launch.train`` run (its counts are zeroed in
     every rank just before the steps and summed over the ranks just
-    after); returns rank 0's result with its final params. ``config``
-    replaces fields of the model's config (a depth cut)."""
+    after); returns rank 0's result, with its final params unless
+    ``keep`` is false. ``config`` replaces fields of the model's config
+    (a depth cut), ``parallel`` the `ParallelConfig` (FSDP)."""
     from repro_torch.launch import train
     log(f"[{tag}] {label}: train {' '.join(argv)}"
-        + (f" (config {config})" if config else ""))
+        + (f" (config {config})" if config else "")
+        + (f" ({parallel})" if parallel else ""))
     t0 = time.perf_counter()
-    res = train.main(argv, keep_params=True, config=config)
+    res = train.main(argv, keep_params=keep, config=config,
+                     parallel=parallel)
     res["wall_s"] = time.perf_counter() - t0
     mem = ", ".join(f"{b / 2**30:.2f}" for b in res["peak_mem_bytes"])
     log(f"    losses {' '.join(f'{x:.6f}' for x in res['losses'])}; s per "
@@ -2824,6 +2847,13 @@ def train_run(tag, label, argv, config=None):
         f"{res['plan_combines']} combines a step; replicas bit-equal after "
         f"every step: "
         f"{all(res['replicas_equal'])}; {res['wall_s']:.1f}s with set-up")
+    if "fsdp" in res:
+        log(f"    FSDP {res['fsdp']}; collectives a step "
+            f"{res['collectives']}; gathers s "
+            f"{' '.join(f'{x:.4f}' for x in res['gather_s'])}, "
+            f"reduce-scatters s "
+            f"{' '.join(f'{x:.4f}' for x in res['reduce_scatter_s'])} "
+            f"(slowest rank's, inside forward+backward)")
     return res
 
 
@@ -2891,7 +2921,8 @@ def phase_training(arch):
     # [8t] holds its step 0 to this run's (the host's copies)
     STEP0_ORACLE[arch] = {"grads0": xla["grads0"],
                           "loss": xla["losses"][0],
-                          "init_params": xla["init_params"]}
+                          "init_params": xla["init_params"],
+                          "losses": xla["losses"], "params": xla["params"]}
     log(f"    tuned vs xla: step 0's synced gradients within {rd['grad']:.3g}"
         f" (tol {TRAIN_GRAD_TOL}), the params' change within "
         f"{rd['change']:.3g} (tol {TRAIN_CHANGE_TOL}), losses within "
@@ -3445,6 +3476,135 @@ def phase_training_tp():
 
 
 # ---------------------------------------------------------------------------
+# [8f] FSDP: whisper-large-v3 sharded over the 2 x 2 data axes
+# ---------------------------------------------------------------------------
+# params a rank, by hand from the leaf shapes (d 1280, 20 heads of 64, ff
+# 5120, vocab 51866 padded to 51968, 4096 decoder positions, 1500
+# frames): the sharded leaves are tok and out (2 x 51968 x 1280) and a
+# layer's attention (4 x 1280 x 1280; the decoder's two) and MLP (2 x
+# 1280 x 5120), a quarter of each a rank; the replicated ones are pos
+# (4096 x 1280), enc_pos (1500 x 1280), the final norms (3 x 1280) and
+# the layer norms (2 x 1280 each: 2 an encoder layer, 3 a decoder one).
+# 2 + 2 layers: 224,788,480 / 4 + 7,192,320 = 63,389,440 (231,980,800
+# whole); 32 + 32: 1,601,044,480 / 4 + 7,576,320 = 407,837,440
+# (1,608,620,800 whole); leaves (sharded, replicated) 34 + 25 and
+# 514 + 325
+FSDP_RUNS = {
+    "2+2": {"param_elems": 63389440, "leaves": (34, 25), "layers": 4},
+    "full": {"param_elems": 407837440, "leaves": (514, 325), "layers": 64},
+}
+# the full-depth run: one step, bf16 gathers and reduce-scatters
+# (gather_in_compute_dtype), 4 x 256 tokens over 4 x 1500 frames (one row
+# a rank): at [8w]'s 8 x 256 the four ranks ran out of the card's memory
+# with 18.5-18.7 GiB allocated each, 1 row a rank peaks at 14.76 GiB
+# (PERF.md, PR 27)
+FSDP_FULL_ARGS = ["--arch", "whisper-large-v3", "--ranks", "4",
+                  "--topology", "2x2", "--steps", "1", "--seq", "256",
+                  "--batch", "4", "--collective", "xla"]
+
+
+def fsdp_checks(r, run, steps):
+    """What every [8f] run must show: the mesh, params a rank, the
+    sharded and replicated leaves, the replicas, finite losses, one
+    gather and one reduce-scatter a layer and one for the rest of the
+    tree, and the flash kernels a layer a rank-step (no combine, no SSD
+    kernel); the names of the checks that fail."""
+    from repro_torch.kernels import attention_bwd
+    spec = FSDP_RUNS[run]
+    sharded, replicated = spec["leaves"]
+    per = spec["layers"] * steps * TRAIN_RANKS
+    want = {"flash_attention": per,
+            "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
+            "ssd_chunk": 0, "ssd_chunk_bwd": 0, "segment_combine": 0}
+    return [k for k, ok in (
+        ("device", r["device"] == "cuda:0" and r["ranks"] == TRAIN_RANKS),
+        ("mesh", r["mesh"] == {"pod": 2, "data": 2, "model": 1}),
+        ("params a rank", r["param_elems"] == spec["param_elems"]),
+        ("leaves", r["fsdp"] == {"data_axes": ["pod", "data"],
+                                 "sharded_leaves": sharded,
+                                 "replicated_leaves": replicated}),
+        ("collectives", r["collectives"]["gathers"] ==
+         r["collectives"]["reduce_scatters"] == 1 + spec["layers"]),
+        ("replicas", r["replicas_equal_at_init"]
+         and all(r["replicas_equal"])),
+        ("losses", len(r["losses"]) == steps
+         and all(x == x and 0 < x < 20 for x in r["losses"])),
+        ("launches", r["launches"] == want)) if not ok]
+
+
+def phase_training_fsdp():
+    """[8f] whisper-large-v3 trained under FSDP on 4 host-staged ranks
+    (``("pod", "data")`` = 2 x 2, each rank holding a quarter of every
+    weight the data axes divide): (a) [8w]'s 2 + 2-layer ``"xla"`` run
+    again with FSDP, held to it (step 0's loss bit-equal, its synced
+    gradients gathered whole within ``TRAIN_GRAD_TOL``, the params'
+    change within ``TRAIN_CHANGE_TOL``, the losses within
+    ``TRAIN_LOSS_TOL``); (b) the model at full depth (32 + 32 layers),
+    one step, bf16 gathers. Returns the summary and the launch counts by
+    path."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import ParallelConfig
+    t0 = time.perf_counter()
+    spec = TRAIN_MODELS["whisper-large-v3"]
+    oracle = STEP0_ORACLE["whisper-large-v3"]
+    a = train_run("8f", "2 + 2 layers, held to [8w] xla",
+                  ["--arch", "whisper-large-v3", *TRAIN_ARGS, "--collective",
+                   "xla"], config=spec["config"],
+                  parallel=ParallelConfig(shard_params_over_data=True))
+
+    def card(tree):
+        return [t.to("cuda", torch.float64) for t in pytree.leaves(tree)]
+    init = card(oracle["init_params"])
+    same_start = all(torch.equal(x, y) for x, y in
+                     zip(card(a["init_params"]), init))
+    grad = grad_reading(card(a["grads0"]), card(oracle["grads0"]))
+    change = change_reading(card(a["params"]), init,
+                            card(oracle["params"]))
+    del init
+    torch.cuda.empty_cache()
+    loss0_equal = a["losses"][0] == oracle["loss"]
+    loss_diff = max(abs(x - y) for x, y in zip(a["losses"],
+                                               oracle["losses"]))
+    log(f"    vs [8w] xla: the same start {same_start}; step 0's loss "
+        f"bit-equal {loss0_equal}; step 0's synced gradients within "
+        f"{grad:.3g} (tol {TRAIN_GRAD_TOL}); the params' change within "
+        f"{change:.3g} (tol {TRAIN_CHANGE_TOL}); losses within "
+        f"{loss_diff:.3g} (tol {TRAIN_LOSS_TOL})")
+    bad = fsdp_checks(a, "2+2", TRAIN_STEPS)
+    if bad or not same_start or not loss0_equal or grad > TRAIN_GRAD_TOL \
+            or change > TRAIN_CHANGE_TOL or loss_diff > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[8f] 2 + 2 under FSDP: {bad}; launches "
+                             f"{a['launches']}, {a['param_elems']} params "
+                             f"a rank, {a.get('fsdp')}")
+    b = train_run("8f", "full depth (32 + 32 layers)", FSDP_FULL_ARGS,
+                  parallel=ParallelConfig(shard_params_over_data=True,
+                                          gather_in_compute_dtype=True),
+                  keep=False)
+    bad = fsdp_checks(b, "full", 1)
+    peak = [x / 2**30 for x in b["peak_mem_bytes"]]
+    log(f"    full depth: {b['param_elems']} params a rank; peak "
+        f"{', '.join(f'{x:.2f}' for x in peak)} GiB a rank "
+        f"({sum(peak):.2f} in all); step {b['step_s'][0]:.2f} s, of which "
+        f"gathers {b['gather_s'][0]:.2f} s and reduce-scatters "
+        f"{b['reduce_scatter_s'][0]:.2f} s (slowest rank's)")
+    if bad:
+        raise AssertionError(f"[8f] full depth: {bad}; launches "
+                             f"{b['launches']}, {b['param_elems']} params "
+                             f"a rank, {b.get('fsdp')}")
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "gather_s", "reduce_scatter_s", "collectives",
+            "peak_mem_bytes", "launches", "param_elems", "fsdp", "wall_s")
+    summary = {"2+2": {k: a[k] for k in keep},
+               "full": {k: b[k] for k in keep},
+               "vs_8w_xla": {"loss0_equal": loss0_equal, "grad": grad,
+                             "change": change, "loss": loss_diff},
+               "phase_s": time.perf_counter() - t0}
+    log(f"    [8f] {summary['phase_s']:.1f}s")
+    return summary, {"train_whisper-large-v3_fsdp": a["launches"],
+                     "train_whisper-large-v3_fsdp_full": b["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # [4t] tensor-parallel decode through the tuned Communicator
 # ---------------------------------------------------------------------------
 TP_ARGS = ["--arch", "smollm-135m", "--tensor-parallel", "4",
@@ -3621,6 +3781,10 @@ def main() -> int:
     training_whisper, whisper_paths = phase_training("whisper-large-v3")
     train_paths.update(whisper_paths)
     mark("[8w]")
+    training_fsdp, fsdp_paths = phase_training_fsdp()
+    train_paths.update(fsdp_paths)
+    del STEP0_ORACLE["whisper-large-v3"]
+    mark("[8f]")
     training_moe, moe_paths = phase_training_moe()
     train_paths.update(moe_paths)
     mark("[8m], [8mc]")
@@ -3657,6 +3821,7 @@ def main() -> int:
                       "training_mamba2": training_ssm,
                       "training_olmoe_ep": training_moe,
                       "training_whisper": training_whisper,
+                      "training_fsdp": training_fsdp,
                       "training_tp": training_tp,
                       "tp_decode": tp_decode,
                       "train_grads_fp32": train_grads}))

@@ -66,6 +66,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -190,6 +191,23 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     if order is not None:                     # group rank -> axis order
         parts = [parts[g] for g in order]
     return torch.cat(parts, dim=0).to(x.device)
+
+
+def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The backend's reduce-scatter (sum): axis 0 split into p equal
+    blocks, and this rank gets the sum over the ranks of block i, i its
+    index along ``group`` (``jax.lax.psum_scatter(scatter_dimension=0,
+    tiled=True)``, the transpose of `all_gather`)."""
+    buf = _to_host(x)
+    n = size(group)
+    order = _order(group)
+    if order is not None:          # block i goes to group rank order[i]
+        blocks = buf.chunk(n)
+        buf = torch.cat([blocks[order.index(g)] for g in range(n)])
+    out = torch.empty((buf.shape[0] // n,) + tuple(buf.shape[1:]),
+                      dtype=buf.dtype)
+    dist.reduce_scatter_tensor(out, buf, group=_pg(group))
+    return out.to(x.device)
 
 
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -340,24 +358,53 @@ class RankMesh:
         self.ranks = order.reshape(shape)
         self.device = device
         self.timeout_s = timeout_s
-        me = rank()
-        timeout = datetime.timedelta(seconds=timeout_s)
         self._axes = {}
-        for i, name in enumerate(axis_names):
-            lines = np.moveaxis(self.ranks, i, -1).reshape(-1, shape[i])
-            for line in lines:                    # every rank, same order
-                pg = dist.new_group(line.tolist(), timeout=timeout)
-                if me in line:
-                    groups = tuple(dist.get_group_rank(pg, int(g))
-                                   for g in line)
-                    self._axes[name] = Axis(
-                        name, pg, shape[i],
-                        None if groups == tuple(range(shape[i]))
-                        else groups)
+        for name in axis_names:
+            self._axes[name] = self._line_axis((name,))
+
+    def _line_axis(self, names: Tuple[str, ...]) -> Axis:
+        """This rank's `Axis` over the ranks that differ only along
+        ``names`` (their coordinates row-major in mesh order). Collective
+        unless the other axes hold one rank: then the line is the whole
+        default group and no group is made."""
+        idx = [self.axis_names.index(n) for n in names]
+        rest = [i for i in range(len(self.axis_names)) if i not in idx]
+        n = int(np.prod([self.ranks.shape[i] for i in idx]))
+        lines = np.transpose(self.ranks, rest + idx).reshape(-1, n)
+        name = names[0] if len(names) == 1 else ",".join(names)
+        if len(names) > 1 and len(lines) == 1:
+            order = tuple(int(g) for g in lines[0])
+            return Axis(name, None, n,
+                        None if order == tuple(range(n)) else order)
+        me = rank()
+        timeout = datetime.timedelta(seconds=self.timeout_s)
+        axis = None
+        for line in lines:                        # every rank, same order
+            pg = dist.new_group(line.tolist(), timeout=timeout)
+            if me in line:
+                groups = tuple(dist.get_group_rank(pg, int(g))
+                               for g in line)
+                axis = Axis(name, pg, n,
+                            None if groups == tuple(range(n)) else groups)
+        return axis
 
     def axis(self, name: str) -> Axis:
         """This rank's sub-group along ``name``."""
         return self._axes[name]
+
+    def joint(self, names: Sequence[str]) -> Axis:
+        """This rank's sub-group over the axes ``names`` together (in
+        mesh order), its index the row-major coordinate on them: the
+        reference's collective over a tuple of axes (``psum(x, ("pod",
+        "data"))``). Made on first use and kept; the first call for a set
+        of names is collective when the other axes hold more than one
+        rank (every rank must make it, in the same order)."""
+        names = tuple(n for n in self.axis_names if n in names)
+        if len(names) == 1:
+            return self._axes[names[0]]
+        if names not in self._axes:
+            self._axes[names] = self._line_axis(names)
+        return self._axes[names]
 
     @property
     def size(self) -> int:
@@ -421,6 +468,12 @@ class _Caller:
 def _entry(r: int, fn: Callable, world: int, init: str, result: str,
            args: tuple, timeout_s: float, caller: _Caller) -> None:
     caller.attach()
+    # MKL's default code path is not bit-reproducible from one process to
+    # the next on the same host (a 2-rank whisper step's gradients before
+    # the sync differed between runs in ~1 of 4 groups on the CPU); its
+    # conditional numerical reproducibility mode is, and it is read at
+    # the rank's first BLAS call
+    os.environ.setdefault("MKL_CBWR", "COMPATIBLE")
     # the ranks share the host's cores: with each rank's default of one
     # intra-op thread per core, their spinning thread pools starve each
     # other (a 64K-element add took 27 ms instead of 0.04 at 4 ranks)
@@ -435,6 +488,12 @@ def _entry(r: int, fn: Callable, world: int, init: str, result: str,
                 # protocol 5 writes a tensor's bytes at half protocol
                 # 4's cost (a run's kept params are gigabytes)
                 pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    except Exception:
+        # the caller raises the first rank's error it sees, which may be
+        # a peer's lost connection: each rank's own goes to stderr
+        print(f"rank {r} of {world} failed:", file=sys.stderr, flush=True)
+        traceback.print_exc()
+        raise
     finally:
         dist.destroy_process_group()
 

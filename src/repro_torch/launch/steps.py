@@ -92,8 +92,27 @@ norm (`split_global_norm` over `sharding.tp_split`). Under
 the release points sync each layer inside the backward, as under
 expert parallelism.
 
-Not ported (raises ``NotImplementedError`` naming ROADMAP.md Queue 1
-step 10): FSDP param sharding.
+FSDP (``ParallelConfig.shard_params_over_data``; the untuned step
+only, as in the reference: `validate_collectives` rejects a tuned sync
+and ``overlap_backward``). The reference stores each weight split over
+the data axes (``param_specs``' ``fsdp`` rule) and XLA gathers it where
+the forward reads it and reduce-scatters its gradient. Each port rank
+holds its `sharding.fsdp_shard` of the full seeded draw; the forward
+gathers the rest of the tree (embeddings, the hybrid's shared block)
+once and each layer's params where they enter the model, each through
+one `layers.GatherPoint` all-gather over the data axes
+(`sharding.data_axis`); the backward reduce-scatters their cotangents
+at the same points, so each shard's gradient arrives summed over the
+data ranks and the sync only divides it by dp; the replicated leaves
+(norms, positions, biases) take the backend's all-reduce over the data
+axes, averaged. AdamW clips by `split_global_norm` over the data axes
+and updates the shards. ``gather_in_compute_dtype`` casts the shards
+before the gather (bf16 on the wire, in the gathered weights and in the
+reduce-scatter). ``compute_s`` includes the gathers and reduce-scatters;
+``gather_s`` and ``reduce_scatter_s`` time them apart, and
+``collectives`` counts the step's gathers, reduce-scatters and
+all-reduces. With a ``model`` axis above 1, FSDP raises
+``NotImplementedError`` (ROADMAP.md Queue 1 step 10b, second part).
 """
 from __future__ import annotations
 
@@ -121,6 +140,9 @@ from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.parallel import sharding as sh
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: the top-level keys of the per-layer param lists (``bridge.STACKED``):
+#: each layer gathers at its own point, the rest of the tree at one
+_LAYER_KEYS = ("layers", "encoder", "decoder")
 
 
 @dataclasses.dataclass
@@ -138,7 +160,8 @@ class TrainStep:
     with ``ep_axis``, all but the other ranks' experts
     (`sharding.ep_shard` of the full draw), or, with ``tp_axis``, this
     rank's tensor-parallel slices (`sharding.tp_shard` of the full
-    draw)."""
+    draw), or, with ``fsdp``, its FSDP shards (`sharding.fsdp_shard` of
+    the full draw, which is freed before it returns)."""
 
     fn: Callable
     grad: Callable
@@ -149,6 +172,7 @@ class TrainStep:
     mesh: Any = None
     ep_axis: Optional[str] = None
     tp_axis: Optional[str] = None
+    fsdp: bool = False
 
     def init(self, gen: torch.Generator):
         params = self.api.init(gen)
@@ -156,6 +180,8 @@ class TrainStep:
             return sh.ep_shard(params, self.mesh, self.ep_axis)
         if self.tp_axis is not None:
             return sh.tp_shard(params, self.mesh, self.tp_axis)
+        if self.fsdp:
+            return sh.fsdp_shard(params, self.mesh)
         return params
 
     @property
@@ -164,23 +190,28 @@ class TrainStep:
         return self.ep_axis or self.tp_axis
 
     def split(self, tree):
-        """``(replicated, split)`` halves of a held tree (`sharding.ep_split`
-        or `sharding.tp_split`), or None without a model axis."""
+        """``(replicated, split)`` halves of a held tree (`sharding.ep_split`,
+        `sharding.tp_split` or `sharding.fsdp_split`), or None when every
+        rank holds every leaf whole."""
         if self.ep_axis is not None:
             return sh.ep_split(tree)
         if self.tp_axis is not None:
             return sh.tp_split(tree, self.api.cfg,
                                self.mesh.shape[self.tp_axis])
+        if self.fsdp:
+            return sh.fsdp_split(tree, self.api.cfg, sh.dp_size(self.mesh))
         return None
 
     def gather(self, tree):
         """A held tree with every split leaf gathered whole over the model
-        axis, on every rank (collective over it); the tree itself
-        without one."""
+        axis (or, under FSDP, every shard over the data axes), on every
+        rank (collective over it); the tree itself otherwise."""
         if self.ep_axis is not None:
             return sh.ep_gather(tree, self.mesh, self.ep_axis)
         if self.tp_axis is not None:
             return sh.tp_gather(tree, self.mesh, self.api.cfg, self.tp_axis)
+        if self.fsdp:
+            return sh.fsdp_gather(tree, self.mesh, self.api.cfg)
         return tree
 
 
@@ -301,6 +332,42 @@ def planted_tp_fault(fault: str):
         globals()["tp_correct"], L._COPY_BACKWARD["fn"] = saved
 
 
+#: what FSDP on a mesh with a ``model`` axis above 1 raises
+FSDP_WITH_MODEL_AXIS = ("FSDP with a model axis (tensor or expert "
+                        "parallelism) comes with ROADMAP.md Queue 1 step "
+                        "10b, second part")
+#: the faults of the FSDP step `planted_fsdp_fault` plants
+FSDP_FAULTS = ("not_reduced", "gathered_reversed")
+
+
+def _own_block(x, axis):
+    return x.chunk(axis.size)[grp.rank(axis)].clone()
+
+
+def _reversed_gather(x, axis):
+    return grp.all_gather(x, axis).view(axis.size, -1).flip(0).reshape(-1)
+
+
+@contextlib.contextmanager
+def planted_fsdp_fault(fault: str):
+    """Plant one fault of the FSDP step in this process for the length of
+    the block: ``"not_reduced"`` makes the gather points' backward keep
+    this rank's block of the cotangents instead of reduce-scattering
+    them; ``"gathered_reversed"`` gathers the shards in reverse rank
+    order."""
+    saved = dict(L._FSDP_COLLECTIVES)
+    if fault == "not_reduced":
+        L._FSDP_COLLECTIVES["reduce_scatter"] = _own_block
+    elif fault == "gathered_reversed":
+        L._FSDP_COLLECTIVES["gather"] = _reversed_gather
+    else:
+        raise ValueError(f"unknown fault {fault!r}; one of {FSDP_FAULTS}")
+    try:
+        yield
+    finally:
+        L._FSDP_COLLECTIVES.update(saved)
+
+
 def _pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Mean of ``x`` over the mesh ``axes`` (``jax.lax.pmean``)."""
     n = 1
@@ -361,9 +428,9 @@ def build_train_step(
             ep_axis = "model"
         else:
             tp_axis = "model"
-    if parallel.shard_params_over_data:
-        raise NotImplementedError(
-            "FSDP param sharding comes with ROADMAP.md Queue 1 step 10")
+    fsdp = parallel.shard_params_over_data
+    if fsdp and sh.model_size(mesh) > 1:
+        raise NotImplementedError(FSDP_WITH_MODEL_AXIS)
     dev = torch.device(device)
     cd = _DTYPES[parallel.compute_dtype]
     api = build_model(cfg, compute_dtype=cd,
@@ -376,6 +443,11 @@ def build_train_step(
     dpx = sh.dp_axes(mesh)
     dp = sh.dp_size(mesh)
     rows = sh.batch_rows(mesh, shape.global_batch)
+    point = data_ax = None
+    if fsdp:
+        data_ax = sh.data_axis(mesh)
+        point = L.GatherPoint(data_ax,
+                              lambda tree: sh.fsdp_dims(tree, cfg, dp), dev)
 
     def lr_scale(step):
         return cosine_with_warmup(step, warmup_steps=warmup_steps,
@@ -388,7 +460,19 @@ def build_train_step(
         if parallel.gather_in_compute_dtype:
             p = pytree.tree_map(lambda x: x.to(torch.bfloat16)
                                 if x.dtype == torch.float32 else x, p)
-        loss, aux = api.loss(p, batch)
+        if point is None:
+            loss, aux = api.loss(p, batch)
+        else:
+            # the rest of the tree gathered once, each layer's params
+            # where they enter the model
+            rest = point({k: v for k, v in p.items()
+                          if k not in _LAYER_KEYS})
+            p = {**{k: v for k, v in p.items() if k in _LAYER_KEYS},
+                 **rest}
+            del rest
+            with L.gather_scope(point):
+                loss, aux = api.loss(p, batch)
+        del p
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
@@ -422,6 +506,13 @@ def build_train_step(
     def sync(grads):
         if tuned:
             return comm.sync_gradients(grads, mean=True)
+        if fsdp:
+            # the shards' gradients arrive summed by the backward's
+            # reduce-scatter; the replicated leaves all-reduce, averaged
+            leaves, treedef = pytree.flatten(grads)
+            return treedef.unflatten([
+                g / dp if d is not None else grp.psum(g, data_ax) / dp
+                for g, d in zip(leaves, sh.fsdp_dims(grads, cfg, dp))])
         if model_axis is None:
             # the backend's all-reduce over the data-parallel ranks (the
             # whole group: no model axis), averaged
@@ -451,6 +542,8 @@ def build_train_step(
         return (loss, aux), grads, sink
 
     def fn(params, opt_state, batch, keep_grads=False):
+        if point is not None:
+            point.reset()
         t0 = time.perf_counter()
         if overlap:
             (loss, aux), grads, sink = overlapped(params, batch, keep_grads)
@@ -477,8 +570,11 @@ def build_train_step(
         aux = pytree.tree_map(lambda v: _pmean(v, mesh, dpx), aux)
         _synchronize(dev)
         t2 = time.perf_counter()
-        gnorm = None if model_axis is None or not opt.grad_clip \
-            else split_global_norm(step.split(grads), mesh.axis(model_axis))
+        gnorm = None
+        if opt.grad_clip and (model_axis or fsdp):
+            gnorm = split_global_norm(
+                step.split(grads),
+                data_ax if fsdp else mesh.axis(model_axis))
         new_params, new_opt = opt.update(grads, opt_state, params,
                                          lr_scale=lr_scale(opt_state.step),
                                          gnorm=gnorm)
@@ -486,10 +582,24 @@ def build_train_step(
         t3 = time.perf_counter()
         metrics = {"loss": loss, **aux, "compute_s": t1 - t0,
                    "sync_s": t2 - t1b, "opt_s": t3 - t2, **kept}
+        if point is not None:
+            n_rep = sum(d is None for d in sh.fsdp_dims(params, cfg, dp))
+            metrics.update(
+                gather_s=point.gather_s,
+                reduce_scatter_s=point.reduce_scatter_s,
+                collectives={
+                    "gathers": point.gathers,
+                    "reduce_scatters": point.reduce_scatters,
+                    # the replicated leaves, the loss and aux over each
+                    # data axis, the clip's norm
+                    "all_reduces": n_rep + len(dpx) * (
+                        1 + len(pytree.leaves(aux)))
+                    + (gnorm is not None)})
         if keep_grads:
             metrics["grads"] = grads
         return new_params, new_opt, metrics
 
     step = TrainStep(fn=fn, grad=grad_fn, api=api, opt=opt, tuned=tuned,
-                     rows=rows, mesh=mesh, ep_axis=ep_axis, tp_axis=tp_axis)
+                     rows=rows, mesh=mesh, ep_axis=ep_axis, tp_axis=tp_axis,
+                     fsdp=fsdp)
     return step

@@ -52,8 +52,18 @@ every rank), and the blocks all-reduce over ``model``. The gradient
 sync runs over the data axes. The replica check reads the replicated
 params on every rank and each slice on the data ranks that hold it;
 ``--ckpt`` gathers the slices over ``model`` first, so rank 0 writes
-whole leaves. Not ported yet (raises ``NotImplementedError`` naming
-ROADMAP.md Queue 1 step 10): FSDP.
+whole leaves.
+
+FSDP has no flag, as in the reference: ``main(argv,
+parallel=ParallelConfig(shard_params_over_data=True))`` (the untuned
+sync only; no ``model`` axis above 1 yet). Each rank holds its shard of
+every weight the data axes split (`sharding.fsdp_shard`); the launcher
+prints the data axes, the params a rank and the sharded and replicated
+leaf counts, and, each step, the gathers, reduce-scatters and
+all-reduces it issued with the seconds in the first two. The replica
+check reads the replicated leaves (a shard has no replica); ``--ckpt``
+and ``keep_params`` gather the shards first (`sharding.fsdp_gather`),
+so they hold whole leaves.
 
 Examples:
     python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
@@ -110,21 +120,10 @@ from repro_torch.core.collectives import group as grp
 from repro_torch.data import SyntheticPipeline, batch_to_tensors, stream_ids
 from repro_torch.kernels.ops import TRAIN_COUNTERS as COUNTERS
 from repro_torch.launch.mesh import local_mesh_spec, make_local_mesh
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.steps import FSDP_WITH_MODEL_AXIS, build_train_step
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.parallel import sharding as sh
-
-#: where each unported option comes from (ROADMAP.md Queue 1)
-LATER = {
-    "fsdp": "FSDP param sharding (ParallelConfig.shard_params_over_data) "
-            "comes with step 10",
-}
-
-
-def _later(key: str):
-    return NotImplementedError(f"{LATER[key]} (ROADMAP.md Queue 1)")
-
 
 def _to_host(tree):
     """A host copy (the steps update the params in place)."""
@@ -185,12 +184,16 @@ def _replicas(params, step) -> bool:
     """Whether the ranks hold equal params: every leaf on every rank, or,
     on a ``model`` axis, the replicated leaves on every rank and each
     slice (of experts, or tensor-parallel) on the data ranks that hold
-    it (`TrainStep.split`; one bit checksum a rank, gathered)."""
+    it (`TrainStep.split`; one bit checksum a rank, gathered); under
+    FSDP the replicated leaves on every rank (a shard has no replica)."""
     halves = step.split(params)
     if halves is None:
         fps = _gather(pytree.fingerprint(params))
         return all(f == fps[0] for f in fps)
     rep, split = halves
+    if step.fsdp:
+        fps = _gather(pytree.fingerprint(rep))
+        return all(f == fps[0] for f in fps)
     fps = _gather((pytree.fingerprint(rep), pytree.fingerprint(split),
                    grp.rank(step.mesh.axis(step.model_axis))))
     return all(f[0] == fps[0][0] for f in fps) and all(
@@ -280,9 +283,11 @@ def _rank_main(opts: dict):
     coll_desc = f"table:{table_path}" if table_path else args.collective
     say(f"arch={cfg.name} devices={grp.size()} mesh={dict(mesh.shape)} "
         f"collective={coll_desc}")
-    plan = comm.explain_gradients(params,
-                                  overlap_backward=args.overlap_backward)
-    if args.explain:
+    # under FSDP the step's collectives are its gathers, reduce-scatters
+    # and all-reduces, printed with each step, not a sync plan
+    plan = None if step.fsdp else comm.explain_gradients(
+        params, overlap_backward=args.overlap_backward)
+    if args.explain and plan is not None:
         say("gradient-sync plan (backward-overlapped streams):"
             if args.overlap_backward else
             "gradient-sync plan (per leaf):" if not comm.bucket_bytes
@@ -308,13 +313,14 @@ def _rank_main(opts: dict):
            "leaves": len(pytree.leaves(params)),
            "param_elems": sum(t.numel() for t in pytree.leaves(params)),
            # collectives a step: the plan's, or one all-reduce a leaf
+           # (under FSDP: step 0's gathers, reduce-scatters, all-reduces)
            "plan_entries": len(plan) if step.tuned
            else len(pytree.leaves(params)),
            "plan_combines": plan_combines(plan, grp.size())
            if step.tuned else 0,
            "losses": [], "step_s": [], "compute_s": [], "sync_s": [],
            "opt_s": [], "replicas_equal": [], "release_sync_s": [],
-           "release_events": []}
+           "release_events": [], "gather_s": [], "reduce_scatter_s": []}
     if step.ep_axis is not None:
         tp = mesh.shape[step.ep_axis]
         lo, hi = sh.expert_range(mesh, cfg.num_experts, step.ep_axis)
@@ -341,10 +347,26 @@ def _rank_main(opts: dict):
                         + ("split" if res["tp_split"][n] else "whole")
                         for n, c in counts.items())
             + f"; {res['param_elems']} params a rank")
+    if step.fsdp:
+        rep, shd = step.split(params)
+        res["fsdp"] = {"data_axes": list(sh.dp_axes(mesh)),
+                       "sharded_leaves": len(pytree.leaves(shd)),
+                       "replicated_leaves": len(pytree.leaves(rep))}
+        say(f"FSDP over the data axes {tuple(sh.dp_axes(mesh))} "
+            f"({sh.dp_size(mesh)} ranks): {res['param_elems']} params a "
+            f"rank, {res['fsdp']['sharded_leaves']} leaves sharded, "
+            f"{res['fsdp']['replicated_leaves']} replicated")
+        del rep, shd
     res["replicas_equal_at_init"] = _replicas(params, step)
     keep = opts["keep_params"] and lead
-    if keep:
-        res["init_params"] = _to_host(params)
+
+    def kept(tree):
+        """``tree`` on the host, whole (FSDP shards gathered on every
+        rank: collective)."""
+        whole = step.gather(tree) if step.fsdp else tree
+        return _to_host(whole) if keep else None
+    if opts["keep_params"]:
+        res["init_params"] = kept(params)
 
     for mod in COUNTERS.values():           # counts: the steps alone
         mod.launches = 0
@@ -362,8 +384,10 @@ def _rank_main(opts: dict):
             grads = metrics.pop("grads")
             # tensor-parallel: every rank gathers the whole tree (rank 0
             # keeps it), to hold the slices' gradients against a run
-            # without a model axis
+            # without a model axis; FSDP keeps whole leaves only
             whole = step.gather(grads) if step.tp_axis else None
+            if step.fsdp:
+                grads = step.gather(grads)
             if keep:
                 res["grads0"] = _to_host(grads)
                 res["local_grads0_fingerprint"] = metrics.pop(
@@ -373,12 +397,18 @@ def _rank_main(opts: dict):
             del grads, whole
         split = grp.max_over_ranks([metrics["compute_s"], metrics["sync_s"],
                                     metrics["opt_s"],
-                                    metrics.get("release_sync_s", 0.0)])
+                                    metrics.get("release_sync_s", 0.0),
+                                    metrics.get("gather_s", 0.0),
+                                    metrics.get("reduce_scatter_s", 0.0)])
         equal = _replicas(params, step)
         for key, v in zip(("losses", "step_s", "compute_s", "sync_s",
-                           "opt_s", "release_sync_s", "replicas_equal"),
+                           "opt_s", "release_sync_s", "gather_s",
+                           "reduce_scatter_s", "replicas_equal"),
                           (loss, wall, *split, equal)):
             res[key].append(v)
+        if step.fsdp and i == 0:
+            res["collectives"] = metrics["collectives"]
+            res["plan_entries"] = sum(metrics["collectives"].values())
         if args.overlap_backward:      # every rank's, in release order
             res["release_events"].append(_gather(metrics["release_events"]))
         if i % args.log_every == 0:
@@ -388,6 +418,12 @@ def _rank_main(opts: dict):
                 + (f" exposed ({split[3]:.3f} s on the sync thread)"
                    if args.overlap_backward else "")
                 + f", optimizer {split[2]:.3f} s (slowest rank's)")
+            if step.fsdp:
+                c = metrics["collectives"]
+                say(f"  FSDP collectives: {c['gathers']} gathers "
+                    f"({split[4]:.3f} s), {c['reduce_scatters']} "
+                    f"reduce-scatters ({split[5]:.3f} s), "
+                    f"{c['all_reduces']} all-reduces (slowest rank's)")
         if not equal:
             raise AssertionError(f"step {i}: the ranks' params differ "
                                  f"({grp.size()} checksums)")
@@ -408,11 +444,16 @@ def _rank_main(opts: dict):
         torch.cuda.max_memory_allocated(device)
         if device.type == "cuda" else 0)
     say(f"done: {args.steps} steps in {done:.1f}s")
-    held = f"params bit-identical over {grp.size()} ranks" \
-        if step.model_axis is None else (
-            f"replicated params bit-identical over {grp.size()} ranks, "
-            f"each {'expert' if step.ep_axis else 'tensor-parallel'} slice "
-            f"over the {sh.dp_size(mesh)} data ranks that hold it,")
+    if step.fsdp:
+        held = (f"replicated params bit-identical over {grp.size()} ranks "
+                f"(an FSDP shard has no replica)")
+    elif step.model_axis is None:
+        held = f"params bit-identical over {grp.size()} ranks"
+    else:
+        held = (f"replicated params bit-identical over {grp.size()} ranks, "
+                f"each {'expert' if step.ep_axis else 'tensor-parallel'} "
+                f"slice over the {sh.dp_size(mesh)} data ranks that hold "
+                f"it,")
     say(f"replicas: {held} after every step; launches over the steps, "
         f"summed over the ranks: "
         + ", ".join(f"{k} {v}" for k, v in res["launches"].items()))
@@ -420,13 +461,13 @@ def _rank_main(opts: dict):
         say("peak device memory per rank: " + ", ".join(
             f"{b / 2**30:.2f} GiB" for b in res["peak_mem_bytes"]))
     if args.ckpt:
-        # whole leaves (every expert, every slice), on every rank
+        # whole leaves (every expert, slice or shard), on every rank
         tree = step.gather({"params": params, "opt": opt_state})
         if lead:
             save(args.ckpt, tree, step=args.steps, extra={"arch": cfg.name})
         say(f"checkpoint -> {args.ckpt}")
-    if keep:
-        res["params"] = _to_host(params)
+    if opts["keep_params"]:
+        res["params"] = kept(params)
     return res if lead else None
 
 
@@ -490,8 +531,6 @@ def main(argv=None, *, keep_params: bool = False,
     args = ap.parse_args(argv)
 
     cfg = ARCHITECTURES[args.arch]
-    if parallel is not None and parallel.shard_params_over_data:
-        raise _later("fsdp")
     if args.reduced:
         cfg = cfg.reduced()
     if config:
@@ -538,6 +577,8 @@ def main(argv=None, *, keep_params: bool = False,
                           for lv in reversed(topology.levels))
         print(f"topology: {desc}", flush=True)
     parallel = parallel or ParallelConfig()
+    if parallel.shard_params_over_data and args.model_parallel > 1:
+        raise NotImplementedError(FSDP_WITH_MODEL_AXIS)
     try:        # tuned, as the Communicator will be: the flags alone say
         validate_collectives(CollectiveConfig(
             algorithm=args.collective,

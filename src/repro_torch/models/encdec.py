@@ -93,10 +93,10 @@ def _cross_kv(enc_out, p, compute_dtype, cfg=None, tp=None):
 
 def _stack(params, key, body, x, remat):
     """Run ``body`` over the layers of ``params[key]``, each layer's
-    params through its release point ``(key, i)`` (outside the
-    checkpoint, so a recompute does not fire it again)."""
+    params through its FSDP gather and its release point ``(key, i)``
+    (outside the checkpoint, so a recompute fires neither again)."""
     for i, lp in enumerate(params[key]):
-        lp = L.grad_release((key, i), lp)
+        lp = L.grad_release((key, i), L.gathered(lp))
         x = checkpoint(body, x, lp, use_reentrant=False) if remat \
             else body(x, lp)
     return x

@@ -24,10 +24,25 @@ columns (`lm_head_loss`). Where the query heads split and the kv heads
 do not, each rank reads the kv heads of its query heads out of the
 replicated ``wk``/``wv`` (`local_heads`), whose gradients the training
 step then sums over the axis.
+
+FSDP (training with ``ParallelConfig.shard_params_over_data``). Each
+rank holds its shard of every weight that the data axes split
+(``parallel/sharding.py``); XLA gathers them for the reference, the
+port at its gather points: `gathered` over one layer's params, where
+they enter the model (beside each release point), and over the rest of
+the tree once a forward (the training step). A `GatherPoint`, installed
+by `gather_scope` as a release sink is by `release_scope`, gathers
+every shard of the tree in one all-gather over the data axes (one
+autograd node, `_Gather`); its backward reduce-scatters their
+cotangents in one collective (the gather's transpose), so each rank's
+gradient of a shard arrives summed over the data ranks. A weight used
+more than once (the hybrid's shared block) is gathered once, and its
+gradient reduce-scatters once, summed over its uses.
 """
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Optional
 
 import torch
@@ -110,6 +125,129 @@ def grad_release(tag, tree):
     leaves, treedef = pytree.flatten(tree)
     return treedef.unflatten(list(
         _GradRelease.apply(tag, sink, treedef, *leaves)))
+
+
+# ---------------------------------------------------------------------------
+# FSDP gather points
+# ---------------------------------------------------------------------------
+_GATHER_POINT = None
+#: the collectives of a gather point (a planted fault swaps one:
+#: ``launch.steps.planted_fsdp_fault``)
+_FSDP_COLLECTIVES = {"gather": grp.all_gather,
+                     "reduce_scatter": grp.reduce_scatter}
+
+
+@contextlib.contextmanager
+def gather_scope(point):
+    """Install ``point`` (a `GatherPoint`) for the block, which must
+    enclose the forward."""
+    global _GATHER_POINT
+    prev = _GATHER_POINT
+    _GATHER_POINT = point
+    try:
+        yield point
+    finally:
+        _GATHER_POINT = prev
+
+
+def gathered(tree):
+    """``tree`` (one layer's params) with every FSDP shard gathered
+    whole by the installed `GatherPoint`; ``tree`` itself without one."""
+    point = _GATHER_POINT
+    return tree if point is None else point(tree)
+
+
+class GatherPoint:
+    """Gathers the shards of a tree over ``axis`` (the data axes'
+    `group.Axis`) in one all-gather, and reduce-scatters their
+    cotangents in one collective in the backward. ``dims(tree)`` gives
+    each leaf's split dimension in `pytree.leaves` order (None where it
+    is replicated). Counts its collectives (``gathers``,
+    ``reduce_scatters``) and their seconds on this rank (``gather_s``,
+    ``reduce_scatter_s``; on the card each between two synchronizations
+    of the device, so a collective's wait for the work queued before it
+    is not counted in it)."""
+
+    def __init__(self, axis, dims, device="cpu"):
+        self.axis, self.dims = axis, dims
+        self.device = torch.device(device)
+        self.reset()
+
+    def reset(self) -> None:
+        self.gathers = self.reduce_scatters = 0
+        self.gather_s = self.reduce_scatter_s = 0.0
+
+    def __call__(self, tree):
+        leaves, treedef = pytree.flatten(tree)
+        dims = self.dims(tree)
+        idx = [j for j, d in enumerate(dims) if d is not None]
+        if not idx:
+            return tree
+        whole = _Gather.apply(self, tuple(dims[j] for j in idx),
+                              *(leaves[j] for j in idx))
+        for j, t in zip(idx, whole):
+            leaves[j] = t
+        return treedef.unflatten(leaves)
+
+    def _clock(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def gather(self, shards, dims):
+        """The whole leaves of ``shards``, each split along its entry of
+        ``dims``, block i from data index i (one dtype: the params')."""
+        t0 = self._clock()
+        n = self.axis.size
+        flat = torch.cat([t.movedim(d, 0).reshape(-1)
+                          for t, d in zip(shards, dims)])
+        rows = _FSDP_COLLECTIVES["gather"](flat, self.axis).view(n, -1)
+        out, off = [], 0
+        for t, d in zip(shards, dims):
+            moved = t.movedim(d, 0).shape
+            part = rows[:, off:off + t.numel()].reshape(
+                (n * moved[0],) + tuple(moved[1:]))
+            out.append(part.movedim(0, d).contiguous())
+            off += t.numel()
+        self.gathers += 1
+        self.gather_s += self._clock() - t0
+        return out
+
+    def reduce_scatter(self, cts, dims):
+        """This rank's shards of the cotangents ``cts`` of whole leaves,
+        each summed over the data ranks."""
+        t0 = self._clock()
+        n = self.axis.size
+        flat = torch.cat([ct.movedim(d, 0).reshape(n, -1)
+                          for ct, d in zip(cts, dims)], dim=1)
+        mine = _FSDP_COLLECTIVES["reduce_scatter"](flat.reshape(-1),
+                                                   self.axis)
+        out, off = [], 0
+        for ct, d in zip(cts, dims):
+            moved = ct.movedim(d, 0).shape
+            size = ct.numel() // n
+            part = mine[off:off + size].reshape(
+                (moved[0] // n,) + tuple(moved[1:]))
+            out.append(part.movedim(0, d).contiguous())
+            off += size
+        self.reduce_scatters += 1
+        self.reduce_scatter_s += self._clock() - t0
+        return out
+
+
+class _Gather(torch.autograd.Function):
+    """`GatherPoint.gather` forward, `GatherPoint.reduce_scatter` of the
+    cotangents backward (on autograd's thread, in the same order on
+    every rank: the graphs are alike)."""
+
+    @staticmethod
+    def forward(ctx, point, dims, *shards):
+        ctx.point, ctx.dims = point, dims
+        return tuple(point.gather(shards, dims))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, None, *ctx.point.reduce_scatter(cts, ctx.dims))
 
 
 # ---------------------------------------------------------------------------

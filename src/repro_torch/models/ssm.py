@@ -187,17 +187,19 @@ def mamba_layer(x, lp, cfg, *, compute_dtype, **kw):
 def mamba_layers(x, params, cfg: ModelConfig, indices, *, compute_dtype,
                  ssd_impl, remat: bool = False):
     """Run the mamba layers ``indices`` of ``params["layers"]`` in order.
-    Each layer's params pass the release point ``("layers", i)`` outside
-    the checkpoint, so a recompute does not fire it again; ``remat``
-    recomputes each layer in the backward (``torch.utils.checkpoint``, as
-    ``jax.checkpoint`` around the reference's scan body)."""
+    Each layer's params pass the FSDP gather and the release point
+    ``("layers", i)`` outside the checkpoint, so a recompute fires neither
+    again; ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` around the
+    reference's scan body)."""
     def body(x, lp):
         y, _ = mamba_layer(x, lp, cfg, compute_dtype=compute_dtype,
                            ssd_impl=ssd_impl)
         return y
 
     for i in indices:
-        lp = L.grad_release(("layers", i), params["layers"][i])
+        lp = L.grad_release(("layers", i),
+                            L.gathered(params["layers"][i]))
         x = checkpoint(body, x, lp, use_reentrant=False) if remat \
             else body(x, lp)
     return x

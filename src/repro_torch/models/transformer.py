@@ -71,9 +71,9 @@ def forward(params, embeds: torch.Tensor, cfg: ModelConfig, *,
 
     x = embeds
     for i, lp in enumerate(params["layers"]):
-        # the release point wraps the layer's params outside the
-        # checkpoint, so a recompute does not fire it again
-        lp = L.grad_release(("layers", i), lp)
+        # the release point and the FSDP gather wrap the layer's params
+        # outside the checkpoint, so a recompute fires neither again
+        lp = L.grad_release(("layers", i), L.gathered(lp))
         x = checkpoint(body, x, lp, use_reentrant=False) if remat \
             else body(x, lp)
     return x

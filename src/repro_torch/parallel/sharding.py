@@ -1,8 +1,9 @@
 """Data-parallel axes, each rank's rows of the batch, and each rank's
-experts or tensor-parallel slices (port of the non-FSDP part of
-``repro/parallel/sharding.py``: ``dp_axes``, ``dp_size``,
-``model_size``, ``batch_specs``, ``ep_param_specs`` as `map_ep`, and
-``param_specs``' ``model`` half as `tp_dim`).
+experts, tensor-parallel slices or FSDP shards (port of
+``repro/parallel/sharding.py`` but ``cache_specs``: ``dp_axes``,
+``dp_size``, ``model_size``, ``batch_specs``, ``ep_param_specs`` as
+`map_ep`, ``param_specs``' ``model`` half as `tp_dim` and its data half
+as `fsdp_dim`).
 
 The reference shards a global batch over the data-parallel mesh axes
 (``P(("pod", "data"), ...)``) and replicates the params; ``shard_map``
@@ -39,13 +40,25 @@ treats apart: those split over ``model`` (the clip's norm, the replica
 check) and the replicated key/value leaves that split query heads only
 partly use (their gradients are summed over ``model``).
 
+FSDP (``ParallelConfig.shard_params_over_data``, ZeRO-3 style): the
+reference splits each weight along one dimension over all the data axes
+together (``param_specs``' data half, its ``fsdp(dim)`` rule), where
+their product divides it; the norms, biases, positions and the SSM's
+small parameters stay replicated. `fsdp_dim` is that rule for a
+per-layer leaf, `fsdp_held_dim` reads it off a held shard, `fsdp_shard`
+cuts a full draw to this rank's shard (the block of its `dp_index`),
+`fsdp_gather` puts the shards back together on every rank (checkpoints,
+kept params, tests) and `fsdp_split` names the two kinds of leaf.
+`data_axis` is the one `group.Axis` over the data axes whose collectives
+move the shards (its index is `dp_index`).
+
 The mesh is always passed in: there is no module-level current mesh
 (the reference's ``set_current_mesh`` / ``_CURRENT_MESH``). The
 reference's ``constrain_*`` helpers and its sequence sharding of the
 residual stream are XLA layout hints that change no value beyond the
 order of a reduction, so the port has none: its blocks run their
-collectives explicitly (``models/layers.py``). FSDP (the data half of
-``param_specs``) and ``cache_specs`` are not ported.
+collectives explicitly (``models/layers.py``). ``cache_specs`` is not
+ported (ROADMAP.md Queue 1 step 10c).
 """
 from __future__ import annotations
 
@@ -53,6 +66,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import pytree
 from repro_torch.core.collectives import group as grp
 
 #: the MoE block's expert weights, split over the expert-parallel axis
@@ -284,3 +298,105 @@ def tp_partial(tree, fn, cfg, tp: int):
         return tree
     return _map_with_path(
         tree, lambda path, t: fn(t) if path[-1] in KV_LEAVES else t)
+
+
+# ---------------------------------------------------------------------------
+# FSDP
+# ---------------------------------------------------------------------------
+def data_axis(mesh):
+    """This rank's `group.Axis` over all the data axes together, its
+    index `dp_index` (``mesh.joint``: the whole group without a
+    ``model`` axis above 1)."""
+    return mesh.joint(dp_axes(mesh))
+
+
+def _fsdp_candidate(path, ndim: int) -> Optional[int]:
+    """The dimension of a per-layer leaf that ``param_specs`` would put
+    on the data axes if they divided it, from the leaf's name."""
+    name = path[-1] if path else None
+    if not isinstance(name, str):
+        return None
+    if name == "tok":                       # (Vp, d)
+        return 1
+    if name in ("out", "wq", "wk", "wv", "router", "in_proj", "out_proj"):
+        return 0                            # (d, ...), out_proj (d_inner, d)
+    if name == "wo":                        # (H, Dh, d)
+        return 2
+    if name in ("w_gate", "w_up", "w_down"):
+        if ndim == 3:                       # a MoE expert stack (E, ...)
+            return 2 if name == "w_down" else 1
+        return 1 if name == "w_down" else 0     # (ff, d) / (d, ff)
+    return None
+
+
+def fsdp_dim(path, shape, dp: int) -> Optional[int]:
+    """The dimension of the full per-layer leaf at ``path`` with
+    ``shape`` that FSDP over ``dp`` data ranks splits, or None (the leaf
+    is replicated): ``param_specs``' ``fsdp`` rule, with its
+    divisibility guard."""
+    d = _fsdp_candidate(path, len(shape))
+    if dp > 1 and d is not None and shape[d] % dp == 0:
+        return d
+    return None
+
+
+def fsdp_held_dim(path, shape, cfg, dp: int) -> Optional[int]:
+    """The dimension of a HELD leaf (a rank's `fsdp_shard` shard) that is
+    split over ``dp`` data ranks, or None."""
+    d = _fsdp_candidate(path, len(shape))
+    full = cfg.d_inner if path and path[-1] == "out_proj" else cfg.d_model
+    if dp > 1 and d is not None and shape[d] * dp == full:
+        return d
+    return None
+
+
+def fsdp_shard(params, mesh):
+    """``params`` (full leaves) with every leaf that `fsdp_dim` splits cut
+    to this rank's block, the `dp_index`-th of `dp_size` (a copy, so the
+    full tensor can be freed)."""
+    dp, i = dp_size(mesh), dp_index(mesh)
+
+    def cut(path, t):
+        d = fsdp_dim(path, t.shape, dp)
+        if d is None:
+            return t
+        n = t.shape[d] // dp
+        return t.narrow(d, i * n, n).clone()
+    return _map_with_path(params, cut)
+
+
+def fsdp_gather(tree, mesh, cfg):
+    """The inverse of `fsdp_shard` on a held tree (params, or anything of
+    their structure: gradients, Adam's moments): every shard gathered
+    over the data axes in `dp_index` order, on every rank. Collective
+    over them."""
+    axis, dp = data_axis(mesh), dp_size(mesh)
+
+    def gather(path, t):
+        d = fsdp_held_dim(path, t.shape, cfg, dp)
+        if d is None:
+            return t
+        whole = grp.all_gather(t.movedim(d, 0).contiguous(), axis)
+        return whole.movedim(0, d).contiguous()
+    return _map_with_path(tree, gather)
+
+
+def fsdp_split(tree, cfg, dp: int):
+    """``(replicated, sharded)``: two trees of ``tree``'s (held)
+    structure, each with the other's leaves set to ``None``."""
+    def part(keep_sharded):
+        return _map_with_path(
+            tree, lambda path, t: t if (fsdp_held_dim(path, t.shape, cfg, dp)
+                                        is not None) == keep_sharded
+            else None)
+    return part(False), part(True)
+
+
+def fsdp_dims(tree, cfg, dp: int) -> list:
+    """`fsdp_held_dim` of every leaf of a held tree, in `pytree.leaves`
+    order (None where the leaf is replicated)."""
+    def dim(path, t):
+        d = fsdp_held_dim(path, t.shape, cfg, dp)
+        return -1 if d is None else d
+    return [None if d < 0 else d
+            for d in pytree.leaves(_map_with_path(tree, dim))]

@@ -600,13 +600,24 @@ def test_two_ranks_reduced_mamba2_tuned_equals_xla(capfd):
 
 
 def test_unported_options_raise_naming_their_step():
-    """FSDP raises before any rank starts, naming its step; a model axis
-    for a family without experts (``--model-parallel 2`` for smollm, the
-    VLM and the enc-dec family) now trains tensor-parallel, as the
-    reference does: one step on 2 x 2 ranks, the replicas equal."""
-    with pytest.raises(NotImplementedError, match="FSDP.*step 10"):
-        train.main(["--reduced", "--device", "cpu"],
-                   parallel=ParallelConfig(shard_params_over_data=True))
+    """FSDP trains (one step on 4 ranks, each holding its shards, the
+    replicated leaves equal); FSDP with a model axis raises before any
+    rank starts, naming its step (ROADMAP.md Queue 1 step 10b, second
+    part). A model axis for a family without experts (``--model-parallel
+    2`` for smollm, the VLM and the enc-dec family) trains
+    tensor-parallel, as the reference does: one step on 2 x 2 ranks, the
+    replicas equal."""
+    fsdp = ParallelConfig(shard_params_over_data=True)
+    res = train.main(["--reduced", "--device", "cpu", "--ranks", "4",
+                      "--steps", "1", "--seq", "32", "--batch", "8"],
+                     parallel=fsdp)
+    assert res["mesh"] == {"data": 4, "model": 1}
+    assert res["fsdp"]["sharded_leaves"] == 16
+    assert res["replicas_equal_at_init"] and all(res["replicas_equal"])
+    assert len(res["losses"]) == 1 and 0 < res["losses"][0] < 20
+    with pytest.raises(NotImplementedError, match="FSDP.*step 10b, second"):
+        train.main(["--reduced", "--device", "cpu", "--ranks", "4",
+                    "--model-parallel", "2"], parallel=fsdp)
     for arch in ("smollm-135m", "llava-next-mistral-7b", "whisper-large-v3"):
         res = train.main(["--arch", arch, "--reduced", "--device", "cpu",
                           "--ranks", "4", "--model-parallel", "2",
