@@ -195,10 +195,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    equal what its runs' schedules imply; every rank ends with the same
    table for every family;
 7. the tuned Communicator over smollm-135m's fp32 gradient tree at full
-   width cut to 10 of its 30 layers (``COMM_GRAD_LAYERS``, cut for the
-   script's time; the port's per-layer layout, leaves drawn from a
-   seed), through ``measure_collectives --grad-arch smollm-135m
-   --grad-layers 10``: (a) a 2x2
+   width cut to 5 of its 30 layers (``COMM_GRAD_LAYERS``, cut for the
+   script's time, from 10; the port's per-layer layout, leaves
+   drawn from a seed), through ``measure_collectives --grad-arch
+   smollm-135m --grad-layers 5``: (a) a 2x2
    ``("pod", "data")`` mesh of 4 ranks with
    ``examples/artifacts/hierarchical_decision.json``, per leaf, the
    sync tiers probed first; (b) a 2x2x2 ``("dcn", "pod", "data")`` mesh
@@ -255,10 +255,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    and holding one span a plan entry; each step's compute / exposed sync
    / optimizer seconds printed beside the tuned run's;
    s. [8]'s runs and checks for ``--arch mamba2-130m`` at full width (d
-   768, 24 SSD heads of 64, N 128, vocab 50280) cut to 12 of its 24
-   layers for the script's time (``config={"num_layers": 12}``:
-   122,648,160 fp32 params, 111 leaves), tuned and ``"xla"``: the
-   launches held to 12 SSD forwards and 12 x
+   768, 24 SSD heads of 64, N 128, vocab 50280) cut to 6 of its 24
+   layers for the script's time (from 12; ``config={"num_layers":
+   6}``: 100,056,240 fp32 params, 57 leaves), tuned and ``"xla"``: the
+   launches held to 6 SSD forwards and 6 x
    ``ssd_scan_bwd.LAUNCHES_PER_CALL`` (bf16: one) backward launches a
    rank-step, no flash, and the tuned plan's combines every step;
    sc. [8s]'s tuned run with ``--overlap-backward --trace-dir``, held to
@@ -277,7 +277,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    exchange replaced by identity), each planted in a 2-rank tuned step
    of one layer, its synced step-0 gradients read against the correct
    step's: each must exceed ``TRAIN_GRAD_TOL``;
-   mc. [8m]'s tuned run with ``--overlap-backward``, two steps: under
+   mc. [8m]'s tuned run with ``--overlap-backward``, one step (cut from two
+   for the script's time): under
    expert parallelism each layer's release syncs it inside the backward
    (one fused sync a layer, no sync thread, as the launcher prints),
    held to [8m]'s tuned run (step 0's synced gradients, losses, releases 0
@@ -301,14 +302,32 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    bit-equal, its synced gradients gathered whole within
    ``TRAIN_GRAD_TOL``, the params' change within ``TRAIN_CHANGE_TOL``,
    the losses within ``TRAIN_LOSS_TOL``), then whisper-large-v3 at full
-   width and depth (32 + 32 layers, 407,837,440 params a rank, 514
-   leaves sharded and 325 replicated), one step over 4 x 256 tokens
-   with bf16 gathers (``gather_in_compute_dtype``): each run's
-   launches (the flash kernels a layer a rank-step: 4 and 64 layers),
-   its gathers and reduce-scatters (one a layer and one for the rest
-   of the tree), the replicated leaves bit-equal, a finite loss; the
-   full-depth run's peak memory a rank and its seconds in gathers and
-   reduce-scatters printed;
+   width, 8 + 8 layers (cut from 32 + 32, which [8ft] trains; 132,279,040
+   params a rank, 130 leaves sharded and 85 replicated), one step over
+   4 x 256 tokens with bf16 gathers (``gather_in_compute_dtype``): each
+   run's launches (the flash kernels a layer a rank-step: 4 and 16
+   layers), its gathers and reduce-scatters (one a layer and one for
+   the rest of the tree), the replicated leaves bit-equal, a finite
+   loss; the deeper run's peak memory a rank and its seconds in gathers
+   and reduce-scatters printed;
+   ft. FSDP with the model axis (right after [8m], whose ``"xla"`` run
+   is [8mf]'s oracle): whisper-large-v3 on ``("data", "model")`` = 2 x
+   2 under FSDP + tensor parallelism (each rank its tensor-parallel
+   slice cut to its FSDP shard; 63,389,440 params a rank at 2 + 2
+   layers, 34 leaves cut by both halves and 25 whole), (a) 2 + 2 layers
+   at fp32 compute, 2 steps, held to the same run without FSDP on the
+   same mesh (the same start, step 0's loss bit-equal, its synced
+   gradients gathered whole within ``SELF_TOL`` of each leaf's scale,
+   the params' change within ``TRAIN_CHANGE_TOL``), (b) full depth
+   (32 + 32 layers, 407,837,440 params a rank), one step over 2 x 256
+   tokens with bf16 gathers; [8mf] olmoe-1b-7b as [8m]'s ``"xla"`` run
+   under FSDP + expert parallelism (expert stacks (32, 1024, 1024) a
+   rank, 212,408,320 params a rank), held to it as (a) is to its run
+   without FSDP but with ``TRAIN_GRAD_TOL``. Each run's launches (flash
+   a layer a rank-step), its gathers and reduce-scatters, its leaves by
+   the halves that cut them, model-axis collectives, the replicas; each
+   step's fwd+bwd / gathers / reduce-scatters / model-axis collectives
+   / sync / AdamW seconds and the peak memory a rank printed;
    t. tensor parallelism: ``--arch smollm-135m --ranks 4
    --model-parallel 2 --seq 256 --batch 8`` at full width and depth
    (``{"data": 2, "model": 2}``; 94,701,888 params a rank: the FFN
@@ -337,6 +356,7 @@ the port is not beside this file, or when any phase fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -2475,7 +2495,7 @@ def phase_collectives(ranks=RANKS):
 #: the Communicator phase: (path, topology, committed artifact, variants)
 #: [7]'s tree: smollm-135m at full width cut to 10 of its 30 layers
 #: (92,024,640 fp32 elements, 93 leaves) in PR 26 for the script's time
-COMM_GRAD_LAYERS = 10
+COMM_GRAD_LAYERS = 5
 COMMUNICATOR_PATHS = (
     ("comm_2x2", "2x2", "hierarchical_decision.json",
      ["per_leaf", "xla"]),
@@ -2704,14 +2724,15 @@ TRAIN_MODELS = {
     "smollm-135m": {"tag": "8", "layers": 30, "param_elems": 162826560,
                     "leaves": 273, "combines": 2184,
                     "kernels": ("flash_attention", "flash_attention_bwd")},
-    # full width, depth cut 24 -> 12 for the script's time ([8t] took it)
-    "mamba2-130m": {"tag": "8s", "layers": 12, "param_elems": 122648160,
-                    "leaves": 111, "combines": None,
-                    "config": {"num_layers": 12},
+    # full width, depth cut 24 -> 12 for the script's time ([8t] took
+    # it), 12 -> 6 ([8ft] took it): 3,765,320 params and 9 leaves a layer
+    "mamba2-130m": {"tag": "8s", "layers": 6, "param_elems": 100056240,
+                    "leaves": 57, "combines": None,
+                    "config": {"num_layers": 6},
                     "kernels": ("ssd_chunk", "ssd_chunk_bwd")},
     # full width, depth cut 32 + 32 -> 2 + 2 (at 16 B a param, full depth
-    # is 25.7 GB a rank: four replicas do not fit one card; [8f] trains
-    # it at full depth under FSDP); 4 flash
+    # is 25.7 GB a rank: four replicas do not fit one card; [8ft] trains
+    # it at full depth under FSDP with the model axis); 4 flash
     # launches a rank-step (2 encoder, 2 decoder self-attention); the
     # tuned run is held to "xla", not overlapped
     "whisper-large-v3": {"tag": "8w", "layers": 4,
@@ -3056,8 +3077,8 @@ def phase_training_overlapped(arch, tuned):
 FLAT_TABLE = os.path.join(ROOT, "examples", "artifacts",
                           "tuned_decision.json")
 MOE_TRAIN_STEPS = 2
-# [8mc]'s steps: held to [8m]'s
-MOE_OVERLAP_STEPS = 2
+# [8mc]'s steps: held to [8m]'s (2 until [8ft] took the script's time)
+MOE_OVERLAP_STEPS = 1
 # olmoe-1b-7b at full width on 4 ranks, ("data", "model") = 2 x 2: each
 # rank holds 32 of the 64 experts of every layer, 4 rows of the 8 x 256
 # batch and routes a 128-token chunk of each
@@ -3167,10 +3188,13 @@ def phase_training_moe():
     loss_diff = max(abs(a - b) for a, b in zip(tuned["losses"],
                                                xla["losses"]))
     rd = sync_readings(tuned, xla)
-    # the host keeps of both runs only what [8mc] is held to
+    # the host keeps of both runs only what [8mc] and [8mf] are held to
     for k in ("init_params", "params"):
-        tuned.pop(k), xla.pop(k)
-    xla.pop("grads0")
+        tuned.pop(k)
+    STEP0_ORACLE["olmoe-1b-7b"] = {
+        "grads0": xla.pop("grads0"), "loss": xla["losses"][0],
+        "init_params": xla.pop("init_params"), "losses": xla["losses"],
+        "params": xla.pop("params")}
     t1 = time.perf_counter()
     # one layer is enough to read each fault, and costs less set-up
     faults = grp.spawn(_moe_fault_rank, 2, (1,))
@@ -3486,21 +3510,23 @@ def phase_training_tp():
 # (4096 x 1280), enc_pos (1500 x 1280), the final norms (3 x 1280) and
 # the layer norms (2 x 1280 each: 2 an encoder layer, 3 a decoder one).
 # 2 + 2 layers: 224,788,480 / 4 + 7,192,320 = 63,389,440 (231,980,800
-# whole); 32 + 32: 1,601,044,480 / 4 + 7,576,320 = 407,837,440
-# (1,608,620,800 whole); leaves (sharded, replicated) 34 + 25 and
-# 514 + 325
+# whole); 8 + 8: 500,039,680 / 4 + 7,269,120 = 132,279,040; 32 + 32:
+# 1,601,044,480 / 4 + 7,576,320 = 407,837,440 (1,608,620,800 whole);
+# leaves (sharded, replicated) 34 + 25, 130 + 85 and 514 + 325
 FSDP_RUNS = {
     "2+2": {"param_elems": 63389440, "leaves": (34, 25), "layers": 4},
-    "full": {"param_elems": 407837440, "leaves": (514, 325), "layers": 64},
+    "8+8": {"param_elems": 132279040, "leaves": (130, 85), "layers": 16},
 }
-# the full-depth run: one step, bf16 gathers and reduce-scatters
+# the deeper run: one step, bf16 gathers and reduce-scatters
 # (gather_in_compute_dtype), 4 x 256 tokens over 4 x 1500 frames (one row
 # a rank): at [8w]'s 8 x 256 the four ranks ran out of the card's memory
-# with 18.5-18.7 GiB allocated each, 1 row a rank peaks at 14.76 GiB
-# (PERF.md, PR 27)
-FSDP_FULL_ARGS = ["--arch", "whisper-large-v3", "--ranks", "4",
+# with 18.5-18.7 GiB allocated each, 1 row a rank peaks at 14.76 GiB at
+# 32 + 32 (PERF.md §6). Depth cut 32 + 32 -> 8 + 8 for the script's
+# time: [8ft] (b) trains the full depth under FSDP with the model axis
+FSDP_DEEP_ARGS = ["--arch", "whisper-large-v3", "--ranks", "4",
                   "--topology", "2x2", "--steps", "1", "--seq", "256",
                   "--batch", "4", "--collective", "xla"]
+FSDP_DEEP_CONFIG = {"num_layers": 8, "encoder_layers": 8}
 
 
 def fsdp_checks(r, run, steps):
@@ -3539,9 +3565,9 @@ def phase_training_fsdp():
     again with FSDP, held to it (step 0's loss bit-equal, its synced
     gradients gathered whole within ``TRAIN_GRAD_TOL``, the params'
     change within ``TRAIN_CHANGE_TOL``, the losses within
-    ``TRAIN_LOSS_TOL``); (b) the model at full depth (32 + 32 layers),
-    one step, bf16 gathers. Returns the summary and the launch counts by
-    path."""
+    ``TRAIN_LOSS_TOL``); (b) the model at 8 + 8 layers (cut from 32 + 32,
+    which [8ft] trains), one step, bf16 gathers. Returns the summary and
+    the launch counts by path."""
     from repro_torch import pytree
     from repro_torch.configs.base import ParallelConfig
     t0 = time.perf_counter()
@@ -3576,32 +3602,267 @@ def phase_training_fsdp():
         raise AssertionError(f"[8f] 2 + 2 under FSDP: {bad}; launches "
                              f"{a['launches']}, {a['param_elems']} params "
                              f"a rank, {a.get('fsdp')}")
-    b = train_run("8f", "full depth (32 + 32 layers)", FSDP_FULL_ARGS,
+    b = train_run("8f", "8 + 8 layers", FSDP_DEEP_ARGS,
+                  config=FSDP_DEEP_CONFIG,
                   parallel=ParallelConfig(shard_params_over_data=True,
                                           gather_in_compute_dtype=True),
                   keep=False)
-    bad = fsdp_checks(b, "full", 1)
+    bad = fsdp_checks(b, "8+8", 1)
     peak = [x / 2**30 for x in b["peak_mem_bytes"]]
-    log(f"    full depth: {b['param_elems']} params a rank; peak "
+    log(f"    8 + 8 layers: {b['param_elems']} params a rank; peak "
         f"{', '.join(f'{x:.2f}' for x in peak)} GiB a rank "
         f"({sum(peak):.2f} in all); step {b['step_s'][0]:.2f} s, of which "
         f"gathers {b['gather_s'][0]:.2f} s and reduce-scatters "
         f"{b['reduce_scatter_s'][0]:.2f} s (slowest rank's)")
     if bad:
-        raise AssertionError(f"[8f] full depth: {bad}; launches "
+        raise AssertionError(f"[8f] 8 + 8 layers: {bad}; launches "
                              f"{b['launches']}, {b['param_elems']} params "
                              f"a rank, {b.get('fsdp')}")
     keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
             "gather_s", "reduce_scatter_s", "collectives",
             "peak_mem_bytes", "launches", "param_elems", "fsdp", "wall_s")
     summary = {"2+2": {k: a[k] for k in keep},
-               "full": {k: b[k] for k in keep},
+               "8+8": {k: b[k] for k in keep},
                "vs_8w_xla": {"loss0_equal": loss0_equal, "grad": grad,
                              "change": change, "loss": loss_diff},
                "phase_s": time.perf_counter() - t0}
     log(f"    [8f] {summary['phase_s']:.1f}s")
     return summary, {"train_whisper-large-v3_fsdp": a["launches"],
-                     "train_whisper-large-v3_fsdp_full": b["launches"]}
+                     "train_whisper-large-v3_fsdp_8+8": b["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# [8ft] / [8mf] FSDP with the model axis: both halves of param_specs
+# ---------------------------------------------------------------------------
+# whisper-large-v3 on ("data", "model") = 2 x 2: every sharded leaf of
+# [8f] is also split over model (20 heads, d_ff 5120 and the padded vocab
+# divide 2), so a rank holds a quarter of it, as under [8f]: params a
+# rank and leaves (cut by both, whole) as [8f]'s at the same depth; the
+# run without FSDP on the same mesh holds half of each split leaf
+FSDP_MODEL_RUNS = {
+    "2+2": {"param_elems": 63389440, "leaves": {"data": 0, "model": 0,
+                                                "both": 34, "neither": 25},
+            "layers": 4, "tp_param_elems": 119586560},
+    "full": {"param_elems": 407837440, "leaves": {"data": 0, "model": 0,
+                                                  "both": 514,
+                                                  "neither": 325},
+             "layers": 64},
+}
+FSDP_MODEL_ARGS = ["--arch", "whisper-large-v3", "--ranks", "4",
+                   "--model-parallel", "2", "--seq", "256",
+                   "--collective", "xla"]
+# (a) [8w]'s batch, 2 steps; (b) full depth, one step, 2 x 256 over 2 x
+# 1500 frames: one row a data rank, as [8f] (b) held. At [8f] (b)'s 4 x
+# 256 (two rows a data rank) the four ranks ran out of the card's memory
+# with 18.2 GiB allocated each, in the decoder's plain cross-attention
+# (PERF.md §6): the model axis halves the kept bf16 weights
+# and the blocks' inner activations, not the residual stream
+FSDP_MODEL_A = ["--steps", "2", "--batch", "8"]
+FSDP_MODEL_FULL = ["--steps", "1", "--batch", "2"]
+# olmoe-1b-7b as [8m] "xla" (full width, 1 layer, 2 x 2, 8 x 256, bf16
+# compute), each expert stack (E/2, d/2, ff) and every other weight but
+# the norms split over data: 2 x 50432 x 2048 (tok, out) + 4 x 2048 x
+# 2048 (attention) + 2048 x 64 (router), halved; 3 x 64 x 2048 x 1024
+# (experts), quartered; 3 x 2048 norms whole
+MOE_FSDP_PARAM_ELEMS = 212408320
+MOE_FSDP_LEAVES = {"data": 7, "model": 0, "both": 3, "neither": 3}
+MOE_FSDP_EXPERT_SHAPE = [32, 1024, 1024]
+# FSDP against the same step without it (tests/test_torch_fsdp.py): the
+# reduce-scatter sums the data ranks' gradients in another order than
+# the all-reduce, |got - want| / max|want| a leaf
+SELF_TOL = 1e-6
+
+
+def fsdp_model_checks(r, want_layout, leaves, param_elems, layers, steps):
+    """What every [8ft] / [8mf] run must show: the mesh and layout,
+    params a rank, the leaves by the halves that cut them, the gather
+    points (one a layer and one for the rest of the tree), model-axis
+    collectives, the replicas, finite losses, and the flash kernels a
+    layer a rank-step (no combine, no SSD kernel); the names of the
+    checks that fail."""
+    from repro_torch.kernels import attention_bwd
+    per = layers * steps * TRAIN_RANKS
+    want = {"flash_attention": per,
+            "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
+            "ssd_chunk": 0, "ssd_chunk_bwd": 0, "segment_combine": 0}
+    c = r.get("collectives", {})
+    return [k for k, ok in (
+        ("device", r["device"] == "cuda:0" and r["ranks"] == TRAIN_RANKS),
+        ("mesh", r["mesh"] == {"data": 2, "model": 2}),
+        ("layout", r["layout"] == want_layout),
+        ("params a rank", r["param_elems"] == param_elems),
+        ("leaves", leaves is None or r["fsdp"]["leaves"] == leaves),
+        ("gathers", leaves is None or c.get("gathers") ==
+         c.get("reduce_scatters") == 1 + layers),
+        ("model collectives", c.get("model_all_reduces", 1) > 0),
+        ("replicas", r["replicas_equal_at_init"]
+         and all(r["replicas_equal"])),
+        ("losses", len(r["losses"]) == steps
+         and all(x == x and 0 < x < 20 for x in r["losses"])),
+        ("launches", r["launches"] == want)) if not ok]
+
+
+def leaf_reading(got, want) -> float:
+    """max over the leaves of max|got - want| / max|want| (float64 on the
+    card): ``tests/test_torch_fsdp.py``'s per-leaf scale."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.to("cuda", torch.float64), w.to("cuda", torch.float64)
+        scale = w.abs().max().item() or 1.0
+        worst = max(worst, (g - w).abs().max().item() / scale)
+    return worst
+
+
+def _log_fsdp_model_run(tag, r):
+    c = r["collectives"]
+    peak = [x / 2**30 for x in r["peak_mem_bytes"]]
+    for i in range(len(r["losses"])):
+        log(f"    [{tag}] step {i}: {r['step_s'][i]:.3f} s; fwd+bwd "
+            f"{r['compute_s'][i]:.3f} (gathers {r['gather_s'][i]:.3f}, "
+            f"reduce-scatters {r['reduce_scatter_s'][i]:.3f}, model-axis "
+            f"collectives {r['model_s'][i]:.3f}), sync {r['sync_s'][i]:.3f},"
+            f" AdamW {r['opt_s'][i]:.3f} (slowest rank's)")
+    log(f"    [{tag}] {r['param_elems']} params a rank, leaves "
+        f"{r['fsdp'].get('leaves')}; collectives a step {c}; peak "
+        f"{', '.join(f'{x:.2f}' for x in peak)} GiB a rank "
+        f"({sum(peak):.2f} in all); flash launches {r['launches']}")
+
+
+def phase_training_fsdp_model():
+    """[8ft] whisper-large-v3 under FSDP + tensor parallelism on 4
+    host-staged ranks, ``("data", "model")`` = 2 x 2, untuned: (a) 2 + 2
+    layers, fp32 compute, 2 steps, held to the same run without FSDP on
+    the same mesh (the tensor-parallel step): step 0's loss bit-equal,
+    its synced gradients gathered whole within `SELF_TOL` of each leaf's
+    scale, the params' change within ``TRAIN_CHANGE_TOL``; (b) full depth
+    (32 + 32 layers), one step, bf16 gathers, 2 x 256. [8mf] olmoe-1b-7b
+    under FSDP + expert parallelism, [8m]'s "xla" run with
+    ``shard_params_over_data``, held to it (the same start, step 0's
+    loss bit-equal, the synced gradients within ``TRAIN_GRAD_TOL``, the
+    change within ``TRAIN_CHANGE_TOL``). Returns the summary and the
+    launch counts by path."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import ParallelConfig
+    t0 = time.perf_counter()
+    spec = TRAIN_MODELS["whisper-large-v3"]
+    fp32 = ParallelConfig(compute_dtype="float32")
+    runs = {}
+    for label, parallel in (("tp", fp32), ("fsdp+tp", dataclasses.replace(
+            fp32, shard_params_over_data=True))):
+        runs[label] = train_run("8ft", f"(a) 2 + 2 layers, fp32, {label}",
+                                [*FSDP_MODEL_ARGS, *FSDP_MODEL_A],
+                                config=spec["config"], parallel=parallel)
+    tp, a = runs["tp"], runs["fsdp+tp"]
+    run = FSDP_MODEL_RUNS["2+2"]
+    bad = fsdp_model_checks(a, "fsdp+tp", run["leaves"], run["param_elems"],
+                            run["layers"], TRAIN_STEPS)
+    bad += [f"tp {k}" for k in fsdp_model_checks(
+        tp, "tp", None, run["tp_param_elems"], run["layers"], TRAIN_STEPS)]
+
+    def card(tree):
+        return [t.to("cuda", torch.float64) for t in pytree.leaves(tree)]
+    # the tensor-parallel run keeps rank 0's slices (model coordinate 0:
+    # the first slice of each split leaf) and its gradients gathered
+    # whole; the FSDP run whole leaves
+    init = [first_slice(w, h.shape) for w, h in zip(
+        card(a["init_params"]), card(tp["init_params"]))]
+    same_start = all(torch.equal(x, y) for x, y in
+                     zip(init, card(tp["init_params"])))
+    grad = leaf_reading(card(a["grads0"]), card(tp["grads0_whole"]))
+    final = [first_slice(w, h.shape) for w, h in zip(
+        card(a["params"]), card(tp["params"]))]
+    change = change_reading(final, init, card(tp["params"]))
+    del init, final
+    torch.cuda.empty_cache()
+    loss0_equal = a["losses"][0] == tp["losses"][0]
+    loss_diff = max(abs(x - y) for x, y in zip(a["losses"], tp["losses"]))
+    _log_fsdp_model_run("8ft a", a)
+    log(f"    [8ft] (a) vs the same run without FSDP: the same start "
+        f"{same_start}; step 0's loss bit-equal {loss0_equal}; step 0's "
+        f"synced gradients within {grad:.3g} of each leaf's scale (tol "
+        f"{SELF_TOL}); the params' change within {change:.3g} (tol "
+        f"{TRAIN_CHANGE_TOL}); losses within {loss_diff:.3g}; steps "
+        + " ".join(f"{x:.3f}" for x in tp["step_s"]) + " s without FSDP")
+    if bad or not same_start or not loss0_equal or grad > SELF_TOL \
+            or change > TRAIN_CHANGE_TOL or loss_diff > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[8ft] (a): {bad}; launches {a['launches']},"
+                             f" {a['param_elems']} params a rank, "
+                             f"{a.get('fsdp')}")
+    for r in (tp, a):
+        for k in ("init_params", "params", "grads0", "grads0_whole"):
+            r.pop(k, None)
+    run = FSDP_MODEL_RUNS["full"]
+    b = train_run("8ft", "(b) full depth (32 + 32 layers), bf16 gathers",
+                  [*FSDP_MODEL_ARGS, *FSDP_MODEL_FULL],
+                  parallel=ParallelConfig(shard_params_over_data=True,
+                                          gather_in_compute_dtype=True),
+                  keep=False)
+    _log_fsdp_model_run("8ft b", b)
+    bad = fsdp_model_checks(b, "fsdp+tp", run["leaves"], run["param_elems"],
+                            run["layers"], 1)
+    if bad:
+        raise AssertionError(f"[8ft] (b): {bad}; launches {b['launches']}, "
+                             f"{b['param_elems']} params a rank, "
+                             f"{b.get('fsdp')}")
+    # [8mf]
+    oracle = STEP0_ORACLE["olmoe-1b-7b"]
+    m = train_run("8mf", "olmoe under FSDP + EP, held to [8m] xla",
+                  [*MOE_TRAIN_ARGS, "--collective", "xla"],
+                  config=MOE_TRAIN_CONFIG,
+                  parallel=ParallelConfig(shard_params_over_data=True))
+    _log_fsdp_model_run("8mf", m)
+    bad = fsdp_model_checks(m, "fsdp+ep", MOE_FSDP_LEAVES,
+                            MOE_FSDP_PARAM_ELEMS,
+                            MOE_TRAIN_CONFIG["num_layers"], MOE_TRAIN_STEPS)
+    bad += [k for k, ok in (
+        ("experts", m["experts"] == MOE_EXPERTS),
+        ("expert stack a rank", m["expert_shape"] == MOE_FSDP_EXPERT_SHAPE),
+        ("a2a", m["collectives"].get("model_all_to_alls") ==
+         4 * MOE_TRAIN_CONFIG["num_layers"])) if not ok]
+    # [8m] keeps rank 0's expert slices (the first 32 experts), [8mf]
+    # whole leaves
+    init = [first_slice(w, h.shape) for w, h in zip(
+        card(m["init_params"]), card(oracle["init_params"]))]
+    m_same = all(torch.equal(x, y) for x, y in
+                 zip(init, card(oracle["init_params"])))
+    m_grad = grad_reading([first_slice(w, h.shape) for w, h in zip(
+        card(m["grads0"]), card(oracle["grads0"]))], card(oracle["grads0"]))
+    final = [first_slice(w, h.shape) for w, h in zip(
+        card(m["params"]), card(oracle["params"]))]
+    m_change = change_reading(final, init, card(oracle["params"]))
+    del init, final
+    torch.cuda.empty_cache()
+    m_loss0 = m["losses"][0] == oracle["loss"]
+    m_loss = max(abs(x - y) for x, y in zip(m["losses"], oracle["losses"]))
+    log(f"    [8mf] vs [8m] xla: the same start {m_same}; step 0's loss "
+        f"bit-equal {m_loss0}; step 0's synced gradients within "
+        f"{m_grad:.3g} (tol {TRAIN_GRAD_TOL}); the params' change within "
+        f"{m_change:.3g} (tol {TRAIN_CHANGE_TOL}); losses within "
+        f"{m_loss:.3g}; expert stack a rank {m['expert_shape']} (experts "
+        f"{m['experts']})")
+    if bad or not m_same or not m_loss0 or m_grad > TRAIN_GRAD_TOL \
+            or m_change > TRAIN_CHANGE_TOL or m_loss > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[8mf]: {bad}; launches {m['launches']}, "
+                             f"{m['param_elems']} params a rank, "
+                             f"{m.get('fsdp')}, {m.get('collectives')}")
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "gather_s", "reduce_scatter_s", "model_s", "collectives",
+            "peak_mem_bytes", "launches", "param_elems", "fsdp", "wall_s")
+    summary = {"2+2": {k: a[k] for k in keep},
+               "2+2_tp": {k: tp[k] for k in keep if k in tp},
+               "full": {k: b[k] for k in keep},
+               "olmoe": {**{k: m[k] for k in keep},
+                         "expert_shape": m["expert_shape"]},
+               "vs_tp": {"loss0_equal": loss0_equal, "grad": grad,
+                         "change": change, "loss": loss_diff},
+               "olmoe_vs_8m_xla": {"loss0_equal": m_loss0, "grad": m_grad,
+                                   "change": m_change, "loss": m_loss},
+               "phase_s": time.perf_counter() - t0}
+    log(f"    [8ft] + [8mf] {summary['phase_s']:.1f}s")
+    return summary, {"train_whisper-large-v3_fsdp_tp": a["launches"],
+                     "train_whisper-large-v3_tp": tp["launches"],
+                     "train_whisper-large-v3_fsdp_tp_full": b["launches"],
+                     "train_olmoe_fsdp_ep": m["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3788,6 +4049,10 @@ def main() -> int:
     training_moe, moe_paths = phase_training_moe()
     train_paths.update(moe_paths)
     mark("[8m], [8mc]")
+    training_fsdp_model, fsdp_model_paths = phase_training_fsdp_model()
+    train_paths.update(fsdp_model_paths)
+    del STEP0_ORACLE["olmoe-1b-7b"]
+    mark("[8ft], [8mf]")
     training_tp, tp_train_paths = phase_training_tp()
     train_paths.update(tp_train_paths)
     STEP0_ORACLE.clear()
@@ -3822,6 +4087,7 @@ def main() -> int:
                       "training_olmoe_ep": training_moe,
                       "training_whisper": training_whisper,
                       "training_fsdp": training_fsdp,
+                      "training_fsdp_model": training_fsdp_model,
                       "training_tp": training_tp,
                       "tp_decode": tp_decode,
                       "train_grads_fp32": train_grads}))

@@ -59,6 +59,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import datetime
+import functools
 import os
 import pickle
 import queue
@@ -168,6 +169,62 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     return buf.to(x.device)
 
 
+class Tally:
+    """Counts and times the collectives this process issues over one mesh
+    axis, by its name (``"model"``), while it is open (``with
+    Tally("model", device):``; the training step opens one a step).
+    ``counts`` is by function (``psum``, ``pmax``, ``all_gather``,
+    ``reduce_scatter``, ``all_to_all``), ``seconds`` their sum, each
+    between two synchronizations of ``device`` (on the card; the host
+    staging waits for the work queued before a collective anyway, so
+    the first costs nothing more). Collectives on other axes, or on a
+    process group that is not an `Axis`, are not counted."""
+
+    def __init__(self, axis_name: str, device=None):
+        self.axis_name = axis_name
+        self.device = torch.device(device) if device is not None \
+            else torch.device("cpu")
+        self.counts: "collections.Counter" = collections.Counter()
+        self.seconds = 0.0
+        self._prev = None
+
+    def __enter__(self) -> "Tally":
+        global _TALLY
+        self._prev, _TALLY = _TALLY, self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _TALLY
+        _TALLY = self._prev
+
+    def clock(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+
+#: the open `Tally`, or None
+_TALLY: Optional[Tally] = None
+
+
+def _tallied(fn):
+    """``fn(x, group)``, counted and timed by the open `Tally` when
+    ``group`` is the axis it counts."""
+    @functools.wraps(fn)
+    def inner(x, group=None):
+        t = _TALLY
+        if t is None or not isinstance(group, Axis) or \
+                group.name != t.axis_name:
+            return fn(x, group)
+        t0 = t.clock()
+        out = fn(x, group)
+        t.seconds += t.clock() - t0
+        t.counts[fn.__name__] += 1
+        return out
+    return inner
+
+
+@_tallied
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-reduce (sum), out of place."""
     buf = _to_host(x)
@@ -175,6 +232,7 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     return buf.to(x.device)
 
 
+@_tallied
 def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-reduce (elementwise max), out of place."""
     buf = _to_host(x)
@@ -182,6 +240,7 @@ def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     return buf.to(x.device)
 
 
+@_tallied
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-gather, concatenated along axis 0 (tiled)."""
     buf = _to_host(x)
@@ -193,6 +252,7 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     return torch.cat(parts, dim=0).to(x.device)
 
 
+@_tallied
 def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's reduce-scatter (sum): axis 0 split into p equal
     blocks, and this rank gets the sum over the ranks of block i, i its
@@ -210,6 +270,7 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     return out.to(x.device)
 
 
+@_tallied
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-to-all: axis 0 split into p equal blocks, block
     j goes to rank j, and the received blocks are stacked in rank order
@@ -396,9 +457,15 @@ class RankMesh:
         """This rank's sub-group over the axes ``names`` together (in
         mesh order), its index the row-major coordinate on them: the
         reference's collective over a tuple of axes (``psum(x, ("pod",
-        "data"))``). Made on first use and kept; the first call for a set
-        of names is collective when the other axes hold more than one
-        rank (every rank must make it, in the same order)."""
+        "data"))``). With a ``model`` axis above 1 it is this rank's
+        line: the ranks of its model coordinate, in the mesh's (or the
+        mapping's) slot order. Made on first use and kept; the first call
+        for a set of names is collective when the other axes hold more
+        than one rank: every rank makes every line's group, in the same
+        order, so a caller makes it where every rank runs the same code
+        (the training step makes the data axes' when it is built, not in
+        the forward, where another rank may be inside a model-axis
+        collective)."""
         names = tuple(n for n in self.axis_names if n in names)
         if len(names) == 1:
             return self._axes[names[0]]

@@ -87,7 +87,7 @@ heads only partly use; every other gradient is already whole (a
 replicated leaf's, equal on every rank) or this rank's slice of it.
 Then the sync runs over the data tiers only, tuned or ``"xla"``, among
 the ranks that hold each slice, and AdamW clips by the whole tree's
-norm (`split_global_norm` over `sharding.tp_split`). Under
+norm (`split_global_norm` over `sharding.split_kinds`). Under
 ``overlap_backward`` the backward issues model-axis collectives, so
 the release points sync each layer inside the backward, as under
 expert parallelism.
@@ -105,14 +105,34 @@ one `layers.GatherPoint` all-gather over the data axes
 at the same points, so each shard's gradient arrives summed over the
 data ranks and the sync only divides it by dp; the replicated leaves
 (norms, positions, biases) take the backend's all-reduce over the data
-axes, averaged. AdamW clips by `split_global_norm` over the data axes
-and updates the shards. ``gather_in_compute_dtype`` casts the shards
-before the gather (bf16 on the wire, in the gathered weights and in the
-reduce-scatter). ``compute_s`` includes the gathers and reduce-scatters;
-``gather_s`` and ``reduce_scatter_s`` time them apart, and
-``collectives`` counts the step's gathers, reduce-scatters and
-all-reduces. With a ``model`` axis above 1, FSDP raises
-``NotImplementedError`` (ROADMAP.md Queue 1 step 10b, second part).
+axes, averaged. AdamW clips by `split_global_norm` and updates the
+shards. ``gather_in_compute_dtype`` casts the shards before the gather
+(bf16 on the wire, in the gathered weights and in the reduce-scatter).
+``compute_s`` includes the gathers and reduce-scatters; ``gather_s``
+and ``reduce_scatter_s`` time them apart, and ``collectives`` counts
+the step's gathers, reduce-scatters and all-reduces over the data axes.
+
+FSDP on a ``model`` axis above 1 composes both halves of
+``param_specs``, as the reference's production layout does: each rank
+holds `sharding.shard` of the full draw, its tensor-parallel slices (or
+experts) cut to its FSDP shard on another dimension. The data axes are
+then the data ranks of this rank's model coordinate (`data_axis`, made
+when the step is built): the gather points gather the model slices
+whole over them, so the blocks' tensor-parallel operators, and the MoE
+dispatch, see what they see without FSDP. A step issues, on every rank
+in the same order, on autograd's one thread: the gathers and the
+model-axis collectives of the forward in program order, then the
+backward's model-axis all-reduces and each gather point's
+reduce-scatter as the graph releases them; then `tp_correct` (the mixed
+layout's key/value gradients summed over ``model``) or `ep_correct`;
+then the sync over the data axes (shards divided by dp, every other
+leaf all-reduced over this model coordinate's data ranks and
+averaged); then the clip's norm, each leaf's squares summed over
+exactly the axes that cut it (`split_global_norm` over
+`sharding.split_kinds`: whole, ``model``, data or both). With a model
+axis, ``model_s`` and ``model_collectives`` (all-reduces, all-gathers,
+all-to-alls; also in ``collectives`` under FSDP) time and count the
+step's collectives over ``model`` (`group.Tally`).
 """
 from __future__ import annotations
 
@@ -156,12 +176,10 @@ class TrainStep:
     (``api``) and optimizer (``opt``) it was built over; ``grad(params,
     batch) -> ((loss, aux), grads)`` is its first phase alone, this
     rank's gradients before `ep_correct` / `tp_correct` and the sync.
-    ``init(gen)`` draws the params this rank holds: all of them, or,
-    with ``ep_axis``, all but the other ranks' experts
-    (`sharding.ep_shard` of the full draw), or, with ``tp_axis``, this
-    rank's tensor-parallel slices (`sharding.tp_shard` of the full
-    draw), or, with ``fsdp``, its FSDP shards (`sharding.fsdp_shard` of
-    the full draw, which is freed before it returns)."""
+    ``init(gen)`` draws the params this rank holds: all of them, or its
+    `sharding.shard` of the full draw (its experts with ``ep_axis``, its
+    tensor-parallel slices with ``tp_axis``, each cut to its FSDP shard
+    with ``fsdp``; the full draw is freed before it returns)."""
 
     fn: Callable
     grad: Callable
@@ -175,44 +193,25 @@ class TrainStep:
     fsdp: bool = False
 
     def init(self, gen: torch.Generator):
-        params = self.api.init(gen)
-        if self.ep_axis is not None:
-            return sh.ep_shard(params, self.mesh, self.ep_axis)
-        if self.tp_axis is not None:
-            return sh.tp_shard(params, self.mesh, self.tp_axis)
-        if self.fsdp:
-            return sh.fsdp_shard(params, self.mesh)
-        return params
+        return sh.shard(self.api.init(gen), self.mesh, self.api.cfg,
+                        self.fsdp)
 
     @property
     def model_axis(self) -> Optional[str]:
         """The ``model`` axis this step splits params over, or None."""
         return self.ep_axis or self.tp_axis
 
-    def split(self, tree):
-        """``(replicated, split)`` halves of a held tree (`sharding.ep_split`,
-        `sharding.tp_split` or `sharding.fsdp_split`), or None when every
-        rank holds every leaf whole."""
-        if self.ep_axis is not None:
-            return sh.ep_split(tree)
-        if self.tp_axis is not None:
-            return sh.tp_split(tree, self.api.cfg,
-                               self.mesh.shape[self.tp_axis])
-        if self.fsdp:
-            return sh.fsdp_split(tree, self.api.cfg, sh.dp_size(self.mesh))
-        return None
+    def kinds(self, tree) -> dict:
+        """A held tree's leaves by the halves of the mesh that cut them
+        (`sharding.split_kinds`: ``{(): whole, ("model",): ..., ("data",):
+        ..., ("model", "data"): ...}``, the kinds that occur)."""
+        return sh.split_kinds(tree, self.api.cfg, self.mesh, self.fsdp)
 
     def gather(self, tree):
-        """A held tree with every split leaf gathered whole over the model
-        axis (or, under FSDP, every shard over the data axes), on every
-        rank (collective over it); the tree itself otherwise."""
-        if self.ep_axis is not None:
-            return sh.ep_gather(tree, self.mesh, self.ep_axis)
-        if self.tp_axis is not None:
-            return sh.tp_gather(tree, self.mesh, self.api.cfg, self.tp_axis)
-        if self.fsdp:
-            return sh.fsdp_gather(tree, self.mesh, self.api.cfg)
-        return tree
+        """A held tree with every split leaf gathered whole (FSDP shards
+        over the data axes, then slices over the model axis), on every
+        rank (collective over them); the tree itself otherwise."""
+        return sh.gather(tree, self.mesh, self.api.cfg, self.fsdp)
 
 
 def ep_correct(grads, mesh, ep_axis: str = "model"):
@@ -273,25 +272,34 @@ def planted_ep_fault(fault: str):
         globals()["ep_correct"], moe._DIRECTIONS["rev"] = saved
 
 
-def split_global_norm(halves, axis) -> torch.Tensor:
-    """The global norm of the whole gradient tree from a rank that holds
-    a slice of it, ``halves`` = ``(replicated, split)``: the replicated
-    leaves' sum of squares plus the split leaves' summed over ``axis``
-    (a `group.Axis`), the same bits on every rank. (The reference's
-    untuned step, the oracle, clips by this norm; under expert
-    parallelism its tuned step clips each rank by its own slice's norm,
-    under tensor parallelism it sees whole leaves.)"""
-    rep, split = halves
+#: the axes a kind of leaf's squares are summed over in the clip's norm
+#: (a planted fault swaps it: `planted_fsdp_fault`)
+_NORM_AXES = {"fn": lambda kind: kind}
 
-    def sum_sq(tree):
-        return sum(torch.sum(torch.square(x.to(torch.float32)))
-                   for x in pytree.leaves(tree))
-    return torch.sqrt(sum_sq(rep) + grp.psum(sum_sq(split), axis))
+
+def split_global_norm(parts, axes) -> torch.Tensor:
+    """The global norm of the whole gradient tree from a rank that holds
+    a part of it: ``parts`` = ``{kind: tree}`` (`sharding.split_kinds`),
+    each kind's sum of squares summed over the axes that cut it (``axes``
+    maps ``"model"`` and ``"data"`` to a `group.Axis`), the same bits on
+    every rank. (The reference's untuned step, the oracle, clips by this
+    norm; under expert parallelism its tuned step clips each rank by its
+    own slice's norm, under tensor parallelism it sees whole leaves.)"""
+    total = 0
+    for kind, tree in parts.items():
+        sq = sum(torch.sum(torch.square(x.to(torch.float32)))
+                 for x in pytree.leaves(tree))
+        for name in _NORM_AXES["fn"](kind):
+            sq = grp.psum(sq, axes[name])
+        total = total + sq
+    return torch.sqrt(total)
 
 
 def ep_global_norm(grads, mesh, ep_axis: str = "model") -> torch.Tensor:
     """`split_global_norm` of a rank holding a slice of its experts."""
-    return split_global_norm(sh.ep_split(grads), mesh.axis(ep_axis))
+    rep, split = sh.ep_split(grads)
+    return split_global_norm({(): rep, ("model",): split},
+                             {"model": mesh.axis(ep_axis)})
 
 
 def tp_correct(grads, mesh, cfg, tp_axis: str = "model"):
@@ -332,12 +340,10 @@ def planted_tp_fault(fault: str):
         globals()["tp_correct"], L._COPY_BACKWARD["fn"] = saved
 
 
-#: what FSDP on a mesh with a ``model`` axis above 1 raises
-FSDP_WITH_MODEL_AXIS = ("FSDP with a model axis (tensor or expert "
-                        "parallelism) comes with ROADMAP.md Queue 1 step "
-                        "10b, second part")
 #: the faults of the FSDP step `planted_fsdp_fault` plants
 FSDP_FAULTS = ("not_reduced", "gathered_reversed")
+#: the fault of the clip's norm on a mesh with both halves
+NORM_FAULTS = ("norm_one_axis",)
 
 
 def _own_block(x, axis):
@@ -354,18 +360,23 @@ def planted_fsdp_fault(fault: str):
     the block: ``"not_reduced"`` makes the gather points' backward keep
     this rank's block of the cotangents instead of reduce-scattering
     them; ``"gathered_reversed"`` gathers the shards in reverse rank
-    order."""
-    saved = dict(L._FSDP_COLLECTIVES)
+    order; ``"norm_one_axis"`` (`NORM_FAULTS`) sums the squares of the
+    leaves cut by both halves over ``model`` only in the clip's norm."""
+    saved = dict(L._FSDP_COLLECTIVES), _NORM_AXES["fn"]
     if fault == "not_reduced":
         L._FSDP_COLLECTIVES["reduce_scatter"] = _own_block
     elif fault == "gathered_reversed":
         L._FSDP_COLLECTIVES["gather"] = _reversed_gather
+    elif fault == "norm_one_axis":
+        _NORM_AXES["fn"] = lambda kind: kind[:1]
     else:
-        raise ValueError(f"unknown fault {fault!r}; one of {FSDP_FAULTS}")
+        raise ValueError(f"unknown fault {fault!r}; one of "
+                         f"{FSDP_FAULTS + NORM_FAULTS}")
     try:
         yield
     finally:
-        L._FSDP_COLLECTIVES.update(saved)
+        L._FSDP_COLLECTIVES.update(saved[0])
+        _NORM_AXES["fn"] = saved[1]
 
 
 def _pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
@@ -429,8 +440,6 @@ def build_train_step(
         else:
             tp_axis = "model"
     fsdp = parallel.shard_params_over_data
-    if fsdp and sh.model_size(mesh) > 1:
-        raise NotImplementedError(FSDP_WITH_MODEL_AXIS)
     dev = torch.device(device)
     cd = _DTYPES[parallel.compute_dtype]
     api = build_model(cfg, compute_dtype=cd,
@@ -445,6 +454,8 @@ def build_train_step(
     rows = sh.batch_rows(mesh, shape.global_batch)
     point = data_ax = None
     if fsdp:
+        # made here, where every rank makes it (`RankMesh.joint`): with
+        # a model axis, the data ranks of this rank's model coordinate
         data_ax = sh.data_axis(mesh)
         point = L.GatherPoint(data_ax,
                               lambda tree: sh.fsdp_dims(tree, cfg, dp), dev)
@@ -508,7 +519,8 @@ def build_train_step(
             return comm.sync_gradients(grads, mean=True)
         if fsdp:
             # the shards' gradients arrive summed by the backward's
-            # reduce-scatter; the replicated leaves all-reduce, averaged
+            # reduce-scatter; every other leaf (replicated, or a model
+            # slice whole over data) all-reduces over data_ax, averaged
             leaves, treedef = pytree.flatten(grads)
             return treedef.unflatten([
                 g / dp if d is not None else grp.psum(g, data_ax) / dp
@@ -541,7 +553,7 @@ def build_train_step(
             torch.cuda.current_stream(dev).synchronize()
         return (loss, aux), grads, sink
 
-    def fn(params, opt_state, batch, keep_grads=False):
+    def run(params, opt_state, batch, keep_grads):
         if point is not None:
             point.reset()
         t0 = time.perf_counter()
@@ -570,11 +582,12 @@ def build_train_step(
         aux = pytree.tree_map(lambda v: _pmean(v, mesh, dpx), aux)
         _synchronize(dev)
         t2 = time.perf_counter()
-        gnorm = None
+        gnorm = parts = None
         if opt.grad_clip and (model_axis or fsdp):
-            gnorm = split_global_norm(
-                step.split(grads),
-                data_ax if fsdp else mesh.axis(model_axis))
+            parts = step.kinds(grads)
+            gnorm = split_global_norm(parts, {
+                "model": mesh.axis(model_axis) if model_axis else None,
+                "data": data_ax})
         new_params, new_opt = opt.update(grads, opt_state, params,
                                          lr_scale=lr_scale(opt_state.step),
                                          gnorm=gnorm)
@@ -590,13 +603,30 @@ def build_train_step(
                 collectives={
                     "gathers": point.gathers,
                     "reduce_scatters": point.reduce_scatters,
-                    # the replicated leaves, the loss and aux over each
-                    # data axis, the clip's norm
+                    # the leaves not sharded, the loss and aux over each
+                    # data axis, the clip's norm's sums over the data axes
                     "all_reduces": n_rep + len(dpx) * (
                         1 + len(pytree.leaves(aux)))
-                    + (gnorm is not None)})
+                    + sum("data" in kind for kind in parts or ())})
+        if gnorm is not None:
+            metrics["grad_norm"] = gnorm
         if keep_grads:
             metrics["grads"] = grads
+        return new_params, new_opt, metrics
+
+    def fn(params, opt_state, batch, keep_grads=False):
+        if model_axis is None:
+            return run(params, opt_state, batch, keep_grads)
+        with grp.Tally(model_axis, dev) as tally:
+            new_params, new_opt, metrics = run(params, opt_state, batch,
+                                               keep_grads)
+        c = tally.counts
+        model = {"model_all_reduces": c["psum"] + c["pmax"],
+                 "model_all_gathers": c["all_gather"],
+                 "model_all_to_alls": c["all_to_all"]}
+        metrics.update(model_s=tally.seconds, model_collectives=model)
+        if "collectives" in metrics:
+            metrics["collectives"].update(model)
         return new_params, new_opt, metrics
 
     step = TrainStep(fn=fn, grad=grad_fn, api=api, opt=opt, tuned=tuned,

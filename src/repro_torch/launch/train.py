@@ -56,14 +56,19 @@ whole leaves.
 
 FSDP has no flag, as in the reference: ``main(argv,
 parallel=ParallelConfig(shard_params_over_data=True))`` (the untuned
-sync only; no ``model`` axis above 1 yet). Each rank holds its shard of
-every weight the data axes split (`sharding.fsdp_shard`); the launcher
-prints the data axes, the params a rank and the sharded and replicated
-leaf counts, and, each step, the gathers, reduce-scatters and
-all-reduces it issued with the seconds in the first two. The replica
-check reads the replicated leaves (a shard has no replica); ``--ckpt``
-and ``keep_params`` gather the shards first (`sharding.fsdp_gather`),
-so they hold whole leaves.
+sync only). Each rank holds its shard of every weight the data axes
+split (`sharding.fsdp_shard`); with ``--model-parallel`` above 1, of its
+tensor-parallel slice or experts (`sharding.shard`: both halves of the
+reference's ``param_specs``, the data axes then those of each model
+coordinate). The start line names the layout; the launcher prints the
+data axes, the params a rank and the leaves sharded over data, split
+over ``model``, both and neither, and, each step, the gathers,
+reduce-scatters and all-reduces it issued with the seconds in the
+gathers, the reduce-scatters and the model-axis collectives. The
+replica check reads each leaf on the ranks that hold the same part of
+it (a leaf cut by both halves has no replica); ``--ckpt`` and
+``keep_params`` gather both halves first (`sharding.gather`), so they
+hold whole leaves in the reference's format.
 
 Examples:
     python -m repro_torch.launch.train --arch smollm-135m --ranks 4 \\
@@ -120,7 +125,7 @@ from repro_torch.core.collectives import group as grp
 from repro_torch.data import SyntheticPipeline, batch_to_tensors, stream_ids
 from repro_torch.kernels.ops import TRAIN_COUNTERS as COUNTERS
 from repro_torch.launch.mesh import local_mesh_spec, make_local_mesh
-from repro_torch.launch.steps import FSDP_WITH_MODEL_AXIS, build_train_step
+from repro_torch.launch.steps import build_train_step
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.parallel import sharding as sh
@@ -181,23 +186,26 @@ def _write_step_trace(args, comm, params, runner, topology, step,
 
 
 def _replicas(params, step) -> bool:
-    """Whether the ranks hold equal params: every leaf on every rank, or,
-    on a ``model`` axis, the replicated leaves on every rank and each
-    slice (of experts, or tensor-parallel) on the data ranks that hold
-    it (`TrainStep.split`; one bit checksum a rank, gathered); under
-    FSDP the replicated leaves on every rank (a shard has no replica)."""
-    halves = step.split(params)
-    if halves is None:
-        fps = _gather(pytree.fingerprint(params))
-        return all(f == fps[0] for f in fps)
-    rep, split = halves
-    if step.fsdp:
-        fps = _gather(pytree.fingerprint(rep))
-        return all(f == fps[0] for f in fps)
-    fps = _gather((pytree.fingerprint(rep), pytree.fingerprint(split),
-                   grp.rank(step.mesh.axis(step.model_axis))))
-    return all(f[0] == fps[0][0] for f in fps) and all(
-        f[1] == g[1] for f in fps for g in fps if f[2] == g[2])
+    """Whether the ranks hold equal params: each leaf on the ranks that
+    hold the same part of it (`TrainStep.kinds`): a whole leaf on every
+    rank, a model slice (experts, tensor-parallel) on the data ranks of
+    its model coordinate, an FSDP shard on the model ranks of its data
+    index; a leaf cut by both halves has no replica. One bit checksum a
+    kind a rank, gathered."""
+    mesh = step.mesh
+    alone = {("model", "data")}         # kinds with no replica
+    if sh.model_size(mesh) == 1:
+        alone.add(("data",))
+    if sh.dp_size(mesh) == 1:
+        alone.add(("model",))
+    mine = {k: pytree.fingerprint(t) for k, t in step.kinds(params).items()
+            if k not in alone}
+    coords = {("model",): grp.rank(mesh.axis(step.model_axis))
+              if step.model_axis else 0,
+              ("data",): sh.dp_index(mesh) if step.fsdp else 0}
+    fps = _gather((mine, coords))
+    return all(g[0][k] == fp for f in fps for k, fp in f[0].items()
+               for g in fps if k == () or g[1][k] == f[1][k])
 
 
 def _build_mesh(args, device, topology):
@@ -281,8 +289,12 @@ def _rank_main(opts: dict):
     pipe = SyntheticPipeline(cfg, shape, seed=0, streams=opts["streams"])
 
     coll_desc = f"table:{table_path}" if table_path else args.collective
+    layout = "+".join(n for n, on in (("fsdp", step.fsdp),
+                                      ("tp", step.tp_axis),
+                                      ("ep", step.ep_axis)) if on) \
+        or "replicated"
     say(f"arch={cfg.name} devices={grp.size()} mesh={dict(mesh.shape)} "
-        f"collective={coll_desc}")
+        f"collective={coll_desc} layout={layout}")
     # under FSDP the step's collectives are its gathers, reduce-scatters
     # and all-reduces, printed with each step, not a sync plan
     plan = None if step.fsdp else comm.explain_gradients(
@@ -309,6 +321,7 @@ def _rank_main(opts: dict):
            "device_name": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else "cpu"),
            "mesh": dict(mesh.shape), "describe": comm.describe(),
+           "layout": layout,
            "tuned": step.tuned, "rows": [step.rows.start, step.rows.stop],
            "leaves": len(pytree.leaves(params)),
            "param_elems": sum(t.numel() for t in pytree.leaves(params)),
@@ -320,7 +333,8 @@ def _rank_main(opts: dict):
            if step.tuned else 0,
            "losses": [], "step_s": [], "compute_s": [], "sync_s": [],
            "opt_s": [], "replicas_equal": [], "release_sync_s": [],
-           "release_events": [], "gather_s": [], "reduce_scatter_s": []}
+           "release_events": [], "gather_s": [], "reduce_scatter_s": [],
+           "model_s": []}
     if step.ep_axis is not None:
         tp = mesh.shape[step.ep_axis]
         lo, hi = sh.expert_range(mesh, cfg.num_experts, step.ep_axis)
@@ -333,6 +347,9 @@ def _rank_main(opts: dict):
         res["a2a_algorithm"] = comm.a2a_algorithm_for(
             res["dispatch_bytes"], step.ep_axis, tp)
         res["experts"] = _gather([lo, hi])
+        # one layer's expert stack as this rank holds it (E/tp, d, ff),
+        # or (E/tp, d/dp, ff) under FSDP
+        res["expert_shape"] = list(params["layers"][0]["moe"]["w_gate"].shape)
         say(f"expert parallelism: {cfg.num_experts} experts over "
             f"{step.ep_axis}={tp}, {hi - lo} a rank; dispatch all-to-all "
             f"of {res['dispatch_bytes']} B each way a layer: "
@@ -348,15 +365,26 @@ def _rank_main(opts: dict):
                         for n, c in counts.items())
             + f"; {res['param_elems']} params a rank")
     if step.fsdp:
-        rep, shd = step.split(params)
+        n = {k: len(pytree.leaves(t))
+             for k, t in step.kinds(params).items()}
+        leaves = {name: n.get(k, 0) for name, k in (
+            ("data", ("data",)), ("model", ("model",)),
+            ("both", ("model", "data")), ("neither", ()))}
         res["fsdp"] = {"data_axes": list(sh.dp_axes(mesh)),
-                       "sharded_leaves": len(pytree.leaves(shd)),
-                       "replicated_leaves": len(pytree.leaves(rep))}
+                       "sharded_leaves": leaves["data"] + leaves["both"],
+                       "replicated_leaves": leaves["model"]
+                       + leaves["neither"]}
+        what = ""
+        if step.model_axis:
+            res["fsdp"].update(model_axis=step.model_axis, leaves=leaves)
+            kind = "expert" if step.ep_axis else "tensor"
+            what = (f" of each model coordinate, {kind} parallelism over "
+                    f"{step.model_axis}={mesh.shape[step.model_axis]}")
         say(f"FSDP over the data axes {tuple(sh.dp_axes(mesh))} "
-            f"({sh.dp_size(mesh)} ranks): {res['param_elems']} params a "
-            f"rank, {res['fsdp']['sharded_leaves']} leaves sharded, "
-            f"{res['fsdp']['replicated_leaves']} replicated")
-        del rep, shd
+            f"({sh.dp_size(mesh)} ranks){what}: {res['param_elems']} "
+            f"params a rank; leaves: {leaves['data']} sharded over data, "
+            f"{leaves['model']} split over model, {leaves['both']} both, "
+            f"{leaves['neither']} neither")
     res["replicas_equal_at_init"] = _replicas(params, step)
     keep = opts["keep_params"] and lead
 
@@ -385,9 +413,11 @@ def _rank_main(opts: dict):
             # tensor-parallel: every rank gathers the whole tree (rank 0
             # keeps it), to hold the slices' gradients against a run
             # without a model axis; FSDP keeps whole leaves only
-            whole = step.gather(grads) if step.tp_axis else None
+            whole = None
             if step.fsdp:
                 grads = step.gather(grads)
+            elif step.tp_axis:
+                whole = step.gather(grads)
             if keep:
                 res["grads0"] = _to_host(grads)
                 res["local_grads0_fingerprint"] = metrics.pop(
@@ -399,11 +429,12 @@ def _rank_main(opts: dict):
                                     metrics["opt_s"],
                                     metrics.get("release_sync_s", 0.0),
                                     metrics.get("gather_s", 0.0),
-                                    metrics.get("reduce_scatter_s", 0.0)])
+                                    metrics.get("reduce_scatter_s", 0.0),
+                                    metrics.get("model_s", 0.0)])
         equal = _replicas(params, step)
         for key, v in zip(("losses", "step_s", "compute_s", "sync_s",
                            "opt_s", "release_sync_s", "gather_s",
-                           "reduce_scatter_s", "replicas_equal"),
+                           "reduce_scatter_s", "model_s", "replicas_equal"),
                           (loss, wall, *split, equal)):
             res[key].append(v)
         if step.fsdp and i == 0:
@@ -423,7 +454,13 @@ def _rank_main(opts: dict):
                 say(f"  FSDP collectives: {c['gathers']} gathers "
                     f"({split[4]:.3f} s), {c['reduce_scatters']} "
                     f"reduce-scatters ({split[5]:.3f} s), "
-                    f"{c['all_reduces']} all-reduces (slowest rank's)")
+                    f"{c['all_reduces']} all-reduces over the data axes"
+                    + (f"; over {step.model_axis}: "
+                       f"{c['model_all_reduces']} all-reduces, "
+                       f"{c['model_all_gathers']} all-gathers, "
+                       f"{c['model_all_to_alls']} all-to-alls "
+                       f"({split[6]:.3f} s)" if step.model_axis else "")
+                    + " (slowest rank's)")
         if not equal:
             raise AssertionError(f"step {i}: the ranks' params differ "
                                  f"({grp.size()} checksums)")
@@ -444,7 +481,13 @@ def _rank_main(opts: dict):
         torch.cuda.max_memory_allocated(device)
         if device.type == "cuda" else 0)
     say(f"done: {args.steps} steps in {done:.1f}s")
-    if step.fsdp:
+    if step.fsdp and step.model_axis:
+        held = (f"each leaf bit-identical over the ranks that hold the same "
+                f"part of it (whole: all {grp.size()}; a model slice: its "
+                f"{sh.dp_size(mesh)} data ranks; an FSDP shard: its "
+                f"{sh.model_size(mesh)} model ranks; a leaf cut by both has "
+                f"no replica)")
+    elif step.fsdp:
         held = (f"replicated params bit-identical over {grp.size()} ranks "
                 f"(an FSDP shard has no replica)")
     elif step.model_axis is None:
@@ -577,8 +620,6 @@ def main(argv=None, *, keep_params: bool = False,
                           for lv in reversed(topology.levels))
         print(f"topology: {desc}", flush=True)
     parallel = parallel or ParallelConfig()
-    if parallel.shard_params_over_data and args.model_parallel > 1:
-        raise NotImplementedError(FSDP_WITH_MODEL_AXIS)
     try:        # tuned, as the Communicator will be: the flags alone say
         validate_collectives(CollectiveConfig(
             algorithm=args.collective,

@@ -15,7 +15,11 @@ kernels on the card); cross-attention is plain, as the reference's
 ``impl="xla"`` einsums are. Each layer's params pass a gradient release
 point, ``("encoder", i)`` or ``("decoder", i)``: the port's streamed
 sync keys each stack by its own name (the reference tags both stacks
-``("layers", i)``; see ROADMAP.md Queue 3).
+``("layers", i)``; see ROADMAP.md Queue 3). Under FSDP each layer's
+params pass a gather point beside their release point
+(``layers.gathered``), which on a ``model`` axis gathers this rank's
+tensor-parallel slices whole over the data ranks of its model
+coordinate.
 
 Serving: ``prefill(..., audio=...)`` encodes and runs the prompt;
 ``decode_step`` takes the dense or the paged self-attention cache (as

@@ -8,7 +8,13 @@ on the card. ``decode_step`` takes the cache's ``length`` as a scalar or
 a per-row ``(B,)`` tensor and a dense or paged KV cache, as
 ``transformer.decode_step`` does, and writes the token's k/v into the
 cache IN PLACE. Training: ``loss_fn`` (the SSD chunk and flash-attention
-kernels' autograd functions with the ``"auto"`` impls).
+kernels' autograd functions with the ``"auto"`` impls). On a ``model``
+axis the shared block runs tensor-parallel (its heads and FFN columns
+split) and the mamba layers whole on every rank; under FSDP the shared
+block is gathered once a forward with the rest of the tree (over the
+data ranks of this rank's model coordinate when there is a model axis),
+its gradient summed over its uses by autograd before its one
+reduce-scatter, and each mamba layer at its own gather point.
 """
 from __future__ import annotations
 

@@ -38,6 +38,21 @@ cotangents in one collective (the gather's transpose), so each rank's
 gradient of a shard arrives summed over the data ranks. A weight used
 more than once (the hybrid's shared block) is gathered once, and its
 gradient reduce-scatters once, summed over its uses.
+
+FSDP with tensor or expert parallelism (both on a ``model`` axis above
+1): a held leaf is this rank's model slice cut to its FSDP shard on
+another dimension, and the `GatherPoint` gathers over the data ranks of
+this rank's model coordinate (``sharding.data_axis``), so the tensor-
+parallel operators above (`copy_to_model`, `reduce_from_model`,
+`split_matmul`, `vocab_embedding`, the vocab-parallel loss,
+`local_heads`) and the MoE dispatch see the model slice whole, as
+without FSDP. Every rank issues the two kinds of collective in one
+order, on one thread: in the forward, each gather point's all-gather
+where the program reaches it and the model-axis all-reduces of the
+blocks between them; in the backward (autograd's thread, the same graph
+on every rank, so the same order), the model-axis all-reduces of each
+block and each gather point's reduce-scatter as autograd releases its
+cotangents, the deepest layer's first.
 """
 from __future__ import annotations
 

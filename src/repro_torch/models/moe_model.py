@@ -15,7 +15,12 @@ sequence, the block over its local experts, the aux losses averaged
 over the axis, and the sequence gathered back. Every layer's params
 pass a gradient release point, ``("layers", i)``, as in
 ``models/transformer.py``; ``remat`` recomputes each layer in the
-backward (its collectives included, in every rank alike).
+backward (its collectives included, in every rank alike). Under FSDP
+each layer's params pass its gather point (``layers.gathered``) first:
+the expert stacks, held ``(E/tp, d/dp, ff)``, are gathered over the data
+ranks of this rank's model coordinate before the dispatch all-to-all
+over ``model``, and their gradient is reduce-scattered over those ranks
+after the combine's backward.
 
 Serving takes the dense family's cache (``init_cache``) and its two
 decode forms (``transformer.decode_step``), with every expert in this

@@ -5,7 +5,8 @@ projector stubbed, as in the reference).
 Sequence layout: [patch embeddings (num_patches) | text tokens]. Labels
 over image positions are ignored (-1). Params, cache and decode are the
 dense family's; training goes through ``transformer.forward``, so it has
-that family's release points, ``remat`` and tensor parallelism.
+that family's release points, ``remat``, tensor parallelism and FSDP
+gather points (also both together).
 """
 from __future__ import annotations
 

@@ -35,10 +35,9 @@ lead layer dimension, so its split dimension is one higher), `tp_shard`
 cuts every leaf of a full draw to this rank's slice, and `tp_gather`
 puts the slices of a held tree back together (checkpoints, tests).
 `tp_held_dim` reads the same layout off a held leaf, from the config's
-counts. `tp_split` and `tp_partial` name the leaves the training step
-treats apart: those split over ``model`` (the clip's norm, the replica
-check) and the replicated key/value leaves that split query heads only
-partly use (their gradients are summed over ``model``).
+counts. `tp_partial` names the replicated key/value leaves that split
+query heads only partly use (their gradients are summed over
+``model``).
 
 FSDP (``ParallelConfig.shard_params_over_data``, ZeRO-3 style): the
 reference splits each weight along one dimension over all the data axes
@@ -47,10 +46,27 @@ their product divides it; the norms, biases, positions and the SSM's
 small parameters stay replicated. `fsdp_dim` is that rule for a
 per-layer leaf, `fsdp_held_dim` reads it off a held shard, `fsdp_shard`
 cuts a full draw to this rank's shard (the block of its `dp_index`),
-`fsdp_gather` puts the shards back together on every rank (checkpoints,
-kept params, tests) and `fsdp_split` names the two kinds of leaf.
+and `fsdp_gather` puts the shards back together on every rank
+(checkpoints, kept params, tests).
 `data_axis` is the one `group.Axis` over the data axes whose collectives
-move the shards (its index is `dp_index`).
+move the shards (its index is `dp_index`): on a mesh with a ``model``
+axis above 1, the data ranks of this rank's model coordinate.
+
+Both halves together (FSDP on a ``model`` axis above 1): ``param_specs``
+gives a leaf ``"model"`` on one dimension and the data axes on another,
+never the same one (heads, FFN columns, vocab or experts over
+``model``; ``d`` or ``d_inner`` over data). `shard` cuts a full draw
+to the model half first (`tp_shard`, or `ep_shard` for the MoE family)
+and then to the data half (`fsdp_shard`, the block of `dp_index`: the
+data index is the same on every model coordinate); `gather` is its
+inverse (`fsdp_gather`, then `tp_gather` / `ep_gather`). Each half
+reads its dimension off a held leaf from the config's counts of the
+dimension it splits, which the other half never cuts, so
+`tp_held_dim` and `fsdp_held_dim` read a leaf cut by both halves as
+they read one cut by one. `held_kinds` names the halves that cut a held
+leaf, `split_kinds` splits a tree into the four kinds (whole, split
+over ``model``, sharded over data, both), which the clip's norm and the
+replica check treat apart.
 
 The mesh is always passed in: there is no module-level current mesh
 (the reference's ``set_current_mesh`` / ``_CURRENT_MESH``). The
@@ -71,6 +87,9 @@ from repro_torch.core.collectives import group as grp
 
 #: the MoE block's expert weights, split over the expert-parallel axis
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+#: the kinds of held leaf `split_kinds` tells apart: the halves of the
+#: mesh each is split over (``"data"``: all the data axes together)
+KINDS = ((), ("model",), ("data",), ("model", "data"))
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
@@ -280,17 +299,6 @@ def tp_gather(tree, mesh, cfg, tp_axis: str = "model"):
     return _map_with_path(tree, gather)
 
 
-def tp_split(tree, cfg, tp: int):
-    """``(replicated, split)``: two trees of ``tree``'s (held) structure,
-    each with the other's leaves set to ``None``."""
-    def part(keep_split):
-        return _map_with_path(
-            tree, lambda path, t: t if (tp_held_dim(path, t.shape, cfg, tp)
-                                        is not None) == keep_split
-            else None)
-    return part(False), part(True)
-
-
 def tp_partial(tree, fn, cfg, tp: int):
     """``fn(leaf)`` on the key/value leaves that the split query heads
     only partly use (`tp_mixed`), every other leaf as it is."""
@@ -341,8 +349,10 @@ def fsdp_dim(path, shape, dp: int) -> Optional[int]:
 
 
 def fsdp_held_dim(path, shape, cfg, dp: int) -> Optional[int]:
-    """The dimension of a HELD leaf (a rank's `fsdp_shard` shard) that is
-    split over ``dp`` data ranks, or None."""
+    """The dimension of a HELD leaf (a rank's `fsdp_shard` shard, also
+    cut over ``model`` or not) that is split over ``dp`` data ranks, or
+    None: the candidate dimension, ``d`` or ``d_inner``, read against the
+    config's count, which a ``model`` cut never changes."""
     d = _fsdp_candidate(path, len(shape))
     full = cfg.d_inner if path and path[-1] == "out_proj" else cfg.d_model
     if dp > 1 and d is not None and shape[d] * dp == full:
@@ -381,17 +391,6 @@ def fsdp_gather(tree, mesh, cfg):
     return _map_with_path(tree, gather)
 
 
-def fsdp_split(tree, cfg, dp: int):
-    """``(replicated, sharded)``: two trees of ``tree``'s (held)
-    structure, each with the other's leaves set to ``None``."""
-    def part(keep_sharded):
-        return _map_with_path(
-            tree, lambda path, t: t if (fsdp_held_dim(path, t.shape, cfg, dp)
-                                        is not None) == keep_sharded
-            else None)
-    return part(False), part(True)
-
-
 def fsdp_dims(tree, cfg, dp: int) -> list:
     """`fsdp_held_dim` of every leaf of a held tree, in `pytree.leaves`
     order (None where the leaf is replicated)."""
@@ -400,3 +399,57 @@ def fsdp_dims(tree, cfg, dp: int) -> list:
         return -1 if d is None else d
     return [None if d < 0 else d
             for d in pytree.leaves(_map_with_path(tree, dim))]
+
+
+# ---------------------------------------------------------------------------
+# both halves
+# ---------------------------------------------------------------------------
+def shard(params, mesh, cfg, fsdp: bool = True):
+    """This rank's held tree of a full draw: on a ``model`` axis above 1
+    its experts (`ep_shard`, the MoE family) or tensor-parallel slices
+    (`tp_shard`), then, with ``fsdp``, its FSDP shard of each of those
+    (`fsdp_shard`)."""
+    if model_size(mesh) > 1:
+        params = ep_shard(params, mesh) if cfg.family == "moe" \
+            else tp_shard(params, mesh)
+    return fsdp_shard(params, mesh) if fsdp else params
+
+
+def gather(tree, mesh, cfg, fsdp: bool = True):
+    """The inverse of `shard` on a held tree (params, gradients, Adam's
+    moments): the FSDP shards gathered over the data axes of this rank's
+    model coordinate, then the model slices over ``model``, on every
+    rank. Collective over both."""
+    if fsdp:
+        tree = fsdp_gather(tree, mesh, cfg)
+    if model_size(mesh) > 1:
+        tree = ep_gather(tree, mesh) if cfg.family == "moe" \
+            else tp_gather(tree, mesh, cfg)
+    return tree
+
+
+def held_kinds(path, shape, cfg, mesh, fsdp: bool) -> Tuple[str, ...]:
+    """The halves of the mesh that cut a held leaf (an entry of `KINDS`):
+    ``"model"`` where it is this rank's experts or tensor-parallel slice,
+    ``"data"`` where it is an FSDP shard."""
+    tp = model_size(mesh)
+    out = ()
+    if tp > 1 and (_is_expert(path) if cfg.family == "moe"
+                   else tp_held_dim(path, shape, cfg, tp) is not None):
+        out += ("model",)
+    if fsdp and fsdp_held_dim(path, shape, cfg, dp_size(mesh)) is not None:
+        out += ("data",)
+    return out
+
+
+def split_kinds(tree, cfg, mesh, fsdp: bool) -> dict:
+    """``{kind: tree}`` for each kind of `KINDS` that some leaf of the
+    held ``tree`` has: ``tree``'s structure with every other kind's
+    leaves set to ``None``."""
+    kinds = pytree.leaves(_map_with_path(
+        tree, lambda path, t: KINDS.index(held_kinds(path, t.shape, cfg,
+                                                     mesh, fsdp))))
+    return {kind: _map_with_path(
+        tree, lambda path, t, k=kind: t if held_kinds(
+            path, t.shape, cfg, mesh, fsdp) == k else None)
+        for j, kind in enumerate(KINDS) if j in kinds}

@@ -32,8 +32,8 @@ zamba2 and whisper.
 - Each fault of `steps.planted_fsdp_fault` reads above the gradient
   tolerance.
 - ``--ckpt`` under FSDP writes whole leaves; FSDP with
-  ``--model-parallel 2`` raises naming ROADMAP.md step 10b's second
-  part.
+  ``--model-parallel 2`` trains (``tests/test_torch_fsdp_model.py``
+  holds that composition to the reference).
 """
 import functools
 import json
@@ -509,9 +509,25 @@ def test_checkpoint_writes_whole_leaves(tmp_path):
 
 
 def test_fsdp_with_a_model_axis_raises_naming_its_step():
-    with pytest.raises(NotImplementedError,
-                       match="FSDP with a model axis.*step 10b, second part"):
-        from repro_torch.launch import train
-        train.main(["--reduced", "--device", "cpu", "--ranks", "4",
-                    "--model-parallel", "2", "--steps", "1"],
-                   parallel=FSDP)
+    """FSDP with ``--model-parallel 2`` (the name is the test's from when
+    it raised): one step of the reduced smollm on ``("data", "model")``
+    = 2 x 2, each rank holding its tensor-parallel slices cut to its FSDP
+    shard; every leaf equal on the ranks that hold the same part of it,
+    and the fsdp block counts the leaves by the halves that cut them."""
+    from repro_torch.launch import train
+    res = train.main(["--reduced", "--device", "cpu", "--ranks", "4",
+                      "--model-parallel", "2", "--steps", "1", "--seq",
+                      "32", "--batch", "8"], parallel=FSDP)
+    assert res["mesh"] == {"data": 2, "model": 2}
+    assert res["layout"] == "fsdp+tp"
+    # the embeddings and each layer's wq, wo and MLP cut by both halves;
+    # the one kv head's wk, wv sharded over data only; the norms whole
+    assert res["fsdp"] == {"data_axes": ["data"], "sharded_leaves": 16,
+                           "replicated_leaves": 5, "model_axis": "model",
+                           "leaves": {"data": 4, "model": 0, "both": 12,
+                                      "neither": 5}}
+    assert res["replicas_equal_at_init"] and all(res["replicas_equal"])
+    assert len(res["losses"]) == 1 and 0 < res["losses"][0] < 20
+    c = res["collectives"]
+    assert c["gathers"] == c["reduce_scatters"] == 3
+    assert c["model_all_reduces"] > 0 and res["model_s"][0] > 0

@@ -600,11 +600,13 @@ def test_two_ranks_reduced_mamba2_tuned_equals_xla(capfd):
 
 
 def test_unported_options_raise_naming_their_step():
-    """FSDP trains (one step on 4 ranks, each holding its shards, the
-    replicated leaves equal); FSDP with a model axis raises before any
-    rank starts, naming its step (ROADMAP.md Queue 1 step 10b, second
-    part). A model axis for a family without experts (``--model-parallel
-    2`` for smollm, the VLM and the enc-dec family) trains
+    """Every option this test once found unported now trains (the name
+    is kept from then): FSDP (one step on 4 ranks, each holding its
+    shards, the replicated leaves equal); FSDP with a model axis (one
+    step on 2 x 2, each rank holding its tensor-parallel slices cut to
+    its FSDP shards, every leaf equal on the ranks that hold the same
+    part of it); and a model axis for a family without experts
+    (``--model-parallel 2`` for smollm, the VLM and the enc-dec family)
     tensor-parallel, as the reference does: one step on 2 x 2 ranks, the
     replicas equal."""
     fsdp = ParallelConfig(shard_params_over_data=True)
@@ -615,9 +617,14 @@ def test_unported_options_raise_naming_their_step():
     assert res["fsdp"]["sharded_leaves"] == 16
     assert res["replicas_equal_at_init"] and all(res["replicas_equal"])
     assert len(res["losses"]) == 1 and 0 < res["losses"][0] < 20
-    with pytest.raises(NotImplementedError, match="FSDP.*step 10b, second"):
-        train.main(["--reduced", "--device", "cpu", "--ranks", "4",
-                    "--model-parallel", "2"], parallel=fsdp)
+    res = train.main(["--reduced", "--device", "cpu", "--ranks", "4",
+                      "--model-parallel", "2", "--steps", "1", "--seq",
+                      "32", "--batch", "8"], parallel=fsdp)
+    assert res["mesh"] == {"data": 2, "model": 2}
+    assert res["fsdp"]["leaves"] == {"data": 4, "model": 0, "both": 12,
+                                     "neither": 5}
+    assert res["replicas_equal_at_init"] and all(res["replicas_equal"])
+    assert len(res["losses"]) == 1 and 0 < res["losses"][0] < 20
     for arch in ("smollm-135m", "llava-next-mistral-7b", "whisper-large-v3"):
         res = train.main(["--arch", arch, "--reduced", "--device", "cpu",
                           "--ranks", "4", "--model-parallel", "2",
