@@ -3847,7 +3847,8 @@ def phase_training_fsdp_model():
                              f"{m.get('fsdp')}, {m.get('collectives')}")
     keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
             "gather_s", "reduce_scatter_s", "model_s", "collectives",
-            "peak_mem_bytes", "launches", "param_elems", "fsdp", "wall_s")
+            "peak_mem_bytes", "launches", "param_elems", "fsdp", "wall_s",
+            "param_elems_by_rank", "step_collectives", "step_peak_bytes")
     summary = {"2+2": {k: a[k] for k in keep},
                "2+2_tp": {k: tp[k] for k in keep if k in tp},
                "full": {k: b[k] for k in keep},
@@ -3863,6 +3864,168 @@ def phase_training_fsdp_model():
                      "train_whisper-large-v3_tp": tp["launches"],
                      "train_whisper-large-v3_fsdp_tp_full": b["launches"],
                      "train_olmoe_fsdp_ep": m["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# [9] compile-free accounting held to [8ft] (b) and [8mf]
+# ---------------------------------------------------------------------------
+# peak predicted / measured: the band the trace of a rank's step must fall
+# in against torch.cuda.max_memory_allocated of the same rank's step
+PEAK_BAND = (0.8, 1.2)
+#: the dry-runs the phase runs as subprocesses, each must exit 0
+DRYRUNS = (("smollm-135m", "decode_32k"), ("whisper-large-v3", "train_4k"))
+
+
+def accounting_cases():
+    """[8ft] (b) and [8mf] as the phase traces them: ``{tag: (config,
+    shape, parallel, the run's key in [8ft]'s summary)}``."""
+    from repro_torch.configs import ARCHITECTURES
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    whisper = ShapeConfig("8ft_b", 256, 2, "train")
+    return {
+        "8ft b": (ARCHITECTURES["whisper-large-v3"], whisper,
+                  ParallelConfig(shard_params_over_data=True,
+                                 gather_in_compute_dtype=True), "full"),
+        "8mf": (ARCHITECTURES["olmoe-1b-7b"].replace(**MOE_TRAIN_CONFIG),
+                ShapeConfig("8mf", 256, 8, "train"),
+                ParallelConfig(shard_params_over_data=True), "olmoe")}
+
+
+def phase_accounting(fsdp_model, smi):
+    """[9] The dry-run's trace (``launch/dryrun.py``: one rank's step on
+    ``meta`` over a recording 2 x 2 mesh, ``group.MetaMesh``) of [8ft] (b)
+    and [8mf], at the coordinate of each of the four ranks, held to the
+    same rank's step on the card (``fsdp_model``: [8ft]'s summary; ``smi``
+    the card's name and power limit; no new
+    GPU step): params a rank equal; the collectives of step 0 by kind and
+    axis equal in count and bytes; the flash launches the plan's (the
+    measured ones); the peak within `PEAK_BAND` of the rank's step peak
+    (``max_memory_allocated`` with its arguments live). Rank 0 goes
+    through ``accounting_metrics`` (1 and 2 layer units and full depth,
+    the extrapolation checked exactly). Also prints FLOPs a rank beside
+    ``model_flops``, the achieved rate over the measured forward+backward,
+    the predicted peak of [8ft] (b) at two rows a data rank against a
+    quarter of the card's free memory with its largest live tensors, and
+    runs `DRYRUNS` as subprocesses. Returns the summary."""
+    import subprocess
+    from repro_torch.configs.base import CollectiveConfig
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.kernels import attention_bwd
+    from repro_torch.launch import accounting as acct
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out_dir], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for arch, shape in DRYRUNS]
+    free, _ = torch.cuda.mem_get_info()
+    coll = CollectiveConfig()
+    summary, bad = {}, []
+    for tag, (cfg, shape, parallel, key) in accounting_cases().items():
+        run = fsdp_model[key]
+        rows = []
+        for r in range(TRAIN_RANKS):
+            mesh = grp.MetaMesh((2, 2), ("data", "model"), divmod(r, 2))
+            t1 = time.perf_counter()
+            if r == 0:
+                m = dryrun.accounting_metrics(cfg, shape, parallel, coll,
+                                              mesh)
+                c = m["trace"]
+            else:
+                c, _, _ = dryrun.trace_step(cfg, shape, parallel, coll, mesh)
+            got_coll = c.record.by_kind()
+            peak = c.memory["peak_bytes_per_device"]
+            measured = max(run["step_peak_bytes"][r])
+            rows.append({"params": c.params, "collectives": got_coll,
+                         "flops": c.flops, "bytes": c.bytes,
+                         "kernels": dict(c.kernels), "peak_bytes": peak,
+                         "measured_peak_bytes": measured,
+                         "peak_ratio": peak / measured,
+                         "trace_s": time.perf_counter() - t1})
+            if r == 0:
+                rows[0].update(units=m["units"],
+                               per_unit_flops=m["per_unit_flops"],
+                               largest_at_peak=c.largest(10),
+                               by_op_at_peak=c.by_op(10))
+            lo, hi = PEAK_BAND
+            bad += [f"{tag} rank {r} {k}" for k, ok in (
+                ("params", c.params == run["param_elems_by_rank"][r]),
+                ("collectives", got_coll == run["step_collectives"][r]),
+                ("peak", lo <= peak / measured <= hi)) if not ok]
+            log(f"    [9] {tag} rank {r}: params {c.params} (measured "
+                f"{run['param_elems_by_rank'][r]}); collectives "
+                + ", ".join(f"{k} {v['count']} x {v['bytes']} B"
+                            for k, v in got_coll.items())
+                + f" (equal to the card's step 0: "
+                f"{got_coll == run['step_collectives'][r]}); peak "
+                f"{peak / 2**30:.3f} GiB predicted, {measured / 2**30:.3f} "
+                f"measured ({peak / measured:.3f}); "
+                f"{rows[-1]['trace_s']:.1f}s")
+        steps_n = len(run["losses"])
+        plan = {"flash_attention": rows[0]["kernels"]["flash_attention"]
+                * TRAIN_RANKS * steps_n,
+                "flash_attention_bwd": rows[0]["kernels"]["flash_attention"]
+                * TRAIN_RANKS * steps_n * attention_bwd.LAUNCHES_PER_CALL}
+        traced = {k: sum(row["kernels"].get(k, 0) for row in rows) * steps_n
+                  for k in plan}
+        measured = {k: run["launches"][k] for k in plan}
+        if not traced == plan == measured:
+            bad.append(f"{tag} flash launches {traced} traced, {plan} "
+                       f"planned, {measured} measured")
+        flops = sum(row["flops"] for row in rows)
+        fwd_bwd = run["compute_s"][0]
+        rate = flops / fwd_bwd
+        mf = acct.model_flops(cfg, shape)
+        log(f"    [9] {tag}: flash launches {traced} traced = {plan} "
+            f"planned = {measured} measured; FLOPs a rank "
+            f"{rows[0]['flops']:.6g} (model_flops {mf / TRAIN_RANKS:.6g} a "
+            f"rank, {mf:.6g} in all; per unit {rows[0]['per_unit_flops']} "
+            f"over {rows[0]['units']} units, extrapolation exact); "
+            f"achieved {rate / 1e12:.4f} TFLOP/s over step 0's "
+            f"forward+backward of {fwd_bwd:.3f} s (four ranks, host-staged "
+            f"gloo collectives inside), {rate / acct.PEAK_FLOPS:.3e} of "
+            f"989 TFLOP/s bf16 on {smi}")
+        summary[tag] = {"ranks": rows, "launches": traced,
+                        "model_flops": mf, "achieved_flops_per_s": rate}
+    # [8ft] (b) at two rows a data rank, which ran the card out of memory
+    cfg, shape, parallel, _ = accounting_cases()["8ft b"]
+    two = dataclasses.replace(shape, global_batch=2 * shape.global_batch)
+    c, _, _ = dryrun.trace_step(cfg, two, parallel, coll,
+                                grp.MetaMesh((2, 2), ("data", "model")))
+    peak = c.memory["peak_bytes_per_device"]
+    summary["8ft b two rows"] = {
+        "peak_bytes": peak, "quarter_free_bytes": free / 4,
+        "largest_at_peak": c.largest(10), "by_op_at_peak": c.by_op(10)}
+    log(f"    [9] [8ft] (b) at two rows a data rank: {peak / 2**30:.3f} "
+        f"GiB a rank predicted against {free / 4 / 2**30:.3f} GiB, a "
+        f"quarter of the card's free memory; live at the peak by op: "
+        + ", ".join(f"{op} {b / 2**30:.3f} GiB ({n})"
+                    for op, b, n in c.by_op(10))
+        + "; largest: " + ", ".join(
+            f"{x['op']} {x['shape']} {x['dtype']} {x['bytes'] / 2**20:.1f} "
+            f"MiB" for x in c.largest(10)))
+    for arch, shape, proc in procs:
+        text, _ = proc.communicate(timeout=600)
+        last = text.strip().splitlines()[-1] if text.strip() else ""
+        log(f"    [9] dryrun {arch} {shape}: rc {proc.returncode}: {last}")
+        path = os.path.join(out_dir, f"{arch}_{shape}_16x16_xla.json")
+        if proc.returncode or not os.path.exists(path):
+            bad.append(f"dryrun {arch} {shape} rc {proc.returncode}: "
+                       f"{text[-2000:]}")
+        else:
+            with open(path) as f:
+                rec = json.load(f)
+            summary[f"dryrun {arch} {shape}"] = {
+                k: rec[k] for k in ("memory", "cost", "roofline",
+                                    "trace_s", "kernel_launches")}
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"    [9] {summary['phase_s']:.1f}s")
+    if bad:
+        raise AssertionError(f"[9]: {bad}")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -4053,6 +4216,8 @@ def main() -> int:
     train_paths.update(fsdp_model_paths)
     del STEP0_ORACLE["olmoe-1b-7b"]
     mark("[8ft], [8mf]")
+    accounting = phase_accounting(training_fsdp_model, smi)
+    mark("[9]")
     training_tp, tp_train_paths = phase_training_tp()
     train_paths.update(tp_train_paths)
     STEP0_ORACLE.clear()
@@ -4089,6 +4254,7 @@ def main() -> int:
                       "training_fsdp": training_fsdp,
                       "training_fsdp_model": training_fsdp_model,
                       "training_tp": training_tp,
+                      "accounting": accounting,
                       "tp_decode": tp_decode,
                       "train_grads_fp32": train_grads}))
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -21,6 +21,9 @@ counterpart is easy to find:
   * ``pytree``   — trees of tensors flattened as ``jax.tree`` flattens;
   * ``bridge``   — the JAX package's numpy params -> the port's modules;
   * ``serve``    — paged KV, the continuous-batching scheduler, the engine;
-  * ``launch``   — ``python -m repro_torch.launch.serve`` and
-                   ``python -m repro_torch.launch.measure_collectives``.
+  * ``launch``   — ``python -m repro_torch.launch.serve``, ``.train``,
+                   ``.measure_collectives``, and the compile-free
+                   accounting ``.dryrun`` (``accounting``, ``report``);
+  * ``count``    — the hook through which the kernels and the rank
+                   transport report their work to the accounting.
 """

@@ -53,10 +53,25 @@ coordinate along the axis, whatever its global rank: ``rank(axis)``,
 ``ppermute``'s pairs and the order of ``all_gather`` and ``all_to_all``
 blocks all count in it. Every function here takes an `Axis`, a process
 group, or ``None`` (the default group).
+
+The recording mesh. `MetaMesh` has `RankMesh`'s interface but no
+process group: it stands for one rank, at ``coords``, of a mesh of any
+size (the reference's 16 x 16 production mesh), and needs no
+``torch.distributed``. Its axes are `MetaAxis` objects, and every
+collective here over one moves nothing: it returns a ``meta`` tensor of
+the result's shape and type (an object collective returns this rank's
+own object). Every tensor collective, over a meta axis or a real one,
+adds ``(kind, axis name, output bytes)`` to the open `Record`, under
+the reference's names (``all-reduce``, ``all-gather``,
+``reduce-scatter``, ``all-to-all``, ``collective-permute``) and its
+rule of bytes: the output's, per rank (``hlo_analysis.collective_bytes``
+sums the output shapes of the HLO's collectives). So a run on real
+ranks and a trace on a `MetaMesh` can be compared op for op.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import datetime
 import functools
@@ -74,7 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import pytree
+from repro_torch import count, pytree
 
 #: how long a rank waits on a collective (and on sub-group creation)
 #: before it fails instead of hanging
@@ -98,6 +113,18 @@ class Axis:
     order: Optional[Tuple[int, ...]] = None
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class MetaAxis(Axis):
+    """An axis of a `MetaMesh`: no process group, this rank's coordinate
+    ``index`` along it."""
+
+    index: int = 0
+
+
+def _meta(group) -> bool:
+    return isinstance(group, MetaAxis)
+
+
 def _pg(group):
     return group.group if isinstance(group, Axis) else group
 
@@ -108,17 +135,22 @@ def _order(group) -> Optional[Tuple[int, ...]]:
 
 def rank(group=None) -> int:
     """This rank's index along ``group`` (its axis coordinate)."""
+    if _meta(group):
+        return group.index
     r = dist.get_rank(_pg(group))
     order = _order(group)
     return r if order is None else order.index(r)
 
 
 def size(group=None) -> int:
+    if _meta(group):
+        return group.size
     return dist.get_world_size(_pg(group))
 
 
 def barrier(group=None) -> None:
-    dist.barrier(_pg(group))
+    if not _meta(group):
+        dist.barrier(_pg(group))
 
 
 def _peer(group, r: int) -> int:
@@ -145,6 +177,14 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
         raise ValueError(f"ppermute sources and destinations must be "
                          f"unique: {list(perm)}")
+    _note("collective-permute", group, x.numel() * x.element_size())
+    if _meta(group):
+        return _meta_result(x, tuple(x.shape))
+    with count.hidden():
+        return _permute_round(x, perm, group)
+
+
+def _permute_round(x, perm, group):
     r = rank(group)
     send_to = [d for s, d in perm if s == r]
     recv_from = [s for s, d in perm if d == r]
@@ -167,6 +207,118 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     if not recv_from:
         return torch.zeros_like(x)
     return buf.to(x.device)
+
+
+class Record:
+    """The collectives this process issues while it is open (``with
+    Record() as rec:``), over real axes and meta axes alike: ``entries``
+    holds ``(kind, axis name, output bytes)`` in issue order, with the
+    reference's kinds (``KINDS``). An axis is named by its `Axis` name
+    (``"data"``, ``"model"``, ``"pod,data"`` for a joint axis), a bare
+    process group ``"world"``. Object collectives (`broadcast_object`)
+    move pickles, not tensors, and are not recorded."""
+
+    KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+             "collective-permute")
+
+    def __init__(self):
+        self.entries: list = []
+
+    def __enter__(self) -> "Record":
+        _RECORDS.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _RECORDS.remove(self)
+
+    def by_kind(self) -> dict:
+        """``{"kind@axis": {"count": n, "bytes": b}}``, sorted."""
+        out: dict = {}
+        for kind, axis, nbytes in self.entries:
+            e = out.setdefault(f"{kind}@{axis}", {"count": 0, "bytes": 0})
+            e["count"] += 1
+            e["bytes"] += nbytes
+        return dict(sorted(out.items()))
+
+    def totals(self) -> dict:
+        """Bytes by kind and the number of collectives: the reference's
+        ``hlo_analysis.collective_bytes`` record."""
+        out = {k: 0 for k in self.KINDS}
+        for kind, _, nbytes in self.entries:
+            out[kind] += nbytes
+        out["count"] = len(self.entries)
+        return out
+
+
+#: the open `Record`s
+_RECORDS: list = []
+
+
+def _axis_name(group) -> str:
+    return group.name if isinstance(group, Axis) else "world"
+
+
+def _note(kind: str, group, nbytes: int) -> None:
+    for rec in _RECORDS:
+        rec.entries.append((kind, _axis_name(group), int(nbytes)))
+
+
+def _meta_result(x: torch.Tensor, shape) -> torch.Tensor:
+    """What a collective over a meta axis returns: a meta tensor of the
+    result's shape and x's type."""
+    return torch.empty(shape, dtype=x.dtype, device="meta")
+
+
+#: the bytes a collective over a meta axis records, ``fn(kind, x, out)``
+#: (a planted fault swaps it: `planted_record_fault`)
+_META_BYTES = {"fn": lambda kind, x, out: out.numel() * out.element_size()}
+
+
+@contextlib.contextmanager
+def planted_record_fault():
+    """For the length of the block a reduce-scatter over a meta axis
+    records its input's bytes instead of its output's, so that a check
+    of the recording can show it fails."""
+    saved = _META_BYTES["fn"]
+    _META_BYTES["fn"] = lambda kind, x, out: \
+        x.numel() * x.element_size() if kind == "reduce-scatter" \
+        else saved(kind, x, out)
+    try:
+        yield
+    finally:
+        _META_BYTES["fn"] = saved
+
+
+def _collective(kind: str, shape_of: Callable):
+    """``fn(x, group)`` as a recorded collective of ``kind`` whose result
+    has shape ``shape_of(x.shape, axis size)``: over a meta axis it moves
+    nothing and returns a meta tensor of that shape; over a real one it
+    runs ``fn``, whose host staging the work count does not see."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def inner(x, group=None):
+            if _meta(group):
+                out = _meta_result(x, shape_of(tuple(x.shape), group.size))
+                _note(kind, group, _META_BYTES["fn"](kind, x, out))
+                return out
+            with count.hidden():
+                out = fn(x, group)
+            _note(kind, group, out.numel() * out.element_size())
+            return out
+        return inner
+    return deco
+
+
+def _same(shape, n):
+    return shape
+
+
+def _tiled(shape, n):
+    return (shape[0] * n,) + shape[1:]
+
+
+def _scattered(shape, n):
+    return (shape[0] // n,) + shape[1:]
 
 
 class Tally:
@@ -225,6 +377,7 @@ def _tallied(fn):
 
 
 @_tallied
+@_collective("all-reduce", _same)
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-reduce (sum), out of place."""
     buf = _to_host(x)
@@ -233,6 +386,7 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @_tallied
+@_collective("all-reduce", _same)
 def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-reduce (elementwise max), out of place."""
     buf = _to_host(x)
@@ -241,6 +395,7 @@ def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @_tallied
+@_collective("all-gather", _tiled)
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-gather, concatenated along axis 0 (tiled)."""
     buf = _to_host(x)
@@ -253,6 +408,7 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @_tallied
+@_collective("reduce-scatter", _scattered)
 def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's reduce-scatter (sum): axis 0 split into p equal
     blocks, and this rank gets the sum over the ranks of block i, i its
@@ -271,6 +427,7 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 @_tallied
+@_collective("all-to-all", _same)
 def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-to-all: axis 0 split into p equal blocks, block
     j goes to rank j, and the received blocks are stacked in rank order
@@ -291,17 +448,25 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
 
 def broadcast_object(obj, group=None):
     """``obj`` (picklable) of the rank at index 0 along ``group``, on
-    every rank; the other ranks' ``obj`` is ignored."""
+    every rank; the other ranks' ``obj`` is ignored (over a meta axis,
+    this rank's own)."""
+    if _meta(group):
+        return obj
     box = [obj]
     dist.broadcast_object_list(box, src=_peer(group, 0), group=_pg(group))
     return box[0]
 
 
 def max_over_ranks(values: Sequence[float], group=None) -> list:
-    """Elementwise maximum of ``values`` over the ranks, on every rank."""
-    t = torch.tensor(list(values), dtype=torch.float64)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_pg(group))
-    return t.tolist()
+    """Elementwise maximum of ``values`` over the ranks, on every rank
+    (over a meta axis, this rank's own)."""
+    _note("all-reduce", group, 8 * len(values))
+    if _meta(group):
+        return list(values)
+    with count.hidden():
+        t = torch.tensor(list(values), dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_pg(group))
+        return t.tolist()
 
 
 class SyncThread:
@@ -472,6 +637,61 @@ class RankMesh:
         if names not in self._axes:
             self._axes[names] = self._line_axis(names)
         return self._axes[names]
+
+    @property
+    def size(self) -> int:
+        return int(self.ranks.size)
+
+
+class MetaMesh:
+    """A recording mesh: `RankMesh`'s interface (``axis_names``, ``shape``,
+    ``ranks``, ``axis``, ``joint``, ``size``) over no process group,
+    standing for the rank at ``coords`` (default: every coordinate 0,
+    the device whose program the reference reports). Its axes are
+    `MetaAxis` objects, so the collectives over them move nothing and are
+    recorded (`Record`); its ``device`` is ``meta``. Building one is not
+    collective and needs no ``torch.distributed``: it can stand for one
+    rank of a 256- or 512-rank mesh on any machine."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 coords: Optional[Sequence[int]] = None):
+        shape = tuple(int(s) for s in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names) or len(set(axis_names)) != \
+                len(axis_names):
+            raise ValueError(f"mesh shape {shape} and axis names "
+                             f"{axis_names} must pair up, names unique")
+        coords = tuple(int(c) for c in (coords or (0,) * len(shape)))
+        if len(coords) != len(shape) or any(
+                not 0 <= c < n for c, n in zip(coords, shape)):
+            raise ValueError(f"coordinates {coords} outside mesh {shape}")
+        self.axis_names = axis_names
+        self.shape = collections.OrderedDict(zip(axis_names, shape))
+        self.ranks = np.arange(int(np.prod(shape))).reshape(shape)
+        self.coords = coords
+        self.device = torch.device("meta")
+
+    @property
+    def rank(self) -> int:
+        """The global rank this mesh stands for (row-major)."""
+        return int(self.ranks[self.coords])
+
+    def axis(self, name: str) -> MetaAxis:
+        i = self.axis_names.index(name)
+        return MetaAxis(name, None, self.shape[name], index=self.coords[i])
+
+    def joint(self, names: Sequence[str]) -> MetaAxis:
+        """The axes ``names`` together (in mesh order), indexed by the
+        row-major coordinate on them."""
+        names = tuple(n for n in self.axis_names if n in names)
+        if len(names) == 1:
+            return self.axis(names[0])
+        n, index = 1, 0
+        for name in names:
+            size = self.shape[name]
+            index = index * size + self.coords[self.axis_names.index(name)]
+            n *= size
+        return MetaAxis(",".join(names), None, n, index=index)
 
     @property
     def size(self) -> int:

@@ -16,7 +16,10 @@ and the online-softmax state on the SM, and skips k-tiles that the
 causal mask or the window hides entirely; ``PERF.md`` has its time.
 
 ``flash_attention`` takes a CUDA tensor to the kernel, and only a CPU
-tensor to ``flash_attention_plain``; any other device raises. There is
+tensor to ``flash_attention_plain``; a ``meta`` tensor gets outputs of
+the kernel's shapes and types and runs nothing, and any other device
+raises. On ``meta`` and on the CPU the call notes its kernel's work to
+the open count (``repro_torch.count``; `fwd_work`). There is
 no fallback from one kernel to the other or to the plain version: what
 the bf16 kernel does not take (a row that does not start on a 16-byte
 boundary) raises.
@@ -35,6 +38,7 @@ import ctypes
 
 import torch
 
+from repro_torch import count
 from repro_torch.kernels import _build
 from repro_torch.kernels import attention_bwd
 
@@ -96,6 +100,20 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, q_offset=0,
     lse = torch.where(masked, torch.full((), float("-inf"), device=dev),
                       m + torch.log(l))
     return out, lse.reshape(B, H, S)
+
+
+def fwd_work(q, k, with_lse=False):
+    """``(flops, bytes)`` of one forward call: FLOPs as
+    ``torch.utils.flop_counter`` counts ``ref.attention`` (the reference's
+    accounting traces the plain reference, so masked scores count: 2 x
+    ``B H S T D`` for the scores and again for the values), bytes as q, k,
+    v read once and the output (and ``lse``) written once."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if with_lse:
+        nbytes += 4 * B * H * S
+    return 4 * B * H * S * T * D, nbytes
 
 
 def _check(q, k, v):
@@ -178,12 +196,14 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, q_offset=0,
     global launches
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        res = flash_attention_plain(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset, scale=scale,
-                                    return_lse=with_lse)
+        with count.kernel("flash_attention", *fwd_work(q, k, with_lse), 1):
+            res = flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset,
+                                        scale=scale, return_lse=with_lse)
         return res if with_lse else (res, None)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu (or meta), "
+                         f"not {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     _check(q, k, v)
@@ -192,6 +212,9 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, q_offset=0,
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    if q.device.type == "meta":
+        count.note("flash_attention", *fwd_work(q, k, with_lse), 1)
+        return out, lse
     if out.numel() == 0:
         return out, lse
     fn = _kernel()

@@ -38,7 +38,9 @@ is that algebra, ``flash_attention_bwd_plain`` the fp32-P one (the SIMT
 kernels').
 
 ``flash_attention_bwd`` takes CUDA tensors to the kernels and only CPU
-tensors to ``flash_attention_bwd_plain``; any other device raises, and
+tensors to ``flash_attention_bwd_plain``; ``meta`` tensors get the
+kernels' outputs and scratch and run nothing (both note `bwd_work` to
+the open count, ``repro_torch.count``); any other device raises, and
 there is no fallback from a kernel to another or to a plain version.
 Later work: ``wgmma`` with TMA, dQ in the dk/dv kernel, persistent
 blocks.
@@ -49,6 +51,7 @@ import ctypes
 
 import torch
 
+from repro_torch import count
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_mask
 
@@ -172,6 +175,19 @@ def _rows(t, aligned):
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def bwd_work(q, k):
+    """``(flops, bytes)`` of one backward call: FLOPs as
+    ``torch.utils.flop_counter`` counts autograd's backward of
+    ``ref.attention`` with every input requiring a gradient (each of the
+    forward's two products transposed twice: 8 x ``B H S T D``), bytes as
+    q, k, v, o, dout and ``lse`` read once and dq, dk, dv written once."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + 4 * B * H * S
+    return 8 * B * H * S * T * D, nbytes
+
+
 def flash_attention_bwd(q, k, v, o, dout, lse, *, causal=True, window=0,
                         q_offset=0, scale=None, simt=False):
     """Gradients (dq, dk, dv) of flash attention at its output ``o`` and
@@ -184,12 +200,14 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal=True, window=0,
     ``flash_attention_bwd_plain``."""
     global launches
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, dout, lse,
-                                         causal=causal, window=window,
-                                         q_offset=q_offset, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
-                         f"{q.device}")
+        with count.kernel("flash_attention_bwd", *bwd_work(q, k),
+                          LAUNCHES_PER_CALL):
+            return flash_attention_bwd_plain(q, k, v, o, dout, lse,
+                                             causal=causal, window=window,
+                                             q_offset=q_offset, scale=scale)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu (or "
+                         f"meta), not {q.device}")
     _check(q, k, v, o, dout, lse)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -210,6 +228,10 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal=True, window=0,
     n_arr = B * KV * -(-T // BLOCK_KEYS) if n_part else 0
     scratch = torch.empty(n_delta + 2 * n_part + n_arr, dtype=torch.float32,
                           device=q.device)
+    if q.device.type == "meta":     # the outputs and the scratch, no launch
+        count.note("flash_attention_bwd", *bwd_work(q, k),
+                   LAUNCHES_PER_CALL)
+        return dq, dk, dv
     base = scratch.data_ptr()
     parts = (base + 4 * n_delta, base + 4 * (n_delta + n_part),
              base + 4 * (n_delta + 2 * n_part)) if n_part else (None,) * 3

@@ -16,7 +16,9 @@ With ``out=acc`` it combines in place, so a caller that owns the
 accumulator's buffer (the ring, the step programs) needs no copy back.
 
 ``segment_combine`` takes a CUDA tensor to the kernel, and only a CPU
-tensor to ``segment_combine_plain``; any other device raises. There is no
+tensor to ``segment_combine_plain``; a ``meta`` tensor gets the kernel's
+output and runs nothing (both note `work` to the open count,
+``repro_torch.count``); any other device raises. There is no
 fallback from the kernel to the plain version. The kernel takes
 contiguous inputs: the port's algorithms slice whole rows, so their
 segments are contiguous, and a strided input raises rather than being
@@ -28,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch import count
 from repro_torch.kernels import _build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +48,14 @@ def segment_combine_plain(acc: torch.Tensor, part: torch.Tensor,
     return ref.segment_combine(acc, part, op)
 
 
+def work(acc):
+    """``(flops, bytes)`` of one call: no FLOPs as
+    ``torch.utils.flop_counter`` counts (it counts products, not
+    elementwise adds), ``acc`` and ``part`` read once and the output
+    written once."""
+    return 0, 3 * acc.numel() * acc.element_size()
+
+
 def _check(acc, part, op):
     if op not in _OPS:
         raise ValueError(f"unknown op {op!r}; have {sorted(_OPS)}")
@@ -56,7 +67,8 @@ def _check(acc, part, op):
 
 def _overlap(a, b):
     """Whether the byte ranges of two tensors on one device overlap."""
-    if a.device != b.device or a.numel() == 0 or b.numel() == 0:
+    if a.device != b.device or a.numel() == 0 or b.numel() == 0 \
+            or a.device.type == "meta":         # no addresses on meta
         return False
 
     def span(t):
@@ -94,11 +106,13 @@ def segment_combine(acc: torch.Tensor, part: torch.Tensor,
     result is written there and ``out`` returned."""
     global launches
     if acc.device.type == "cpu" and part.device.type == "cpu":
-        if out is None:
-            return segment_combine_plain(acc, part, op)
-        _check_out(acc, part, out)
-        return out.copy_(segment_combine_plain(acc, part, op))
-    if acc.device.type != "cuda" or part.device != acc.device:
+        with count.kernel("segment_combine", *work(acc), 1):
+            if out is None:
+                return segment_combine_plain(acc, part, op)
+            _check_out(acc, part, out)
+            return out.copy_(segment_combine_plain(acc, part, op))
+    if acc.device.type not in ("cuda", "meta") or \
+            part.device != acc.device:
         raise ValueError(f"segment_combine runs on cuda or cpu, both "
                          f"inputs on one device, not {acc.device} and "
                          f"{part.device}")
@@ -113,6 +127,9 @@ def segment_combine(acc: torch.Tensor, part: torch.Tensor,
     else:
         _check_out(acc, part, out)
     n = acc.numel()
+    if acc.device.type == "meta":
+        count.note("segment_combine", *work(acc), 1)
+        return out
     if n == 0:
         return out
     stream = torch.cuda.current_stream(acc.device).cuda_stream

@@ -21,7 +21,9 @@ fp32 engine at 5e-5 of the plain version). ``last_kernel()`` names the
 one that ran; ``PERF.md`` has their times.
 
 ``ssd_chunk`` takes a CUDA tensor to the kernel, and only a CPU tensor to
-``ssd_chunked_plain``; any other device raises. There is no fallback from
+``ssd_chunked_plain``; a ``meta`` tensor gets the kernel's outputs and
+runs nothing (both note `fwd_work` to the open count,
+``repro_torch.count``); any other device raises. There is no fallback from
 the kernel to the plain version.
 
 Training: when an input requires a gradient, ``ssd_chunked`` runs the
@@ -38,6 +40,7 @@ import ctypes
 
 import torch
 
+from repro_torch import count
 from repro_torch.kernels import _build
 from repro_torch.kernels import ssd_scan_bwd
 
@@ -83,6 +86,22 @@ def ssd_chunked_plain(x, dt, A, Bm, Cm, *, chunk: int):
     return y.contiguous(), states, cum.contiguous()
 
 
+def fwd_work(x, dt, Bm, chunk: int):
+    """``(flops, bytes)`` of one within-chunk pass: FLOPs as
+    ``torch.utils.flop_counter`` counts `ssd_chunked_plain` (C B^T once a
+    chunk, then the scores x x and the state products of every head),
+    bytes as x, dt, A, B and C read once and the three fp32 outputs
+    written once."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    flops = 2 * Bsz * nc * chunk * (chunk * N + H * chunk * P + H * N * P)
+    nbytes = x.numel() * x.element_size() + 4 * dt.numel() + 4 * H \
+        + 2 * Bm.numel() * Bm.element_size() \
+        + 4 * Bsz * H * nc * (chunk * P + N * P + chunk)
+    return flops, nbytes
+
+
 def _check_chunk(S: int, chunk: int) -> None:
     if chunk < 1 or S % chunk:
         raise ValueError(f"seq {S} not divisible by chunk {chunk}")
@@ -120,9 +139,12 @@ def ssd_chunk(x, dt, A, Bm, Cm, *, chunk: int):
     kernel; CPU tensors run ``ssd_chunked_plain``."""
     global launches
     if x.device.type == "cpu":
-        return ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
+        _check_chunk(x.shape[1], chunk)
+        with count.kernel("ssd_chunk", *fwd_work(x, dt, Bm, chunk), 1):
+            return ssd_chunked_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd runs on cuda or cpu (or meta), not "
+                         f"{x.device}")
     if any(t.device != x.device for t in (dt, A, Bm, Cm)):
         raise ValueError("x, dt, A, B and C must be on one device")
     _check(x, dt, A, Bm, Cm, chunk)
@@ -134,6 +156,9 @@ def ssd_chunk(x, dt, A, Bm, Cm, *, chunk: int):
     y = torch.empty((Bsz, H, nc, chunk, P), **kw)
     states = torch.empty((Bsz, H, nc, N, P), **kw)
     cum = torch.empty((Bsz, H, nc, chunk), **kw)
+    if x.device.type == "meta":
+        count.note("ssd_chunk", *fwd_work(x, dt, Bm, chunk), 1)
+        return y, states, cum
     if y.numel() == 0:
         return y, states, cum
     fn = _kernel()

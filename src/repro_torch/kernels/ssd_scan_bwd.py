@@ -47,7 +47,9 @@ chunk)): 1.03 us at the bf16 tensor-core rate, so bound by bytes;
 ``PERF.md`` has the times.
 
 ``ssd_chunk_bwd`` takes CUDA tensors to the kernels and only CPU tensors
-to ``ssd_chunk_bwd_plain``; any other device raises, and there is no
+to ``ssd_chunk_bwd_plain``; ``meta`` tensors get the kernels' outputs
+and scratch and run nothing (both note `bwd_work` to the open count,
+``repro_torch.count``); any other device raises, and there is no
 fallback from the kernels to the plain version.
 ``ssd_chunk_bwd_mma_plain`` is the tensor-core kernel's rounding in plain
 PyTorch (tests and ``chip_smoke.py`` only).
@@ -58,6 +60,7 @@ import ctypes
 
 import torch
 
+from repro_torch import count
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -239,6 +242,24 @@ def _check(x, dt, A, Bm, Cm, cum, dy, dstates, dcum, chunk):
             raise ValueError(f"{name}'s last dim must be contiguous")
 
 
+def bwd_work(x, dt, Bm, chunk: int):
+    """``(flops, bytes)`` of one backward call: FLOPs as
+    ``torch.utils.flop_counter`` counts autograd's backward of
+    ``ssd_scan.ssd_chunked_plain`` with every input requiring a gradient
+    (each forward product transposed twice), bytes as the inputs, ``cum``
+    and the three fp32 cotangents read once and the five gradients
+    written once."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    isz, bsz = x.element_size(), Bm.element_size()
+    flops = 4 * Bsz * nc * chunk * (chunk * N + H * chunk * P + H * N * P)
+    cots = 4 * Bsz * H * nc * (chunk * P + N * P + chunk)
+    nbytes = 2 * (x.numel() * isz + 4 * dt.numel() + 4 * H
+                  + 2 * Bm.numel() * bsz) + 4 * Bsz * H * nc * chunk + cots
+    return flops, nbytes
+
+
 def ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, dy, dstates, dcum, *, chunk: int,
                   simt: bool = False):
     """Gradients (dx, ddt, dA, dB, dC) of ``ssd_scan.ssd_chunk`` at its
@@ -251,11 +272,16 @@ def ssd_chunk_bwd(x, dt, A, Bm, Cm, cum, dy, dstates, dcum, *, chunk: int,
     beside the tensor-core kernel; the training path never passes it).
     CPU tensors run ``ssd_chunk_bwd_plain``."""
     if x.device.type == "cpu":
-        return ssd_chunk_bwd_plain(x, dt, A, Bm, Cm, cum, dy, dstates, dcum,
-                                   chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk_bwd runs on cuda or cpu, not "
-                         f"{x.device}")
+        launched = LAUNCHES_PER_CALL.get(
+            torch.float32 if simt else x.dtype,
+            LAUNCHES_PER_CALL[torch.float32])
+        with count.kernel("ssd_chunk_bwd", *bwd_work(x, dt, Bm, chunk),
+                          launched):
+            return ssd_chunk_bwd_plain(x, dt, A, Bm, Cm, cum, dy, dstates,
+                                       dcum, chunk=chunk)
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_chunk_bwd runs on cuda or cpu (or meta), "
+                         f"not {x.device}")
     _check(x, dt, A, Bm, Cm, cum, dy, dstates, dcum, chunk)
     if x.dtype == torch.bfloat16 and not simt:
         check_mma_rows(x, Bm, Cm)
@@ -305,6 +331,10 @@ def _bwd_mma(x, dt, A, Bm, Cm, cum, dy, dstates, dcum, chunk,
     n_part = 2 * Bsz * (H // G) * S * N if H > G else 0
     n_dA = H * Bsz * nc if Bsz * nc > 1 else 0
     scratch = torch.empty(n_part + n_dA, **f32) if n_part + n_dA else None
+    if x.device.type == "meta":     # the outputs and the scratch, no launch
+        count.note("ssd_chunk_bwd", *bwd_work(x, dt, Bm, chunk),
+                   LAUNCHES_PER_CALL[torch.bfloat16])
+        return dx, ddt, dA.to(A.dtype), dB, dC
     base = scratch.data_ptr() if scratch is not None else 0
     stream = torch.cuda.current_stream(x.device)
     cnt = _counters(Bsz * nc * G + H, stream)
@@ -349,6 +379,11 @@ def _bwd_simt(x, dt, A, Bm, Cm, cum, dy, dstates, dcum, chunk):
     # fp32 scratch: the per-head dB and dC partials (B, H, S, N) each and
     # the per-(batch, head, chunk) dA partials
     scratch = torch.empty(2 * Bsz * H * S * N + Bsz * H * nc, **kw)
+    if x.device.type == "meta":     # the outputs and the scratch, no launch
+        count.note("ssd_chunk_bwd", *bwd_work(x, dt, Bm, chunk),
+                   LAUNCHES_PER_CALL[torch.float32])
+        return (dx.to(x.dtype), ddt, dA.to(A.dtype), dB.to(Bm.dtype),
+                dC.to(Cm.dtype))
     fn = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), dt.data_ptr(), A32.data_ptr(), Bm.data_ptr(),

@@ -1,6 +1,7 @@
-"""The training step (port of ``build_train_step`` in
-``repro/launch/steps.py``), run inside every rank of a data-parallel
-group.
+"""The step builders (port of ``repro/launch/steps.py``): the training
+step, run inside every rank of a data-parallel group, and the prefill
+and decode steps of the compile-free accounting (``launch/dryrun.py``),
+with ``serve_plan`` and ``build_step``, the one entry over the three.
 
 The reference builds one jitted program over a mesh: the untuned
 (``"xla"``) path lets XLA all-reduce the gradients of a batch sharded
@@ -155,7 +156,7 @@ from repro_torch.configs.base import (
 from repro_torch.core.collectives import group as grp
 from repro_torch.models import layers as L
 from repro_torch.models import moe
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, train_batch_shapes
 from repro_torch.optim import AdamW, cosine_with_warmup
 from repro_torch.parallel import sharding as sh
 
@@ -179,7 +180,10 @@ class TrainStep:
     ``init(gen)`` draws the params this rank holds: all of them, or its
     `sharding.shard` of the full draw (its experts with ``ep_axis``, its
     tensor-parallel slices with ``tp_axis``, each cut to its FSDP shard
-    with ``fsdp``; the full draw is freed before it returns)."""
+    with ``fsdp``; the full draw is freed before it returns; on ``meta``,
+    ``init(None)`` makes the same tree with no storage).
+    ``example_args(gen)``: ``(params, opt_state, batch)`` of this rank, the
+    batch its rows of zeros (on ``meta``: the reference's stand-ins)."""
 
     fn: Callable
     grad: Callable
@@ -191,8 +195,9 @@ class TrainStep:
     ep_axis: Optional[str] = None
     tp_axis: Optional[str] = None
     fsdp: bool = False
+    shape: Optional[ShapeConfig] = None
 
-    def init(self, gen: torch.Generator):
+    def init(self, gen: Optional[torch.Generator]):
         return sh.shard(self.api.init(gen), self.mesh, self.api.cfg,
                         self.fsdp)
 
@@ -212,6 +217,25 @@ class TrainStep:
         over the data axes, then slices over the model axis), on every
         rank (collective over them); the tree itself otherwise."""
         return sh.gather(tree, self.mesh, self.api.cfg, self.fsdp)
+
+    def example_args(self, gen: Optional[torch.Generator] = None) -> tuple:
+        params = self.init(gen)
+        return (params, self.opt.init(params),
+                batch_args(self.api.cfg, self.shape, self.rows,
+                           self.api.device))
+
+
+def batch_args(cfg: ModelConfig, shape: ShapeConfig, rows: slice, device,
+               labels: bool = True) -> dict:
+    """This rank's rows of a global batch of ``shape`` as zeros (on
+    ``meta``, shapes and types alone): tokens and labels, with the
+    enc-dec family's frames and the VLM's patches
+    (``registry.train_batch_shapes``)."""
+    n = rows.stop - rows.start
+    return {name: torch.zeros((n,) + tuple(shp[1:]), dtype=dt,
+                              device=device)
+            for name, (shp, dt) in train_batch_shapes(cfg, shape).items()
+            if labels or name != "labels"}
 
 
 def ep_correct(grads, mesh, ep_axis: str = "model"):
@@ -631,5 +655,224 @@ def build_train_step(
 
     step = TrainStep(fn=fn, grad=grad_fn, api=api, opt=opt, tuned=tuned,
                      rows=rows, mesh=mesh, ep_axis=ep_axis, tp_axis=tp_axis,
-                     fsdp=fsdp)
+                     fsdp=fsdp, shape=shape)
     return step
+
+
+# ---------------------------------------------------------------------------
+# serving steps: the prefill and decode steps the dry-run accounts
+# ---------------------------------------------------------------------------
+LONG_CONTEXT_WINDOW = 8192
+
+
+@dataclasses.dataclass
+class ServePlan:
+    run: bool
+    cache_len: int = 0
+    window: int = 0
+    reason: str = ""
+
+
+def serve_plan(cfg: ModelConfig, shape: ShapeConfig) -> ServePlan:
+    """The reference's decode policy (``repro/launch/steps.serve_plan``)."""
+    S = shape.seq_len
+    if cfg.family == "ssm":
+        return ServePlan(run=True, cache_len=0, window=0)
+    if cfg.family == "encdec":
+        if S > 32_768:
+            return ServePlan(run=False, reason=(
+                "whisper decoder is architecturally capped; 500k windowed "
+                "decoder self-attention exercises nothing real (DESIGN §4)"))
+        return ServePlan(run=True, cache_len=S, window=0)
+    if S > 32_768:
+        # sub-quadratic requirement: sliding window for attention caches
+        return ServePlan(run=True, cache_len=LONG_CONTEXT_WINDOW,
+                         window=LONG_CONTEXT_WINDOW)
+    return ServePlan(run=True, cache_len=S, window=0)
+
+
+@dataclasses.dataclass
+class ServeStep:
+    """A prefill or decode step of this rank: ``fn(*example_args())``.
+    Prefill: ``fn(params, batch) -> logits`` of the last position (this
+    rank's vocab block on a ``model`` axis that splits the vocab, as the
+    reference's output stays sharded); decode: ``fn(params, cache,
+    tokens) -> (next tokens (B, 1) int32, cache)``. ``example_args(gen)``
+    draws this rank's held params (``gen`` None on ``meta``) and makes its
+    rows of the inputs: zeros, and for decode the whole cache cut to
+    this rank's block (`sharding.cache_shard`)."""
+
+    kind: str
+    fn: Callable
+    api: Any
+    mesh: Any
+    rows: slice
+    shape: ShapeConfig
+    fsdp: bool = False
+    cache_len: int = 0
+    shard_cache_seq: bool = False
+    #: the keywords the decode step passes the family's ``decode_step``
+    #: (its model and sequence axes)
+    decode_kw: dict = dataclasses.field(default_factory=dict)
+
+    def init(self, gen: Optional[torch.Generator]):
+        return sh.shard(self.api.init(gen), self.mesh, self.api.cfg,
+                        self.fsdp)
+
+    def example_args(self, gen: Optional[torch.Generator] = None) -> tuple:
+        cfg, dev = self.api.cfg, self.api.device
+        params = self.init(gen)
+        if self.kind == "prefill":
+            return params, batch_args(cfg, self.shape, self.rows, dev,
+                                      labels=False)
+        cache = sh.cache_shard(
+            self.api.init_cache(self.shape.global_batch,
+                                max(self.cache_len, 1)),
+            self.mesh, cfg, shard_cache_seq=self.shard_cache_seq)
+        tokens = torch.zeros((self.rows.stop - self.rows.start, 1),
+                             dtype=torch.int32, device=dev)
+        return params, cache, tokens
+
+
+def _serve_model(cfg, mesh, parallel, device, window=0):
+    """The model of a serving step (bf16 params, as the reference's) and
+    the axes its step runs over: ``ep_axis`` for the MoE family on a
+    ``model`` axis above 1, else ``tp`` (that axis), and the FSDP gather
+    point."""
+    dev = torch.device(device)
+    api = build_model(cfg, window=window, param_dtype=torch.bfloat16,
+                      compute_dtype=_DTYPES[parallel.compute_dtype],
+                      device=dev)
+    tp = ep_axis = None
+    if sh.model_size(mesh) > 1:
+        if cfg.family == "moe":
+            ep_axis = "model"
+        else:
+            tp = mesh.axis("model")
+    point = None
+    if parallel.shard_params_over_data:
+        dp = sh.dp_size(mesh)
+        point = L.GatherPoint(sh.data_axis(mesh),
+                              lambda tree: sh.fsdp_dims(tree, cfg, dp), dev)
+    return api, tp, ep_axis, point
+
+
+def _gathered_rest(params, point):
+    """Under FSDP: the params with the rest of the tree (all but the
+    per-layer lists) gathered once, each layer's at its point."""
+    if point is None:
+        return params
+    rest = point({k: v for k, v in params.items() if k not in _LAYER_KEYS})
+    return {**{k: v for k, v in params.items() if k in _LAYER_KEYS}, **rest}
+
+
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
+                       parallel: ParallelConfig, coll: CollectiveConfig,
+                       mesh, *, communicator: Optional[Communicator] = None,
+                       device="cuda") -> ServeStep:
+    """Forward pass producing logits over the prompt (inference-prefill):
+    each family's forward and logits, with the ``model`` axis as training
+    runs it (tensor parallelism, or expert parallelism for the MoE
+    family, whose dispatch all-to-all goes through the Communicator),
+    under FSDP through the gather points; no gradient."""
+    comm = communicator or Communicator.from_config(coll, mesh)
+    api, tp, ep_axis, point = _serve_model(cfg, mesh, parallel, device)
+    cd = _DTYPES[parallel.compute_dtype]
+    from repro_torch.models import encdec, hybrid, moe_model, ssm, vlm
+    from repro_torch.models import transformer as T
+
+    def forward(params, batch):
+        if cfg.family == "encdec":
+            enc = encdec.encode(params, batch["audio"], cfg,
+                                compute_dtype=cd, tp=tp)
+            return encdec.decode_train(params, batch["tokens"], enc, cfg,
+                                       compute_dtype=cd, tp=tp)
+        if cfg.family == "vlm":
+            x = vlm.assemble_embeds(params, batch, cfg, cd, tp=tp)
+            return T.forward(params, x, cfg, compute_dtype=cd, tp=tp)
+        if cfg.family == "moe":
+            x = T.embed_tokens(params, batch["tokens"], cfg, cd)
+            h, _ = moe_model.forward(params, x, cfg, ep_axis=ep_axis,
+                                     mesh=mesh, a2a_algorithm=comm,
+                                     compute_dtype=cd)
+            return h
+        x = T.embed_tokens(params, batch["tokens"], cfg, cd, tp=tp)
+        if cfg.family == "ssm":
+            return ssm.forward(params, x, cfg, compute_dtype=cd)
+        if cfg.family == "hybrid":
+            return hybrid.forward(params, x, cfg, compute_dtype=cd, tp=tp)
+        return T.forward(params, x, cfg, compute_dtype=cd, tp=tp)
+
+    @torch.no_grad()
+    def fn(params, batch):
+        if point is not None:
+            point.reset()
+        p = _gathered_rest(params, point)
+        with L.gather_scope(point):
+            h = forward(p, batch)
+        return T.logits_fn(p, h, cfg, cd, tp, gather=False)[:, -1]
+
+    return ServeStep(kind="prefill", fn=fn, api=api, mesh=mesh,
+                     rows=sh.batch_rows(mesh, shape.global_batch),
+                     shape=shape, fsdp=parallel.shard_params_over_data)
+
+
+def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
+                      parallel: ParallelConfig, coll: CollectiveConfig,
+                      mesh, *, shard_cache_seq: bool = False,
+                      device="cuda") -> ServeStep:
+    """One-token serve step against a ``serve_plan`` cache: the family's
+    ``decode_step`` on this rank's params (`sharding.shard`) and its
+    block of a dense cache (`sharding.cache_shard`), on a ``model`` axis
+    tensor-parallel (its vocab-parallel logits gathered for the argmax)
+    or, for the MoE family, expert-parallel in its training layout (the
+    reference decodes MoE with ``ep_axis=None``; a storage layout: the
+    values are the one-process decode's); then the greedy next token."""
+    del coll
+    plan = serve_plan(cfg, shape)
+    if not plan.run:
+        raise ValueError(plan.reason)
+    api, tp, ep_axis, point = _serve_model(cfg, mesh, parallel, device,
+                                           window=plan.window)
+    model = mesh.axis("model") if sh.model_size(mesh) > 1 else None
+    kw = {}
+    if ep_axis is not None:
+        kw.update(ep_axis=ep_axis, mesh=mesh)
+    elif tp is not None:
+        kw["tp"] = tp
+    if model is not None and shard_cache_seq and cfg.family != "ssm":
+        if plan.cache_len % model.size == 0:
+            kw["seq_axis"] = model
+        if cfg.family == "encdec" and cfg.encoder_seq % model.size == 0:
+            kw["cross_seq_axis"] = model
+
+    @torch.no_grad()
+    def fn(params, cache, tokens):
+        if point is not None:
+            point.reset()
+        p = _gathered_rest(params, point)
+        with L.gather_scope(point):
+            logits, new_cache = api.decode_step(p, cache, tokens, **kw)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return nxt, new_cache
+
+    return ServeStep(kind="decode", fn=fn, api=api, mesh=mesh,
+                     rows=sh.batch_rows(mesh, shape.global_batch),
+                     shape=shape, fsdp=parallel.shard_params_over_data,
+                     cache_len=plan.cache_len,
+                     shard_cache_seq=shard_cache_seq, decode_kw=kw)
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig,
+               parallel: Optional[ParallelConfig] = None,
+               coll: Optional[CollectiveConfig] = None, mesh=None, **kw):
+    """The step of ``shape.kind``: `build_train_step`,
+    `build_prefill_step` or `build_decode_step` (``shard_cache_seq``
+    only for decode); each has ``fn`` and ``example_args``."""
+    parallel = parallel or ParallelConfig()
+    coll = coll or CollectiveConfig()
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, parallel, coll, mesh, **kw)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, parallel, coll, mesh, **kw)
+    return build_decode_step(cfg, shape, parallel, coll, mesh, **kw)

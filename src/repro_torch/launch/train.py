@@ -24,7 +24,11 @@ forward+backward, gradient sync and optimizer seconds (the slowest
 rank's), each rank's peak device memory, the kernel launches of the
 steps summed over the ranks, and whether the replicas' params stayed
 bit-identical after every step (a checksum gathered from every rank;
-a difference raises).
+a difference raises). The result also keeps, for each rank, its params
+(``param_elems_by_rank``), the collectives of its step 0 by kind and
+axis (``step_collectives``, a ``group.Record``) and each step's peak
+device memory with its arguments live (``step_peak_bytes``): what the
+dry-run's trace of the same step predicts (``launch/dryrun.py``).
 
 ``--overlap-backward`` (tuned sync only) syncs each layer's gradients
 on a thread of every rank while autograd computes the layers below
@@ -325,6 +329,8 @@ def _rank_main(opts: dict):
            "tuned": step.tuned, "rows": [step.rows.start, step.rows.stop],
            "leaves": len(pytree.leaves(params)),
            "param_elems": sum(t.numel() for t in pytree.leaves(params)),
+           "param_elems_by_rank": _gather(
+               sum(t.numel() for t in pytree.leaves(params))),
            # collectives a step: the plan's, or one all-reduce a leaf
            # (under FSDP: step 0's gathers, reduce-scatters, all-reduces)
            "plan_entries": len(plan) if step.tuned
@@ -399,13 +405,22 @@ def _rank_main(opts: dict):
     for mod in COUNTERS.values():           # counts: the steps alone
         mod.launches = 0
     replay = {name: 0 for name in COUNTERS}
+    run_peak, step_peaks = 0, []
     t_start = time.time()
     for i in range(args.steps):
         batch = batch_to_tensors(pipe.batch_at(i), device, rows=step.rows)
+        if device.type == "cuda":        # the step's own peak, args live
+            run_peak = max(run_peak, torch.cuda.max_memory_allocated(device))
+            torch.cuda.reset_peak_memory_stats(device)
         t0 = time.time()
-        params, opt_state, metrics = step.fn(
-            params, opt_state, batch,
-            keep_grads=opts["keep_params"] and i == 0)
+        with grp.Record() as record:
+            params, opt_state, metrics = step.fn(
+                params, opt_state, batch,
+                keep_grads=opts["keep_params"] and i == 0)
+        if device.type == "cuda":
+            step_peaks.append(torch.cuda.max_memory_allocated(device))
+        if i == 0:      # every rank's, by kind and axis
+            res["step_collectives"] = _gather(record.by_kind())
         loss = float(metrics["loss"])
         wall = time.time() - t0
         if "grads" in metrics:
@@ -478,8 +493,9 @@ def _rank_main(opts: dict):
     res["replay_launches"] = {k: sum(c[k] for c in _gather(replay))
                               for k in COUNTERS}
     res["peak_mem_bytes"] = _gather(
-        torch.cuda.max_memory_allocated(device)
+        max(run_peak, torch.cuda.max_memory_allocated(device))
         if device.type == "cuda" else 0)
+    res["step_peak_bytes"] = _gather(step_peaks)
     say(f"done: {args.steps} steps in {done:.1f}s")
     if step.fsdp and step.model_axis:
         held = (f"each leaf bit-identical over the ranks that hold the same "

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import group as grp
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -251,30 +252,66 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int, *, audio,
     }
 
 
+def _cross_decode(h, p, xk, xv, cfg, cd, tp, seq_axis):
+    """The cross-attention of one decode step over the held cross KV
+    ``xk``/``xv`` ``(B, T, H or H/tp, Dh)``: split by heads like the
+    query heads, whole (this rank's heads read), or split along the
+    frames over ``seq_axis`` (`layers.seq_split_attention`, every head's
+    query)."""
+    if seq_axis is not None:
+        q = L.split_matmul("bsd,dhk->bshk", h, p["wq"], cd, tp)
+        if tp is not None:
+            q = L.heads_whole(q, tp)
+        valid = torch.ones((1, xk.shape[1]), dtype=torch.bool,
+                           device=xk.device)
+        out = L.seq_split_attention(q, xk, xv, valid, seq_axis,
+                                    cache_rounding=False)
+        if tp is not None:
+            hl = p["wo"].shape[0]
+            out = out[:, :, grp.rank(tp) * hl:(grp.rank(tp) + 1) * hl]
+        return L.split_matmul("bshk,hkd->bsd", out, p["wo"], cd, tp,
+                              reduce=True)
+    if tp is not None and xk.shape[2] == cfg.num_heads:
+        hl = cfg.num_heads // tp.size
+        xk = xk[:, :, grp.rank(tp) * hl:(grp.rank(tp) + 1) * hl]
+        xv = xv[:, :, grp.rank(tp) * hl:(grp.rank(tp) + 1) * hl]
+    return _cross_attn(h, p, {"k": xk, "v": xv}, cd, tp)
+
+
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
-                compute_dtype=torch.bfloat16, attn_impl: str = "auto"):
+                compute_dtype=torch.bfloat16, attn_impl: str = "auto",
+                tp=None, seq_axis=None, cross_seq_axis=None):
     """tokens: (B, 1); returns (logits (B, V), new_cache). The
     self-attention cache is dense or paged and ``length`` a scalar or a
     ``(B,)`` tensor, as in ``transformer.decode_step`` (the token's k/v
     written in place); each row's learned position is ``pos[length %
-    max_positions]``. The cross KV ``xk``/``xv`` pass through unchanged."""
+    max_positions]``. The cross KV ``xk``/``xv`` pass through unchanged.
+    Over ``tp`` (``launch/steps.py``'s decode step) the blocks are
+    tensor-parallel and the embedding and the logits vocab-parallel, on
+    the held cache blocks (`_cross_decode`); ``seq_axis`` as in
+    ``transformer.decode_step``, ``cross_seq_axis`` the axis the cross
+    KV's frames are split over."""
     cd = compute_dtype
     length = torch.as_tensor(cache["length"], device=tokens.device)
     # absolute position of this token: (1,) shared, or (B, 1) per row
     positions = length[None] if length.dim() == 0 else length[:, None]
-    x = _embed(params, tokens, positions, cd)
+    x = _embed(params, tokens, positions, cd,
+               tp=L.split(tp, L.pad_vocab(cfg.vocab_size)))
+    xtp = L.split(tp, cfg.num_heads)
     for i, lp in enumerate(params["decoder"]):
+        lp = L.gathered(lp)
         h = _apply_ln(x, lp["ln1"], cfg.norm_eps)
-        attn, _ = L.attention_block(h, lp["self_attn"], cfg, positions,
-                                    causal=True,
-                                    kv_cache=L.decode_kv(cache, i, length),
-                                    compute_dtype=cd, attn_impl=attn_impl)
+        attn, _ = L.attention_block(
+            h, lp["self_attn"], cfg, positions, causal=True,
+            kv_cache=L.decode_kv(cache, i, length, seq_axis),
+            compute_dtype=cd, attn_impl=attn_impl, tp=tp)
         x = x + attn
         h = _apply_ln(x, lp["ln2"], cfg.norm_eps)
-        x = x + _cross_attn(h, lp["cross_attn"],
-                            {"k": cache["xk"][i], "v": cache["xv"][i]}, cd)
+        x = x + _cross_decode(h, lp["cross_attn"], cache["xk"][i],
+                              cache["xv"][i], cfg, cd, xtp, cross_seq_axis)
         h = _apply_ln(x, lp["ln3"], cfg.norm_eps)
-        x = x + L.mlp_block(h, lp["mlp"], gated=False, compute_dtype=cd)
-    logits = T.logits_fn(params, x, cfg, cd)[:, 0]
+        x = x + L.mlp_block(h, lp["mlp"], gated=False, compute_dtype=cd,
+                            tp=L.split(tp, cfg.d_ff))
+    logits = T.logits_fn(params, x, cfg, cd, tp)[:, 0]
     return logits, {**L.kv_leaves(cache), "xk": cache["xk"],
                     "xv": cache["xv"], "length": length + 1}

@@ -120,27 +120,33 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, *, window=0,
-                compute_dtype=torch.bfloat16, attn_impl="auto"):
+                compute_dtype=torch.bfloat16, attn_impl="auto", tp=None,
+                seq_axis=None):
     """tokens: (B, 1); returns (logits (B, V), new cache). ``length`` is a
     scalar or a ``(B,)`` tensor of per-row lengths. The KV part of the
     cache is dense or paged, as in ``transformer.decode_step``, with its
-    layer axis counting shared-attention applications."""
-    x = T.embed_tokens(params, tokens, cfg, compute_dtype)
+    layer axis counting shared-attention applications. Over ``tp``
+    (``launch/steps.py``'s decode step) the shared block is
+    tensor-parallel, the embedding and the logits vocab-parallel and the
+    mamba layers run as ``ssm.decode_layer`` says; ``seq_axis`` as in
+    ``transformer.decode_step``."""
+    x = T.embed_tokens(params, tokens, cfg, compute_dtype, tp=tp)
     length = torch.as_tensor(cache["length"], device=x.device)
     positions = length[None] if length.dim() == 0 else length[:, None]
     convs, ssds = [], []
     for g, grp in enumerate(_groups(cfg)):
         for i in grp:
-            x, ns = S.mamba_layer(x, params["layers"][i], cfg,
-                                  compute_dtype=compute_dtype,
-                                  state={"conv": cache["ssm"]["conv"][i],
-                                         "ssd": cache["ssm"]["ssd"][i]})
-            convs.append(ns["conv"])
-            ssds.append(ns["ssd"])
+            x, conv, ssd = S.decode_layer(
+                x, params["layers"][i], cfg, cache["ssm"]["conv"][i],
+                cache["ssm"]["ssd"][i], compute_dtype=compute_dtype, tp=tp)
+            convs.append(conv)
+            ssds.append(ssd)
         x, _ = _shared_attn(x, params["shared"], cfg, positions,
-                            window=window, kv=L.decode_kv(cache, g, length),
-                            compute_dtype=compute_dtype, attn_impl=attn_impl)
-    logits = T.logits_fn(params, x, cfg, compute_dtype)[:, 0]
+                            window=window,
+                            kv=L.decode_kv(cache, g, length, seq_axis),
+                            compute_dtype=compute_dtype, attn_impl=attn_impl,
+                            tp=tp)
+    logits = T.logits_fn(params, x, cfg, compute_dtype, tp)[:, 0]
     new_cache = {
         "ssm": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)},
         **L.kv_leaves(cache),

@@ -80,7 +80,15 @@ NEG_INF = -1e30
 def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
                dtype=torch.float32, device="cpu") -> torch.Tensor:
     """N(0, 1/fan_in), the reference's ``dense_init`` distribution (not its
-    numbers: the draws come from ``gen``, on the generator's device)."""
+    numbers: the draws come from ``gen``, on the generator's device).
+    With no generator on the ``meta`` device: the leaf's shape and type
+    alone (``ModelAPI.init_meta``, the reference's ``jax.eval_shape`` of
+    its init)."""
+    if gen is None:
+        if torch.device(device).type != "meta":
+            raise ValueError("dense_init draws from a generator; only a "
+                             "meta leaf takes none")
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = fan_in if fan_in is not None else shape[0]
     x = torch.randn(tuple(shape), generator=gen, device=gen.device)
     return (x * fan_in ** -0.5).to(device=device, dtype=dtype)
@@ -498,22 +506,23 @@ def attention_block(
 
     Either way the token's k/v are written into the cache's tensors IN
     PLACE; the returned dict holds those same tensors and ``length + 1``.
+
+    Decode on a ``model`` axis (``tp``; the reference's decode step over
+    ``cache_specs``' layout): a dense cache split by kv heads holds this
+    rank's heads (``p`` its slices); a replicated one under split query
+    heads (the mixed layout) is written and read at the kv heads its
+    query heads read; a cache with ``"seq_axis"`` holds this rank's
+    slots of every head (`_seq_split_decode`).
     """
     cd = compute_dtype
     tp = split(tp, cfg.num_heads)
+    seq = kv_cache.get("seq_axis") if kv_cache is not None else None
+    if seq is not None:
+        return _seq_split_decode(x, p, cfg, positions, kv_cache, window, cd,
+                                 tp)
     if tp is not None:
         p = local_heads(p, cfg, tp)
-    xc = x.to(cd)
-    q = split_matmul("bsd,dhk->bshk", xc, p["wq"], cd, tp)
-    k = split_matmul("bsd,dhk->bshk", xc, p["wk"], cd, tp)
-    v = split_matmul("bsd,dhk->bshk", xc, p["wv"], cd, tp)
-    if "bq" in p:
-        q = q + p["bq"].to(cd)
-        k = k + p["bk"].to(cd)
-        v = v + p["bv"].to(cd)
-    if not cfg.learned_pos and cfg.num_heads:
-        q = apply_rope(q, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
-        k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
+    q, k, v = _qkv(x.to(cd), p, cfg, positions, cd, tp, tp)
 
     new_kv = None
     if kv_cache is not None and x.shape[1] != 1:
@@ -529,14 +538,28 @@ def attention_block(
         ck, cv = kv_cache["k"], kv_cache["v"]
         B, T = ck.shape[0], ck.shape[1]
         length = torch.as_tensor(kv_cache["length"], device=ck.device)
-        slot = length % T
+        # a (B,) index: a 0-d one would be read back to the host (and a
+        # meta tensor has no value)
+        slot = torch.broadcast_to(length % T, (B,))
         rows = torch.arange(B, device=ck.device)
-        ck[rows, slot] = k[:, 0].to(ck.dtype)
-        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        ck_r, cv_r = ck, cv
+        if ck.shape[2] == k.shape[2]:       # the whole cache or its block
+            ck[rows, slot] = k[:, 0].to(ck.dtype)
+            cv[rows, slot] = v[:, 0].to(cv.dtype)
+        else:
+            # a replicated cache under split query heads (the mixed
+            # layout): this rank writes and reads the kv heads its query
+            # heads read (`local_heads`)
+            kvi = _kv_index(cfg, q.shape[2], grp.rank(tp))
+            heads = torch.arange(ck.shape[2], device=ck.device)[kvi]
+            ck[rows[:, None], slot[:, None], heads] = k[:, 0].to(ck.dtype)
+            cv[rows[:, None], slot[:, None], heads] = v[:, 0].to(cv.dtype)
+            ck_r, cv_r = ck[:, :, kvi], cv[:, :, kvi]
         new_len = length + 1
         new_kv = {"k": ck, "v": cv, "length": new_len}
         slot_pos = ring_slot_positions(new_len, T)
-        out = cache_attention(q, ck, cv, positions, slot_pos, window=window)
+        out = cache_attention(q, ck_r, cv_r, positions, slot_pos,
+                              window=window)
     else:
         out = ops.attention(q, k, v, causal=causal, window=window,
                             impl=attn_impl)
@@ -544,6 +567,119 @@ def attention_block(
             new_kv = {"k": k, "v": v}
     out = split_matmul("bshk,hkd->bsd", out, p["wo"], cd, tp, reduce=True)
     return out.to(x.dtype), new_kv
+
+
+def _qkv(xc, p, cfg, positions, cd, tp, tp_kv):
+    """The block's query, key and value products (the queries over
+    ``tp`` column-parallel, the keys and values over ``tp_kv``), biases
+    and rotary embeddings."""
+    q = split_matmul("bsd,dhk->bshk", xc, p["wq"], cd, tp)
+    k = split_matmul("bsd,dhk->bshk", xc, p["wk"], cd, tp_kv)
+    v = split_matmul("bsd,dhk->bshk", xc, p["wv"], cd, tp_kv)
+    if "bq" in p:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    if not cfg.learned_pos and cfg.num_heads:
+        q = apply_rope(q, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def heads_whole(t: torch.Tensor, axis) -> torch.Tensor:
+    """(B, S, h, D) blocks of heads split over ``axis`` -> (B, S, H, D),
+    in axis order."""
+    return grp.all_gather(t.movedim(2, 0).contiguous(), axis).movedim(0, 2)
+
+
+def take_heads(p: Params, cfg: ModelConfig, axis) -> Params:
+    """Whole attention leaves cut to this rank's heads over ``axis`` (its
+    block of the query and of the kv heads; both must divide): the
+    tensor-parallel slices of ``sharding.tp_shard``, for a block whose
+    params are whole on every rank (the MoE family's decode over a cache
+    split by kv heads)."""
+    m, n = grp.rank(axis), axis.size
+    out = dict(p)
+    for name, dim in (("wq", 1), ("wk", 1), ("wv", 1), ("bq", 0),
+                      ("bk", 0), ("bv", 0), ("wo", 0)):
+        if name in p:
+            c = p[name].shape[dim] // n
+            out[name] = p[name].narrow(dim, m * c, c)
+    return out
+
+
+def seq_split_attention(q, k, v, valid, axis, cache_rounding=True):
+    """Attention of ``q`` (B, S, H, Dh), every head, over keys split along
+    their positions over ``axis`` (flash-decode style): this rank holds
+    ``k``/``v`` (B, Tl, KV, Dh) and ``valid`` (B or 1, Tl), whether each
+    of its slots is seen. Each rank's partial softmax is combined over
+    the axis (the row max, the sum of exponentials and the weighted
+    values; fp32), as ``cache_attention`` scales and rounds (the scaled
+    query and the probabilities in the cache's dtype), or, without
+    ``cache_rounding``, as ``ref.attention`` does (fp32 throughout). A
+    row that sees no key on any rank is not taken."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    qr = (q.float() * (Dh ** -0.5)) if not cache_rounding \
+        else q * (Dh ** -0.5)
+    qr = qr.reshape(B, S, KV, g, Dh)
+    if cache_rounding:
+        qr = qr.to(k.dtype)
+    s = torch.einsum("bskgd,btkd->bkgst", qr.float(), k.float())
+    s = torch.where(valid[:, None, None, None, :], s,
+                    torch.full((), NEG_INF, device=s.device))
+    m = grp.pmax(s.amax(-1, keepdim=True), axis)
+    e = torch.exp(s - m)
+    den = grp.psum(e.sum(-1), axis)                      # (B, KV, g, S)
+    if cache_rounding:
+        e = e.to(v.dtype)
+    num = grp.psum(torch.einsum("bkgst,btkd->bskgd", e.float(), v.float()),
+                   axis)
+    out = num / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def _seq_split_decode(x, p, cfg, positions, kv_cache, window, cd, tp):
+    """One decode step over a dense cache whose slots are split over the
+    axis ``kv_cache["seq_axis"]`` (``cache_specs(shard_cache_seq=True)``):
+    every head's query, key and value (gathered over ``tp`` where the
+    params split them), the token written by the rank that holds its
+    slot, `seq_split_attention`, and this rank's heads of the result
+    through the row-parallel output projection."""
+    seq = kv_cache["seq_axis"]
+    tp_kv = tp if tp is not None and cfg.num_kv_heads % tp.size == 0 \
+        else None
+    q, k, v = _qkv(x.to(cd), p, cfg, positions, cd, tp, tp_kv)
+    if tp is not None:
+        q = heads_whole(q, tp)
+    if tp_kv is not None:
+        k, v = heads_whole(k, tp_kv), heads_whole(v, tp_kv)
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    B, Tl = ck.shape[0], ck.shape[1]
+    T, m = Tl * seq.size, grp.rank(seq)
+    length = torch.as_tensor(kv_cache["length"], device=ck.device)
+    slot = length % T
+    own = (slot // Tl == m)[..., None, None]
+    rows = torch.arange(B, device=ck.device)
+    local = torch.broadcast_to(slot % Tl, (B,))
+    ck[rows, local] = torch.where(own, k[:, 0].to(ck.dtype), ck[rows, local])
+    cv[rows, local] = torch.where(own, v[:, 0].to(cv.dtype), cv[rows, local])
+    new_len = length + 1
+    slot_pos = ring_slot_positions(new_len, T)[..., m * Tl:(m + 1) * Tl]
+    q_last = positions[..., 0]
+    valid = (slot_pos >= 0) & (slot_pos <= q_last[..., None])
+    if window > 0:
+        valid &= slot_pos > q_last[..., None] - window
+    if valid.dim() == 1:
+        valid = valid[None]
+    out = seq_split_attention(q, ck, cv, valid, seq)
+    if tp is not None:
+        hl = p["wo"].shape[0]
+        out = out[:, :, grp.rank(tp) * hl:(grp.rank(tp) + 1) * hl]
+    out = split_matmul("bshk,hkd->bsd", out, p["wo"], cd, tp, reduce=True)
+    return out.to(x.dtype), {"k": ck, "v": cv, "length": new_len,
+                             "seq_axis": seq}
 
 
 def write_paged_token(kv_cache, k, v):
@@ -562,14 +698,18 @@ def write_paged_token(kv_cache, k, v):
             "length": length + 1}
 
 
-def decode_kv(cache, i: int, length):
+def decode_kv(cache, i: int, length, seq_axis=None):
     """Layer ``i``'s decode cache, dense or paged, from a family cache
     whose KV leaves are stacked on a leading layer axis (``k``/``v`` or
-    ``k_pool``/``v_pool``; the block tables are shared by the layers)."""
+    ``k_pool``/``v_pool``; the block tables are shared by the layers).
+    ``seq_axis``: the axis a dense cache's slots are split over."""
     if "block_tables" in cache:
         return {"k_pool": cache["k_pool"][i], "v_pool": cache["v_pool"][i],
                 "block_tables": cache["block_tables"], "length": length}
-    return {"k": cache["k"][i], "v": cache["v"][i], "length": length}
+    kv = {"k": cache["k"][i], "v": cache["v"][i], "length": length}
+    if seq_axis is not None:
+        kv["seq_axis"] = seq_axis
+    return kv
 
 
 def kv_leaves(cache):
@@ -632,14 +772,27 @@ def embed_params(gen, cfg: ModelConfig, dtype=torch.float32,
 
 
 def unembed(x: torch.Tensor, p: Params, cfg: ModelConfig,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, tp=None,
+            gather: bool = True) -> torch.Tensor:
+    """Final norm and logits, padded vocab columns at -1e30. Over ``tp``
+    (``p["out"]`` this rank's vocab columns, where the axis divides the
+    padded vocab) each rank computes its columns; ``gather`` puts them
+    together over the axis (the argmax of a decode step reads them all),
+    else this rank's block is returned."""
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    tp = split(tp, pad_vocab(cfg.vocab_size))
     logits = torch.einsum("bsd,dv->bsv", x.to(compute_dtype),
                           p["out"].to(compute_dtype))
+    lo = 0
+    if tp is not None and gather:
+        logits = grp.all_gather(logits.movedim(-1, 0).contiguous(),
+                                tp).movedim(0, -1)
+    elif tp is not None:
+        lo = grp.rank(tp) * logits.shape[-1]
     # mask padded vocab columns so softmax/argmax never pick them
-    V = cfg.vocab_size
-    if logits.shape[-1] != V:
-        logits[..., V:] = NEG_INF
+    V = cfg.vocab_size - lo
+    if logits.shape[-1] > V:
+        logits[..., max(V, 0):] = NEG_INF
     return logits
 
 

@@ -287,13 +287,17 @@ def pmean(x: torch.Tensor, axis) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
               ep_axis: Optional[str] = None, mesh=None, a2a_algorithm="xla",
-              compute_dtype=torch.bfloat16, per_row: bool = False):
+              compute_dtype=torch.bfloat16, per_row: bool = False,
+              replicated: bool = False):
     """x: (B, S, d), this rank's tokens. Returns (out (B, S, d), aux
     dict). ``per_row`` routes each row as its own group (its own expert
     capacity); the aux losses are over all tokens either way. With
     ``ep_axis`` (a ``mesh`` axis), ``p``'s expert weights are this
     rank's ``E/tp`` experts and the dispatch crosses the axis through
-    ``a2a_algorithm`` (a name or a `Communicator`)."""
+    ``a2a_algorithm`` (a name or a `Communicator`); with ``replicated``
+    (decode: ``x`` the same on every rank of the axis) each rank runs its
+    experts on their slots of the dispatch and the slots are gathered
+    over the axis, with no exchange (forward only)."""
     if ep_axis is not None and per_row:
         raise ValueError("per-row routing runs without expert parallelism")
     Bq, S, d = x.shape
@@ -311,7 +315,13 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ModelConfig, *,
     dispatched = _Dispatch.apply(xpad, gather_idx, slot_of, k)  # (G,E*C,d)
     dispatched = dispatched.reshape(G, E, C, d).transpose(0, 1)
     dispatched = dispatched.reshape(E, G * C, d)
-    if ep_axis is not None:
+    if ep_axis is not None and replicated:
+        axis, tp = mesh.axis(ep_axis), mesh.shape[ep_axis]
+        el = E // tp
+        mine = dispatched[grp.rank(axis) * el:(grp.rank(axis) + 1) * el]
+        out = grp.all_gather(_expert_ffn(mine, p["w_gate"], p["w_up"],
+                                         p["w_down"], compute_dtype), axis)
+    elif ep_axis is not None:
         axis, tp = mesh.axis(ep_axis), mesh.shape[ep_axis]
         if E % tp:
             raise ValueError(f"{E} experts not divisible by axis {tp}")

@@ -63,10 +63,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def _moe_apply(h, mp, cfg, *, ep_axis, mesh, compute_dtype,
-               a2a_algorithm="xla", per_row=False):
+               a2a_algorithm="xla", per_row=False, replicated=False):
     if ep_axis is None:
         return moe_block(h, mp, cfg, compute_dtype=compute_dtype,
                          per_row=per_row)
+    if replicated:          # decode: every rank routes every token
+        return moe_block(h, mp, cfg, ep_axis=ep_axis, mesh=mesh,
+                         compute_dtype=compute_dtype, replicated=True)
     # the reference's ep_manual form: h is replicated over the axis;
     # this rank runs the expert block on its sequence chunk and local
     # experts, then gathers the sequence back
@@ -85,17 +88,20 @@ def _moe_apply(h, mp, cfg, *, ep_axis, mesh, compute_dtype,
 
 def _layer(x, lp, cfg, positions, *, window, kv, compute_dtype, attn_impl,
            ep_axis=None, mesh=None, a2a_algorithm="xla", return_kv=False,
-           per_row=False):
+           per_row=False, heads_axis=None, replicated=False):
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    ap = lp["attn"] if heads_axis is None \
+        else L.take_heads(lp["attn"], cfg, heads_axis)
     attn, new_kv = L.attention_block(
-        h, lp["attn"], cfg, positions, causal=True, window=window,
+        h, ap, cfg, positions, causal=True, window=window,
         kv_cache=kv, return_kv=return_kv, compute_dtype=compute_dtype,
-        attn_impl=attn_impl)
+        attn_impl=attn_impl, tp=heads_axis)
     x = x + attn
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     y, aux = _moe_apply(h, lp["moe"], cfg, ep_axis=ep_axis, mesh=mesh,
                         compute_dtype=compute_dtype,
-                        a2a_algorithm=a2a_algorithm, per_row=per_row)
+                        a2a_algorithm=a2a_algorithm, per_row=per_row,
+                        replicated=replicated)
     return x + y, new_kv, aux
 
 
@@ -144,20 +150,34 @@ init_cache = T.init_cache
 
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, *, window=0,
-                compute_dtype=torch.bfloat16, attn_impl="auto"):
+                compute_dtype=torch.bfloat16, attn_impl="auto",
+                ep_axis: Optional[str] = None, mesh=None, seq_axis=None):
     """tokens: (B, 1); returns (logits (B, V), new cache). The cache is
     dense or paged, with a scalar or ``(B,)`` length, as in
     ``transformer.decode_step``; a paged cache routes each row as its own
-    group."""
+    group.
+
+    With ``ep_axis`` (the decode step of ``launch/steps.py`` on a
+    ``model`` axis) the params hold this rank's experts, as in training,
+    and every rank routes every token of its rows: each runs its experts
+    on their slots and the slots are gathered over the axis. A cache
+    split by kv heads (``cache_specs``) runs the attention on this
+    rank's heads of the whole params, summed over the axis;
+    ``seq_axis``: the axis a cache's slots are split over."""
     x = T.embed_tokens(params, tokens, cfg, compute_dtype)
     length = torch.as_tensor(cache["length"], device=x.device)
     positions = length[None] if length.dim() == 0 else length[:, None]
     per_row = "block_tables" in cache
+    heads_axis = None
+    if ep_axis is not None and not per_row and \
+            cache["k"].shape[3] != cfg.num_kv_heads:
+        heads_axis = mesh.axis(ep_axis)
     for i, lp in enumerate(params["layers"]):
-        x, _, _ = _layer(x, lp, cfg, positions, window=window,
-                         kv=L.decode_kv(cache, i, length),
+        x, _, _ = _layer(x, L.gathered(lp), cfg, positions, window=window,
+                         kv=L.decode_kv(cache, i, length, seq_axis),
                          compute_dtype=compute_dtype, attn_impl=attn_impl,
-                         per_row=per_row)
+                         per_row=per_row, ep_axis=ep_axis, mesh=mesh,
+                         heads_axis=heads_axis, replicated=True)
     logits = T.logits_fn(params, x, cfg, compute_dtype)[:, 0]
     return logits, {**L.kv_leaves(cache), "length": length + 1}
 

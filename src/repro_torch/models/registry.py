@@ -35,15 +35,26 @@ class ModelAPI:
     prefill: Callable[..., tuple]
     loss: Callable[..., tuple] = None                  # (params, batch)
 
+    def init_meta(self):
+        """The tree ``init`` draws, leaf for leaf, as ``meta`` tensors of
+        the same shapes and types (no generator, no storage; a model
+        built on ``device="meta"``)."""
+        if self.device.type != "meta":
+            raise ValueError(f"init_meta needs a model built on meta, not "
+                             f"{self.device}")
+        return self.init(None)
+
 
 def resolve_device(device) -> torch.device:
-    """``cuda`` (the default everywhere) or ``cpu``; asking for cuda on a
-    machine without a GPU raises instead of running on the CPU."""
+    """``cuda`` (the default everywhere), ``cpu``, or ``meta`` (shapes and
+    types, no storage: the compile-free accounting of
+    ``launch/dryrun.py``); asking for cuda on a machine without a GPU
+    raises instead of running on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
 

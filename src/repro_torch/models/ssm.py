@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.collectives import group as grp
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -233,18 +234,40 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return init_ssm_state(cfg, batch, cfg.num_layers, device=device)
 
 
+def decode_layer(x, lp, cfg: ModelConfig, conv, ssd, *, compute_dtype,
+                 tp=None):
+    """One mamba layer's decode step from its held state; returns
+    ``(x, conv, ssd)``. Over ``tp`` the layer's params are whole on every
+    rank (``param_specs`` splits no SSM leaf over ``model``), and a state
+    split by heads (``cache_specs``: ``ssd`` over ``model`` where the axis
+    divides the heads) is gathered whole for the step, this rank's block
+    of the new state kept."""
+    split = tp is not None and ssd.shape[1] != cfg.ssm_heads
+    if split:
+        ssd = L.heads_whole(ssd.unsqueeze(1), tp).squeeze(1)
+    x, ns = mamba_layer(x, L.gathered(lp), cfg, compute_dtype=compute_dtype,
+                        state={"conv": conv, "ssd": ssd})
+    new = ns["ssd"]
+    if split:
+        h = new.shape[1] // tp.size
+        new = new[:, grp.rank(tp) * h:(grp.rank(tp) + 1) * h].contiguous()
+    return x, ns["conv"], new
+
+
 def decode_step(params, cache, tokens, cfg: ModelConfig, *,
-                compute_dtype=torch.bfloat16):
-    """tokens: (B, 1); returns (logits (B, V), new cache)."""
-    x = T.embed_tokens(params, tokens, cfg, compute_dtype)
+                compute_dtype=torch.bfloat16, tp=None):
+    """tokens: (B, 1); returns (logits (B, V), new cache). Over ``tp``
+    (``launch/steps.py``'s decode step) the embedding and the logits are
+    vocab-parallel and each layer runs as `decode_layer` says."""
+    x = T.embed_tokens(params, tokens, cfg, compute_dtype, tp=tp)
     convs, ssds = [], []
     for i, lp in enumerate(params["layers"]):
-        x, ns = mamba_layer(x, lp, cfg, compute_dtype=compute_dtype,
-                            state={"conv": cache["conv"][i],
-                                   "ssd": cache["ssd"][i]})
-        convs.append(ns["conv"])
-        ssds.append(ns["ssd"])
-    logits = T.logits_fn(params, x, cfg, compute_dtype)[:, 0]
+        x, conv, ssd = decode_layer(x, lp, cfg, cache["conv"][i],
+                                    cache["ssd"][i],
+                                    compute_dtype=compute_dtype, tp=tp)
+        convs.append(conv)
+        ssds.append(ssd)
+    logits = T.logits_fn(params, x, cfg, compute_dtype, tp)[:, 0]
     return logits, {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}
 
 

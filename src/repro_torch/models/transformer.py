@@ -90,8 +90,10 @@ def embed_tokens(params, tokens, cfg: ModelConfig, compute_dtype=torch.bfloat16,
                              L.split(tp, L.pad_vocab(cfg.vocab_size)))
 
 
-def logits_fn(params, hidden, cfg: ModelConfig, compute_dtype=torch.bfloat16):
-    return L.unembed(hidden, params["embed"], cfg, compute_dtype)
+def logits_fn(params, hidden, cfg: ModelConfig, compute_dtype=torch.bfloat16,
+              tp=None, gather: bool = True):
+    """Over ``tp``, vocab-parallel (`layers.unembed`)."""
+    return L.unembed(hidden, params["embed"], cfg, compute_dtype, tp, gather)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, compute_dtype=torch.bfloat16,
@@ -123,7 +125,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
                 window: int = 0, compute_dtype=torch.bfloat16,
-                attn_impl: str = "auto"):
+                attn_impl: str = "auto", tp=None, seq_axis=None):
     """tokens: (B, 1) next token ids; returns (logits (B, V), new_cache).
 
     The cache is dense, ``{k, v, length}`` with ``(L, B, T, KV, Dh)``
@@ -136,16 +138,25 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, *,
     tensors and ``length + 1``. ``attn_impl`` picks the paged form's
     attention (``ops.paged_attention``); the dense form runs
     ``layers.cache_attention``.
+
+    On a ``model`` axis ``tp`` (the decode step of ``launch/steps.py``)
+    the params are this rank's `sharding.tp_shard` slices and the cache
+    its ``cache_shard`` block: the blocks run tensor-parallel, the
+    embedding and the logits vocab-parallel (gathered for the argmax);
+    ``seq_axis`` names the axis a cache's slots are split over
+    (``shard_cache_seq``). Under FSDP each layer's params pass their
+    gather point (``layers.gathered``).
     """
-    x = embed_tokens(params, tokens, cfg, compute_dtype)
+    x = embed_tokens(params, tokens, cfg, compute_dtype, tp=tp)
     length = torch.as_tensor(cache["length"], device=x.device)
     # absolute position of this token: (1,) shared, or (B, 1) per row
     positions = length[None] if length.dim() == 0 else length[:, None]
     for i, lp in enumerate(params["layers"]):
-        x, _ = _layer(x, lp, cfg, positions, window=window,
-                      kv=L.decode_kv(cache, i, length),
-                      compute_dtype=compute_dtype, attn_impl=attn_impl)
-    logits = logits_fn(params, x, cfg, compute_dtype)[:, 0]
+        x, _ = _layer(x, L.gathered(lp), cfg, positions, window=window,
+                      kv=L.decode_kv(cache, i, length, seq_axis),
+                      compute_dtype=compute_dtype, attn_impl=attn_impl,
+                      tp=tp)
+    logits = logits_fn(params, x, cfg, compute_dtype, tp)[:, 0]
     return logits, {**L.kv_leaves(cache), "length": length + 1}
 
 

@@ -1,9 +1,9 @@
 """Data-parallel axes, each rank's rows of the batch, and each rank's
-experts, tensor-parallel slices or FSDP shards (port of
-``repro/parallel/sharding.py`` but ``cache_specs``: ``dp_axes``,
-``dp_size``, ``model_size``, ``batch_specs``, ``ep_param_specs`` as
-`map_ep`, ``param_specs``' ``model`` half as `tp_dim` and its data half
-as `fsdp_dim`).
+experts, tensor-parallel slices, FSDP shards or block of a decode cache
+(port of ``repro/parallel/sharding.py``: ``dp_axes``, ``dp_size``,
+``model_size``, ``batch_specs``, ``ep_param_specs`` as `map_ep`,
+``param_specs``' ``model`` half as `tp_dim` and its data half as
+`fsdp_dim`, and ``cache_specs``).
 
 The reference shards a global batch over the data-parallel mesh axes
 (``P(("pod", "data"), ...)``) and replicates the params; ``shard_map``
@@ -73,8 +73,19 @@ The mesh is always passed in: there is no module-level current mesh
 reference's ``constrain_*`` helpers and its sequence sharding of the
 residual stream are XLA layout hints that change no value beyond the
 order of a reduction, so the port has none: its blocks run their
-collectives explicitly (``models/layers.py``). ``cache_specs`` is not
-ported (ROADMAP.md Queue 1 step 10c).
+collectives explicitly (``models/layers.py``).
+
+Decode caches (the decode step of ``launch/steps.py``): `cache_specs` is
+the reference's rule over the port's caches, which keep the reference's
+stacked layouts (KV ``(L, B, T, KV, Dh)``, the enc-dec family's cross
+KV ``(L, B, T_enc, H, Dh)``, conv ``(L, B, W-1, Cd)``, SSD state ``(L,
+B, H, N, P)``): the batch over the data axes, kv heads (or SSD heads)
+over ``model`` where the axes divide them, or, with
+``shard_cache_seq``, a KV cache's slots over ``model`` instead of its
+heads. Each leaf's spec is a tuple of entries as the reference's
+``PartitionSpec`` holds them (the data axes' tuple, ``"model"`` or
+None a dimension). `cache_shard` cuts a whole cache to this rank's
+block of every leaf.
 """
 from __future__ import annotations
 
@@ -453,3 +464,77 @@ def split_kinds(tree, cfg, mesh, fsdp: bool) -> dict:
         tree, lambda path, t, k=kind: t if held_kinds(
             path, t.shape, cfg, mesh, fsdp) == k else None)
         for j, kind in enumerate(KINDS) if j in kinds}
+
+
+# ---------------------------------------------------------------------------
+# decode caches
+# ---------------------------------------------------------------------------
+def _div(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+def cache_specs(cache, cfg, mesh, *, shard_cache_seq: bool = False):
+    """The reference's ``cache_specs``: for each leaf of a decode cache
+    the tuple of its dimensions' mesh entries (the data axes, ``"model"``
+    or None). KV caches: batch over the data axes; kv heads over
+    ``model`` when divisible, or, with ``shard_cache_seq``, the sequence
+    (flash-decode style); conv states the batch only; SSD states the
+    batch and the heads."""
+    del cfg                      # the reference's signature; shapes decide
+    tp = model_size(mesh)
+    dpx = dp_axes(mesh)
+    dsz = dp_size(mesh)
+
+    def rule(path, leaf):
+        name = "/".join(str(k) for k in path)
+        shape = tuple(leaf.shape)
+        if name.endswith("length") or len(shape) == 0:
+            return ()
+        if name in ("k", "v", "xk", "xv") or name.endswith("/k") \
+                or name.endswith("/v") or name.endswith("xk") \
+                or name.endswith("xv"):
+            # (L, B, T, KV, Dh)
+            bspec = dpx if _div(shape[1], dsz) else None
+            kvspec = "model" if (_div(shape[3], tp) and tp > 1
+                                 and not shard_cache_seq) else None
+            tspec = "model" if (shard_cache_seq and _div(shape[2], tp)
+                                and tp > 1) else None
+            return (None, bspec, tspec, kvspec, None)
+        if "conv" in name:                        # (L, B, W-1, Cd)
+            bspec = dpx if _div(shape[1], dsz) else None
+            return (None, bspec, None, None)
+        if "ssd" in name:                         # (L, B, H, N, P)
+            bspec = dpx if _div(shape[1], dsz) else None
+            hspec = "model" if (_div(shape[2], tp) and tp > 1) else None
+            return (None, bspec, hspec, None, None)
+        bspec = dpx if (len(shape) > 1 and _div(shape[1], dsz)) else None
+        return (None, bspec, *(None,) * (len(shape) - 2)) \
+            if len(shape) >= 2 else (None,) * len(shape)
+
+    return _map_with_path(cache, rule)
+
+
+def cache_shard(cache, mesh, cfg, *, shard_cache_seq: bool = False):
+    """This rank's block of every leaf of a whole decode cache, as
+    `cache_specs` lays it out: the block of `dp_index` where the data
+    axes split a dimension, of this rank's ``model`` coordinate where
+    ``model`` does (a copy, so the whole cache can be freed)."""
+    specs = cache_specs(cache, cfg, mesh, shard_cache_seq=shard_cache_seq)
+    dp, i = dp_size(mesh), dp_index(mesh)
+    tp = model_size(mesh)
+    m = grp.rank(mesh.axis("model")) if tp > 1 else 0
+
+    def cut(path, t):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        if not any(e is not None for e in spec):
+            return t
+        for d, e in enumerate(spec):
+            if e is None:
+                continue
+            n, j = (tp, m) if e == "model" else (dp, i)
+            c = t.shape[d] // n
+            t = t.narrow(d, j * c, c)
+        return t.clone()
+    return _map_with_path(cache, cut)

@@ -176,8 +176,14 @@ def test_no_gradient_is_the_forward_alone():
 
 
 def test_backward_on_other_devices_raises():
+    # meta tensors take the accounting's meta path (the kernels' outputs,
+    # no launch); tensors on two devices raise
     q = torch.empty((1, 8, 2, 64), device="meta")
     kv = q[:, :, :1]
     lse = torch.empty((1, 2, 8), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fa_bwd.flash_attention_bwd(q, kv, kv, q, q, lse)
+    before = fa_bwd.launches
+    dq, dk, dv = fa_bwd.flash_attention_bwd(q, kv, kv, q, q, lse)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, kv.shape, kv.shape)
+    assert dq.device.type == "meta" and fa_bwd.launches == before
+    with pytest.raises(ValueError, match="one device"):
+        fa_bwd.flash_attention_bwd(q, kv, kv, q, q, torch.empty((1, 2, 8)))

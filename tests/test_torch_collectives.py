@@ -125,9 +125,13 @@ def test_cpu_tensors_never_count_a_launch():
 
 
 def test_other_devices_raise_instead_of_falling_back():
+    # meta tensors take the accounting's meta path: the kernel's output,
+    # no launch, no plain version (repro_torch.count)
     a = torch.empty((64,), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        segment_reduce.segment_combine(a, a)
+    before = segment_reduce.launches
+    out = segment_reduce.segment_combine(a, a)
+    assert out.device.type == "meta" and out.shape == a.shape
+    assert segment_reduce.launches == before
     with pytest.raises(ValueError, match="cuda or cpu"):
         segment_reduce.segment_combine(torch.ones(64), a)
     with pytest.raises(ValueError, match="unknown op"):

@@ -158,9 +158,16 @@ def test_bf16_kernel_check_refuses_rows_off_16_bytes(case):
 
 
 def test_other_devices_raise_instead_of_falling_back():
+    # meta tensors take the accounting's meta path: the kernel's output,
+    # no launch, no plain version; tensors on two devices raise
     q = torch.empty((1, 8, 2, 64), device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    before = fa.launches
+    out = fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert fa.launches == before
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention(q, torch.empty((1, 8, 1, 64)),
+                           torch.empty((1, 8, 1, 64)))
     with pytest.raises(ValueError, match="unknown attention impl"):
         ops.attention(q, q, q, impl="pallas")
 

@@ -146,9 +146,14 @@ def test_cpu_tensors_never_count_a_launch_and_other_devices_raise():
     before = ssd_scan.launches
     ops.ssd(*t, chunk=32, impl="auto")
     assert ssd_scan.launches == before == 0
+    # meta tensors take the accounting's meta path: the kernel's outputs,
+    # no launch; tensors on two devices raise
     meta = [a.to("meta") for a in t[:5]]
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ssd_scan.ssd_chunk(*meta, chunk=32)
+    y, states, cum = ssd_scan.ssd_chunk(*meta, chunk=32)
+    assert y.device.type == "meta" and ssd_scan.launches == 0
+    assert y.shape == ssd_scan.ssd_chunked_plain(*t[:5], chunk=32)[0].shape
+    with pytest.raises(ValueError, match="one device"):
+        ssd_scan.ssd_chunk(*meta[:4], t[4], chunk=32)
     with pytest.raises(ValueError, match="unknown ssd impl"):
         ops.ssd(*t, chunk=32, impl="pallas")
 
