@@ -349,7 +349,26 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    within ``TP_GRAD_TOL`` a leaf, and the fault of
    ``steps.planted_tp_fault`` that the card's layout runs
    (``copy_not_summed``) at least 10 x ``TP_GRAD_TOL``;
-9. the kernels line, then ``{"ok": true, "device": ...}`` as the last line.
+9. compile-free accounting: the dry-run's trace of [8ft] (b) and [8mf]
+   on a recording 2 x 2 mesh held to their steps on the card, and two
+   ``launch.dryrun`` subprocesses;
+10. the examples' counterparts (``repro_torch.examples``): (a)
+   ``train_e2e`` with the real smollm-135m config (30 layers, d 576,
+   162,826,560 fp32 params), seq 128, batch 4, ``E2E_STEPS`` steps,
+   checkpointed in the reference's layout after half of them into a
+   temporary directory, restored and resumed, then the same steps
+   straight through in the same process: the losses and final params
+   bit-equal, the manifest's keys and shapes the reference's
+   (``E2E_MANIFEST``), one flash forward and LAUNCHES_PER_CALL backward
+   launches a layer a step over both runs (counts zeroed just before,
+   read just after); (b) ``serve_decode`` (reduced smollm, windows 0 and
+   16), tok/s printed; (c) ``quickstart`` on the reference's mesh, data
+   4 x model 2 (8 ranks), ``QUICKSTART_STEPS`` steps under each of
+   ``xla``, ``ring`` and ``rabenseifner``: the losses within
+   ``TRAIN_LOSS_TOL`` of the ``xla`` run's, the flash launches a layer a
+   rank-step and the plan's combines every step (none under ``xla``);
+11. the kernels line, then ``{"ok": true, "device": ...}`` as the last
+   line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
 the port is not beside this file, or when any phase fails.
@@ -4104,6 +4123,168 @@ def phase_tp_decode(one_process):
     return summary, paths
 
 
+# ---------------------------------------------------------------------------
+# [10] the examples' counterparts
+# ---------------------------------------------------------------------------
+#: train_e2e's steps (the reference's default 15, cut for the script's
+#: time); it checkpoints after half of them
+E2E_STEPS = 8
+#: keys and shapes of the full smollm-135m checkpoint, the reference's
+E2E_MANIFEST = {"params/layers/attn/wq": [30, 576, 9, 64],
+                "params/layers/mlp/w_up": [30, 576, 1536],
+                "params/embed/tok": [49152, 576],
+                "opt/.step": [],
+                "opt/.mu/layers/mlp/w_up": [30, 576, 1536],
+                "opt/.nu/layers/attn/wo": [30, 9, 64, 576]}
+E2E_PARAMS = 162826560
+QUICKSTART_STEPS = 2
+QUICKSTART_MESH = (4, 2)
+QUICKSTART_LAYERS = 2       # the reduced smollm-135m's
+
+
+def phase_examples():
+    """[10] ``repro_torch.examples`` on the card: (a) ``train_e2e``
+    --full, checkpointed and resumed, against a straight run; (b)
+    ``serve_decode``; (c) ``quickstart`` on 4 x 2. Returns the summary
+    and the launch counts by path."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart, serve_decode, train_e2e
+    from repro_torch.kernels import attention_bwd
+    t0 = time.perf_counter()
+    counters = _counters()
+
+    def zero():
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read():
+        return {name: mod.launches for name, mod in counters.items()}
+
+    # (a) the real config, a checkpoint in the reference's layout
+    cfg = get_config("smollm-135m")
+    tmp = tempfile.mkdtemp(prefix="e2e_ckpt_")
+    try:
+        ck = os.path.join(tmp, "ck")
+        zero()
+        resumed = train_e2e.run(cfg, steps=E2E_STEPS, seq=128, batch=4,
+                                ckpt=ck, device="cuda")
+        straight = train_e2e.run(cfg, steps=E2E_STEPS, seq=128, batch=4,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        e2e_launches = read()
+        with open(os.path.join(ck, "manifest.json")) as f:
+            manifest = json.load(f)
+        ck_bytes = sum(os.path.getsize(os.path.join(ck, n))
+                       for n in os.listdir(ck))
+    finally:
+        shutil.rmtree(tmp)
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        pytree.leaves(resumed["params"]), pytree.leaves(straight["params"])))
+    del resumed["params"], straight["params"]
+    torch.cuda.empty_cache()
+    shapes = {r["key"]: r["shape"] for r in manifest["leaves"]}
+    n_params = sum(math.prod(r["shape"]) for r in manifest["leaves"]
+                   if r["key"].startswith("params/"))
+    runs = 2 * E2E_STEPS * cfg.num_layers
+    want = {name: 0 for name in counters}
+    want["flash_attention"] = runs
+    want["flash_attention_bwd"] = runs * attention_bwd.LAUNCHES_PER_CALL
+    log(f"[10a] train_e2e --full: {E2E_STEPS} steps, seq 128, batch 4, "
+        f"checkpointed at step {E2E_STEPS // 2} ({ck_bytes} B, "
+        f"{len(manifest['leaves'])} keys, save {resumed['save_s']:.2f} s, "
+        f"restore {resumed['restore_s']:.2f} s)")
+    log(f"    losses resumed  {' '.join(f'{x:.6f}' for x in resumed['losses'])}")
+    log(f"    losses straight {' '.join(f'{x:.6f}' for x in straight['losses'])}")
+    log(f"    s a step resumed {' '.join(f'{x:.4f}' for x in resumed['step_s'])}; "
+        f"straight {' '.join(f'{x:.4f}' for x in straight['step_s'])}")
+    log(f"    params {n_params}; launches {e2e_launches} (want {want}); "
+        f"losses bit-equal {resumed['losses'] == straight['losses']}, "
+        f"params bit-equal {same_params}")
+    bad = [k for k, ok in (
+        ("losses bit-equal", resumed["losses"] == straight["losses"]),
+        ("params bit-equal", same_params),
+        ("losses finite", all(x == x and 0 < x < 20
+                              for x in resumed["losses"])),
+        ("manifest", all(shapes.get(k) == v
+                         for k, v in E2E_MANIFEST.items())),
+        ("params", n_params == E2E_PARAMS),
+        ("step", manifest["step"] == E2E_STEPS // 2),
+        ("launches", e2e_launches == want)) if not ok]
+    if bad:
+        raise AssertionError(f"[10a] {bad}: {shapes if 'manifest' in bad else ''}")
+
+    # (b) greedy decode through the dense cache, both windows
+    small = cfg.reduced()
+    decode = {}
+    zero()
+    for window in serve_decode.WINDOWS:
+        r = serve_decode.run(small, window=window, device="cuda")
+        tok = r["tokens"]
+        if tok.shape != (serve_decode.B, serve_decode.GEN) or \
+                int(tok.min()) < 0 or int(tok.max()) >= small.vocab_size:
+            raise AssertionError(f"[10b] window {window}: tokens {tok}")
+        decode[window] = {"tok_per_s": r["tok_per_s"],
+                          "decode_s": r["decode_s"],
+                          "first_tokens": tok[0, :8].tolist()}
+    decode_launches = read()
+    log(f"[10b] serve_decode: "
+        + ", ".join(f"window {w} {v['tok_per_s']:.1f} tok/s"
+                    for w, v in decode.items())
+        + f"; launches {decode_launches}")
+
+    # (c) the quickstart on the reference's mesh
+    qs, qs_paths = {}, {}
+    ranks = QUICKSTART_MESH[0] * QUICKSTART_MESH[1]
+    for algo in quickstart.ALGORITHMS:
+        r = quickstart.train(algo, steps=QUICKSTART_STEPS,
+                             topology=QUICKSTART_MESH, device="cuda")
+        per = QUICKSTART_LAYERS * QUICKSTART_STEPS * ranks
+        want = {"flash_attention": per,
+                "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
+                "ssd_chunk": 0, "ssd_chunk_bwd": 0,
+                "segment_combine": QUICKSTART_STEPS * r["plan_combines"]}
+        log(f"[10c] quickstart {algo}: losses "
+            f"{' '.join(f'{x:.6f}' for x in r['losses'])}; s a step "
+            f"{' '.join(f'{x:.3f}' for x in r['step_s'])}; {r['wall_s']:.1f}"
+            f" s with set-up; launches {r['launches']} (want {want})")
+        bad = [k for k, ok in (
+            ("mesh", r["mesh"] == {"data": QUICKSTART_MESH[0],
+                                   "model": QUICKSTART_MESH[1]}
+             and r["ranks"] == ranks and r["device"] == "cuda:0"),
+            ("replicas", all(r["replicas_equal"])),
+            ("tuned", r["tuned"] == (algo != "xla")),
+            ("combines", (r["launches"]["segment_combine"] > 0)
+             == (algo != "xla")),
+            ("launches", r["launches"] == want)) if not ok]
+        if bad:
+            raise AssertionError(f"[10c] {algo}: {bad}")
+        qs[algo] = {k: r[k] for k in ("losses", "step_s", "wall_s",
+                                      "launches", "plan_combines")}
+        qs_paths[f"quickstart_{algo}"] = r["launches"]
+    worst = max(abs(a - b) for algo in ("ring", "rabenseifner")
+                for a, b in zip(qs[algo]["losses"], qs["xla"]["losses"]))
+    log(f"    ring and rabenseifner against xla: losses within {worst:.3g} "
+        f"(tol {TRAIN_LOSS_TOL})")
+    if worst > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[10c] losses depart from xla's by {worst}")
+    summary = {"train_e2e": {
+        k: {"losses": r["losses"], "step_s": r["step_s"]}
+        for k, r in (("resumed", resumed), ("straight", straight))},
+        "ckpt": {"bytes": ck_bytes, "save_s": resumed["save_s"],
+                 "restore_s": resumed["restore_s"], "params": n_params},
+        "serve_decode": decode, "quickstart": qs, "quickstart_worst": worst,
+        "phase_s": time.perf_counter() - t0}
+    summary["train_e2e"]["launches"] = e2e_launches
+    log(f"    [10] {summary['phase_s']:.1f}s")
+    return summary, {"examples_train_e2e_full": e2e_launches,
+                     "examples_serve_decode": decode_launches, **qs_paths}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4222,6 +4403,9 @@ def main() -> int:
     train_paths.update(tp_train_paths)
     STEP0_ORACLE.clear()
     mark("[8t]")
+    examples, example_paths = phase_examples()
+    train_paths.update(example_paths)
+    mark("[10]")
     for path, counts in train_paths.items():
         for name, n in counts.items():
             kernels[name]["launches_by_path"][path] = n
@@ -4255,6 +4439,7 @@ def main() -> int:
                       "training_fsdp_model": training_fsdp_model,
                       "training_tp": training_tp,
                       "accounting": accounting,
+                      "examples": examples,
                       "tp_decode": tp_decode,
                       "train_grads_fp32": train_grads}))
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -11,9 +11,16 @@ the same key. Every other top-level entry (``embed``, the hybrid's
 unstacked ``shared`` block, the enc-dec ``enc_pos`` and ``enc_final``)
 crosses as it is. Every leaf keeps its layout (``wq``
 ``(d, H, Dh)``, ``wo`` ``(H, Dh, d)``, ``embed.out`` ``(d, Vp)``), so no
-weight is transposed. This module imports neither JAX nor the JAX
-package: callers hand it ``jax.tree.map(np.asarray, params)``, and get
-numpy back from `to_reference`.
+weight is transposed. An ``AdamWState`` crosses field by field, its
+moments in the params' layout (`opt_state_from_jax`,
+`opt_state_to_reference`). `reference_leaves` names every leaf of a
+port tree by the key the reference's checkpoint gives it
+(``repro/checkpoint/ckpt.py``' ``_flatten_with_paths``: dict keys, a
+NamedTuple's fields as ``.step``/``.mu``/``.nu``, list indices; the
+per-layer lists of ``STACKED`` folded into one stacked key). This module
+imports neither JAX nor the JAX package: callers hand it
+``jax.tree.map(np.asarray, params)``, and get numpy back from
+`to_reference`.
 """
 from __future__ import annotations
 
@@ -92,6 +99,44 @@ def opt_state_from_jax(state_np, *, device="cpu"):
                           device=device),
         mu=from_jax(state_np.mu, device=device),
         nu=from_jax(state_np.nu, device=device))
+
+
+def opt_state_to_reference(state):
+    """The port's `AdamWState` -> its fields in the reference's layout:
+    ``step`` an int32 numpy scalar, ``mu`` and ``nu`` as `to_reference`
+    lays out params (the inverse of `opt_state_from_jax`)."""
+    from repro_torch.optim import AdamWState
+    return AdamWState(
+        step=np.asarray(state.step.detach().cpu().numpy(), np.int32),
+        mu=to_reference(state.mu), nu=to_reference(state.nu))
+
+
+def reference_leaves(tree, path=(), key=()):
+    """``(path, key, layer, leaf)`` for every leaf of a port tree, in
+    ``repro_torch.pytree``'s order: ``path`` the port's (dict keys, list
+    and tuple indices, as ``sharding``'s walks give it), ``key`` the
+    reference's "/"-joined checkpoint key and ``layer`` the leaf's index
+    on the stacked axis of that key (None where the leaf crosses as it
+    is): a list under a key of ``STACKED`` is the per-layer list the
+    reference stacks, a NamedTuple's fields are named ``.<field>``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            v = tree[k]
+            if k in STACKED and isinstance(v, list):
+                for i, layer in enumerate(v):
+                    for p, kk, _, leaf in reference_leaves(
+                            layer, path + (k, i), key + (k,)):
+                        yield p, kk, i, leaf
+            else:
+                yield from reference_leaves(v, path + (k,), key + (str(k),))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for i, (name, v) in enumerate(zip(tree._fields, tree)):
+            yield from reference_leaves(v, path + (i,), key + ("." + name,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from reference_leaves(v, path + (i,), key + (str(i),))
+    elif tree is not None:
+        yield path, "/".join(key), None, tree
 
 
 def batch_from_jax(batch_np: dict, *, device="cpu") -> dict:

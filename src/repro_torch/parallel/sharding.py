@@ -426,6 +426,19 @@ def shard(params, mesh, cfg, fsdp: bool = True):
     return fsdp_shard(params, mesh) if fsdp else params
 
 
+def shard_leaf(path, t, mesh, cfg, fsdp: bool = True):
+    """`shard` of the one full leaf ``t`` at ``path`` (a key path as the
+    tree walks give it): this rank's block of it. A checkpoint's
+    ``restore(shard=...)`` cuts each whole leaf so."""
+    tree = t
+    for k in reversed(path):
+        tree = {k: tree}
+    tree = shard(tree, mesh, cfg, fsdp)
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def gather(tree, mesh, cfg, fsdp: bool = True):
     """The inverse of `shard` on a held tree (params, gradients, Adam's
     moments): the FSDP shards gathered over the data axes of this rank's

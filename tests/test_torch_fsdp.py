@@ -471,10 +471,10 @@ def test_each_planted_fault_fails_the_grad_check(run, fault):
 
 def test_checkpoint_writes_whole_leaves(tmp_path):
     """``--ckpt`` under FSDP: rank 0 writes whole leaves (params and
-    Adam's moments), the kept params are whole, and `fsdp_dim` cuts a
-    written leaf to a shard's shape."""
-    from repro_torch import pytree
-    from repro_torch.checkpoint.ckpt import _paths
+    Adam's moments) under the reference's keys, stacked over the layers,
+    the kept params are whole, and `fsdp_dim` cuts a written leaf to a
+    shard's shape."""
+    from repro_torch import bridge, pytree
     from repro_torch.launch import train
     res = train.main(["--arch", "smollm-135m", "--reduced", "--device",
                       "cpu", "--topology", "2x2", "--steps", "1", "--seq",
@@ -486,20 +486,21 @@ def test_checkpoint_writes_whole_leaves(tmp_path):
     shapes = {r["key"]: r["shape"] for r in manifest["leaves"]}
     d = 256
     assert shapes["params/embed/tok"] == [1024, d]
-    assert shapes["params/layers/0/attn/wo"] == [4, 64, d]
-    assert shapes["opt/1/layers/1/mlp/w_up"] == [d, 512]     # Adam's mu
+    assert shapes["params/layers/attn/wo"] == [2, 4, 64, d]
+    assert shapes["opt/.mu/layers/mlp/w_up"] == [2, d, 512]     # Adam's mu
     arrays = np.load(tmp_path / "arrays.npz")
     cut = 0
-    for key, whole in zip(_paths(res["params"]),
-                          pytree.leaves(res["params"])):
+    for path, key, layer, whole in bridge.reference_leaves(res["params"]):
         written = arrays[f"params__{key.replace('/', '__')}"]
+        if layer is not None:
+            written = written[layer]
         np.testing.assert_array_equal(written, whole.numpy(), err_msg=key)
-        dim = sh.fsdp_dim(tuple(key.split("/")), written.shape, 4)
+        dim = sh.fsdp_dim(path, written.shape, 4)
         if dim is not None:
             cut += 1
             shard = np.take(written, range(written.shape[dim] // 4),
                             axis=dim)
-            assert sh.fsdp_held_dim(tuple(key.split("/")), shard.shape,
+            assert sh.fsdp_held_dim(path, shard.shape,
                                     ARCHITECTURES["smollm-135m"].reduced(),
                                     4) == dim
     assert cut == 16

@@ -481,9 +481,9 @@ def test_checkpoint_writes_whole_leaves(tmp_path, arch):
     """``--ckpt`` under FSDP + TP (qwen) and FSDP + EP (olmoe) on 2 x 2:
     rank 0 writes whole leaves in the reference's format, each equal to
     the same run's kept params (gathered whole over both halves); the
-    fsdp block counts the leaves by the halves that cut them."""
-    from repro_torch import pytree
-    from repro_torch.checkpoint.ckpt import _paths
+    fsdp block counts the leaves by the halves that cut them. The keys
+    are the reference's, each layer's leaves stacked."""
+    from repro_torch import bridge, pytree
     from repro_torch.launch import train
     res = train.main(["--arch", arch, "--reduced", "--device", "cpu",
                       "--ranks", "4", "--model-parallel", "2", "--steps",
@@ -498,16 +498,17 @@ def test_checkpoint_writes_whole_leaves(tmp_path, arch):
     assert shapes["params/embed/tok"] == [1024, d]
     assert shapes["params/embed/out"] == [d, 1024]
     if tag == "olmoe":
-        assert shapes["params/layers/0/moe/w_gate"] == [4, d, 512]
-        assert shapes["opt/1/layers/1/moe/w_down"] == [4, 512, d]
+        assert shapes["params/layers/moe/w_gate"] == [2, 4, d, 512]
+        assert shapes["opt/.mu/layers/moe/w_down"] == [2, 4, 512, d]
     else:
-        assert shapes["params/layers/0/attn/wq"] == [d, 4, 64]
-        assert shapes["opt/1/layers/1/mlp/w_up"] == [d, 512]
+        assert shapes["params/layers/attn/wq"] == [2, d, 4, 64]
+        assert shapes["opt/.mu/layers/mlp/w_up"] == [2, d, 512]
     arrays = np.load(tmp_path / "arrays.npz")
     n = 0
-    for key, whole in zip(_paths(res["params"]),
-                          pytree.leaves(res["params"])):
+    for _, key, layer, whole in bridge.reference_leaves(res["params"]):
         written = arrays[f"params__{key.replace('/', '__')}"]
+        if layer is not None:
+            written = written[layer]
         np.testing.assert_array_equal(written, whole.numpy(), err_msg=key)
         n += 1
     assert n == sum(KINDS[tag].values())

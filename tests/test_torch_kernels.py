@@ -206,8 +206,16 @@ def test_import_loads_no_jax_and_no_reference_package():
         "'data', 'data.pipeline', 'parallel.sharding', 'launch.mesh', "
         "'launch.steps', 'launch.train', 'checkpoint', 'checkpoint.ckpt', "
         "'bridge', 'models.encdec', 'models.vlm', "
-        "'configs.whisper_large_v3', 'configs.llava_next_mistral_7b'):\n"
+        "'configs.whisper_large_v3', 'configs.llava_next_mistral_7b', "
+        "'examples', 'examples.train_e2e', 'examples.serve_decode', "
+        "'examples.quickstart', 'examples.autotune_collectives', "
+        "'examples.measure_real_collectives'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
+        "for m, f in (('bridge', 'reference_leaves'), "
+        "('bridge', 'opt_state_to_reference'), "
+        "('parallel.sharding', 'shard_leaf'), ('checkpoint.ckpt', 'save'), "
+        "('checkpoint.ckpt', 'restore')):\n"
+        "    assert hasattr(sys.modules['repro_torch.' + m], f), (m, f)\n"
         "print('imported', sum(n.startswith('repro_torch') for n in sys.modules))\n")
     root = os.path.join(HERE, "..")
     env = dict(os.environ)

@@ -439,7 +439,8 @@ def test_each_planted_fault_fails_the_raw_grad_check(run, fault):
 
 def test_checkpoint_gathers_the_experts_over_model(tmp_path):
     """``--ckpt`` under a ``model`` axis: rank 0 writes every expert (the
-    reference's full tree), its own slice where its params hold it."""
+    reference's full tree, in its layout: each expert stack ``(L, E,
+    ...)``), its own slice where its params hold it."""
     from repro_torch.launch import train
     res = train.main(["--arch", "olmoe-1b-7b", "--reduced", "--device",
                       "cpu", "--ranks", "4", "--model-parallel", "2",
@@ -450,9 +451,9 @@ def test_checkpoint_gathers_the_experts_over_model(tmp_path):
     arrays = np.load(tmp_path / "arrays.npz")
     for leaf in manifest["leaves"]:
         if _is_expert(leaf["key"]):
-            assert leaf["shape"][0] == 4, leaf
+            assert leaf["shape"][:2] == [2, 4], leaf
     for i, lp in enumerate(res["params"]["layers"]):
-        got = arrays[f"params__layers__{i}__moe__w_up"]
+        got = arrays["params__layers__moe__w_up"][i]
         np.testing.assert_array_equal(got[:2], lp["moe"]["w_up"].numpy())
 
 

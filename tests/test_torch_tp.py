@@ -488,10 +488,10 @@ def test_one_by_two_mesh_step_equals_the_one_rank_step(run):
 
 def test_checkpoint_writes_whole_leaves(tmp_path):
     """``--ckpt`` under a ``model`` axis: rank 0 writes the reference's
-    whole leaves (params and Adam's moments); cut as `sharding.tp_shard`
-    cuts them, rank 0's are its held slices."""
-    from repro_torch.checkpoint.ckpt import _paths
-    from repro_torch import pytree
+    whole leaves (params and Adam's moments) under the reference's keys,
+    stacked over the layers; cut as `sharding.tp_shard` cuts them, rank
+    0's are its held slices."""
+    from repro_torch import bridge
     from repro_torch.launch import train
     from repro_torch.parallel import sharding as sh
     res = train.main(["--arch", ARCH, "--reduced", "--device", "cpu",
@@ -503,16 +503,17 @@ def test_checkpoint_writes_whole_leaves(tmp_path):
     d = 256
     assert shapes["params/embed/tok"] == [1024, d]
     assert shapes["params/embed/out"] == [d, 1024]
-    assert shapes["params/layers/0/attn/wq"] == [d, 4, 64]
-    assert shapes["params/layers/0/attn/wo"] == [4, 64, d]
-    assert shapes["params/layers/1/mlp/w_down"] == [512, d]
-    assert shapes["opt/1/layers/1/mlp/w_up"] == [d, 512]     # Adam's mu
+    assert shapes["params/layers/attn/wq"] == [2, d, 4, 64]
+    assert shapes["params/layers/attn/wo"] == [2, 4, 64, d]
+    assert shapes["params/layers/mlp/w_down"] == [2, 512, d]
+    assert shapes["opt/.mu/layers/mlp/w_up"] == [2, d, 512]     # Adam's mu
     arrays = np.load(tmp_path / "arrays.npz")
     cut = 0
-    for key, held in zip(_paths(res["params"]),
-                         pytree.leaves(res["params"])):
+    for path, key, layer, held in bridge.reference_leaves(res["params"]):
         whole = arrays[f"params__{key.replace('/', '__')}"]
-        dim = sh.tp_dim(tuple(key.split("/")), whole.shape, 2)
+        if layer is not None:
+            whole = whole[layer]
+        dim = sh.tp_dim(path, whole.shape, 2)
         if dim is not None:
             whole = np.take(whole, range(held.shape[dim]), axis=dim)
             cut += 1
