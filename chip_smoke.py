@@ -221,11 +221,25 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    variant checked as in (b), the bucketed one timed beside (b)'s; then
    ``tune_topology(2x2x2, tune_mapping=True)`` on the simulator and its
    winner's summary;
+   t. the rank transport: in one spawned group of 4 ranks on the card,
+   every collective of ``core/collectives/group.py`` (``ppermute`` with
+   a rank that is no destination and an (i, i) pair, with no crossing
+   pair and as a shift; ``all_gather``, ``all_to_all``, ``pmax``,
+   ``psum``, ``reduce_scatter``) on CUDA tensors, through the axes'
+   CUDA IPC arenas, against the same collective over gloo on CPU copies
+   of the same inputs, fp32 and bf16, over the data and model axes of a
+   2 x 2 mesh, the data axis of a remapped one and the remapped default
+   group: copies bit-equal, sums within ``TRANSPORT_SUM_TOL`` (reduction
+   order), each psum the same bits on every rank; the data arena grown
+   in lockstep past its first slot up to its largest, and a 96 MB psum
+   across it in two rounds; then the 64 MB fp32 all-reduce over
+   the 4 ranks, ring in 2 segments and the built-in sum, timed (the
+   slowest rank's, beside the card's name and power limit);
 8. training: ``repro_torch.launch.train --arch smollm-135m --ranks 4
    --topology 2x2 --tuning-table examples/artifacts/
    hierarchical_decision.json --steps 2 --seq 256 --batch 8`` (full
-   width and depth, fp32 master weights, bf16 compute, 4 host-staged
-   ranks on the card), then the same with ``--collective xla`` as the
+   width and depth, fp32 master weights, bf16 compute, 4 ranks on the
+   card), then the same with ``--collective xla`` as the
    oracle: each step's loss and its split into forward+backward,
    gradient sync and optimizer seconds, each rank's peak memory; the
    replicas' params bit-equal after every step; the launches (zeroed in
@@ -277,12 +291,16 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    exchange replaced by identity), each planted in a 2-rank tuned step
    of one layer, its synced step-0 gradients read against the correct
    step's: each must exceed ``TRAIN_GRAD_TOL``;
-   mc. [8m]'s tuned run with ``--overlap-backward``, one step (cut from two
-   for the script's time): under
-   expert parallelism each layer's release syncs it inside the backward
-   (one fused sync a layer, no sync thread, as the launcher prints),
-   held to [8m]'s tuned run (step 0's synced gradients, losses, releases 0
-   in every rank and step, no second on a sync thread);
+   mc. [8m]'s tuned run with ``--overlap-backward``, two steps: each
+   released layer synced over ``data`` on the sync thread (its own CUDA
+   stream) while the backward's model-axis collectives run on the main
+   thread, as the launcher prints; held to [8m]'s tuned run (step 0's
+   synced gradients within ``TRAIN_GRAD_TOL``, losses within
+   ``TRAIN_LOSS_TOL``, rank 0's gradients before the sync bit-equal,
+   releases 0 in every rank and step, the thread busy in every step);
+   every process's host memory available, resident memory and CUDA
+   memory logged once a second while it runs (``memory_log``) and
+   printed;
    w. [8]'s runs and checks for ``--arch whisper-large-v3`` at full width
    cut to 2 encoder and 2 decoder layers (``config={"num_layers": 2,
    "encoder_layers": 2}``: 231,980,800 params, 59 leaves, a 0.93 GB
@@ -349,6 +367,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    within ``TP_GRAD_TOL`` a leaf, and the fault of
    ``steps.planted_tp_fault`` that the card's layout runs
    (``copy_not_summed``) at least 10 x ``TP_GRAD_TOL``;
+   tc. [8t]'s tuned run again with ``--overlap-backward``, 2 steps: each
+   released layer synced over ``data`` on the sync thread while the
+   blocks' model-axis all-reduces run on the main thread, held to [8t]'s
+   tuned run as [8mc] to [8m]'s (releases 29...0), under the memory log;
 9. compile-free accounting: the dry-run's trace of [8ft] (b) and [8mf]
    on a recording 2 x 2 mesh held to their steps on the card, and two
    ``launch.dryrun`` subprocesses;
@@ -367,7 +389,11 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    ``xla``, ``ring`` and ``rabenseifner``: the losses within
    ``TRAIN_LOSS_TOL`` of the ``xla`` run's, the flash launches a layer a
    rank-step and the plan's combines every step (none under ``xla``);
-11. the kernels line, then ``{"ok": true, "device": ...}`` as the last
+11. each measure of the transport (the 64 MB all-reduce, [8]'s and
+   [8t]'s tuned sync, [8ft] (b)'s sync and step) printed beside the
+   host-staged transport's (``HOST_STAGED``, measured by
+   ``tools/transport_ab.py``), with the card's name and power limit;
+   the kernels line, then ``{"ok": true, "device": ...}`` as the last
    line.
 
 Exits nonzero, with no result line, when there is no CUDA device, when
@@ -375,12 +401,16 @@ the port is not beside this file, or when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import torch
@@ -571,6 +601,82 @@ def rand_qkv(B, S, T, H, KV, D, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
     return mk(B, S, H, D), mk(B, T, KV, D), mk(B, T, KV, D)
+
+
+# ---------------------------------------------------------------------------
+# the host-memory log of the overlapped runs ([8mc], [8tc])
+# ---------------------------------------------------------------------------
+#: while set, it names the directory every process of the script (the
+#: launcher, and each rank, which imports this file as ``__mp_main__``)
+#: appends one line a second to, ``mem.<pid>.log``
+MEMLOG_ENV = "CHIP_SMOKE_MEMLOG"
+
+
+def _meminfo_kib(key: str, path: str = "/proc/meminfo") -> int:
+    with open(path) as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1])
+    return -1
+
+
+def watch_memory(role: str) -> None:
+    """A daemon thread of this process: while ``MEMLOG_ENV`` is set, one
+    line a second with its role, the host's available memory and this
+    process's resident memory (``/proc``), and in a rank its CUDA memory
+    allocated and reserved."""
+    def run():
+        while True:
+            d = os.environ.get(MEMLOG_ENV)
+            if d and os.path.isdir(d):
+                cuda = ""
+                if role == "rank" and torch.cuda.is_initialized():
+                    cuda = (f" cuda_alloc_mib "
+                            f"{torch.cuda.memory_allocated() >> 20} "
+                            f"cuda_reserved_mib "
+                            f"{torch.cuda.memory_reserved() >> 20}")
+                with open(os.path.join(d, f"mem.{os.getpid()}.log"),
+                          "a") as f:
+                    f.write(f"{time.time():.1f} {role} host_avail_mib "
+                            f"{_meminfo_kib('MemAvailable') >> 10} rss_mib "
+                            f"{_meminfo_kib('VmRSS', '/proc/self/status') >> 10}"
+                            f"{cuda}\n")
+            time.sleep(1.0)
+    threading.Thread(target=run, daemon=True).start()
+
+
+@contextlib.contextmanager
+def memory_log(tag: str):
+    """Log every process's memory once a second for the block, then print
+    each process's samples, the least host memory available, its largest
+    resident and CUDA reserved memory, and its first and last line."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_mem_")
+    os.environ[MEMLOG_ENV] = d
+    try:
+        yield
+    finally:
+        del os.environ[MEMLOG_ENV]
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name)) as f:
+                lines = [ln.split() for ln in f if ln.strip()]
+            if not lines:
+                continue
+
+            def most(key, pick):
+                vals = [int(ln[ln.index(key) + 1]) for ln in lines
+                        if key in ln]
+                return pick(vals) if vals else None
+            log(f"    [{tag}] memory {name[4:-4]} ({lines[0][1]}): "
+                f"{len(lines)} samples a second, host available min "
+                f"{most('host_avail_mib', min)} MiB, rss max "
+                f"{most('rss_mib', max)} MiB, cuda reserved max "
+                f"{most('cuda_reserved_mib', max)} MiB; first "
+                f"{' '.join(lines[0][2:])}; last {' '.join(lines[-1][2:])}")
+        shutil.rmtree(d, ignore_errors=True)
+
+
+if __name__ == "__mp_main__":       # a rank of a group this script spawned
+    watch_memory("rank")
 
 
 def phase_device():
@@ -2623,7 +2729,7 @@ def phase_tuners(ranks=RANKS):
                              f"families {[f['name'] for f in fams]}, "
                              f"table {table.meta}")
     log(f"    {res['samples']} samples, {res['n_experiments']} experiments "
-        f"in {res['tune_seconds']:.1f}s (host-staged ranks); sizes "
+        f"in {res['tune_seconds']:.1f}s (ranks of one card); sizes "
         f"{list(TUNER_SIZES)} B, ops {list(mc.OPS)}")
     log(f"    {'tuner':14s} {'new exps':>9s} {'cache hits':>11s} "
         f"{'penalty':>9s} {'seconds':>8s} {'segment_combine':>16s}")
@@ -2710,7 +2816,7 @@ def phase_remapped(n_params, identity_bucketed):
     log(f"    bucketed through the remapped mesh: s per run "
         f"{' '.join(f'{t:.4f}' for t in b['seconds'])} beside [7b]'s "
         f"identity mesh {' '.join(f'{t:.4f}' for t in identity_bucketed)} "
-        f"(host-staged ranks, this call); every rank at its "
+        f"(ranks of one card, this call); every rank at its "
         f"device_order slot")
     # examples/autotune_collectives.py's grid and gradient-leaf mix
     ms = tuple(sorted(set(1024 * 4 ** i for i in range(7))
@@ -2727,6 +2833,198 @@ def phase_remapped(n_params, identity_bucketed):
            if winner.is_identity else ""))
     summary["tune_topology_winner"] = winner.summary()
     return summary, paths
+
+
+# ---------------------------------------------------------------------------
+# [7t] the transport: CUDA payloads through the arena, held to gloo
+# ---------------------------------------------------------------------------
+#: every collective of ``group`` (``ppermute`` three ways: with a rank
+#: that is no destination and an (i, i) pair, with no crossing pair, a
+#: shift)
+TRANSPORT_OPS = ("ppermute:mixed", "ppermute:self", "ppermute:shift",
+                 "all_gather", "all_to_all", "pmax", "psum",
+                 "reduce_scatter")
+TRANSPORT_SUMS = ("psum", "reduce_scatter")
+#: a sum on the card against gloo's on the host: |got - want| / max|want|,
+#: the order of p - 1 additions in the payload's dtype (copies: bit-equal)
+TRANSPORT_SUM_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+#: the payloads that grow the data axis's arena past its first slot, the
+#: last past its largest (96 MB: two rounds of a 64 MiB slot)
+TRANSPORT_GROW_ELEMS = (700_000, 4, 1_500_000, 12_000_000)
+#: the timed all-reduce: 64 MB of fp32 over the 4 ranks, as [6] times it
+TRANSPORT_TIMED_ELEMS = (64 << 20) // 4
+TRANSPORT_TRIALS = 3
+
+
+def _transport_perm(kind, p):
+    if kind == "mixed":
+        return [(0, 1), (3, 0), (2, 2)] if p == 4 else [(0, 1)]
+    if kind == "self":
+        return [(1, 1)]
+    return [(i, (i + 1) % p) for i in range(p)]
+
+
+def _transport_rank():
+    """One rank of [7t]: every collective on CUDA tensors against the same
+    collective on CPU copies of the same inputs over gloo, fp32 and bf16,
+    over the axes of a 2 x 2 mesh, a remapped one and the remapped
+    default group; the data arena's growth; the timed all-reduces."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.core.collectives.algorithms import ALGORITHMS
+    dev = grp.device_of("cuda")
+    mesh = grp.RankMesh((2, 2), ("data", "model"), device=dev)
+    mapped = grp.RankMesh((2, 2), ("data", "model"), device=dev,
+                          device_order=[2, 3, 0, 1])
+    axes = {"data": mesh.axis("data"), "model": mesh.axis("model"),
+            "mapped_data": mapped.axis("data"),
+            "world": mapped.joint(("data", "model"))}
+    rng = np.random.default_rng(7 + grp.rank())
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def draw(shape, dtype):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(dtypes[dtype])
+
+    def both(op, x, axis):
+        kind, _, how = op.partition(":")
+        if kind == "ppermute":
+            perm = _transport_perm(how, axis.size)
+            return (grp.ppermute(x.to(dev), perm, axis).cpu(),
+                    grp.ppermute(x, perm, axis))
+        fn = getattr(grp, kind)
+        return fn(x.to(dev), axis).cpu(), fn(x, axis)
+
+    def reading(got, want, op):
+        if op in TRANSPORT_SUMS:
+            scale = float(want.float().abs().max()) or 1.0
+            return float((got.float() - want.float()).abs().max()) / scale
+        return 0.0 if torch.equal(got, want) else float("inf")
+    out = {"readings": {}, "same_bits": {}}
+    for name, axis in axes.items():
+        for dtype in dtypes:
+            for op in TRANSPORT_OPS:
+                got, want = both(op, draw((axis.size * 3, 257), dtype), axis)
+                out["readings"][f"{name}/{dtype}/{op}"] = reading(got, want,
+                                                                  op)
+                if op == "psum":
+                    every = grp.all_gather(got, axis).chunk(axis.size)
+                    out["same_bits"][f"{name}/{dtype}"] = all(
+                        torch.equal(every[0], e) for e in every)
+    data = grp._arena(axes["data"])
+    out["capacity"] = [data.capacity]
+    for n in TRANSPORT_GROW_ELEMS:
+        got, want = both("psum", draw((2, n), "float32"), axes["data"])
+        out["readings"][f"grow {n}"] = reading(got, want, "psum")
+        out["capacity"].append(data.capacity)
+    # the 64 MB all-reduce over the 4 ranks: the built-in sum and the ring
+    # in two segments, each the slowest rank's seconds
+    x = torch.ones(TRANSPORT_TIMED_ELEMS, device=dev)
+    ring = ALGORITHMS["all_reduce"]["ring"]
+    runs = {"xla": lambda: grp.psum(x),
+            "ring/s2": lambda: ring(x, None, grp.size(), segments=2)}
+    out["timed_s"] = {}
+    for label, fn in runs.items():
+        ts = []
+        for _ in range(1 + TRANSPORT_TRIALS):       # the first warms up
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            y = fn()
+            torch.cuda.synchronize()
+            ts.append(grp.max_over_ranks([time.perf_counter() - t0])[0])
+        out["timed_s"][label] = ts[1:]
+        out[f"timed_ok/{label}"] = bool((y == grp.size()).all())
+    outs = [None] * grp.size()
+    dist.all_gather_object(outs, out)
+    return outs
+
+
+#: the same measures through the host-staged transport (every CUDA
+#: payload through host memory and the gloo wire), the tree before the
+#: arena, by ``tools/transport_ab.py`` on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W in one call with the arena's tree: what `log_before_after`
+#: prints beside this run's
+HOST_STAGED = {"64 MB all-reduce, ring/s2 (ms)": (253.2, 374.6),
+               "64 MB all-reduce, built-in (ms)": (139.1, 330.2),
+               "[8] tuned sync, step 1 (s)": 4.086,
+               "[8t] tuned sync, step 1 (s)": 2.587,
+               "[8ft] (b) sync, step 0 (s)": 0.930,
+               "[8ft] (b) step 0 (s)": 14.225}
+
+
+def log_before_after(smi, transport, training, training_tp, fsdp_model):
+    """Each measure of `HOST_STAGED` beside this run's, with the card."""
+    def span(ms):
+        return f"{min(ms):.3f}–{max(ms):.3f}"
+    after = {"64 MB all-reduce, ring/s2 (ms)":
+             span(transport["timed_ms"]["ring/s2"]),
+             "64 MB all-reduce, built-in (ms)":
+             span(transport["timed_ms"]["xla"]),
+             "[8] tuned sync, step 1 (s)":
+             f"{training['tuned']['sync_s'][1]:.3f}",
+             "[8t] tuned sync, step 1 (s)":
+             f"{training_tp['tuned']['sync_s'][1]:.3f}",
+             "[8ft] (b) sync, step 0 (s)":
+             f"{fsdp_model['full']['sync_s'][0]:.3f}",
+             "[8ft] (b) step 0 (s)": f"{fsdp_model['full']['step_s'][0]:.3f}"}
+    log(f"[7t] before / after: host-staged (tools/transport_ab.py, NVIDIA "
+        f"H100 80GB HBM3, 700.00 W) / the arena, this run ({smi}):")
+    for k, before in HOST_STAGED.items():
+        b = "–".join(f"{x}" for x in before) if isinstance(before, tuple) \
+            else f"{before}"
+        log(f"    {k}: {b} / {after[k]}")
+
+
+def phase_transport(smi):
+    """[7t] every collective on CUDA tensors through the arena against the
+    same collective over gloo on CPU copies (4 ranks on the card); the
+    timed 64 MB all-reduce. Returns the summary."""
+    from repro_torch.core.collectives import group as grp
+    t0 = time.perf_counter()
+    outs = grp.spawn(_transport_rank, RANKS)
+    bad = []
+    for r, out in enumerate(outs):
+        for key, v in out["readings"].items():
+            op = key.rsplit("/", 1)[-1]
+            dtype = key.split("/")[1] if "/" in key else "float32"
+            tol = TRANSPORT_SUM_TOL[dtype] if op in TRANSPORT_SUMS or \
+                key.startswith("grow") else 0.0
+            if not v <= tol:
+                bad.append(f"rank {r} {key} {v}")
+        bad += [f"rank {r} psum bits {k}" for k, ok in
+                out["same_bits"].items() if not ok]
+        bad += [f"rank {r} {k}" for k, ok in out.items()
+                if k.startswith("timed_ok") and not ok]
+    caps = outs[0]["capacity"]
+    if any(o["capacity"] != caps for o in outs) or caps[0] != (1 << 20) \
+            or not caps[1] < caps[-1] == grp.ARENA_MAX_BYTES:
+        bad.append(f"capacities {[o['capacity'] for o in outs]}")
+    sums = {dt: max(v for o in outs for k, v in o["readings"].items()
+                    if k.rsplit("/", 1)[-1] in TRANSPORT_SUMS
+                    and f"/{dt}/" in k) for dt in TRANSPORT_SUM_TOL}
+    log(f"[7t] transport: {len(outs[0]['readings'])} collectives a rank "
+        f"on CUDA tensors against gloo on CPU copies (4 axes, fp32 and "
+        f"bf16, {', '.join(TRANSPORT_OPS)}): copies bit-equal, sums within "
+        + ", ".join(f"{dt} {v:.3g} (tol {TRANSPORT_SUM_TOL[dt]})"
+                    for dt, v in sums.items())
+        + f" of the largest value, psum the same bits on every rank; the "
+        f"data arena {caps} B through {TRANSPORT_GROW_ELEMS} x 2 fp32 "
+        f"elements (the last in two rounds)")
+    timed = outs[0]["timed_s"]
+    for label, ts in timed.items():
+        log(f"    64 MB fp32 all-reduce over 4 ranks, {label}: "
+            + " ".join(f"{1e3 * t:.3f}" for t in ts)
+            + f" ms (slowest rank's; {smi})")
+    if bad:
+        raise AssertionError(f"[7t] {bad[:8]}")
+    summary = {"readings": len(outs[0]["readings"]), "sum_reading": sums,
+               "capacity": caps, "timed_ms": {
+                   k: [1e3 * t for t in v] for k, v in timed.items()},
+               "phase_s": time.perf_counter() - t0}
+    log(f"    [7t] {summary['phase_s']:.1f}s")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -2920,7 +3218,7 @@ def expected_train_launches(arch, r):
 
 def phase_training(arch):
     """[8] / [8s] ``arch`` at full width and depth trained data-parallel
-    on 4 host-staged ranks on the card through the tuned 2x2
+    on 4 ranks on the card through the tuned 2x2
     hierarchical sync, and again through ``--collective xla`` as the
     oracle; each run's launches held to its plan; returns the summary
     and the launch counts by path."""
@@ -3096,8 +3394,9 @@ def phase_training_overlapped(arch, tuned):
 FLAT_TABLE = os.path.join(ROOT, "examples", "artifacts",
                           "tuned_decision.json")
 MOE_TRAIN_STEPS = 2
-# [8mc]'s steps: held to [8m]'s (2 until [8ft] took the script's time)
-MOE_OVERLAP_STEPS = 1
+# [8mc]'s steps: held to [8m]'s (1 from [8ft] until the arena transport
+# gave the script's time back)
+MOE_OVERLAP_STEPS = 2
 # olmoe-1b-7b at full width on 4 ranks, ("data", "model") = 2 x 2: each
 # rank holds 32 of the 64 experts of every layer, 4 rows of the 8 x 256
 # batch and routes a 128-token chunk of each
@@ -3183,7 +3482,7 @@ def _moe_fault_rank(layers):
 
 def phase_training_moe():
     """[8m] olmoe-1b-7b at full width (1 of 16 layers) trained with
-    expert parallelism on 4 host-staged ranks, tuned (the flat table)
+    expert parallelism on 4 ranks, tuned (the flat table)
     and through "xla", held to each other as [8] is; faults planted in
     the expert-parallel correction must read above the gradient
     tolerance; then [8mc], the tuned run overlapped. Returns the summary
@@ -3246,10 +3545,11 @@ def phase_training_moe():
                "loss_diff": loss_diff, "readings": rd}
     paths = {"train_olmoe_tuned": tuned["launches"],
              "train_olmoe_xla": xla["launches"]}
-    r = train_run("8mc", "tuned, overlapped",
-                  [*MOE_TRAIN_ARGS[:-5], str(MOE_OVERLAP_STEPS),
-                   *MOE_TRAIN_ARGS[-4:], "--tuning-table", FLAT_TABLE,
-                   "--overlap-backward"], config=MOE_TRAIN_CONFIG)
+    with memory_log("8mc"):
+        r = train_run("8mc", "tuned, overlapped on the sync thread",
+                      [*MOE_TRAIN_ARGS[:-5], str(MOE_OVERLAP_STEPS),
+                       *MOE_TRAIN_ARGS[-4:], "--tuning-table", FLAT_TABLE,
+                       "--overlap-backward"], config=MOE_TRAIN_CONFIG)
     check_moe_run("8mc", "overlapped", r, MOE_OVERLAP_STEPS)
     from repro_torch import pytree
     order = list(reversed(range(MOE_TRAIN_CONFIG["num_layers"])))
@@ -3260,7 +3560,8 @@ def phase_training_moe():
         ("release order", r["release_events"]
          == [[order] * TRAIN_RANKS] * MOE_OVERLAP_STEPS),
         ("combines", r["plan_combines"] > 0),
-        ("no sync thread", not any(r["release_sync_s"])),
+        ("sync thread busy every step", len(r["release_sync_s"])
+         == MOE_OVERLAP_STEPS and all(t > 0 for t in r["release_sync_s"])),
         ("gradients before the sync", r["local_grads0_fingerprint"]
          == tuned["local_grads0_fingerprint"])) if not ok]
     log(f"    overlapped vs [8m] tuned: step 0's synced gradients within "
@@ -3407,7 +3708,7 @@ def first_slice(whole, shape):
 
 def phase_training_tp():
     """[8t] smollm-135m at full width and depth trained tensor-parallel
-    on 4 host-staged ranks (``("data", "model")`` = 2 x 2), tuned and
+    on 4 ranks (``("data", "model")`` = 2 x 2), tuned and
     through "xla", held to each other as [8] is and to [8]'s "xla" step
     0; at fp32 compute, the split step's gradients held to the unsplit
     step's and a planted fault read 10x above the tolerance. Returns the
@@ -3445,6 +3746,7 @@ def phase_training_tp():
 
     def card(tree):
         return [t.to("cuda", torch.float64) for t in pytree.leaves(tree)]
+    overlapped = overlapped_tp_run(tuned, card)
     oracle = STEP0_ORACLE["smollm-135m"]
     # the same start: both runs, and [8]'s draw (rank 0 holds the first
     # slice of each split leaf); rank 0's gradients before the sync
@@ -3512,10 +3814,62 @@ def phase_training_tp():
                         "worst": {names[j]: fp32["grad"][j]
                                   for j in worst},
                         "planted": fp32["faults"], "seconds": fp32_s},
+               "overlapped": overlapped,
                "phase_s": time.perf_counter() - t0}
-    log(f"    [8t] {summary['phase_s']:.1f}s")
+    log(f"    [8t] + [8tc] {summary['phase_s']:.1f}s")
     return summary, {"train_tp_tuned": tuned["launches"],
-                     "train_tp_xla": xla["launches"]}
+                     "train_tp_xla": xla["launches"],
+                     "train_tp_overlapped": overlapped["launches"]}
+
+
+def overlapped_tp_run(tuned, card):
+    """[8tc] [8t]'s tuned run again with ``--overlap-backward``: each
+    released layer synced over ``data`` on the sync thread while the
+    backward's model-axis all-reduces run on the main thread, under the
+    memory log; held to the tuned run (step 0's synced gradients within
+    ``TRAIN_GRAD_TOL``, the losses within ``TRAIN_LOSS_TOL``, rank 0's
+    gradients before the sync bit-equal, the thread busy in every step,
+    releases 29...0 in every rank and step). Returns its summary."""
+    from repro_torch import pytree
+    steps_n = TP_TRAIN_STEPS["tuned"]
+    with memory_log("8tc"):
+        r = train_run("8tc", "tuned, overlapped on the sync thread",
+                      [*TP_TRAIN_ARGS, "--steps", str(steps_n),
+                       "--tuning-table", FLAT_TABLE, "--overlap-backward"])
+    grad = grad_reading(card(r["grads0"]), card(tuned["grads0"]))
+    loss = max(abs(a - b) for a, b in zip(r["losses"], tuned["losses"]))
+    order = list(reversed(range(30)))
+    bad = [k for k, ok in (
+        ("device", r["device"] == "cuda:0" and r["ranks"] == TRAIN_RANKS),
+        ("replicas", all(r["replicas_equal"])),
+        ("launches", r["launches"] == expected_tp_launches(r, steps_n)),
+        ("combines", r["plan_combines"] > 0),
+        ("release order", r["release_events"]
+         == [[order] * TRAIN_RANKS] * steps_n),
+        ("sync thread busy every step", len(r["release_sync_s"])
+         == steps_n and all(t > 0 for t in r["release_sync_s"])),
+        ("gradients before the sync", r["local_grads0_fingerprint"]
+         == tuned["local_grads0_fingerprint"])) if not ok]
+    log(f"    overlapped vs [8t] tuned: step 0's synced gradients within "
+        f"{grad:.3g} (tol {TRAIN_GRAD_TOL}), losses within {loss:.3g} (tol "
+        f"{TRAIN_LOSS_TOL}); {r['plan_entries']} sync collectives and "
+        f"{r['plan_combines']} combines a step ([8t]: "
+        f"{tuned['plan_entries']}, {tuned['plan_combines']})")
+    for i in range(steps_n):
+        log(f"    step {i}: compute / exposed sync / optimizer s, "
+            f"overlapped {r['compute_s'][i]:.4f} / {r['sync_s'][i]:.4f} / "
+            f"{r['opt_s'][i]:.4f} (sync thread {r['release_sync_s'][i]:.4f})"
+            f", [8t] tuned {tuned['compute_s'][i]:.4f} / "
+            f"{tuned['sync_s'][i]:.4f} / {tuned['opt_s'][i]:.4f}")
+    if bad or grad > TRAIN_GRAD_TOL or loss > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[8tc] the overlapped run departs from [8t]'s "
+                             f"tuned run: {bad}, gradients {grad}, losses "
+                             f"{loss}; launches {r['launches']}")
+    out = {k: r[k] for k in ("losses", "step_s", "compute_s", "sync_s",
+                             "opt_s", "release_sync_s", "peak_mem_bytes",
+                             "launches", "plan_entries", "plan_combines")}
+    out.update(grad_reading=grad, loss_diff=loss)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3578,7 +3932,7 @@ def fsdp_checks(r, run, steps):
 
 
 def phase_training_fsdp():
-    """[8f] whisper-large-v3 trained under FSDP on 4 host-staged ranks
+    """[8f] whisper-large-v3 trained under FSDP on 4 ranks
     (``("pod", "data")`` = 2 x 2, each rank holding a quarter of every
     weight the data axes divide): (a) [8w]'s 2 + 2-layer ``"xla"`` run
     again with FSDP, held to it (step 0's loss bit-equal, its synced
@@ -3749,7 +4103,7 @@ def _log_fsdp_model_run(tag, r):
 
 def phase_training_fsdp_model():
     """[8ft] whisper-large-v3 under FSDP + tensor parallelism on 4
-    host-staged ranks, ``("data", "model")`` = 2 x 2, untuned: (a) 2 + 2
+    ranks, ``("data", "model")`` = 2 x 2, untuned: (a) 2 + 2
     layers, fp32 compute, 2 steps, held to the same run without FSDP on
     the same mesh (the tensor-parallel step): step 0's loss bit-equal,
     its synced gradients gathered whole within `SELF_TOL` of each leaf's
@@ -4004,8 +4358,8 @@ def phase_accounting(fsdp_model, smi):
             f"rank, {mf:.6g} in all; per unit {rows[0]['per_unit_flops']} "
             f"over {rows[0]['units']} units, extrapolation exact); "
             f"achieved {rate / 1e12:.4f} TFLOP/s over step 0's "
-            f"forward+backward of {fwd_bwd:.3f} s (four ranks, host-staged "
-            f"gloo collectives inside), {rate / acct.PEAK_FLOPS:.3e} of "
+            f"forward+backward of {fwd_bwd:.3f} s (four ranks, the "
+            f"arena collectives inside), {rate / acct.PEAK_FLOPS:.3e} of "
             f"989 TFLOP/s bf16 on {smi}")
         summary[tag] = {"ranks": rows, "launches": traced,
                         "model_flops": mf, "achieved_flops_per_s": rate}
@@ -4295,6 +4649,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    watch_memory("launcher")
 
     def mark(label):
         log(f"[t] {time.perf_counter() - t0:.1f}s after {label}")
@@ -4378,6 +4733,8 @@ def main() -> int:
         comm["comm_2x2x2"]["variants"]["bucketed"]["seconds"])
     comm_paths.update(mapped_paths)
     mark("[7], [7d]")
+    transport = phase_transport(smi)
+    mark("[7t]")
     training, train_paths = phase_training("smollm-135m")
     mark("[8], [8c]")
     training_ssm, ssm_paths = phase_training("mamba2-130m")
@@ -4406,6 +4763,8 @@ def main() -> int:
     examples, example_paths = phase_examples()
     train_paths.update(example_paths)
     mark("[10]")
+    log_before_after(smi, transport, training, training_tp,
+                     training_fsdp_model)
     for path, counts in train_paths.items():
         for name, n in counts.items():
             kernels[name]["launches_by_path"][path] = n
@@ -4431,7 +4790,8 @@ def main() -> int:
                           "best", "grad_sync", "tune_seconds", "wall_s",
                           "samples", "penalty", "fronts")},
                       "tuners": tuners,
-                      "communicator": comm, "training": training,
+                      "communicator": comm, "transport": transport,
+                      "training": training,
                       "training_mamba2": training_ssm,
                       "training_olmoe_ep": training_moe,
                       "training_whisper": training_whisper,

@@ -11,7 +11,9 @@ per-layer dicts. ``split_release_tree`` and ``layer_slice_struct`` take
 the list (the layer count is its length, one layer's slice is one
 element), and give `pytree.LeafStruct`s where the reference gives
 ``jax.ShapeDtypeStruct``s: one layer's slice has the reference's
-structure, so each release syncs what the reference's does. The
+structure, so each release syncs what the reference's does.
+``split_released`` splits by every released key (`RELEASE_KEYS`: the
+enc-dec family releases its two stacks under their own keys). The
 reference's text follows.
 
 A 200-leaf gradient tree pays 200 collective launches per step under the
@@ -45,8 +47,8 @@ from repro_torch.core.collectives.schedule import (  # noqa: F401
 )
 
 __all__ = ["Bucket", "BucketLayout", "BucketSlot", "RELEASE_KEY",
-           "coalesce_bytes", "layer_slice_struct", "pack_buckets",
-           "split_release_tree"]
+           "RELEASE_KEYS", "coalesce_bytes", "layer_slice_struct",
+           "pack_buckets", "split_release_tree", "split_released"]
 
 # The top-level gradient-tree key whose value is the list of per-layer
 # trees, released layer-by-layer during backward. grad_release tags are
@@ -67,6 +69,26 @@ def split_release_tree(tree, key: str = RELEASE_KEY):
         return None, tree
     rest = {k: v for k, v in tree.items() if k != key}
     return tree[key], rest
+
+
+#: every top-level key whose list of per-layer trees is released layer by
+#: layer in the backward, in release order: one stack's ``"layers"``;
+#: the enc-dec family's ``"decoder"``, then its ``"encoder"`` (the
+#: decoder's backward runs first). A release tag is ``(key, i)``.
+RELEASE_KEYS = (RELEASE_KEY, "decoder", "encoder")
+
+
+def split_released(tree):
+    """Split a gradient tree into its released stacks, ``[(key, layers)]``
+    in release order (`RELEASE_KEYS`), and the residual (everything
+    else, synced post-backward). ``([], tree)`` when no key holds a
+    layer."""
+    if not isinstance(tree, dict):
+        return [], tree
+    stacks = [(k, tree[k]) for k in RELEASE_KEYS
+              if isinstance(tree.get(k), (list, tuple)) and tree[k]]
+    keys = {k for k, _ in stacks}
+    return stacks, {k: v for k, v in tree.items() if k not in keys}
 
 
 def layer_slice_struct(layers):

@@ -55,7 +55,7 @@ from repro_torch import pytree
 from repro_torch.comms.bucketing import (
     BucketLayout,
     layer_slice_struct,
-    split_release_tree,
+    split_released,
 )
 from repro_torch.comms.report import PlanEntry, PlanReport
 from repro_torch.comms.request import CollectiveRequest
@@ -1095,37 +1095,49 @@ class Communicator:
             out[key] = layers
         return out
 
+    def _release_schedule(self, stacks, bucket_bytes: int,
+                          n_streams: int = N_STREAMS):
+        """The streamed sync's releases over ``stacks`` (`split_released`'s
+        ``[(key, layers)]``, in release order): ``[(plan, base)]`` a
+        release, its stack's `_bucket_plan` of one layer's slice and the
+        global index of its first bucket, and the global stream
+        schedule's tasks by ``(global bucket, phase)``."""
+        releases, elems, owners = [], [], []
+        for _, layers in stacks:
+            plan = self._bucket_plan(layer_slice_struct(layers),
+                                     bucket_bytes)
+            layout, active = plan[0], plan[1]
+            for _ in layers:
+                base = len(elems)
+                owners += [len(releases)] * len(active)
+                elems += [layout.buckets[i].elems for i in active]
+                releases.append((plan, base))
+        sched = build_stream_schedule(elems, releases[0][0][4],
+                                      releases=owners, n_streams=n_streams)
+        return releases, {(t.bucket, t.phase): t for t in sched.tasks}
+
     def _explain_gradients_streamed(self, tree, bucket_bytes: int,
                                     n_streams: int = N_STREAMS
                                     ) -> PlanReport:
         """The backward-overlapped plan, in executed trace order: per
-        release event (layer L-1 first — backward order) the release's
-        full phase chain in its local pipeline order, tagged with the
-        global stream schedule's (release, stream, step); then the
-        residual sync's entries. The per-release collective specs are
-        resolved through exactly the lookup path ``_sync_release``
-        dispatches, so plan == executed for the streamed path too."""
-        layers, residual = split_release_tree(tree)
-        if layers is None:
+        release event (each released stack in release order, layer L-1
+        first — backward order) the release's full phase chain in its
+        local pipeline order, tagged with the global stream schedule's
+        (release, stream, step); then the residual sync's entries. The
+        per-release collective specs are resolved through exactly the
+        lookup path ``_sync_release`` dispatches, so plan == executed
+        for the streamed path too."""
+        stacks, residual = split_released(tree)
+        if not stacks:
             return self.explain_gradients(tree, bucket_bytes=bucket_bytes)
         if self._inner_axis is None:
             raise ValueError("sync_gradients needs a mesh with a 'data' "
                              "axis")
-        n_layers = len(layers)
-        slice_tree = layer_slice_struct(layers)
-        # every release syncs an identical layer slice, so one local
-        # bucket plan serves all of them
-        layout, active, sched, axes, sizes, keys, hier = \
-            self._bucket_plan(slice_tree, bucket_bytes)
-        elems = [layout.buckets[i].elems for i in active]
-        stream_sched = build_stream_schedule(
-            elems * n_layers, sizes,
-            releases=[r for r in range(n_layers) for _ in active],
-            n_streams=n_streams)
-        by_bp = {(t.bucket, t.phase): t for t in stream_sched.tasks}
+        releases, by_bp = self._release_schedule(stacks, bucket_bytes,
+                                                 n_streams)
         entries: List[PlanEntry] = []
-        for r in range(n_layers):
-            base = r * len(active)
+        for r, (plan, base) in enumerate(releases):
+            layout, active, sched, axes, sizes, keys, hier = plan
             for t in sched.tasks:
                 st = by_bp[(base + t.bucket, t.phase)]
                 bucket = layout.buckets[active[t.bucket]]

@@ -4,9 +4,11 @@
 The reference times a jitted ``shard_map``'d ``ppermute`` round between
 two devices. The port times a ping-pong between two ranks of the
 default group over ``group.ppermute``: on one card the ranks are
-processes under ``gloo`` and every payload crosses through host memory,
-so each probed profile describes that HOST-STAGED transport, not a GPU
-fabric, and `describe_topology` says so wherever a profile is printed.
+processes on one device, and a payload crosses through the axis's
+arena in device memory (CUDA IPC), a copy in and a copy out ordered by a
+host signal; on the CPU, the ``gloo`` wire. So each probed profile
+describes that transport (``FABRICS``), not a GPU fabric, and
+`describe_topology` says which wherever a profile is printed.
 
 Every rank runs the probe in lockstep (the calls are the same on every
 rank); ranks outside the timed pair take no part in its exchanges, and
@@ -53,8 +55,9 @@ from repro_torch.core.topology.model import (
 from repro_torch.core.tuning.simulator import NetworkProfile
 from repro_torch.obs.trace import ready
 
-#: what every profile this module fits describes
-FABRIC = "host-staged"
+#: what every profile this module fits describes, by the device the
+#: ranks hold their buffers on
+FABRICS = {"cuda": "cuda-ipc", "cpu": "host-staged"}
 
 
 def _pingpong(ms: int, ranks=None, device=None):
@@ -208,10 +211,11 @@ def probe_mesh_topology(mesh, ms: Sequence[int] = PROBE_SIZES, *,
     return probe_topology(levels, ms)
 
 
-def describe_topology(topology: Topology) -> str:
+def describe_topology(topology: Topology,
+                      fabric: str = FABRICS["cpu"]) -> str:
     """One line per probed level, each naming the fabric it measured."""
     return "\n".join(
-        f"{FABRIC} level {lv.name} (axis {lv.axis}, {lv.size} ranks): "
+        f"{fabric} level {lv.name} (axis {lv.axis}, {lv.size} ranks): "
         f"launch {lv.profile.launch * 1e6:.1f} us, byte time "
         f"{lv.profile.byte_time * 1e9:.4f} ns/B"
         for lv in topology.levels)

@@ -4,40 +4,56 @@
 The reference runs an algorithm once, as one SPMD program over a mesh
 axis. The port runs it in every process of a ``torch.distributed`` group,
 rank-local: ``rank()`` is a Python int, and each ``ppermute`` is one
-``batch_isend_irecv`` round between the pairs the permutation names.
+round between the pairs the permutation names.
 
 Ranks on one card. NCCL refuses two ranks on one device, so the ranks are
 processes under a ``gloo`` group, each holding its buffers on ``cuda:0``.
-Every payload is staged through host memory (``.cpu()``, the gloo wire,
-``.to(device)``) while the reduce step runs on the card, in the
-``segment_combine`` kernel. Timings of this transport measure the
-schedule and the host staging, not a GPU fabric. A CPU tensor crosses
-without staging. This module is the whole transport: a multi-card NCCL
-path would drop the staging here and change nothing above it.
+A CUDA payload stays on the card: it crosses through an `Arena`, device
+memory that every rank of the axis maps with CUDA IPC. Each axis (and
+the default group) has its own arena in every rank, two slots used in
+turn, allocated at its first CUDA collective; the ranks exchange its IPC
+handles once over the axis's ``gloo`` group, and again after it grows
+(in lockstep: every rank issues the same collective with the same
+shape, so every rank computes the same new size), up to
+`ARENA_MAX_BYTES` a slot: a larger payload crosses in rounds of a slot
+each, which bounds the transport's memory. A writer copies its
+payload into its own slot, synchronizes its stream and raises its
+counter in a small block of host memory the ranks of the axis share;
+each reader waits for every counter, then reads the peers' slots on its
+own stream. The counters order both hazards: a slot is read only after
+its copy has landed, and a slot is written again two collectives later,
+after every rank has passed the signal of the one between, which each
+rank gives only once its reads of the last one are done. A map that
+fails raises and names the error. The reduce steps of the tuned
+algorithms run in the ``segment_combine`` kernel; the built-ins sum, or
+take the max, in axis order in the payload's dtype, so their result is
+the same bits on every rank. A CPU tensor keeps the ``gloo`` wire, and
+object collectives (`broadcast_object`, `max_over_ranks`, `barrier`)
+stay on it too. This module is the whole transport: a multi-card NCCL
+path would change nothing above it.
 
 ``ppermute`` keeps ``jax.lax.ppermute``'s semantics exactly: a rank that
 is no destination in ``perm`` gets zeros, a rank may send without
 receiving, and a pair ``(i, i)`` is a local copy. Sources and
-destinations must each be unique, as in JAX.
+destinations must each be unique, as in JAX. On the card every rank of
+the axis takes part in each round, as every rank of the SPMD program
+calls it.
 
 The ``"xla"`` algorithms use the backend's built-ins: ``psum``,
 ``all_gather`` and ``all_to_all``; ``pmax`` serves the vocab-parallel
 loss's row max.
 
 Threads. Every function here may be called from any one thread of a
-rank, as long as no other thread of that rank issues a collective at
-the same time: the ``gloo`` groups are used by one thread at a time, and
-every rank must issue its collectives in one order. `SyncThread` is the
-one place the port calls them off the main thread: the
-backward-overlapped gradient sync hands it one job a released layer
-while autograd runs the layers below, and the main thread issues no
-collective until it has joined the thread. (On a ``model`` axis,
-expert or tensor parallelism, the backward issues collectives of its
-own, so there the layers sync inside the backward and no thread runs:
-``launch/steps.py``.) On the
-card the thread works on a CUDA stream of its own, so the host
-staging's stream synchronizes
-(``.to("cpu")``, ``.to(device)``) wait for the sync's own copies and
+rank, as long as no other thread of that rank issues a collective over
+the same axis at the same time, and every rank issues the collectives of
+an axis in one order. Two threads may use two axes at once: each axis
+has its own ``gloo`` group, arena and counters. `SyncThread` is the one
+place the port calls them off the main thread: the backward-overlapped
+gradient sync hands it one job a released layer while autograd runs the
+layers below, and the job's collectives run over the data tiers while
+the backward's own, on a ``model`` axis, run over ``model`` on the main
+thread. On the card the thread works on a CUDA stream of its own, so
+the transport's stream synchronizes wait for the sync's own copies and
 kernels, not for the backward queued on the main stream.
 
 Mesh axes. The reference's ``Mesh`` names its axes and ``shard_map``
@@ -75,19 +91,23 @@ import contextlib
 import dataclasses
 import datetime
 import functools
+import mmap
 import os
 import pickle
 import queue
+import shutil
 import sys
 import tempfile
 import threading
 import time
 import traceback
+import zlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.multiprocessing.reductions import rebuild_cuda_tensor, reduce_tensor
 
 from repro_torch import count, pytree
 
@@ -161,10 +181,310 @@ def _peer(group, r: int) -> int:
     return r if pg is None else dist.get_global_rank(pg, r)
 
 
-def _to_host(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous host tensor with x's values that the caller may
-    overwrite (a copy, for a CPU x too)."""
-    return x.detach().to("cpu", copy=True, memory_format=torch.contiguous_format)
+def _copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of CPU tensor x that the caller may overwrite
+    (what the ``gloo`` wire sends and reduces in place)."""
+    return x.detach().clone(memory_format=torch.contiguous_format)
+
+
+# ---------------------------------------------------------------------------
+# the arena: CUDA payloads cross on the card
+# ---------------------------------------------------------------------------
+#: an arena's first slot size in bytes; a larger payload grows it
+ARENA_MIN_BYTES = 1 << 20
+#: the largest slot: a larger payload crosses in rounds of a slot each,
+#: so an axis's arena holds at most two of them
+ARENA_MAX_BYTES = 64 << 20
+#: how often a rank waiting on the arena's counters yields its core before
+#: it sleeps between reads
+SPINS = 200
+#: the sleep between reads after that, in seconds
+SPIN_SLEEP_S = 20e-6
+
+
+class CudaIpc:
+    """An arena's mapping step on the card: the memory is a CUDA
+    allocation on ``device`` and a peer maps it through CUDA IPC (the
+    handle `torch.multiprocessing` sends for a CUDA tensor)."""
+
+    name = "CUDA IPC"
+
+    def alloc(self, nbytes: int, device) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+    def share(self, mem: torch.Tensor):
+        return reduce_tensor(mem)[1]
+
+    def open(self, handle) -> torch.Tensor:
+        return rebuild_cuda_tensor(*handle)
+
+
+class _Counters:
+    """The arena's signal: one int64 counter a rank and two tags a rank
+    (a collective's kind, shape and pairs, by the parity of its count) in
+    a file of host memory that every rank of the group maps. Rank 0 of
+    the group makes the file and sends its path over the group; it is
+    unlinked once every rank holds the map (`unlink`)."""
+
+    def __init__(self, pg, size: int, me: int):
+        self.size, self.me = size, me       # me: this rank in the group
+        nbytes = 8 * 3 * size
+        self._dir = None
+        if me == 0:
+            self._dir = tempfile.mkdtemp(prefix="repro_torch_arena_")
+            path = os.path.join(self._dir, "counters")
+            with open(path, "wb") as f:
+                f.write(bytes(nbytes))
+        else:
+            path = None
+        box = [path]
+        dist.broadcast_object_list(
+            box, src=0 if pg is None else dist.get_global_rank(pg, 0),
+            group=pg)
+        with open(box[0], "r+b") as f:
+            self._map = mmap.mmap(f.fileno(), nbytes)
+        flat = np.frombuffer(self._map, dtype=np.int64)
+        self.counts = flat[:size]
+        self.tags = flat[size:].reshape(size, 2)
+
+    def unlink(self) -> None:
+        if self._dir is not None:
+            shutil.rmtree(self._dir, ignore_errors=True)
+            self._dir = None
+
+    def signal(self, seq: int, tag: int, what: str) -> None:
+        """Raise this rank's counter to ``seq`` and wait until every rank's
+        has reached it; raises if a rank's tag for ``seq`` differs (the
+        ranks issued different collectives) or after `TIMEOUT_S`."""
+        self.tags[self.me, seq % 2] = tag
+        self.counts[self.me] = seq
+        spins, deadline = 0, None
+        while int(self.counts.min()) < seq:
+            spins += 1
+            if spins < SPINS:
+                os.sched_yield()
+                continue
+            if deadline is None:
+                deadline = time.monotonic() + TIMEOUT_S
+            elif time.monotonic() > deadline:
+                late = [j for j in range(self.size) if self.counts[j] < seq]
+                raise RuntimeError(f"{what}: ranks {late} did not reach "
+                                   f"collective {seq} in {TIMEOUT_S:.0f} s")
+            time.sleep(SPIN_SLEEP_S)
+        tags = self.tags[:, seq % 2]
+        if (tags != tag).any():
+            raise RuntimeError(f"{what}: the ranks issued different "
+                               f"collectives as number {seq} (tags "
+                               f"{tags.tolist()})")
+
+
+class Arena:
+    """The memory one axis's CUDA payloads cross through, in this rank:
+    two slots of ``capacity`` bytes (collective ``n`` writes slot ``n %
+    2``), the peers' arenas mapped by ``backing`` (`CudaIpc`, or a test's
+    shared host memory), and the counters that order the copies (see the
+    module's text). ``pg`` and ``order`` are the axis's ``gloo`` group
+    and slot order (`Axis`). Made at no cost; the first collective
+    allocates and maps, collectively. Every rank of the axis must call
+    each collective, with the same shape, in one order."""
+
+    def __init__(self, pg, order: Optional[Tuple[int, ...]], backing,
+                 name: str = "world"):
+        self.pg, self.order, self.backing, self.name = pg, order, backing, name
+        self.size = dist.get_world_size(pg)
+        g = dist.get_rank(pg)
+        self.index = g if order is None else order.index(g)
+        self.capacity = 0
+        self.seq = 0
+        self._arenas: list = []         # every rank's, by axis index
+        self._counters: Optional[_Counters] = None
+        self._reads = None              # event after the last reads
+
+    # -- set-up and growth ------------------------------------------------
+    def _quiesce(self) -> None:
+        """Wait for this rank's reads of the last collective."""
+        if self._reads is not None:
+            self._reads.synchronize()
+
+    def _grow(self, nbytes: int, device) -> None:
+        """Reallocate both slots at ``nbytes`` or more and map the peers'
+        new arenas (collective over the group: each rank grows at the
+        same collective, to the same size). The old arenas are dropped
+        only after the exchange, by which every rank's reads of them are
+        done."""
+        cap = min(max(ARENA_MIN_BYTES, 2 * self.capacity, nbytes),
+                  ARENA_MAX_BYTES)
+        cap = -(-cap // ARENA_MIN_BYTES) * ARENA_MIN_BYTES
+        self._quiesce()
+        if self._counters is None:
+            self._counters = _Counters(self.pg, self.size,
+                                       dist.get_rank(self.pg))
+        mine = self.backing.alloc(2 * cap, device)
+        handles = [None] * self.size
+        dist.all_gather_object(handles, self.backing.share(mine),
+                               group=self.pg)
+        self._counters.unlink()                 # every rank has mapped it
+        peers = []
+        for j in range(self.size):
+            g = j if self.order is None else self.order[j]
+            if j == self.index:
+                peers.append(mine)
+                continue
+            try:
+                peers.append(self.backing.open(handles[g]))
+            except Exception as e:      # the map failed: name it, no fallback
+                raise RuntimeError(
+                    f"{self.backing.name} map of axis {self.name}'s arena "
+                    f"of its rank {j} failed: {type(e).__name__}: {e}") from e
+        self._arenas, self.capacity = peers, cap
+
+    def drop_peers(self) -> None:
+        """Drop the peers' maps (after this rank's reads of them)."""
+        self._quiesce()
+        self._arenas = [a if j == self.index else None
+                        for j, a in enumerate(self._arenas)]
+
+    def close(self) -> None:
+        """Drop the peers' maps and this rank's slots."""
+        self.drop_peers()
+        self._arenas, self.capacity = [], 0
+        if self._counters is not None:
+            self._counters.unlink()
+
+    # -- one collective -----------------------------------------------------
+    def _rounds(self, x2: torch.Tensor, kind: str, write: bool = True,
+                extra=()):
+        """The rounds of one collective over ``x2`` (rows, m): each takes
+        columns ``a:b`` of every row, at most a slot of bytes. Per round
+        this rank copies its piece into its slot (unless not ``write``)
+        and signals, then yields ``(a, b, views)``, ``views[j]`` rank j's
+        piece in axis order (this rank's own at its index); once the
+        caller has queued its reads, the next round begins."""
+        rows, m = x2.shape
+        step = max(1, ARENA_MAX_BYTES // max(1, rows * x2.element_size()))
+        for a in range(0, m, step):
+            b = min(m, a + step)
+            piece = x2[:, a:b]
+            nbytes = piece.numel() * piece.element_size()
+            if nbytes > self.capacity:
+                self._grow(nbytes, x2.device)
+            self.seq += 1
+            off = (self.seq % 2) * self.capacity
+            views = [piece if j == self.index else
+                     self._arenas[j][off:off + nbytes].view(x2.dtype)
+                     .view(rows, b - a) for j in range(self.size)]
+            if write:
+                self._arenas[self.index][off:off + nbytes].view(
+                    x2.dtype).view(rows, b - a).copy_(piece)
+            if x2.device.type == "cuda":
+                torch.cuda.current_stream(x2.device).synchronize()
+            self._quiesce()
+            tag = zlib.crc32(repr((kind, tuple(x2.shape), str(x2.dtype),
+                                   a, b, extra)).encode())
+            self._counters.signal(self.seq, tag,
+                                  f"{kind} over axis {self.name}")
+            yield a, b, views
+            if x2.device.type == "cuda":
+                if self._reads is None:
+                    self._reads = torch.cuda.Event()
+                self._reads.record(torch.cuda.current_stream(x2.device))
+
+    def _reduce(self, x2: torch.Tensor, row: int, kind: str,
+                op) -> torch.Tensor:
+        """Row ``row`` of x2 combined over the ranks by ``op`` (in place on
+        its first argument) in axis order: the same bits on every rank."""
+        out = torch.empty(x2.shape[1], dtype=x2.dtype, device=x2.device)
+        for a, b, views in self._rounds(x2, kind):
+            o = out[a:b]
+            o.copy_(views[0][row])
+            for v in views[1:]:
+                op(o, v[row])
+        return out
+
+    @torch.no_grad()
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the axis in axis order, in x's dtype (the same bits on
+        every rank)."""
+        return self._reduce(x.detach().reshape(1, -1), 0, "psum",
+                            torch.Tensor.add_).view(x.shape)
+
+    @torch.no_grad()
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x.detach().reshape(1, -1), 0, "pmax",
+                            lambda o, v: torch.maximum(o, v, out=o)
+                            ).view(x.shape)
+
+    @torch.no_grad()
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """Block ``index`` of axis 0 summed over the ranks in axis order."""
+        out = self._reduce(x.detach().reshape(self.size, -1), self.index,
+                           "reduce_scatter", torch.Tensor.add_)
+        return out.view((x.shape[0] // self.size,) + tuple(x.shape[1:]))
+
+    def _gather(self, x2: torch.Tensor, row: int, kind: str) -> torch.Tensor:
+        """Row ``row`` of every rank's x2, stacked in axis order."""
+        out = torch.empty((self.size, x2.shape[1]), dtype=x2.dtype,
+                          device=x2.device)
+        for a, b, views in self._rounds(x2, kind):
+            for j, v in enumerate(views):
+                out[j, a:b].copy_(v[row])
+        return out
+
+    @torch.no_grad()
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        out = self._gather(x.detach().reshape(1, -1), 0, "all_gather")
+        return out.view((self.size * x.shape[0],) + tuple(x.shape[1:]))
+
+    @torch.no_grad()
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        return self._gather(x.detach().reshape(self.size, -1), self.index,
+                            "all_to_all").view(x.shape)
+
+    @torch.no_grad()
+    def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        x = x.detach()
+        r = self.index
+        src = [s for s, d in perm if d == r]
+        if all(s == d for s, d in perm):        # no pair crosses: no round
+            return x.clone() if src else torch.zeros_like(x)
+        sends = any(s == r and d != r for s, d in perm)
+        out = torch.zeros(x.numel(), dtype=x.dtype, device=x.device)
+        for a, b, views in self._rounds(x.reshape(1, -1), "ppermute",
+                                        write=sends,
+                                        extra=tuple(sorted(perm))):
+            if src:
+                out[a:b].copy_(views[src[0]][0])
+        return out.view(x.shape)
+
+
+#: this process's arenas, by (process group, slot order)
+_ARENAS: dict = {}
+_ARENAS_LOCK = threading.Lock()
+
+
+def _arena(group) -> Arena:
+    """The `Arena` of ``group`` in this process, made on first use."""
+    key = (_pg(group), _order(group))
+    with _ARENAS_LOCK:
+        arena = _ARENAS.get(key)
+        if arena is None:
+            arena = _ARENAS[key] = Arena(key[0], key[1], CudaIpc(),
+                                         _axis_name(group))
+    return arena
+
+
+def close_arenas() -> None:
+    """Release every arena of this process: the peers' maps first, then,
+    once every rank of the default group has dropped its own (a barrier),
+    this rank's memory. Collective over the default group."""
+    with _ARENAS_LOCK:
+        arenas = list(_ARENAS.values())
+        _ARENAS.clear()
+    for arena in arenas:
+        arena.drop_peers()
+    dist.barrier()
+    for arena in arenas:
+        arena.close()
 
 
 def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
@@ -181,10 +501,13 @@ def ppermute(x: torch.Tensor, perm: Sequence[Tuple[int, int]],
     if _meta(group):
         return _meta_result(x, tuple(x.shape))
     with count.hidden():
+        if x.device.type == "cuda":
+            return _arena(group).ppermute(x, perm)
         return _permute_round(x, perm, group)
 
 
 def _permute_round(x, perm, group):
+    """`ppermute` of a CPU tensor over the ``gloo`` wire."""
     r = rank(group)
     send_to = [d for s, d in perm if s == r]
     recv_from = [s for s, d in perm if d == r]
@@ -194,10 +517,8 @@ def _permute_round(x, perm, group):
         return x.clone()
     ops = []
     if send_to:
-        payload = x.detach().contiguous() if x.device.type == "cpu" \
-            else x.detach().to("cpu")
-        ops.append(dist.P2POp(dist.isend, payload, _peer(group, send_to[0]),
-                              _pg(group)))
+        ops.append(dist.P2POp(dist.isend, x.detach().contiguous(),
+                              _peer(group, send_to[0]), _pg(group)))
     if recv_from:
         buf = torch.empty(x.shape, dtype=x.dtype)
         ops.append(dist.P2POp(dist.irecv, buf, _peer(group, recv_from[0]),
@@ -206,7 +527,7 @@ def _permute_round(x, perm, group):
         req.wait()
     if not recv_from:
         return torch.zeros_like(x)
-    return buf.to(x.device)
+    return buf
 
 
 class Record:
@@ -293,7 +614,7 @@ def _collective(kind: str, shape_of: Callable):
     """``fn(x, group)`` as a recorded collective of ``kind`` whose result
     has shape ``shape_of(x.shape, axis size)``: over a meta axis it moves
     nothing and returns a meta tensor of that shape; over a real one it
-    runs ``fn``, whose host staging the work count does not see."""
+    runs ``fn``, whose transport the work count does not see."""
     def deco(fn):
         @functools.wraps(fn)
         def inner(x, group=None):
@@ -327,10 +648,11 @@ class Tally:
     Tally("model", device):``; the training step opens one a step).
     ``counts`` is by function (``psum``, ``pmax``, ``all_gather``,
     ``reduce_scatter``, ``all_to_all``), ``seconds`` their sum, each
-    between two synchronizations of ``device`` (on the card; the host
-    staging waits for the work queued before a collective anyway, so
-    the first costs nothing more). Collectives on other axes, or on a
-    process group that is not an `Axis`, are not counted."""
+    between two synchronizations of the calling thread's stream on
+    ``device`` (on the card; the transport waits for the work queued
+    before a collective anyway, so the first costs nothing more, and a
+    sync thread's stream is not waited for). Collectives on other axes,
+    or on a process group that is not an `Axis`, are not counted."""
 
     def __init__(self, axis_name: str, device=None):
         self.axis_name = axis_name
@@ -351,7 +673,7 @@ class Tally:
 
     def clock(self) -> float:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
         return time.perf_counter()
 
 
@@ -380,31 +702,37 @@ def _tallied(fn):
 @_collective("all-reduce", _same)
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-reduce (sum), out of place."""
-    buf = _to_host(x)
+    if x.device.type == "cuda":
+        return _arena(group).psum(x)
+    buf = _copy(x)
     dist.all_reduce(buf, group=_pg(group))
-    return buf.to(x.device)
+    return buf
 
 
 @_tallied
 @_collective("all-reduce", _same)
 def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-reduce (elementwise max), out of place."""
-    buf = _to_host(x)
+    if x.device.type == "cuda":
+        return _arena(group).pmax(x)
+    buf = _copy(x)
     dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=_pg(group))
-    return buf.to(x.device)
+    return buf
 
 
 @_tallied
 @_collective("all-gather", _tiled)
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-gather, concatenated along axis 0 (tiled)."""
-    buf = _to_host(x)
+    if x.device.type == "cuda":
+        return _arena(group).all_gather(x)
+    buf = _copy(x)
     parts = [torch.empty_like(buf) for _ in range(size(group))]
     dist.all_gather(parts, buf, group=_pg(group))
     order = _order(group)
     if order is not None:                     # group rank -> axis order
         parts = [parts[g] for g in order]
-    return torch.cat(parts, dim=0).to(x.device)
+    return torch.cat(parts, dim=0)
 
 
 @_tallied
@@ -414,7 +742,9 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     blocks, and this rank gets the sum over the ranks of block i, i its
     index along ``group`` (``jax.lax.psum_scatter(scatter_dimension=0,
     tiled=True)``, the transpose of `all_gather`)."""
-    buf = _to_host(x)
+    if x.device.type == "cuda":
+        return _arena(group).reduce_scatter(x)
+    buf = _copy(x)
     n = size(group)
     order = _order(group)
     if order is not None:          # block i goes to group rank order[i]
@@ -423,7 +753,7 @@ def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty((buf.shape[0] // n,) + tuple(buf.shape[1:]),
                       dtype=buf.dtype)
     dist.reduce_scatter_tensor(out, buf, group=_pg(group))
-    return out.to(x.device)
+    return out
 
 
 @_tallied
@@ -432,7 +762,9 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     """The backend's all-to-all: axis 0 split into p equal blocks, block
     j goes to rank j, and the received blocks are stacked in rank order
     (``jax.lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``)."""
-    buf = _to_host(x)
+    if x.device.type == "cuda":
+        return _arena(group).all_to_all(x)
+    buf = _copy(x)
     order = _order(group)
     if order is not None:          # block j goes to group rank order[j]
         blocks = buf.chunk(len(order))
@@ -443,7 +775,7 @@ def all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     if order is not None:          # received in group-rank order
         blocks = out.chunk(len(order))
         out = torch.cat([blocks[g] for g in order])
-    return out.to(x.device)
+    return out
 
 
 def broadcast_object(obj, group=None):
@@ -775,6 +1107,7 @@ def _entry(r: int, fn: Callable, world: int, init: str, result: str,
                 # protocol 5 writes a tensor's bytes at half protocol
                 # 4's cost (a run's kept params are gigabytes)
                 pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+        close_arenas()
     except Exception:
         # the caller raises the first rank's error it sees, which may be
         # a peer's lost connection: each rank's own goes to stderr

@@ -1,6 +1,6 @@
 """A copy of ``repro/core/topology/model.py``. Its default level profiles
 are the reference's TPU-calibrated ones and say nothing about the
-port's host-staged ranks; a probed profile does
+port's ranks on one card; a probed profile does
 (``repro_torch.comms.probe``). The reference's text follows.
 
 Topology model: the machine's network hierarchy as tunable levels.

@@ -7,9 +7,9 @@ Backends:
   * DeviceBackend   — wall-clock timing of the port's algorithm
     implementations inside every rank of a process group. With the ranks
     as processes on one card (``collectives/group.py``) it measures the
-    schedule and the host staging of each payload, not a GPU fabric, as
-    the reference's CPU measurements measure schedule overhead, not wire
-    time.
+    schedule and the arena transport (device copies, one host signal a
+    round), not a GPU fabric, as the reference's CPU measurements
+    measure schedule overhead, not wire time.
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ read once and its outputs written once, and its launches. On CPU tensors
 a wrapper runs its plain version inside `kernel`, which notes the same
 work and hides the plain version's own operations from the count, so a
 run on the CPU and a trace on ``meta`` count the same work. A collective
-on a real axis runs inside `hidden`: its host staging is transport, not
-the step's work (``group.Record`` keeps the collectives apart).
+on a real axis runs inside `hidden`: its copies are transport, not the
+step's work (``group.Record`` keeps the collectives apart).
 
 A counter is any object with ``kernel(name, flops, nbytes, launches)``
 and an integer ``paused``; it pushes itself on `_OPEN` while it counts.

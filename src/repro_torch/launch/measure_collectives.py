@@ -20,9 +20,10 @@ reference's format, which ``repro.core.tuning.DecisionTable.load``
 reads too.
 
 Every reduce step on the card runs the hand-written ``segment_combine``
-kernel. Payloads cross between the ranks through host memory
-(``core/collectives/group.py``), so the times measure the schedules and
-the host staging, not a GPU fabric.
+kernel. Payloads cross between the ranks through device memory the
+ranks map with CUDA IPC (``core/collectives/group.py``), one host
+signal a round, so the times measure the schedules and that transport,
+not a GPU fabric.
 
 Options beyond the reference's example:
   * ``--check``: before tuning, hold every algorithm of ``ALGORITHMS``
@@ -46,7 +47,7 @@ Options beyond the reference's example:
     summed over the ranks beside the count its plan implies
     (`plan_combines`);
   * ``--probe-fabric``: probe every sync tier of the mesh and print the
-    fitted (host-staged) profiles.
+    fitted profiles (of the arena transport on the card).
 
 Examples:
     python -m repro_torch.launch.measure_collectives
@@ -69,7 +70,11 @@ import torch.distributed as dist
 
 from repro_torch import pytree
 from repro_torch.comms import Communicator
-from repro_torch.comms.probe import describe_topology, probe_mesh_topology
+from repro_torch.comms.probe import (
+    FABRICS,
+    describe_topology,
+    probe_mesh_topology,
+)
 from repro_torch.core.collectives import algorithms as alg
 from repro_torch.core.collectives import group as grp
 from repro_torch.core.collectives import synth
@@ -558,7 +563,8 @@ def _rank_main(opts: dict):
         mesh = grp.RankMesh(opts["mesh_shape"], opts["mesh_axes"],
                             device=device)
         if opts["probe_fabric"]:
-            res["probed"] = describe_topology(probe_mesh_topology(mesh))
+            res["probed"] = describe_topology(
+                probe_mesh_topology(mesh), FABRICS[device.type])
         struct = _gradient_structure(opts["grad_arch"], opts["reduced"],
                                      opts["grad_elems"], device,
                                      opts["grad_layers"])

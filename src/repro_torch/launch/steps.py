@@ -62,12 +62,10 @@ expert slice is synced among the ranks that hold it. Under
 ``sync_gradients_streamed``: it is linear, so the values are the
 reference's (which corrects before its streamed sync) up to reduction
 order. The backward itself issues ``model``-axis collectives there (the
-exchange's and the sequence gather's gradients), so the release points
-sync each layer inside the backward, as the reference's form does,
-instead of on the sync thread: the launcher says so when it starts.
-With the sync thread, the card lost a gloo connection in the second
-overlapped step once, and a machine once; neither is root-caused
-(ROADMAP.md Queue 3). AdamW clips by the whole tree's norm
+exchange's and the sequence gather's gradients) on the main thread,
+while the sync thread syncs each released layer over the data tiers on
+its own stream: the two use two axes, each with its own ``gloo`` group
+and arena (`group.Arena`). AdamW clips by the whole tree's norm
 (`ep_global_norm`), so the replicated params stay equal on every rank.
 The reference's untuned path, XLA's partitioning, is the oracle the
 tests hold the port's ``"xla"`` path to.
@@ -89,9 +87,11 @@ replicated leaf's, equal on every rank) or this rank's slice of it.
 Then the sync runs over the data tiers only, tuned or ``"xla"``, among
 the ranks that hold each slice, and AdamW clips by the whole tree's
 norm (`split_global_norm` over `sharding.split_kinds`). Under
-``overlap_backward`` the backward issues model-axis collectives, so
-the release points sync each layer inside the backward, as under
-expert parallelism.
+``overlap_backward`` the sync thread syncs each released layer over the
+data tiers while the backward's model-axis collectives run on the main
+thread, as under expert parallelism; `tp_correct` follows
+``sync_gradients_streamed`` (linear, so the values are the plain
+step's up to reduction order).
 
 FSDP (``ParallelConfig.shard_params_over_data``; the untuned step
 only, as in the reference: `validate_collectives` rejects a tuned sync
@@ -565,12 +565,10 @@ def build_train_step(
 
     def overlapped(params, batch, keep_grads):
         """Forward and backward under a release sink whose thread syncs
-        each layer as autograd releases it (on a ``model`` axis, in the
-        backward itself: see the module's text); the step's phase-1
-        result and the sink, whose syncs may still run."""
-        sink = comm.release_sink(coll.bucket_bytes,
-                                 overlap=model_axis is None, device=dev,
-                                 fingerprint=keep_grads)
+        each layer as autograd releases it; the step's phase-1 result
+        and the sink, whose syncs may still run."""
+        sink = comm.release_sink(coll.bucket_bytes, overlap=True,
+                                 device=dev, fingerprint=keep_grads)
         with L.release_scope(sink):
             (loss, aux), grads = value_and_grad(params, batch)
         if dev.type == "cuda":      # the backward's stream, not the sync's

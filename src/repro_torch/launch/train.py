@@ -284,10 +284,10 @@ def _rank_main(opts: dict):
         say("gradient sync: backward-overlapped release streams")
     elif args.overlap_backward:
         kind = "expert" if step.ep_axis else "tensor"
-        say(f"gradient sync: per-layer release points, each layer synced "
-            f"inside the backward ({kind} parallelism over "
-            f"{step.model_axis}: no sync thread, so the layers' syncs are "
-            f"fused, not overlapped; ROADMAP.md Queue 3)")
+        say(f"gradient sync: backward-overlapped release streams over the "
+            f"data tiers, on the sync thread, while the backward's "
+            f"collectives over {step.model_axis} ({kind} parallelism) run "
+            f"on the main thread")
     params = step.init(torch.Generator(device=device).manual_seed(0))
     opt_state = step.opt.init(params)
     pipe = SyntheticPipeline(cfg, shape, seed=0, streams=opts["streams"])

@@ -17,8 +17,9 @@ runs leaf by leaf, and so does the walk of the residual (the
 reference's walk fuses it into one bucket, whose spans would not line up
 with the per-leaf plan).
 
-On host-staged ranks the measured times are the schedule's trips
-through the host, not a GPU fabric (``core/collectives/group.py``).
+On ranks of one card the measured times are the schedule's trips
+through the arena transport, not a GPU fabric
+(``core/collectives/group.py``).
 """
 from __future__ import annotations
 
@@ -97,13 +98,9 @@ def measure_gradient_schedule(
     Span start times are a sequential cursor (task k+1 starts where
     task k ended): per-tier OCCUPANCY is what the residual join
     consumes, not cross-task concurrency."""
-    from repro_torch.comms.bucketing import (
-        layer_slice_struct,
-        split_release_tree,
-    )
+    from repro_torch.comms.bucketing import split_released
     from repro_torch.comms.communicator import N_STREAMS
     from repro_torch.core.collectives.hierarchical import _level_spec
-    from repro_torch.core.collectives.schedule import build_stream_schedule
 
     n_streams = n_streams or N_STREAMS
     bb = comm._resolve_bucket_bytes(bucket_bytes)
@@ -129,20 +126,12 @@ def measure_gradient_schedule(
             t_start=cursor, t_end=cursor + dur, **tags))
         cursor += dur
 
-    layers, residual = split_release_tree(tree) if overlap_backward \
-        else (None, tree)
-    if layers is not None:
-        n_layers = len(layers)
-        layout, active, sched, axes, sizes, keys, _hier = \
-            comm._bucket_plan(layer_slice_struct(layers), bb)
-        elems = [layout.buckets[i].elems for i in active]
-        stream_sched = build_stream_schedule(
-            elems * n_layers, sizes,
-            releases=[r for r in range(n_layers) for _ in active],
-            n_streams=n_streams)
-        by_bp = {(t.bucket, t.phase): t for t in stream_sched.tasks}
-        for r in range(n_layers):
-            base = r * len(active)
+    stacks, residual = split_released(tree) if overlap_backward \
+        else ([], tree)
+    if stacks:
+        releases, by_bp = comm._release_schedule(stacks, bb, n_streams)
+        for r, (plan, base) in enumerate(releases):
+            layout, active, sched, axes, sizes, keys, _hier = plan
             for t in sched.tasks:
                 st = by_bp[(base + t.bucket, t.phase)]
                 run_task(t, layout, active, axes, sizes, keys,

@@ -288,7 +288,7 @@ def gradient_residual_report(
     compute slices (ready floors); omitted, communication is priced
     from time zero with zero compute to hide under."""
     from repro_torch import pytree
-    from repro_torch.comms.bucketing import layer_slice_struct, split_release_tree
+    from repro_torch.comms.bucketing import split_released
     from repro_torch.comms.communicator import N_STREAMS
     from repro_torch.core.topology.tune import decided_phase_cost
     from repro_torch.obs import trace as obs_trace
@@ -304,23 +304,23 @@ def gradient_residual_report(
     n_streams = n_streams or N_STREAMS
     bb = comm._resolve_bucket_bytes(bucket_bytes)
 
-    layers, _residual = split_release_tree(tree)
-    if overlap_backward and layers is not None:
-        n_layers = len(layers)
-        layout, active, _sched, _axes, sizes, _keys, _hier = \
-            comm._bucket_plan(layer_slice_struct(layers), bb)
-    else:
-        n_layers = 1
-        layout, active, _sched, _axes, sizes, _keys, _hier = \
-            comm._bucket_plan(tree, bb)
+    stacks, _residual = split_released(tree) if overlap_backward \
+        else ([], tree)
+    plans = [plan for plan, _ in comm._release_schedule(
+        stacks, bb, n_streams)[0]] if stacks \
+        else [comm._bucket_plan(tree, bb)]
+    n_layers, sizes = len(plans), plans[0][4]
     if len(sizes) != len(topo.levels):
         raise ValueError(
             f"topology has {len(topo.levels)} levels but the sync "
             f"composition spans {len(sizes)} tiers — attach the topology "
             f"the mesh actually syncs over")
-    nbytes = [layout.buckets[i].elems
-              * pytree.itemsize(layout.buckets[i].dtype) for i in active]
-    releases = [r for r in range(n_layers) for _ in active]
+    nbytes, releases = [], []
+    for r, (layout, active, *_) in enumerate(plans):
+        nbytes += [layout.buckets[i].elems
+                   * pytree.itemsize(layout.buckets[i].dtype)
+                   for i in active]
+        releases += [r] * len(active)
     if compute_times is not None:
         assert len(compute_times) == n_layers, \
             "one backward-compute slice per release"
@@ -332,7 +332,7 @@ def gradient_residual_report(
     else:
         ready, compute_total = None, 0.0
     return residual_report(
-        sizes, nbytes * n_layers, decided_phase_cost(topo, comm),
+        sizes, nbytes, decided_phase_cost(topo, comm),
         releases=releases, ready_times=ready, n_streams=n_streams,
         spans=spans, level_names=[lv.name for lv in topo.levels],
         compute_total=compute_total)

@@ -277,17 +277,22 @@ def assign_stream_tags(spans: Union[TraceRecorder, Sequence[Span]],
             order.append(s.release)
         groups[s.release].append(s)
     n_levels = max(s.level for s in rel if s.level is not None) + 1
-    per = max(len({s.bucket for s in g}) for g in groups.values())
-    releases = [r for r in order for _ in range(per)]
+    # each release's buckets in turn (releases of two stacks, as the
+    # enc-dec family's, may hold different numbers)
+    bases: Dict[int, int] = {}
+    releases: List[int] = []
+    for r in order:
+        bases[r] = len(releases)
+        releases += [r] * (max(s.bucket for s in groups[r]) + 1)
 
     from repro_torch.core.collectives.schedule import build_stream_schedule
     sched = build_stream_schedule([1] * len(releases), [2] * n_levels,
                                   releases=releases, n_streams=n_streams)
     by_bp = {(t.bucket, t.phase): t for t in sched.tasks}
-    for i, r in enumerate(order):
+    for r in order:
         for s in groups[r]:
-            t = by_bp[(i * per + s.bucket, s.phase)]
-            s.bucket = i * per + s.bucket
+            t = by_bp[(bases[r] + s.bucket, s.phase)]
+            s.bucket = bases[r] + s.bucket
             s.step = t.step
             s.stream = t.stream
     return out

@@ -689,7 +689,7 @@ def test_ssd_autograd_runs_both_kernels(cuda, dtype):
 
 
 # ---------------------------------------------------------------------------
-# the segment-combine kernel and a host-staged collective on the card
+# the segment-combine kernel and a collective on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("op", ["add", "max", "min"])
@@ -945,7 +945,7 @@ def _overlapped_on_card(device="cuda"):
 
 
 def test_overlapped_sync_equals_the_synchronous_release_on_the_card(cuda):
-    """Four host-staged ranks on the card, 2x2, the hierarchical
+    """Four ranks on the card (the arena transport), 2x2, the hierarchical
     artifact: the gradients synced on each rank's sync thread (its own
     CUDA stream, while autograd runs the layers below) equal, bit for
     bit, those synced inside the backward by the synchronous sink, in

@@ -40,6 +40,10 @@ the global batch (8 x 32) and routes its ``S/tp`` sequence chunk.
   above that tolerance on some leaf
   (``tests/helpers/validate_communicator.py`` section 7's reasoning).
 - ``--ckpt`` under the ``model`` axis writes every expert.
+- ``--overlap-backward`` syncs each released layer on the sync thread
+  (its busy seconds above 0 in every step) while the backward's
+  model-axis collectives run on the main thread; its gradients equal the
+  same step's with each layer synced inside the backward within 1e-6.
 """
 import contextlib
 import json
@@ -62,6 +66,9 @@ ROOT = os.path.join(HERE, "..")
 FLAT = os.path.join(ROOT, "examples", "artifacts", "tuned_decision.json")
 ALGOS = ("xla", "pairwise", "bruck", "comm")
 STEPS = ("untuned", "tuned", "overlapped")
+#: the overlapped step with each layer synced inside the backward
+IN_BACKWARD = "in_backward"
+OVERLAP_TOL = 1e-6       # the thread's step against the in-backward one
 FAULTS = EP_FAULTS
 GRAD_TOL = 1e-3          # |got - want| / max|want|, a leaf
 LOSS_TOL = 1e-5
@@ -256,12 +263,14 @@ def _rank_work(ref_path, out_dir):
     cfg = ARCHITECTURES["olmoe-1b-7b"].reduced()
     full, batch = inputs("")
     params = sh.ep_shard(full, mesh)
-    for name in (*STEPS, *FAULTS):
+    for name in (*STEPS, IN_BACKWARD, *FAULTS):
         coll = CollectiveConfig() if name == "untuned" else \
-            CollectiveConfig(decision=FLAT,
-                             overlap_backward=name == "overlapped")
+            CollectiveConfig(decision=FLAT, overlap_backward=name in (
+                "overlapped", IN_BACKWARD))
         comm = Communicator.create(
             mesh, artifact=None if name == "untuned" else FLAT)
+        if name == IN_BACKWARD:
+            _sync_in_the_backward(comm)
         step = steps.build_train_step(cfg, shape, fp32, coll, mesh,
                                       communicator=comm, warmup_steps=0,
                                       device="cpu")
@@ -273,6 +282,8 @@ def _rank_work(ref_path, out_dir):
             new_p, _, m = step.fn(p, step.opt.init(p), batch,
                                   keep_grads=True)
         out[f"step_{name}|loss"] = np.asarray(float(m["loss"]))
+        out[f"step_{name}|release_sync_s"] = np.asarray(
+            m.get("release_sync_s", 0.0))
         out[f"step_{name}|gnorm"] = np.asarray(
             float(steps.ep_global_norm(m["grads"], mesh)))
         out[f"step_{name}|replicas"] = np.asarray(
@@ -280,6 +291,14 @@ def _rank_work(ref_path, out_dir):
         save(f"step_{name}|params", new_p)
         save(f"step_{name}|grad", m["grads"])
     np.savez(os.path.join(out_dir, f"r{grp.rank()}.npz"), **out)
+
+
+def _sync_in_the_backward(comm):
+    """Make ``comm``'s release sinks sync each layer inside the backward
+    (the sink's synchronous form, no thread): the values the sync
+    thread's step must give."""
+    sink = comm.release_sink
+    comm.release_sink = lambda *a, **k: sink(*a, **{**k, "overlap": False})
 
 
 @pytest.fixture(scope="module")
@@ -457,19 +476,37 @@ def test_checkpoint_gathers_the_experts_over_model(tmp_path):
         np.testing.assert_array_equal(got[:2], lp["moe"]["w_up"].numpy())
 
 
-def test_overlap_under_expert_parallelism_says_it_syncs_in_the_backward(
-        capfd):
+def test_overlapped_step_equals_the_in_backward_step(run):
+    """The overlapped step syncs on the thread (its busy seconds above 0)
+    and gives the gradients and loss of the same step with each layer
+    synced inside the backward, within ``OVERLAP_TOL``."""
+    for port in run.port:
+        assert float(port["step_overlapped|release_sync_s"]) > 0.0
+        assert float(port[f"step_{IN_BACKWARD}|release_sync_s"]) == 0.0
+        for key in [k for k in port
+                    if k.startswith(f"step_{IN_BACKWARD}|grad|")]:
+            got = port[key.replace(IN_BACKWARD, "overlapped", 1)]
+            want = port[key]
+            scale = float(np.abs(want).max()) or 1.0
+            assert float(np.abs(got - want).max()) <= OVERLAP_TOL * scale, \
+                key
+        assert abs(float(port["step_overlapped|loss"])
+                   - float(port[f"step_{IN_BACKWARD}|loss"])) <= OVERLAP_TOL
+
+
+def test_overlap_under_expert_parallelism_runs_on_the_sync_thread(capfd):
     """``--overlap-backward`` with experts split over ``model``: the
-    launcher says that each layer syncs inside the backward (fused, not
-    overlapped) and no second of the step runs on a sync thread."""
+    launcher says that the layers sync on the sync thread over the data
+    tiers, and every step's thread was busy."""
     from repro_torch.launch import train
     res = train.main(["--arch", "olmoe-1b-7b", "--reduced", "--device",
                       "cpu", "--ranks", "4", "--model-parallel", "2",
                       "--steps", "2", "--seq", "32", "--batch", "8",
                       "--tuning-table", FLAT, "--overlap-backward"])
     out = capfd.readouterr().out
-    assert "each layer synced inside the backward" in out, out
-    assert "fused, not overlapped" in out
-    assert "backward-overlapped release streams" not in out
-    assert res["release_sync_s"] == [0.0, 0.0]
+    assert "backward-overlapped release streams over the data tiers, on " \
+        "the sync thread" in out, out
+    assert "synced inside the backward" not in out
+    assert len(res["release_sync_s"]) == 2
+    assert all(s > 0.0 for s in res["release_sync_s"]), res
     assert res["release_events"] == [[[1, 0]] * 4] * 2

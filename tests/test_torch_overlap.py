@@ -19,7 +19,9 @@
   (both sinks: synchronous and on the sync thread) equal the plan. The
   same for the reduced mamba2-130m and zamba2-2.7b, whose mamba layers
   release under their global indices (zamba2's ``shared`` block syncs
-  with the residual).
+  with the residual), and for the reduced whisper-large-v3, whose two
+  stacks release under their own keys: its plan, its executed spans and
+  its ``--trace-dir`` replay walk the same tasks.
 * Numerics on 4 spawned ``gloo`` ranks, 2x2 ``("pod", "data")``
   (``tests/helpers/validate_communicator.py`` section 6 mirrored): a
   real backward through release points, synced by the hierarchical
@@ -315,6 +317,55 @@ def test_ssm_and_hybrid_streamed_plan_equals_reference_and_the_executed_spans(
         [(e.request.op, e.request.nbytes, e.request.axis, e.spec.algorithm,
           e.spec.segments, e.bucket, e.step, e.release, e.stream)
          for e in entries]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES[:2], ids=["hier", "hier-64K"])
+def test_encdec_streamed_plan_equals_the_executed_spans_and_the_replay(
+        case, tmp_path, tfake_collectives, monkeypatch):
+    """The reduced whisper-large-v3 releases its two stacks under their
+    own keys, ``("decoder", i)`` then ``("encoder", i)``: its streamed
+    plan holds one release a layer of both (not the plain plan), a real
+    backward through its release points, synced over fake collectives,
+    records exactly the plan, and the ``--trace-dir`` replay
+    (`replay.measure_gradient_schedule`) walks the same tasks."""
+    from repro_torch.obs.replay import measure_gradient_schedule
+    monkeypatch.setattr(grp, "psum", lambda x, group=None: x * group.size)
+    cfg = ARCHITECTURES["whisper-large-v3"].reduced()
+    _, tc = _comms(case, tmp_path)
+    api = build_model(cfg, compute_dtype=torch.float32, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    tplan = tc.explain_gradients(params, overlap_backward=True)
+    n = cfg.num_layers + cfg.encoder_layers
+    assert {e.release for e in tplan.entries} == set(range(n)) | {None}
+    assert [_entry_key(e) for e in tplan.entries] != [
+        _entry_key(e) for e in tc.explain_gradients(params).entries]
+
+    shape = ShapeConfig(name="t", seq_len=16, global_batch=2, kind="train")
+    batch = batch_to_tensors(make_train_batch(cfg, shape, seed=1), "cpu")
+    leaves, treedef = pytree.flatten(params)
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    tc.trace = TraceRecorder(clock=FakeClock(step=1e-6))
+    sink = tc.release_sink(overlap=True, device="cpu")
+    with L.release_scope(sink):
+        loss, _ = api.loss(treedef.unflatten(leaves), batch)
+    grads = treedef.unflatten(list(torch.autograd.grad(loss, leaves)))
+    tc.sync_gradients_streamed(grads, sink, mean=True)
+    assert sink.events == [
+        ("decoder", i) for i in reversed(range(cfg.num_layers))] + [
+        ("encoder", i) for i in reversed(range(cfg.encoder_layers))]
+    entries = [(e.request.op, e.request.nbytes, e.request.axis,
+                e.spec.algorithm, e.spec.segments, e.bucket, e.step,
+                e.release, e.stream)
+               for e in tplan.entries if e.source != "psum"]
+    spans = [sp for sp in assign_stream_tags(tc.trace)
+             if sp.kind == "collective"]
+    replay = measure_gradient_schedule(
+        tc, params, overlap_backward=True,
+        runner=lambda *args: 1e-6)
+    for got in (spans, replay):
+        assert [(sp.op, sp.nbytes, sp.axis, sp.algorithm, sp.segments,
+                 sp.bucket, sp.step, sp.release, sp.stream)
+                for sp in got] == entries
 
 
 def test_streamed_plan_matches_layerless_fallback(tmp_path):

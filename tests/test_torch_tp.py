@@ -21,7 +21,8 @@ rank reading the kv head of its query heads);
   untuned ``build_train_step`` on the same mesh (fp32 compute,
   ``warmup_steps=0``): losses within 1e-2, each leaf's change within
   1e-2 (relative 2-norm), the step's synced gradients within 1e-3 and
-  the overlapped step's equal to the plain tuned step's within 1e-6;
+  the overlapped step's (on the sync thread) equal to the plain tuned
+  step's and to the same step synced inside the backward within 1e-6;
   replicated leaves bit-equal on every rank, each slice on both data
   ranks that hold it.
 - Each fault of `steps.planted_tp_fault`, planted in the tuned step,
@@ -52,6 +53,8 @@ HERE = os.path.dirname(__file__)
 ROOT = os.path.join(HERE, "..")
 FLAT = os.path.join(ROOT, "examples", "artifacts", "tuned_decision.json")
 STEPS = ("untuned", "ring", "tuned", "overlapped")
+#: the overlapped step with each layer synced inside the backward
+IN_BACKWARD = "in_backward"
 GRAD_TOL = 1e-3          # |got - want| / max|want|, a leaf
 LOSS_TOL = 1e-5
 STEP_LOSS_TOL = 1e-2
@@ -262,15 +265,21 @@ def _rank_work(ref_path, out_dir):
                         kind="train")
     full, batch = inputs(ref, ARCH, sh.batch_rows(mesh, BATCH))
     params = sh.tp_shard(full, mesh)
-    for name in (*STEPS, *TP_FAULTS):
+    for name in (*STEPS, IN_BACKWARD, *TP_FAULTS):
         coll = {"untuned": CollectiveConfig(),
                 "ring": CollectiveConfig(algorithm="ring"),
                 "overlapped": CollectiveConfig(decision=FLAT,
-                                               overlap_backward=True)
+                                               overlap_backward=True),
+                IN_BACKWARD: CollectiveConfig(decision=FLAT,
+                                              overlap_backward=True)
                 }.get(name, CollectiveConfig(decision=FLAT))
         comm = Communicator.create(
             mesh, artifact=coll.decision,
             algorithm=coll.algorithm if name == "ring" else "xla")
+        if name == IN_BACKWARD:     # the sink's synchronous form, no thread
+            sink = comm.release_sink
+            comm.release_sink = lambda *a, _s=sink, **k: _s(
+                *a, **{**k, "overlap": False})
         step = steps.build_train_step(
             cfg, shape, ParallelConfig(compute_dtype="float32"), coll, mesh,
             communicator=comm, warmup_steps=0, device="cpu")
@@ -282,6 +291,8 @@ def _rank_work(ref_path, out_dir):
             new_p, _, m = step.fn(p, step.opt.init(p), batch,
                                   keep_grads=True)
         out[f"step_{name}|loss"] = np.asarray(float(m["loss"]))
+        out[f"step_{name}|release_sync_s"] = np.asarray(
+            m.get("release_sync_s", 0.0))
         out[f"step_{name}|replicas"] = np.asarray(train._replicas(new_p,
                                                                   step))
         for k, v in port_flat(new_p).items():
@@ -437,6 +448,26 @@ def test_overlapped_step_equals_the_plain_tuned_step(run):
             assert float(np.abs(got - want).max()) <= OVERLAP_TOL * scale, \
                 key
         assert port["step_overlapped|loss"] == port["step_tuned|loss"]
+
+
+def test_overlapped_step_equals_the_in_backward_step(run):
+    """The overlapped step syncs each layer on the sync thread (its busy
+    seconds above 0) while the backward's model-axis all-reduces run on
+    the main thread, and gives the gradients and loss of the same step
+    with each layer synced inside the backward, within
+    ``OVERLAP_TOL``."""
+    for port in run.port:
+        assert float(port["step_overlapped|release_sync_s"]) > 0.0
+        assert float(port[f"step_{IN_BACKWARD}|release_sync_s"]) == 0.0
+        for key in [k for k in port
+                    if k.startswith(f"step_{IN_BACKWARD}|grad|")]:
+            got = port[key.replace(IN_BACKWARD, "overlapped", 1)]
+            want = port[key]
+            scale = float(np.abs(want).max()) or 1.0
+            assert float(np.abs(got - want).max()) <= OVERLAP_TOL * scale, \
+                key
+        assert abs(float(port["step_overlapped|loss"])
+                   - float(port[f"step_{IN_BACKWARD}|loss"])) <= OVERLAP_TOL
 
 
 def test_replicated_leaves_bit_equal_across_model(run):
