@@ -18,11 +18,14 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       one fused projection, zamba2's shared-attention shapes (D=80,
       H=KV=32), whisper's encoder (4 x 1500 frames, 20/20 heads of 64,
       no mask: a 28-key last tile), llava's prefix (2880 patches + 128
-      tokens, 32/8 heads of 128) and smollm's serving shape; times the
+      tokens, 32/8 heads of 128), the grouped configurations' prefill
+      (4 x 512 over 32/2, 16/2 and 56/8 heads of 128: query groups of
+      16, 8 and 7) and smollm's serving shape; times the
       kernel, the plain version and ``F.scaled_dot_product_attention``
-      (a yardstick only: the port never calls it) in turns at six
+      (a yardstick only: the port never calls it) in turns at nine
       prefill shapes (smollm's serving batch and one request, olmoe's,
-      zamba2's, whisper's encoder and llava's prefix), on the device
+      zamba2's, whisper's encoder, llava's prefix, glm4-9b's, qwen2.5-3b's
+      and arctic-480b's), on the device
       alone (torch.profiler) and back to back between CUDA events,
       beside the bound and the host's time to issue one call;
    b. the SSD chunk kernels against ``ssd_chunked_plain`` (all three
@@ -49,8 +52,10 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       launches) against ``ref.paged_attention_ref`` (the gather path)
       over the reference's sweep (partial, full, wrapped and
       several-wraps-deep views, windows 0 and 6, shuffled tables) at head
-      dims 64, 80 and 128, the five serving shapes (smollm, zamba2,
-      olmoe, whisper's decoder, llava) and the splits' edges (an empty
+      dims 64, 80 and 128, the eight serving shapes (smollm, zamba2,
+      olmoe, whisper's decoder, llava, and glm4-9b, qwen2.5-3b and
+      arctic-480b at query groups of 16, 8 and 7) and the splits' edges
+      (an empty
       row, splits with no valid slot, a wrapped window across a split
       boundary), f32 at 2e-5 and
       bf16 within one bf16 ulp (2**-7); sharp scores on which fp32 q and
@@ -66,8 +71,9 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       offset, fully masked rows, T != S, S and T off the tile heights,
       MQA and GQA, D 64/80/128 with query groups of 1, 2 and 3),
       whisper's training encoder rows (2, 1500, 20, 20, 64, no mask),
-      llava's prefix at 8/2 heads, and olmoe-1b-7b's and smollm-135m's
-      training shapes, f32 at 1e-4 and
+      llava's prefix at 8/2 heads, glm4-9b's training shape (2, 256, 32,
+      2, 128: group 16), [8q]'s a rank (4, 256, 8, 1, 128: group 8), and
+      olmoe-1b-7b's and smollm-135m's training shapes, f32 at 1e-4 and
       bf16 at 2e-2, bf16
       also against ``flash_attention_bwd_mma_plain`` (the kernels'
       rounding) at 1e-2, each case called twice and held bit-equal, the
@@ -78,8 +84,9 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       SDPA's forward alone and forward and backward through autograd (a
       yardstick only; its backward alone is the difference of the two
       device times) at smollm's training shape (2, 256, 9, 3, 64), its
-      serving shape, olmoe's training shape (4, 256, 16, 16, 128) and
-      whisper's training encoder (2, 1500, 20, 20, 64, no mask), beside
+      serving shape, olmoe's training shape (4, 256, 16, 16, 128),
+      whisper's training encoder (2, 1500, 20, 20, 64, no mask), glm4's
+      training shape and [8q]'s a rank, beside
       the backward's bound; the tensor-core
       kernels must not spill at D = 64 (ptxas, [1]);
    f. the SSD chunk backward (bf16: the tensor-core ``ssd_chunk_bwd_mma``,
@@ -104,7 +111,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       and clusters at once; fails unless the kernel is faster on the
       device than the SIMT pair;
 3. the kernels inside the models, fp32: full-width smollm-135m prefill
-   logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``;
+   logits with ``attn_impl="auto"`` (kernel) vs ``"ref"``, one flash
+   launch a layer;
    full-width, full-depth mamba2-130m and zamba2-2.7b prefill logits
    with ``ssd_impl``/``attn_impl="auto"`` (kernels) vs ``"xla"``/``"ref"``
    (the plain chunked SSD oracle, plain attention), with both launch
@@ -128,14 +136,25 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    and depth, of zamba2-2.7b at full width and 6 mamba layers (one
    group, one shared-attention application), 2 x 256 tokens, of
    whisper-large-v3 at full width and 2 + 2 layers (2 x 64 tokens over
-   2 x 1500 frames) and of llava-next-mistral-7b at full width and 2
-   layers (1 x (2880 patches + 128 tokens)), fp32, one process:
+   2 x 1500 frames), of llava-next-mistral-7b at full width and 2
+   layers (1 x (2880 patches + 128 tokens)) and of glm4-9b and
+   qwen2.5-3b at full width and 2 layers (2 x 256 tokens; query groups
+   of 16 and 8, QKV biases), fp32, one process:
    ``ssd_impl``/``attn_impl="auto"`` (SSD forward and backward kernels,
    flash forward and backward) against ``"xla"``/``"ref"`` under
    autograd, the loss within 1e-5 and each leaf within 1e-3 (relative
    2-norm), the launches of the kernels' call held to one SSD forward
    and ``LAUNCHES_PER_CALL`` (fp32) backward launches a layer, one flash
    forward and backward a shared application or self-attention layer;
+   [3g] the grouped configurations, fp32: glm4-9b at full width and
+   depth (40 layers, 32/2 heads of 128) and arctic-480b at full width
+   cut to 1 of its 35 layers (``ARCTIC_CONFIG``: 14.07B params, 128
+   experts top-2 beside a dense residual MLP, 56/8 heads), each a
+   prefill of 2 x 256 tokens through the flash kernel against plain
+   attention (logits within 1e-3, one launch a layer); then one
+   continuous decode step of glm4 over its prefill cache in the
+   engine's paged form, through the paged kernel against the gather
+   path (logits within 1e-3, the next tokens equal, one launch a layer);
 4. serving through ``repro_torch.launch.serve`` at full width, bf16, each
    path with every launch count zeroed just before it and read just
    after: smollm-135m, mamba2-130m, zamba2-2.7b (full depth: 54 SSM
@@ -146,7 +165,13 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    slots; cross-attention plain, its KV per slot as the engine's opaque
    state) and llava-next-mistral-7b (full depth: 32 layers, 7.24B fp32
    parameters; fixed 2 x 512, 16 new; continuous as zamba2's), each in
-   the fixed-batch and the continuous mode; the counts must be one flash
+   the fixed-batch and the continuous mode, and the grouped
+   configurations with zamba2's traffic: glm4-9b (full depth, 40
+   layers) fixed and continuous, qwen2.5-3b (full depth, 36) continuous,
+   chatglm3-6b (full depth, 28) fixed and arctic-480b (full width, 1
+   layer, through ``serve.main(argv, config=ARCTIC_CONFIG)``)
+   continuous; each run's peak device memory beside the card's; the
+   counts must be one flash
    or SSD launch per layer (whisper: per encoder and decoder layer) for
    every prefill, one paged-attention launch per attention layer for
    every decode step of a continuous path (none on a fixed path), and
@@ -371,6 +396,18 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    released layer synced over ``data`` on the sync thread while the
    blocks' model-axis all-reduces run on the main thread, held to [8t]'s
    tuned run as [8mc] to [8m]'s (releases 29...0), under the memory log;
+   q. the kv heads split: ``--arch qwen2.5-3b --ranks 4
+   --model-parallel 2 --seq 256 --batch 8 --steps 2`` at full width cut
+   to 4 of its 36 layers (``QWEN_TP_CONFIG``; 465,591,296 params a
+   rank: 8 of the 16 query heads, 1 of the 2 kv heads and their QKV
+   biases' slices, half the MLP and of the vocab), tuned
+   (``tuned_decision.json``) and ``"xla"``, both 2 steps (the params'
+   change needs the second), held to each other as [8] (step 0's synced
+   gradients, rank 0's slices, within ``TRAIN_GRAD_TOL``, the params'
+   change within ``TRAIN_CHANGE_TOL``, the losses within
+   ``TRAIN_LOSS_TOL``, the planted faults outside them), the replicas,
+   and the launches (4 flash forwards and their backwards a rank-step,
+   the plan's combines);
 9. compile-free accounting: the dry-run's trace of [8ft] (b) and [8mf]
    on a recording 2 x 2 mesh held to their steps on the card, and two
    ``launch.dryrun`` subprocesses;
@@ -403,6 +440,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -466,10 +504,23 @@ ATTN_TIMED_SHAPES = {
     "smollm one request": (1, 512, 9, 3, 64),
     "whisper encoder": (4, 1500, 20, 20, 64, False),
     "llava patch prefix": (1, 3008, 32, 8, 128),
+    # the grouped configurations' fixed-batch prefill (4 x 512): query
+    # groups of 16 (glm4-9b; chatglm3-6b's heads are the same), 8
+    # (qwen2.5-3b) and 7 (arctic-480b) over more than one kv head
+    "glm4 prefill": (4, 512, 32, 2, 128),
+    "qwen prefill": (4, 512, 16, 2, 128),
+    "arctic prefill": (4, 512, 56, 8, 128),
 }
+GQA_PREFILLS = ("glm4 prefill", "qwen prefill", "arctic prefill")
 # whisper-large-v3's training encoder attention ([8w]): 2 rows a rank of
 # the 8-row batch, 1500 frames, 20 heads of 64, no mask
 WHISPER_TRAIN_ATTN_SHAPE = (2, 1500, 20, 20, 64, False)
+# glm4-9b's training attention ([3t]: 2 x 256, 32/2 heads of 128: group
+# 16) and [8q]'s a rank (qwen2.5-3b: 4 rows of the 8 x 256 batch on
+# ("data", "model") = 2 x 2, 8 of its 16 query heads over 1 of its 2 kv
+# heads)
+GLM4_TRAIN_ATTN_SHAPE = (2, 256, 32, 2, 128)
+QWEN_TP_TRAIN_ATTN_SHAPE = (4, 256, 8, 1, 128)
 # llava-next-mistral-7b's prefix: 2880 patches and 128 tokens
 LLAVA_PREFIX = 2880 + 128
 # mamba2-130m's SSD call at the fixed-batch serving shape (8 x 512 prompts)
@@ -484,6 +535,10 @@ PAGED_SERVE_SHAPES = {
     "olmoe-1b-7b": dict(R=4, H=16, KV=16, D=128, bs=16, T=528),
     "whisper-large-v3": dict(R=4, H=20, KV=20, D=64, bs=16, T=96),
     "llava-next-mistral-7b": dict(R=4, H=32, KV=8, D=128, bs=16, T=528),
+    # query groups of 16, 8 and 7 ([4]'s continuous paths, 4 slots)
+    "glm4-9b": dict(R=4, H=32, KV=2, D=128, bs=16, T=528),
+    "qwen2.5-3b": dict(R=4, H=16, KV=2, D=128, bs=16, T=528),
+    "arctic-480b": dict(R=4, H=56, KV=8, D=128, bs=16, T=528),
 }
 
 
@@ -774,6 +829,10 @@ def phase_kernel():
               for dt in both]
     cases += [((1, LLAVA_PREFIX, LLAVA_PREFIX, 32, 8, 128), dt, {})
               for dt in both]
+    # the grouped configurations' prefill (groups 16, 8 and 7)
+    cases += [((B, S, S, H, KV, D), torch.bfloat16, {})
+              for B, S, H, KV, D in (ATTN_TIMED_SHAPES[name]
+                                     for name in GQA_PREFILLS)]
     s = SERVE_SHAPE
     serve_case = ((s["B"], s["S"], s["S"], s["H"], s["KV"], s["D"]),
                   torch.bfloat16, {})
@@ -1087,6 +1146,10 @@ def phase_flash_backward():
     B, S, H, KV, D, _ = WHISPER_TRAIN_ATTN_SHAPE
     sweep.append(((B, S, S, H, KV, D), {"causal": False}))
     sweep.append(((1, LLAVA_PREFIX, LLAVA_PREFIX, 8, 2, 128), {}))
+    # groups of 16 (glm4-9b) and 8 over one kv head ([8q]'s rank): the
+    # last block of each kv head sums its group's fp32 partials
+    for B, S, H, KV, D in (GLM4_TRAIN_ATTN_SHAPE, QWEN_TP_TRAIN_ATTN_SHAPE):
+        sweep.append(((B, S, S, H, KV, D), {}))
     B, S, H, KV, D = TRAIN_ATTN_SHAPE
     sweep.append(((B, S, S, H, KV, D), {}))
     max_err = {dt: 0.0 for dt in both}
@@ -1118,7 +1181,11 @@ def phase_flash_backward():
                                                  OLMOE_TRAIN_ATTN_SHAPE),
                 "whisper encoder training": time_flash_bwd(
                     fa, fb, "whisper encoder training",
-                    WHISPER_TRAIN_ATTN_SHAPE)}
+                    WHISPER_TRAIN_ATTN_SHAPE),
+                "glm4 training": time_flash_bwd(fa, fb, "glm4 training",
+                                                GLM4_TRAIN_ATTN_SHAPE),
+                "qwen tp training": time_flash_bwd(
+                    fa, fb, "qwen tp training", QWEN_TP_TRAIN_ATTN_SHAPE)}
     top = by_shape["smollm training"]
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -1374,29 +1441,9 @@ def phase_ssd_backward():
 
 
 def phase_model():
-    from repro_torch.configs import get_config
-    from repro_torch.models.registry import build_model
-    cfg = get_config("smollm-135m")
-    kern = build_model(cfg, compute_dtype=torch.float32, attn_impl="auto")
-    plain = build_model(cfg, compute_dtype=torch.float32, attn_impl="ref")
-    with torch.inference_mode():
-        params = kern.init(torch.Generator().manual_seed(0))
-        g = torch.Generator().manual_seed(1)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=g)
-        tokens = tokens.cuda()
-        lk, _ = kern.prefill(params, tokens, 256)
-        lp, _ = plain.prefill(params, tokens, 256)
-        torch.cuda.synchronize()
-        valid = slice(0, cfg.vocab_size)
-        diff = (lk[..., valid] - lp[..., valid]).abs().max().item()
-        scale = lp[..., valid].abs().max().item()
-    log(f"[3] smollm-135m full width fp32 prefill (2x256): logits "
-        f"kernel vs plain max|diff| {diff:.3g} (max|logit| {scale:.3g}, "
-        f"tol {MODEL_TOL})")
-    if not (torch.isfinite(lk).all() and diff <= MODEL_TOL):
-        raise AssertionError(f"model logits through the kernel differ by "
-                             f"{diff} > {MODEL_TOL}")
-    del params
+    """[3] smollm-135m at full width and depth, fp32: prefill logits
+    through the flash kernel against plain attention."""
+    diff, *_ = model_prefill("3", "smollm-135m")
     torch.cuda.empty_cache()
     return diff
 
@@ -2131,6 +2178,113 @@ def phase_vlm_model():
 
 
 # ---------------------------------------------------------------------------
+# [3g] the grouped configurations' prefill and decode through the kernels
+# ---------------------------------------------------------------------------
+#: arctic-480b at full width, its depth cut 35 -> 1: one layer is 14.07B
+#: fp32 params (56.28 GB; 128 experts of 3 x 7168 x 4864), and a second
+#: does not fit one card beside a bf16 cast of one expert stack (8.9 GB)
+ARCTIC_CONFIG = {"num_layers": 1}
+
+
+def model_prefill(tag, arch, config=None):
+    """``arch``'s fp32 prefill of 2 x 256 tokens at full width (depth cut
+    by ``config``) through the flash kernel (``attn_impl="auto"``)
+    against plain attention (``"ref"``): the logits within MODEL_TOL,
+    one flash launch a layer (zeroed just before the kernel prefill,
+    read just after). Returns (logit diff, launches, api, params, the
+    kernel prefill's cache, its logits' last position)."""
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch).replace(**(config or {}))
+    kern = build_model(cfg, compute_dtype=torch.float32, attn_impl="auto")
+    plain = build_model(cfg, compute_dtype=torch.float32, attn_impl="ref")
+    with torch.inference_mode():
+        params = kern.init(torch.Generator(device="cuda").manual_seed(0))
+        g = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=g)
+        tokens = tokens.cuda()
+        attention.launches = 0
+        lk, cache = kern.prefill(params, tokens, 256 + 16)
+        got = attention.launches
+        lp, _ = plain.prefill(params, tokens, 256 + 16)
+        torch.cuda.synchronize()
+        valid = slice(0, cfg.vocab_size)
+        diff = (lk[..., valid] - lp[..., valid]).abs().max().item()
+        scale = lp[..., valid].abs().max().item()
+        last = lk[:, -1].clone()
+    n = sum(t.numel() for t in pytree.leaves(params))
+    log(f"[{tag}] {arch} full width, {cfg.num_layers} layers ({n} fp32 params,"
+        f" {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}: group "
+        f"{cfg.num_heads // cfg.num_kv_heads}) fp32 prefill (2x256): logits "
+        f"kernel vs plain max|diff| {diff:.3g} (max|logit| {scale:.3g}, tol "
+        f"{MODEL_TOL}); flash launches {got} (expected {cfg.num_layers}); "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (torch.isfinite(lk).all() and diff <= MODEL_TOL):
+        raise AssertionError(f"{arch} logits through the kernel differ by "
+                             f"{diff} > {MODEL_TOL}")
+    if got != cfg.num_layers:
+        raise AssertionError(f"{arch} prefill launched flash {got} times, "
+                             f"expected {cfg.num_layers}")
+    del lk, lp
+    return diff, got, kern, params, cache, last
+
+
+def phase_gqa_model():
+    """[3g] glm4-9b at full width and depth and arctic-480b at full width
+    (1 layer), fp32: prefill logits through the flash kernel against
+    plain attention; then one continuous decode step of glm4 over its
+    prefill cache in the engine's paged form, through the paged kernel
+    (``attn_impl="auto"``) against the gather path (``"xla"``): logits
+    within MODEL_TOL, the tokens equal, one paged launch a layer.
+    Returns the logit diffs and the launches by path."""
+    from repro_torch.kernels import paged_attention as pa
+    out, paths = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    diff, n, api, params, cache, last = model_prefill("3g", "glm4-9b")
+    out["glm4-9b"] = diff
+    paths["prefill_glm4_fp32"] = {"flash_attention": n}
+    layers = api.cfg.num_layers
+    with torch.inference_mode():
+        tok = torch.argmax(last[:, :api.cfg.vocab_size], -1)[:, None]
+        runs = {}
+        for impl in ("auto", "xla"):
+            pcache = paged_cache(cache)     # each run writes its own pools
+            pa.launches = 0
+            logits, _ = api.decode_step(params, pcache, tok, attn_impl=impl)
+            torch.cuda.synchronize()
+            runs[impl] = (logits[:, :api.cfg.vocab_size], pa.launches)
+            del pcache
+    (lk, nk), (lx, nx) = runs["auto"], runs["xla"]
+    ddiff = (lk - lx).abs().max().item()
+    same = torch.equal(lk.argmax(-1), lx.argmax(-1))
+    log(f"    glm4-9b one continuous decode step (2 rows at 256, paged "
+        f"16-slot blocks, group 16): logits paged kernel vs gather path "
+        f"max|diff| {ddiff:.3g} (max|logit| {lx.abs().max().item():.3g}, "
+        f"tol {MODEL_TOL}), next tokens {'equal' if same else 'DIFFER'}; "
+        f"paged launches {nk}/{nx} (expected {layers}/0)")
+    if not (torch.isfinite(lk).all() and ddiff <= MODEL_TOL and same) or \
+            (nk, nx) != (layers, 0):
+        raise AssertionError(f"[3g] glm4-9b's paged decode step departs "
+                             f"from the gather path: {ddiff}, tokens equal "
+                             f"{same}, launches {nk}/{nx}")
+    out["glm4-9b_paged_decode"] = ddiff
+    paths["decode_glm4_paged_fp32"] = {"paged_attention": nk}
+    del api, params, cache, runs, lk, lx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    diff, n, _, params, cache, _ = model_prefill("3g", "arctic-480b",
+                                                 ARCTIC_CONFIG)
+    out["arctic-480b"] = diff
+    paths["prefill_arctic_fp32"] = {"flash_attention": n}
+    del params, cache
+    torch.cuda.empty_cache()
+    return out, paths
+
+
+# ---------------------------------------------------------------------------
 # [3t] gradients with the kernels inside the models
 # ---------------------------------------------------------------------------
 # the kernels' loss and gradients against the plain versions', fp32: the
@@ -2247,23 +2401,32 @@ def _counters():
             "paged_attention": paged_attention}
 
 
-def serve_path(label, argv, expect):
+def serve_path(label, argv, expect, config=None):
     """Serve once through the CLI with every launch count zeroed just
     before and read just after; ``expect`` is kernel -> launches (a
     number, or a function of the run's result: the paged kernel's count
     follows the decode steps), and a kernel it does not name must not
-    launch."""
+    launch. ``config`` replaces fields of the model's config (a depth
+    cut). The run's peak device memory is logged beside the card's."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     vocab = get_config(argv[argv.index("--arch") + 1]).vocab_size
-    log(f"[4] {label}: serve {' '.join(argv)}")
+    log(f"[4] {label}: serve {' '.join(argv)}"
+        + (f" (config {config})" if config else ""))
     counters = _counters()
     for mod in counters.values():
         mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = serve.main(argv)
+    res = serve.main(argv, config=config)
     wall = time.perf_counter() - t0
     got = {name: mod.launches for name, mod in counters.items()}
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"    {res['num_layers']} layers, {res['param_elems']} params; peak "
+        f"device memory {res['peak_mem_bytes'] / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
     want = {name: expect.get(name, 0) for name in counters}
     want = {name: n(res) if callable(n) else n for name, n in want.items()}
     if "tokens" in res:
@@ -2318,8 +2481,8 @@ def per_step(n_attention):
 
 
 def serving_paths():
-    """(label, argv, expected launches) of every serving path: one
-    launch per attention layer (flash_attention) or SSM layer
+    """(label, argv, expected launches[, config]) of every serving path:
+    one launch per attention layer (flash_attention) or SSM layer
     (ssd_chunk) for every prefill, and one paged_attention launch per
     attention layer for every decode step of the continuous engine."""
     fixed, cont = SERVE_FIXED, SERVE_CONTINUOUS
@@ -2365,6 +2528,21 @@ def serving_paths():
          {"flash_attention": 32}),
         ("llava_continuous", ["--arch", "llava-next-mistral-7b", *z_cont],
          {"flash_attention": 8 * 32, "paged_attention": per_step(32)}),
+        # the grouped configurations (query groups of 16, 8 and 7), cut
+        # like zamba2: glm4-9b (9.40B fp32 params), qwen2.5-3b (3.40B)
+        # and chatglm3-6b (6.24B) at full depth; arctic-480b at full
+        # width, 1 of 35 layers (14.07B: ARCTIC_CONFIG)
+        ("glm4_fixed", ["--arch", "glm4-9b", *z_fixed],
+         {"flash_attention": 40}),
+        ("glm4_continuous", ["--arch", "glm4-9b", *z_cont],
+         {"flash_attention": 8 * 40, "paged_attention": per_step(40)}),
+        ("qwen_continuous", ["--arch", "qwen2.5-3b", *z_cont],
+         {"flash_attention": 8 * 36, "paged_attention": per_step(36)}),
+        ("chatglm3_fixed", ["--arch", "chatglm3-6b", *z_fixed],
+         {"flash_attention": 28}),
+        ("arctic_continuous", ["--arch", "arctic-480b", *z_cont],
+         {"flash_attention": 8, "paged_attention": per_step(1)},
+         ARCTIC_CONFIG),
     ]
 
 
@@ -3216,6 +3394,37 @@ def expected_train_launches(arch, r):
     return want
 
 
+def hold_tuned_to_xla(tag, tuned, xla):
+    """A tuned run against the "xla" run of the same steps
+    (`sync_readings`): step 0's synced gradients within TRAIN_GRAD_TOL,
+    the params' change within TRAIN_CHANGE_TOL, the losses within
+    TRAIN_LOSS_TOL, and each fault planted in the tuned run's trees
+    outside its tolerance. Returns (the losses' difference, the
+    readings)."""
+    loss_diff = max(abs(a - b) for a, b in zip(tuned["losses"],
+                                               xla["losses"]))
+    rd = sync_readings(tuned, xla)
+    log(f"    tuned vs xla: step 0's synced gradients within {rd['grad']:.3g}"
+        f" (tol {TRAIN_GRAD_TOL}), the params' change within "
+        f"{rd['change']:.3g} (tol {TRAIN_CHANGE_TOL}), losses within "
+        f"{loss_diff:.3g} (tol {TRAIN_LOSS_TOL}), final params within "
+        f"{rd['max_abs_param']:.3g}; sync s a step tuned "
+        f"{statistics.median(tuned['sync_s']):.3f}, xla "
+        f"{statistics.median(xla['sync_s']):.3f} (medians)")
+    log("    planted in the tuned run's trees: " + "; ".join(
+        f"{k} {v:.3g}" for k, v in rd["planted"].items()))
+    if rd["grad"] > TRAIN_GRAD_TOL or rd["change"] > TRAIN_CHANGE_TOL \
+            or loss_diff > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[{tag}] the tuned run departs from the xla "
+                             f"run")
+    for k, v in rd["planted"].items():
+        if v <= (TRAIN_CHANGE_TOL if k.startswith("update")
+                 else TRAIN_GRAD_TOL):
+            raise AssertionError(f"[{tag}] the planted fault '{k}' reads "
+                                 f"{v}, inside the tolerance")
+    return loss_diff, rd
+
+
 def phase_training(arch):
     """[8] / [8s] ``arch`` at full width and depth trained data-parallel
     on 4 ranks on the card through the tuned 2x2
@@ -3253,32 +3462,12 @@ def phase_training(arch):
         raise AssertionError(f"[{tag}] plans: tuned "
                              f"{tuned['plan_combines']} combines a step, xla "
                              f"{xla['plan_combines']}")
-    loss_diff = max(abs(a - b) for a, b in zip(tuned["losses"],
-                                               xla["losses"]))
-    rd = sync_readings(tuned, xla)
+    loss_diff, rd = hold_tuned_to_xla(tag, tuned, xla)
     # [8t] holds its step 0 to this run's (the host's copies)
     STEP0_ORACLE[arch] = {"grads0": xla["grads0"],
                           "loss": xla["losses"][0],
                           "init_params": xla["init_params"],
                           "losses": xla["losses"], "params": xla["params"]}
-    log(f"    tuned vs xla: step 0's synced gradients within {rd['grad']:.3g}"
-        f" (tol {TRAIN_GRAD_TOL}), the params' change within "
-        f"{rd['change']:.3g} (tol {TRAIN_CHANGE_TOL}), losses within "
-        f"{loss_diff:.3g} (tol {TRAIN_LOSS_TOL}), final params within "
-        f"{rd['max_abs_param']:.3g}; sync s a step tuned "
-        f"{statistics.median(tuned['sync_s']):.3f}, xla "
-        f"{statistics.median(xla['sync_s']):.3f} (medians)")
-    log("    planted in the tuned run's trees: " + "; ".join(
-        f"{k} {v:.3g}" for k, v in rd["planted"].items()))
-    if rd["grad"] > TRAIN_GRAD_TOL or rd["change"] > TRAIN_CHANGE_TOL \
-            or loss_diff > TRAIN_LOSS_TOL:
-        raise AssertionError(f"[{tag}] the tuned run departs from the xla "
-                             f"run")
-    for k, v in rd["planted"].items():
-        if v <= (TRAIN_CHANGE_TOL if k.startswith("update")
-                 else TRAIN_GRAD_TOL):
-            raise AssertionError(f"[{tag}] the planted fault '{k}' reads "
-                                 f"{v}, inside the tolerance")
     keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
             "peak_mem_bytes", "launches", "plan_entries", "plan_combines",
             "describe", "wall_s")
@@ -3625,12 +3814,13 @@ def allclose_reading(got, want) -> dict:
     return out
 
 
-def expected_tp_launches(r, steps):
-    """Every rank runs smollm's 30 attention layers whole: one flash
-    forward and LAUNCHES_PER_CALL backward launches a layer a
-    rank-step, and the tuned plan's combines every step."""
+def expected_tp_launches(r, steps, layers=30):
+    """Every rank runs the model's attention layers (smollm's 30 whole;
+    [8q]'s 4 on its heads): one flash forward and LAUNCHES_PER_CALL
+    backward launches a layer a rank-step, and the tuned plan's combines
+    every step."""
     from repro_torch.kernels import attention_bwd
-    per = 30 * steps * TRAIN_RANKS
+    per = layers * steps * TRAIN_RANKS
     return {"flash_attention": per,
             "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
             "ssd_chunk": 0, "ssd_chunk_bwd": 0,
@@ -3706,6 +3896,28 @@ def first_slice(whole, shape):
     return whole
 
 
+def check_tp_run(tag, label, r, steps_n, want, param_elems, split):
+    """A tensor-parallel run on 4 ranks of the card, ``("data", "model")``
+    = 2 x 2: its params a rank and which dimensions split, the replicas
+    (the replicated leaves on all ranks, each slice on its 2 data ranks)
+    at init and after every step, finite losses and the launches."""
+    bad = [k for k, ok in (
+        ("device", r["device"] == "cuda:0" and r["ranks"] == TRAIN_RANKS),
+        ("mesh", r["mesh"] == {"data": 2, "model": 2}),
+        ("params a rank", r["param_elems"] == param_elems),
+        ("layout", r["tp_split"] == split),
+        ("replicas", r["replicas_equal_at_init"]
+         and all(r["replicas_equal"])),
+        ("losses", len(r["losses"]) == steps_n and all(
+            x == x and 0 < x < 20 for x in r["losses"])),
+        ("launches", r["launches"] == want)) if not ok]
+    if bad:
+        raise AssertionError(f"[{tag}] {label}: {bad}; launches "
+                             f"{r['launches']} vs {want}; mesh {r['mesh']}, "
+                             f"{r['param_elems']} params, split "
+                             f"{r['tp_split']}")
+
+
 def phase_training_tp():
     """[8t] smollm-135m at full width and depth trained tensor-parallel
     on 4 ranks (``("data", "model")`` = 2 x 2), tuned and
@@ -3722,22 +3934,9 @@ def phase_training_tp():
         steps_n = TP_TRAIN_STEPS[label]
         r = train_run("8t", label, [*TP_TRAIN_ARGS, "--steps", str(steps_n),
                                     *extra])
-        want = expected_tp_launches(r, steps_n)
-        bad = [k for k, ok in (
-            ("device", r["device"] == "cuda:0"
-             and r["ranks"] == TRAIN_RANKS),
-            ("mesh", r["mesh"] == {"data": 2, "model": 2}),
-            ("params a rank", r["param_elems"] == TP_PARAM_ELEMS),
-            ("layout", r["tp_split"] == TP_SPLIT),
-            ("replicas", r["replicas_equal_at_init"]
-             and all(r["replicas_equal"])),
-            ("losses", len(r["losses"]) == steps_n and all(
-                x == x and 0 < x < 20 for x in r["losses"])),
-            ("launches", r["launches"] == want)) if not ok]
-        if bad:
-            raise AssertionError(f"[8t] {label}: {bad}; launches "
-                                 f"{r['launches']} vs {want}; mesh "
-                                 f"{r['mesh']}, {r['param_elems']} params")
+        check_tp_run("8t", label, r, steps_n,
+                     expected_tp_launches(r, steps_n), TP_PARAM_ELEMS,
+                     TP_SPLIT)
         runs[label] = r
     tuned, xla = runs["tuned"], runs["xla"]
     if not tuned["tuned"] or xla["tuned"] or tuned["plan_combines"] <= 0:
@@ -3870,6 +4069,65 @@ def overlapped_tp_run(tuned, card):
                              "launches", "plan_entries", "plan_combines")}
     out.update(grad_reading=grad, loss_diff=loss)
     return out
+
+
+# ---------------------------------------------------------------------------
+# [8q] qwen2.5-3b trained with its kv heads split over model
+# ---------------------------------------------------------------------------
+#: qwen2.5-3b at full width (16/2 heads of 128, QKV bias, d_ff 11008,
+#: vocab 151936), depth cut 36 -> 4: at 16 B a param (fp32 params, grads,
+#: Adam's two moments) a rank holds ~7.5 GB, four ~30 GB; the full depth
+#: without FSDP would be ~109 GB over the four
+QWEN_TP_CONFIG = {"num_layers": 4}
+QWEN_TP_ARGS = ["--arch", "qwen2.5-3b", "--ranks", "4", "--model-parallel",
+                "2", "--seq", "256", "--batch", "8", "--steps", "2"]
+# params a rank on ("data", "model") = 2 x 2, every leaf but the norms
+# split: tok and out 2 x 152064 (the vocab padded) x 2048 / 2; a layer's
+# wq and wo 2048 x 2048 / 2 each, wk and wv 2048 x 256 / 2 each, bq 1024,
+# bk and bv 128 each, the MLP 3 x 2048 x 11008 / 2, ln1 and ln2 2048 each
+# (38,540,544); the final norm 2048: 311,427,072 + 4 x 38,540,544 + 2,048
+QWEN_TP_PARAM_ELEMS = 465591296
+#: both query and kv heads split: 8 query heads over 1 kv head a rank
+QWEN_TP_SPLIT = {"heads": True, "kv_heads": True, "ffn": True,
+                 "vocab": True}
+
+
+def phase_training_tp_qwen():
+    """[8q] qwen2.5-3b at full width, 4 layers, trained tensor-parallel on
+    4 ranks (``("data", "model")`` = 2 x 2, ``--model-parallel 2``): each
+    rank holds 8 query heads, 1 kv head and its QKV biases' slices;
+    through ``tuned_decision.json`` and through "xla", 2 steps each (the
+    params' change needs the second: the warmup's first step has lr 0),
+    held to each other as [8] is (`hold_tuned_to_xla`, over rank 0's
+    slices); the flash launches 4
+    layers x ranks x steps, forward and backward. Returns the summary
+    and the launches by path."""
+    t0 = time.perf_counter()
+    runs = {}
+    steps_n = 2
+    for label, extra in (("tuned", ["--tuning-table", FLAT_TABLE]),
+                         ("xla", ["--collective", "xla"])):
+        r = train_run("8q", label, [*QWEN_TP_ARGS, *extra],
+                      config=QWEN_TP_CONFIG)
+        check_tp_run("8q", label, r, steps_n,
+                     expected_tp_launches(r, steps_n,
+                                          QWEN_TP_CONFIG["num_layers"]),
+                     QWEN_TP_PARAM_ELEMS, QWEN_TP_SPLIT)
+        runs[label] = r
+    tuned, xla = runs["tuned"], runs["xla"]
+    if not tuned["tuned"] or xla["tuned"] or tuned["plan_combines"] <= 0:
+        raise AssertionError(f"[8q] plans: tuned {tuned['plan_combines']} "
+                             f"combines, xla tuned={xla['tuned']}")
+    loss_diff, rd = hold_tuned_to_xla("8q", tuned, xla)
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "peak_mem_bytes", "launches", "plan_entries", "plan_combines",
+            "wall_s", "param_elems", "leaves", "tp_split")
+    summary = {"tuned": {k: tuned[k] for k in keep},
+               "xla": {k: xla[k] for k in keep}, "loss_diff": loss_diff,
+               "readings": rd, "phase_s": time.perf_counter() - t0}
+    log(f"    [8q] {summary['phase_s']:.1f}s")
+    return summary, {"train_tp_qwen_tuned": tuned["launches"],
+                     "train_tp_qwen_xla": xla["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4682,12 +4940,18 @@ def main() -> int:
             seq=64),
         "llava-next-mistral-7b": phase_train_grads(
             "llava-next-mistral-7b", {"num_layers": 2}, batch=1,
-            seq=LLAVA_PREFIX)}
+            seq=LLAVA_PREFIX),
+        # the grouped configurations at full width, 2 layers
+        "glm4-9b": phase_train_grads("glm4-9b", {"num_layers": 2}),
+        "qwen2.5-3b": phase_train_grads("qwen2.5-3b", {"num_layers": 2})}
     for arch, r in train_grads.items():
         model_paths[f"grads_{arch}_fp32"] = r["launches"]
     moe = phase_moe_model()
     diffs["olmoe-1b-7b"] = moe["prefill_logit_diff"]
-    mark("[3] models, [3v], [3t], [3c]")
+    gqa, gqa_paths = phase_gqa_model()
+    diffs.update(gqa)
+    model_paths.update(gqa_paths)
+    mark("[3] models, [3v], [3t], [3c], [3g]")
     serving, one_process = {}, {}
     for k in kernels.values():
         k["launches"], k["launches_by_path"] = 0, {}
@@ -4695,8 +4959,8 @@ def main() -> int:
         for name, n in counts.items():
             if n:
                 kernels[name]["launches_by_path"][path] = n
-    for label, argv, expect in serving_paths():
-        got, res = serve_path(label, argv, expect)
+    for label, argv, expect, *config in serving_paths():
+        got, res = serve_path(label, argv, expect, *config)
         if label.startswith("smollm"):
             one_process[label] = res
         for name, n in got.items():
@@ -4705,8 +4969,8 @@ def main() -> int:
                 kernels[name]["launches_by_path"][label] = n
         serving[label] = {k: res[k] for k in (
             "prefill_s", "decode_s", "new_tokens", "tok_per_s", "wall_s",
-            "token_ms_p50", "token_ms_p90", "token_ms_p99", "decode_steps")
-            if k in res}
+            "token_ms_p50", "token_ms_p90", "token_ms_p99", "decode_steps",
+            "num_layers", "param_elems", "peak_mem_bytes") if k in res}
         if "generated" in res:
             serving[label]["requests"] = len(res["generated"])
     mark("[4] serving")
@@ -4760,6 +5024,9 @@ def main() -> int:
     train_paths.update(tp_train_paths)
     STEP0_ORACLE.clear()
     mark("[8t]")
+    training_tp_qwen, qwen_paths = phase_training_tp_qwen()
+    train_paths.update(qwen_paths)
+    mark("[8q]")
     examples, example_paths = phase_examples()
     train_paths.update(example_paths)
     mark("[10]")
@@ -4798,6 +5065,7 @@ def main() -> int:
                       "training_fsdp": training_fsdp,
                       "training_fsdp_model": training_fsdp_model,
                       "training_tp": training_tp,
+                      "training_tp_qwen": training_tp_qwen,
                       "accounting": accounting,
                       "examples": examples,
                       "tp_decode": tp_decode,

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import pytree
 from repro_torch.configs import ARCHITECTURES
 from repro_torch.core.collectives import group as grp
 from repro_torch.models import ssm
@@ -301,9 +302,14 @@ def _serve(args, cfg, comm=None, mesh=None):
                       device=args.device if mesh is None else mesh.device)
     with torch.inference_mode():
         params = api.init(torch.Generator(device=api.device).manual_seed(0))
-        if args.continuous:
-            return _serve_continuous(args, cfg, api, params, comm, mesh)
-        return _serve_fixed(args, cfg, api, params, comm, mesh)
+        run = _serve_continuous if args.continuous else _serve_fixed
+        res = run(args, cfg, api, params, comm, mesh)
+    # what was served: the layers held (whisper's decoder stack) and the
+    # params drawn
+    res["num_layers"] = len(params["decoder" if "decoder" in params
+                                   else "layers"])
+    res["param_elems"] = sum(t.numel() for t in pytree.leaves(params))
+    return res
 
 
 def _tp_rank_main(args, cfg):
@@ -334,13 +340,18 @@ def _tp_rank_main(args, cfg):
     return res
 
 
-def main(argv=None):
+def main(argv=None, *, config: dict = None):
     """Serve once; returns the run's summary (what ``--trace-dir`` writes,
-    plus the generated tokens; rank 0's under ``--tensor-parallel``)."""
+    plus the generated tokens; rank 0's under ``--tensor-parallel``).
+    ``config`` replaces fields of the model's config (``{"num_layers":
+    1}``: a full-width model cut in depth to fit one card), as
+    `train.main`'s does."""
     args = parse_args(argv)
     cfg = ARCHITECTURES[args.arch]
     if args.reduced:
         cfg = cfg.reduced()
+    if config:
+        cfg = cfg.replace(**config)
 
     comm = None
     if args.tuning_table:

@@ -63,6 +63,12 @@ def _qkv(B, S, T, H, KV, D, dtype, seed):
     (1, 64, 64, 2, 1, 64, {"q_offset": 50, "window": 16}),  # rows 29+ masked
     (1, 40, 40, 2, 1, 80, {"q_offset": -5}),
     (2, 70, 300, 3, 1, 128, {"causal": False}),
+    # the grouped configurations' query groups at D 128, more than one kv
+    # head: glm4-9b / chatglm3-6b (32/2, 16), qwen2.5-3b (16/2, 8),
+    # arctic-480b (56/8, 7)
+    (1, 200, 200, 32, 2, 128, {}),
+    (2, 128, 128, 16, 2, 128, {}),
+    (1, 200, 264, 56, 8, 128, {"q_offset": 64}),
 ])
 def test_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, D, kw):
     q, k, v = _qkv(B, S, T, H, KV, D, dtype, seed=S + T)
@@ -174,6 +180,12 @@ BWD_CASES = [
     (2, 200, 264, 4, 2, 128, {}),
     (1, 200, 264, 6, 2, 128, {"q_offset": 64, "window": 96}),
     (2, 256, 256, 16, 16, 128, {}),   # olmoe-1b-7b's heads (16/16 of 128)
+    # groups of 16, 8 and 7 over more than one kv head: the last block of
+    # each kv head sums its group's fp32 partials in head order
+    (1, 256, 256, 32, 2, 128, {}),    # glm4-9b / chatglm3-6b
+    (2, 128, 128, 8, 1, 128, {}),     # qwen2.5-3b's heads a rank, model 2
+    (2, 200, 200, 16, 2, 128, {}),    # qwen2.5-3b
+    (1, 200, 264, 56, 8, 128, {"q_offset": 64}),  # arctic-480b
 ]
 
 
@@ -994,6 +1006,9 @@ def _off_by(got, want, tol):
     (2, 2, 64, 1, 5, 128),        # block size 64, group 5
     (4, 1, 16, 2, 4, 80),         # one pool block: one split
     (33, 2, 16, 16, 16, 128),     # R*KV fills the card alone: one split
+    (4, 33, 16, 2, 32, 128),      # glm4-9b / chatglm3-6b: group 16
+    (4, 33, 16, 2, 16, 128),      # qwen2.5-3b: group 8
+    (4, 33, 16, 8, 56, 128),      # arctic-480b: group 7
 ])
 def test_paged_kernel_matches_plain(cuda, dtype, window, R, nb, bs, KV, H,
                                     Dh):
@@ -1069,7 +1084,8 @@ def test_paged_kernel_split_edges(cuda, dtype, window, Dh):
 
 
 @pytest.mark.parametrize("R,nb,KV,H,Dh", [
-    (8, 36, 3, 9, 64), (4, 33, 32, 32, 80), (4, 33, 16, 16, 128)])
+    (8, 36, 3, 9, 64), (4, 33, 32, 32, 80), (4, 33, 16, 16, 128),
+    (4, 33, 2, 32, 128)])           # glm4-9b's serving shape
 def test_paged_kernel_is_deterministic_at_the_serving_shapes(cuda, R, nb, KV,
                                                              H, Dh):
     """The partials are summed in split order by whichever block arrives
