@@ -18,7 +18,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       one fused projection, zamba2's shared-attention shapes (D=80,
       H=KV=32), whisper's encoder (4 x 1500 frames, 20/20 heads of 64,
       no mask: a 28-key last tile), llava's prefix (2880 patches + 128
-      tokens, 32/8 heads of 128), the grouped configurations' prefill
+      tokens, 32/8 heads of 128, and [8v]'s rank of it under tensor
+      parallelism, 16/4 heads), the grouped configurations' prefill
       (4 x 512 over 32/2, 16/2 and 56/8 heads of 128: query groups of
       16, 8 and 7) and smollm's serving shape; times the
       kernel, the plain version and ``F.scaled_dot_product_attention``
@@ -71,7 +72,8 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
       offset, fully masked rows, T != S, S and T off the tile heights,
       MQA and GQA, D 64/80/128 with query groups of 1, 2 and 3),
       whisper's training encoder rows (2, 1500, 20, 20, 64, no mask),
-      llava's prefix at 8/2 heads, glm4-9b's training shape (2, 256, 32,
+      llava's prefix at 8/2 heads and at [8v]'s 16/4 heads a rank (1,
+      3008, 16, 4, 128), glm4-9b's training shape (2, 256, 32,
       2, 128: group 16), [8q]'s a rank (4, 256, 8, 1, 128: group 8), and
       olmoe-1b-7b's and smollm-135m's training shapes, f32 at 1e-4 and
       bf16 at 2e-2, bf16
@@ -301,7 +303,33 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    ``ssd_scan_bwd.LAUNCHES_PER_CALL`` (bf16: one) backward launches a
    rank-step, no flash, and the tuned plan's combines every step;
    sc. [8s]'s tuned run with ``--overlap-backward --trace-dir``, held to
-   it as [8c] is held to [8] (the SSD launches its, releases 11...0);
+   it as [8c] is held to [8] (the SSD launches its, releases 5...0);
+   z. [8]'s runs and checks for ``--arch zamba2-2.7b`` at full width (d
+   2560, 80 SSD heads of 64, N 64; the shared attention block 32/32
+   heads of 80, d_ff 10240) cut to 6 of its 54 layers (one group: 6
+   mamba layers, the shared block applied once; ``config={"num_layers":
+   6}``: 508,034,720 params, 66 leaves), tuned and ``"xla"``: the
+   launches held to both kernel pairs (`model_launches`: 6 SSD forwards
+   and 6 x ``ssd_scan_bwd.LAUNCHES_PER_CALL`` backward launches, 1 flash
+   forward and ``attention_bwd.LAUNCHES_PER_CALL`` backward launches a
+   rank-step) and the tuned plan's combines every step;
+   zc. [8z]'s tuned run with ``--overlap-backward --trace-dir``, held to
+   it as [8c] is held to [8] (each mamba layer released under its index,
+   5...0; the shared block with the residual);
+   zf. zamba2-2.7b under FSDP, untuned: (a) [8z]'s ``"xla"`` run with
+   ``shard_params_over_data`` (127,168,160 params a rank, 21 leaves
+   sharded, 45 whole), held to it as [8f] (a) is held to [8w]; (b) full
+   depth, 54 mamba layers and 9 shared applications (2,422,670,240
+   params), on ``("data", "model")`` = 4 x 1 (``--ranks 4``), one row of
+   256 tokens a rank, bf16 gathers, one step: 607,056,800 params a
+   rank, one gather and one reduce-scatter a layer and one for the rest
+   (the shared block with it, once a step), the replicas, a finite loss,
+   and the dry-run's trace of the same step at ranks 0 and 3
+   (`hold_to_trace`: params a rank, step 0's collectives by kind and
+   axis in count and bytes, 54 / 54 / 9 / 18 launches a rank-step and
+   no combine, the peak within `PEAK_BAND`); each rank's peak allocated
+   and reserved memory and the card's free memory after the step
+   printed;
    m. MoE expert parallelism: ``--arch olmoe-1b-7b --ranks 4
    --model-parallel 2 --steps 2 --seq 256 --batch 8`` at full width, cut
    to 1 of its 16 layers (``train.main(..., config={"num_layers": 1})``;
@@ -409,8 +437,20 @@ Imports only the port (``src/repro_torch``), torch and numpy. Phases:
    and the launches (4 flash forwards and their backwards a rank-step,
    the plan's combines);
 9. compile-free accounting: the dry-run's trace of [8ft] (b) and [8mf]
-   on a recording 2 x 2 mesh held to their steps on the card, and two
-   ``launch.dryrun`` subprocesses;
+   on a recording 2 x 2 mesh held to their steps on the card
+   (`hold_to_trace`, every rank), and two ``launch.dryrun`` subprocesses;
+   v. llava-next-mistral-7b through ``launch/train.py`` under FSDP +
+   tensor parallelism on ``("data", "model")`` = 2 x 2 (``--ranks 4
+   --model-parallel 2 --seq 3008 --batch 2``: 2880 patches and 128
+   tokens, one row a data rank; 16 of the 32 query heads, 4 of the 8 kv
+   heads, half the MLP and vocab a model rank, each cut to its FSDP
+   shard), untuned: (a) 2 layers, fp32 compute, 2 steps, held to the
+   same run without FSDP on the same mesh as [8ft] (a), and both runs'
+   step-0 loss to the unsplit model's over the same global batch in this
+   process (the vocab-parallel loss skips the patch positions) within
+   ``GRAD_LOSS_TOL``; (b) 4 layers, bf16 gathers, one step, held to the
+   dry-run's trace at ranks 0 and 3 as [8zf] (b) (283,676,672 params a
+   rank, 4 flash forwards and 8 backward launches a rank-step);
 10. the examples' counterparts (``repro_torch.examples``): (a)
    ``train_e2e`` with the real smollm-135m config (30 layers, d 576,
    162,826,560 fp32 params), seq 128, batch 4, ``E2E_STEPS`` steps,
@@ -523,6 +563,10 @@ GLM4_TRAIN_ATTN_SHAPE = (2, 256, 32, 2, 128)
 QWEN_TP_TRAIN_ATTN_SHAPE = (4, 256, 8, 1, 128)
 # llava-next-mistral-7b's prefix: 2880 patches and 128 tokens
 LLAVA_PREFIX = 2880 + 128
+# [8v]'s attention a rank: one row of the prefix, 16 of the 32 query
+# heads over 4 of the 8 kv heads (the model axis splits both), causal;
+# fp32 in (a), bf16 in (b)
+LLAVA_TP_TRAIN_ATTN_SHAPE = (1, LLAVA_PREFIX, 16, 4, 128)
 # mamba2-130m's SSD call at the fixed-batch serving shape (8 x 512 prompts)
 SSD_SERVE_SHAPE = dict(B=8, S=512, H=24, P=64, N=128, Q=128)
 # and at the continuous path's one-request prefills
@@ -829,6 +873,9 @@ def phase_kernel():
               for dt in both]
     cases += [((1, LLAVA_PREFIX, LLAVA_PREFIX, 32, 8, 128), dt, {})
               for dt in both]
+    # [8v]'s a rank under tensor parallelism (16/4 heads of 128)
+    B, S, H, KV, D = LLAVA_TP_TRAIN_ATTN_SHAPE
+    cases += [((B, S, S, H, KV, D), dt, {}) for dt in both]
     # the grouped configurations' prefill (groups 16, 8 and 7)
     cases += [((B, S, S, H, KV, D), torch.bfloat16, {})
               for B, S, H, KV, D in (ATTN_TIMED_SHAPES[name]
@@ -1150,6 +1197,9 @@ def phase_flash_backward():
     # last block of each kv head sums its group's fp32 partials
     for B, S, H, KV, D in (GLM4_TRAIN_ATTN_SHAPE, QWEN_TP_TRAIN_ATTN_SHAPE):
         sweep.append(((B, S, S, H, KV, D), {}))
+    # [8v]'s a rank: llava's prefix, 16/4 heads (group 4) of 128
+    B, S, H, KV, D = LLAVA_TP_TRAIN_ATTN_SHAPE
+    sweep.append(((B, S, S, H, KV, D), {}))
     B, S, H, KV, D = TRAIN_ATTN_SHAPE
     sweep.append(((B, S, S, H, KV, D), {}))
     max_err = {dt: 0.0 for dt in both}
@@ -3213,18 +3263,28 @@ TRAIN_RANKS = 4
 TRAIN_ARGS = ["--ranks", "4", "--topology", "2x2", "--steps",
               str(TRAIN_STEPS), "--seq", "256", "--batch", "8"]
 # what each trained model's run must show: its layers (each one release
-# point and one flash or SSD launch a rank-step), params and leaves, and
-# the tuned 2x2 plan's combines a step where it is pinned
+# point), its forward kernels' calls a rank-step (each with its
+# backward), params and leaves, and the tuned 2x2 plan's combines a step
+# where it is pinned
 TRAIN_MODELS = {
     "smollm-135m": {"tag": "8", "layers": 30, "param_elems": 162826560,
                     "leaves": 273, "combines": 2184,
-                    "kernels": ("flash_attention", "flash_attention_bwd")},
+                    "kernels": {"flash_attention": 30}},
     # full width, depth cut 24 -> 12 for the script's time ([8t] took
     # it), 12 -> 6 ([8ft] took it): 3,765,320 params and 9 leaves a layer
     "mamba2-130m": {"tag": "8s", "layers": 6, "param_elems": 100056240,
                     "leaves": 57, "combines": None,
                     "config": {"num_layers": 6},
-                    "kernels": ("ssd_chunk", "ssd_chunk_bwd")},
+                    "kernels": {"ssd_chunk": 6}},
+    # full width, depth cut 54 -> 6 (one group: 6 mamba layers, the
+    # shared attention block applied once; 16 B a param is 8.1 GB a rank,
+    # full depth 38.8 GB, so four replicas do not fit one card: [8zf]
+    # (b) trains the full depth under FSDP); the mamba layers release
+    # under their indices 5 ... 0, the shared block with the residual
+    "zamba2-2.7b": {"tag": "8z", "layers": 6, "param_elems": 508034720,
+                    "leaves": 66, "combines": None,
+                    "config": {"num_layers": 6},
+                    "kernels": {"ssd_chunk": 6, "flash_attention": 1}},
     # full width, depth cut 32 + 32 -> 2 + 2 (at 16 B a param, full depth
     # is 25.7 GB a rank: four replicas do not fit one card; [8ft] trains
     # it at full depth under FSDP with the model axis); 4 flash
@@ -3233,11 +3293,14 @@ TRAIN_MODELS = {
     "whisper-large-v3": {"tag": "8w", "layers": 4,
                          "param_elems": 231980800, "leaves": 59,
                          "combines": None,
-                         "kernels": ("flash_attention",
-                                     "flash_attention_bwd"),
+                         "kernels": {"flash_attention": 4},
                          "config": {"num_layers": 2, "encoder_layers": 2},
                          "overlap": False},
 }
+#: each forward kernel's backward, with its launches a call at bf16
+#: compute (the training step's)
+TRAIN_BWD = {"flash_attention": "flash_attention_bwd",
+             "ssd_chunk": "ssd_chunk_bwd"}
 # the tuned run against the "xla" run. Both start from the same params
 # and batches, and rank 0's step-0 gradients before the sync are checked
 # bit-equal in both, so step 0's synced trees differ only by the order
@@ -3373,25 +3436,31 @@ def train_run(tag, label, argv, config=None, parallel=None, keep=True):
     return res
 
 
-def expected_train_launches(arch, r):
-    """Each kernel's launches over a run's steps, summed over the ranks:
-    one forward launch a layer and LAUNCHES_PER_CALL backward launches a
-    layer for every rank-step of the model's kernels (flash attention or
-    the SSD chunk; no remat), none of the others, and the tuned plan's
-    combines every step."""
+def model_launches(kernels, steps, ranks=TRAIN_RANKS):
+    """The model kernels' launches over ``steps`` steps of ``ranks``
+    ranks, from ``kernels`` (each forward kernel's calls a rank-step):
+    one launch a forward call and LAUNCHES_PER_CALL (bf16) a backward
+    one, none of the kernels off the model (no remat)."""
     from repro_torch.kernels import attention_bwd, ssd_scan_bwd
-    spec = TRAIN_MODELS[arch]
-    per = spec["layers"] * TRAIN_STEPS * TRAIN_RANKS
-    fwd, bwd = spec["kernels"]
-    # the training step computes in bf16
     bwd_per_call = {"flash_attention_bwd": attention_bwd.LAUNCHES_PER_CALL,
                     "ssd_chunk_bwd":
-                    ssd_scan_bwd.LAUNCHES_PER_CALL[torch.bfloat16]}[bwd]
+                    ssd_scan_bwd.LAUNCHES_PER_CALL[torch.bfloat16]}
     want = {name: 0 for name in ("flash_attention", "flash_attention_bwd",
                                  "ssd_chunk", "ssd_chunk_bwd")}
-    want[fwd], want[bwd] = per, per * bwd_per_call
-    want["segment_combine"] = TRAIN_STEPS * r["plan_combines"]
+    for fwd, calls in kernels.items():
+        bwd = TRAIN_BWD[fwd]
+        want[fwd] = calls * steps * ranks
+        want[bwd] = want[fwd] * bwd_per_call[bwd]
     return want
+
+
+def expected_train_launches(arch, r):
+    """Each kernel's launches over a run's steps, summed over the ranks:
+    `model_launches` of the model's kernels (flash attention, the SSD
+    chunk, or both for the hybrid) and the tuned plan's combines every
+    step."""
+    return {**model_launches(TRAIN_MODELS[arch]["kernels"], TRAIN_STEPS),
+            "segment_combine": TRAIN_STEPS * r["plan_combines"]}
 
 
 def hold_tuned_to_xla(tag, tuned, xla):
@@ -3603,12 +3672,9 @@ def expected_moe_launches(r, steps):
     """Each kernel's launches over a run's ``steps``, summed over the
     ranks: one flash forward and LAUNCHES_PER_CALL backward launches a
     layer a rank-step, and the tuned plan's combines every step."""
-    from repro_torch.kernels import attention_bwd
-    per = MOE_TRAIN_CONFIG["num_layers"] * steps * TRAIN_RANKS
-    return {"flash_attention": per,
-            "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
-            "ssd_chunk": 0, "ssd_chunk_bwd": 0,
-            "segment_combine": steps * r["plan_combines"]}
+    return {**model_launches(
+        {"flash_attention": MOE_TRAIN_CONFIG["num_layers"]}, steps),
+        "segment_combine": steps * r["plan_combines"]}
 
 
 def check_moe_run(tag, label, r, steps=MOE_TRAIN_STEPS):
@@ -3819,11 +3885,7 @@ def expected_tp_launches(r, steps, layers=30):
     [8q]'s 4 on its heads): one flash forward and LAUNCHES_PER_CALL
     backward launches a layer a rank-step, and the tuned plan's combines
     every step."""
-    from repro_torch.kernels import attention_bwd
-    per = layers * steps * TRAIN_RANKS
-    return {"flash_attention": per,
-            "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
-            "ssd_chunk": 0, "ssd_chunk_bwd": 0,
+    return {**model_launches({"flash_attention": layers}, steps),
             "segment_combine": steps * r["plan_combines"]}
 
 
@@ -4145,8 +4207,23 @@ def phase_training_tp_qwen():
 # 1,601,044,480 / 4 + 7,576,320 = 407,837,440 (1,608,620,800 whole);
 # leaves (sharded, replicated) 34 + 25, 130 + 85 and 514 + 325
 FSDP_RUNS = {
-    "2+2": {"param_elems": 63389440, "leaves": (34, 25), "layers": 4},
-    "8+8": {"param_elems": 132279040, "leaves": (130, 85), "layers": 16},
+    "2+2": {"param_elems": 63389440, "leaves": (34, 25), "layers": 4,
+            "kernels": {"flash_attention": 4}},
+    "8+8": {"param_elems": 132279040, "leaves": (130, 85), "layers": 16,
+            "kernels": {"flash_attention": 16}},
+    # [8zf] (a): [8z]'s zamba2-2.7b (6 layers) on 2x2, a quarter of each
+    # of the 21 leaves the data axes divide a rank, 45 leaves whole
+    "zamba2 6": {"param_elems": 127168160, "leaves": (21, 45), "layers": 6,
+                 "kernels": TRAIN_MODELS["zamba2-2.7b"]["kernels"]},
+    # [8zf] (b): full depth on ("data", "model") = 4 x 1: 117 leaves
+    # sharded over the 4 data ranks, 381 whole (54 mamba layers' norms
+    # and SSM scalars, the shared block's norms, ...); 2,422,670,240
+    # params whole. The shared block is gathered with the rest of the
+    # tree, once a step: 54 + 1 gathers
+    "zamba2 54": {"param_elems": 607056800, "leaves": (117, 381),
+                  "layers": 54, "kernels": {"ssd_chunk": 54,
+                                            "flash_attention": 9},
+                  "mesh": {"data": 4, "model": 1}, "data_axes": ["data"]},
 }
 # the deeper run: one step, bf16 gathers and reduce-scatters
 # (gather_in_compute_dtype), 4 x 256 tokens over 4 x 1500 frames (one row
@@ -4161,23 +4238,21 @@ FSDP_DEEP_CONFIG = {"num_layers": 8, "encoder_layers": 8}
 
 
 def fsdp_checks(r, run, steps):
-    """What every [8f] run must show: the mesh, params a rank, the
-    sharded and replicated leaves, the replicas, finite losses, one
+    """What every [8f] / [8zf] run must show: the mesh, params a rank,
+    the sharded and replicated leaves, the replicas, finite losses, one
     gather and one reduce-scatter a layer and one for the rest of the
-    tree, and the flash kernels a layer a rank-step (no combine, no SSD
-    kernel); the names of the checks that fail."""
-    from repro_torch.kernels import attention_bwd
+    tree, and the model's kernels a rank-step (`model_launches`; no
+    combine); the names of the checks that fail."""
     spec = FSDP_RUNS[run]
     sharded, replicated = spec["leaves"]
-    per = spec["layers"] * steps * TRAIN_RANKS
-    want = {"flash_attention": per,
-            "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
-            "ssd_chunk": 0, "ssd_chunk_bwd": 0, "segment_combine": 0}
+    want = {**model_launches(spec["kernels"], steps), "segment_combine": 0}
     return [k for k, ok in (
         ("device", r["device"] == "cuda:0" and r["ranks"] == TRAIN_RANKS),
-        ("mesh", r["mesh"] == {"pod": 2, "data": 2, "model": 1}),
+        ("mesh", r["mesh"] == spec.get("mesh", {"pod": 2, "data": 2,
+                                                "model": 1})),
         ("params a rank", r["param_elems"] == spec["param_elems"]),
-        ("leaves", r["fsdp"] == {"data_axes": ["pod", "data"],
+        ("leaves", r["fsdp"] == {"data_axes": spec.get("data_axes",
+                                                       ["pod", "data"]),
                                  "sharded_leaves": sharded,
                                  "replicated_leaves": replicated}),
         ("collectives", r["collectives"]["gathers"] ==
@@ -4187,6 +4262,53 @@ def fsdp_checks(r, run, steps):
         ("losses", len(r["losses"]) == steps
          and all(x == x and 0 < x < 20 for x in r["losses"])),
         ("launches", r["launches"] == want)) if not ok]
+
+
+def fsdp_held_to_oracle(tag, arch, run):
+    """[8f] (a) / [8zf] (a): ``arch``'s ``"xla"`` run of [8] again under
+    FSDP (``--collective xla``, fp32 gathers), held to that run
+    (``STEP0_ORACLE[arch]``): the same start, step 0's loss bit-equal,
+    its synced gradients gathered whole within ``TRAIN_GRAD_TOL``, the
+    params' change within ``TRAIN_CHANGE_TOL``, the losses within
+    ``TRAIN_LOSS_TOL``, and `fsdp_checks` of ``run``. Returns the result
+    and the readings."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import ParallelConfig
+    spec, oracle = TRAIN_MODELS[arch], STEP0_ORACLE[arch]
+    base = f"[{spec['tag']}] xla"
+    a = train_run(tag, f"{arch} {run} under FSDP, held to {base}",
+                  ["--arch", arch, *TRAIN_ARGS, "--collective", "xla"],
+                  config=spec.get("config"),
+                  parallel=ParallelConfig(shard_params_over_data=True))
+
+    def card(tree):
+        return [t.to("cuda", torch.float64) for t in pytree.leaves(tree)]
+    init = card(oracle["init_params"])
+    same_start = all(torch.equal(x, y) for x, y in
+                     zip(card(a["init_params"]), init))
+    grad = grad_reading(card(a["grads0"]), card(oracle["grads0"]))
+    change = change_reading(card(a["params"]), init,
+                            card(oracle["params"]))
+    del init
+    for k in ("init_params", "params", "grads0"):
+        a.pop(k)
+    torch.cuda.empty_cache()
+    loss0_equal = a["losses"][0] == oracle["loss"]
+    loss_diff = max(abs(x - y) for x, y in zip(a["losses"],
+                                               oracle["losses"]))
+    log(f"    vs {base}: the same start {same_start}; step 0's loss "
+        f"bit-equal {loss0_equal}; step 0's synced gradients within "
+        f"{grad:.3g} (tol {TRAIN_GRAD_TOL}); the params' change within "
+        f"{change:.3g} (tol {TRAIN_CHANGE_TOL}); losses within "
+        f"{loss_diff:.3g} (tol {TRAIN_LOSS_TOL})")
+    bad = fsdp_checks(a, run, TRAIN_STEPS)
+    if bad or not same_start or not loss0_equal or grad > TRAIN_GRAD_TOL \
+            or change > TRAIN_CHANGE_TOL or loss_diff > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[{tag}] {run} under FSDP: {bad}; launches "
+                             f"{a['launches']}, {a['param_elems']} params "
+                             f"a rank, {a.get('fsdp')}")
+    return a, {"loss0_equal": loss0_equal, "grad": grad, "change": change,
+               "loss": loss_diff}
 
 
 def phase_training_fsdp():
@@ -4199,40 +4321,9 @@ def phase_training_fsdp():
     ``TRAIN_LOSS_TOL``); (b) the model at 8 + 8 layers (cut from 32 + 32,
     which [8ft] trains), one step, bf16 gathers. Returns the summary and
     the launch counts by path."""
-    from repro_torch import pytree
     from repro_torch.configs.base import ParallelConfig
     t0 = time.perf_counter()
-    spec = TRAIN_MODELS["whisper-large-v3"]
-    oracle = STEP0_ORACLE["whisper-large-v3"]
-    a = train_run("8f", "2 + 2 layers, held to [8w] xla",
-                  ["--arch", "whisper-large-v3", *TRAIN_ARGS, "--collective",
-                   "xla"], config=spec["config"],
-                  parallel=ParallelConfig(shard_params_over_data=True))
-
-    def card(tree):
-        return [t.to("cuda", torch.float64) for t in pytree.leaves(tree)]
-    init = card(oracle["init_params"])
-    same_start = all(torch.equal(x, y) for x, y in
-                     zip(card(a["init_params"]), init))
-    grad = grad_reading(card(a["grads0"]), card(oracle["grads0"]))
-    change = change_reading(card(a["params"]), init,
-                            card(oracle["params"]))
-    del init
-    torch.cuda.empty_cache()
-    loss0_equal = a["losses"][0] == oracle["loss"]
-    loss_diff = max(abs(x - y) for x, y in zip(a["losses"],
-                                               oracle["losses"]))
-    log(f"    vs [8w] xla: the same start {same_start}; step 0's loss "
-        f"bit-equal {loss0_equal}; step 0's synced gradients within "
-        f"{grad:.3g} (tol {TRAIN_GRAD_TOL}); the params' change within "
-        f"{change:.3g} (tol {TRAIN_CHANGE_TOL}); losses within "
-        f"{loss_diff:.3g} (tol {TRAIN_LOSS_TOL})")
-    bad = fsdp_checks(a, "2+2", TRAIN_STEPS)
-    if bad or not same_start or not loss0_equal or grad > TRAIN_GRAD_TOL \
-            or change > TRAIN_CHANGE_TOL or loss_diff > TRAIN_LOSS_TOL:
-        raise AssertionError(f"[8f] 2 + 2 under FSDP: {bad}; launches "
-                             f"{a['launches']}, {a['param_elems']} params "
-                             f"a rank, {a.get('fsdp')}")
+    a, vs = fsdp_held_to_oracle("8f", "whisper-large-v3", "2+2")
     b = train_run("8f", "8 + 8 layers", FSDP_DEEP_ARGS,
                   config=FSDP_DEEP_CONFIG,
                   parallel=ParallelConfig(shard_params_over_data=True,
@@ -4254,12 +4345,90 @@ def phase_training_fsdp():
             "peak_mem_bytes", "launches", "param_elems", "fsdp", "wall_s")
     summary = {"2+2": {k: a[k] for k in keep},
                "8+8": {k: b[k] for k in keep},
-               "vs_8w_xla": {"loss0_equal": loss0_equal, "grad": grad,
-                             "change": change, "loss": loss_diff},
+               "vs_8w_xla": vs,
                "phase_s": time.perf_counter() - t0}
     log(f"    [8f] {summary['phase_s']:.1f}s")
     return summary, {"train_whisper-large-v3_fsdp": a["launches"],
                      "train_whisper-large-v3_fsdp_8+8": b["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# [8zf] the hybrid under FSDP: one group held to [8z], then full depth
+# ---------------------------------------------------------------------------
+# (b) zamba2-2.7b at full width and depth (54 mamba layers, the shared
+# block applied 9 times; 2,422,670,240 params) on ("data", "model") = 4
+# x 1, one row of 256 tokens a rank, bf16 gathers, one step: the trace
+# predicts 15.68 GiB a rank at the peak (19.06 at two rows a rank: 76 GiB
+# over four ranks does not fit beside their contexts and arenas)
+HYBRID_FULL_ARGS = ["--arch", "zamba2-2.7b", "--ranks", "4", "--steps", "1",
+                    "--seq", "256", "--batch", "4", "--collective", "xla"]
+#: the ranks [8zf] (b) and [8v] (b) trace (the first and the last: the
+#: trace of a rank's full-depth step takes seconds on the host)
+TRACED_RANKS = (0, 3)
+
+
+def phase_training_hybrid_fsdp(smi):
+    """[8zf] zamba2-2.7b under FSDP, untuned: (a) [8z]'s ``"xla"`` run
+    (6 layers, 2 x 2, fp32 gathers, 2 steps) again with FSDP, held to it
+    as [8f] (a) is held to [8w]; (b) full depth (54 layers) on 4 x 1,
+    one row a rank, bf16 gathers, one step, held to the dry-run's trace
+    of the same step at `TRACED_RANKS` (`hold_to_trace`: params a rank,
+    step 0's collectives, the launches, the peak). Returns the summary
+    and the launch counts by path."""
+    from repro_torch.configs import ARCHITECTURES
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    t0 = time.perf_counter()
+    a, vs = fsdp_held_to_oracle("8zf", "zamba2-2.7b", "zamba2 6")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"    [8zf] before (b): the card's free memory {free / 2**30:.2f} of "
+        f"{total / 2**30:.2f} GiB, this process's reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    parallel = ParallelConfig(shard_params_over_data=True,
+                              gather_in_compute_dtype=True)
+    b = train_run("8zf", "(b) full depth (54 layers), 4 x 1, bf16 gathers",
+                  HYBRID_FULL_ARGS, parallel=parallel, keep=False)
+    _log_memory("8zf b", b)
+    bad = fsdp_checks(b, "zamba2 54", 1)
+    spec = FSDP_RUNS["zamba2 54"]
+    rows, launches, why = hold_to_trace(
+        "8zf b", ARCHITECTURES["zamba2-2.7b"], ShapeConfig("8zf_b", 256, 4,
+                                                           "train"),
+        parallel, ((4, 1), ("data", "model")), TRACED_RANKS, b,
+        spec["kernels"])
+    bad += why
+    log(f"    [8zf] (b) step 0: {b['step_s'][0]:.3f} s, fwd+bwd "
+        f"{b['compute_s'][0]:.3f} (gathers {b['gather_s'][0]:.3f}, "
+        f"reduce-scatters {b['reduce_scatter_s'][0]:.3f}), sync "
+        f"{b['sync_s'][0]:.3f}, AdamW {b['opt_s'][0]:.3f} (slowest "
+        f"rank's); loss {b['losses'][0]:.6f}; {b['collectives']}; {smi}")
+    if bad:
+        raise AssertionError(f"[8zf]: {bad}; launches {b['launches']}, "
+                             f"{b['param_elems']} params a rank, "
+                             f"{b.get('fsdp')}")
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "gather_s", "reduce_scatter_s", "collectives",
+            "peak_mem_bytes", "peak_reserved_bytes", "mem_free_bytes",
+            "launches", "param_elems", "fsdp", "wall_s")
+    summary = {"6": {k: a[k] for k in keep}, "54": {k: b[k] for k in keep},
+               "vs_8z_xla": vs, "traced": rows,
+               "phase_s": time.perf_counter() - t0}
+    log(f"    [8zf] {summary['phase_s']:.1f}s")
+    return summary, {"train_zamba2-2.7b_fsdp": a["launches"],
+                     "train_zamba2-2.7b_fsdp_54": b["launches"]}
+
+
+def _log_memory(tag, r):
+    """A run's peak allocated and reserved bytes a rank, and the card's
+    free memory after its steps as each rank read it."""
+    log(f"    [{tag}] peak GiB a rank allocated "
+        + ", ".join(f"{x / 2**30:.2f}" for x in r["peak_mem_bytes"])
+        + ", reserved "
+        + ", ".join(f"{x / 2**30:.2f}" for x in r["peak_reserved_bytes"])
+        + "; the card's free GiB after the steps "
+        + ", ".join(f"{f / 2**30:.2f}" for f, _ in r["mem_free_bytes"])
+        + f" of {r['mem_free_bytes'][0][1] / 2**30:.2f}")
 
 
 # ---------------------------------------------------------------------------
@@ -4311,11 +4480,8 @@ def fsdp_model_checks(r, want_layout, leaves, param_elems, layers, steps):
     collectives, the replicas, finite losses, and the flash kernels a
     layer a rank-step (no combine, no SSD kernel); the names of the
     checks that fail."""
-    from repro_torch.kernels import attention_bwd
-    per = layers * steps * TRAIN_RANKS
-    want = {"flash_attention": per,
-            "flash_attention_bwd": per * attention_bwd.LAUNCHES_PER_CALL,
-            "ssd_chunk": 0, "ssd_chunk_bwd": 0, "segment_combine": 0}
+    want = {**model_launches({"flash_attention": layers}, steps),
+            "segment_combine": 0}
     c = r.get("collectives", {})
     return [k for k, ok in (
         ("device", r["device"] == "cuda:0" and r["ranks"] == TRAIN_RANKS),
@@ -4479,7 +4645,8 @@ def phase_training_fsdp_model():
     keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
             "gather_s", "reduce_scatter_s", "model_s", "collectives",
             "peak_mem_bytes", "launches", "param_elems", "fsdp", "wall_s",
-            "param_elems_by_rank", "step_collectives", "step_peak_bytes")
+            "param_elems_by_rank", "step_collectives", "step_peak_bytes",
+            "peak_reserved_bytes")
     summary = {"2+2": {k: a[k] for k in keep},
                "2+2_tp": {k: tp[k] for k in keep if k in tp},
                "full": {k: b[k] for k in keep},
@@ -4495,6 +4662,164 @@ def phase_training_fsdp_model():
                      "train_whisper-large-v3_tp": tp["launches"],
                      "train_whisper-large-v3_fsdp_tp_full": b["launches"],
                      "train_olmoe_fsdp_ep": m["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# [8v] the VLM through the launcher under FSDP + tensor parallelism
+# ---------------------------------------------------------------------------
+# llava-next-mistral-7b on ("data", "model") = 2 x 2, untuned: each rank
+# its tensor-parallel slice (16 of 32 query heads, 4 of 8 kv heads, half
+# the MLP and of the vocab) cut to its FSDP shard; 2880 patches in front
+# of 128 tokens (a VLM batch with no text is refused), one row a data
+# rank. Leaves: every weight cut by both halves, the norms whole
+VLM_ARGS = ["--arch", "llava-next-mistral-7b", "--ranks", "4",
+            "--model-parallel", "2", "--seq", str(LLAVA_PREFIX),
+            "--batch", "2", "--collective", "xla"]
+VLM_RUNS = {
+    # (a) 2 of 32 layers, fp32 compute, 2 steps (698,372,096 params whole)
+    "2": {"config": {"num_layers": 2}, "steps": 2, "param_elems": 174608384,
+          "tp_param_elems": 349196288,
+          "leaves": {"data": 0, "model": 0, "both": 16, "neither": 5}},
+    # (b) 4 layers, bf16 gathers, one step: the trace predicts 8.59 GiB a
+    # rank at the peak (15.74 at 8 layers)
+    "4": {"config": {"num_layers": 4}, "steps": 1, "param_elems": 283676672,
+          "leaves": {"data": 0, "model": 0, "both": 30, "neither": 9}},
+}
+
+
+def vlm_unsplit_loss(config):
+    """Step 0's loss of [8v] (a) without a split, in this process: the
+    same full draw (seed 0 on the card), the same global batch (both
+    rows), fp32 compute, the flash kernel; the mean over the text
+    positions alone (labels -1 over the 2880 patches)."""
+    from repro_torch.configs import ARCHITECTURES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticPipeline, batch_to_tensors, \
+        stream_ids
+    from repro_torch.models.registry import build_model
+    cfg = ARCHITECTURES["llava-next-mistral-7b"].replace(**config)
+    shape = ShapeConfig(name="cli", seq_len=LLAVA_PREFIX, global_batch=2,
+                        kind="train")
+    api = build_model(cfg, compute_dtype=torch.float32, device="cuda")
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = SyntheticPipeline(cfg, shape, seed=0,
+                              streams=stream_ids(cfg, shape)).batch_at(0)
+    text = int((batch["labels"] >= 0).sum())
+    with torch.no_grad():
+        loss, _ = api.loss(params, batch_to_tensors(batch, "cuda"))
+    loss = loss.item()
+    del params
+    torch.cuda.empty_cache()
+    return loss, text
+
+
+def phase_training_vlm():
+    """[8v] llava-next-mistral-7b through ``launch/train.py`` under FSDP
+    + tensor parallelism on ``("data", "model")`` = 2 x 2, untuned: (a)
+    2 layers, fp32 compute, 2 steps, held to the same run without FSDP
+    on the same mesh as [8ft] (a) (the same start, step 0's loss
+    bit-equal, its synced gradients gathered whole within `SELF_TOL` of
+    each leaf's scale, the params' change within ``TRAIN_CHANGE_TOL``),
+    both runs' step-0 loss to the unsplit model's over the same batch
+    (`vlm_unsplit_loss`: the vocab-parallel loss skips the patch
+    positions on every rank) within ``GRAD_LOSS_TOL``; (b) 4 layers,
+    bf16 gathers, one step, held to the dry-run's trace of the same step
+    at `TRACED_RANKS` (`hold_to_trace`). Returns the summary and the
+    launch counts by path."""
+    from repro_torch import pytree
+    from repro_torch.configs import ARCHITECTURES
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    t0 = time.perf_counter()
+    spec = VLM_RUNS["2"]
+    fp32 = ParallelConfig(compute_dtype="float32")
+    runs = {}
+    for label, parallel in (("tp", fp32), ("fsdp+tp", dataclasses.replace(
+            fp32, shard_params_over_data=True))):
+        runs[label] = train_run("8v", f"(a) 2 layers, fp32, {label}",
+                                [*VLM_ARGS, "--steps", str(spec["steps"])],
+                                config=spec["config"], parallel=parallel)
+    tp, a = runs["tp"], runs["fsdp+tp"]
+    layers = spec["config"]["num_layers"]
+    bad = fsdp_model_checks(a, "fsdp+tp", spec["leaves"],
+                            spec["param_elems"], layers, spec["steps"])
+    bad += [f"tp {k}" for k in fsdp_model_checks(
+        tp, "tp", None, spec["tp_param_elems"], layers, spec["steps"])]
+
+    def card(tree):
+        return [t.to("cuda", torch.float64) for t in pytree.leaves(tree)]
+    init = [first_slice(w, h.shape) for w, h in zip(
+        card(a["init_params"]), card(tp["init_params"]))]
+    same_start = all(torch.equal(x, y) for x, y in
+                     zip(init, card(tp["init_params"])))
+    grad = leaf_reading(card(a["grads0"]), card(tp["grads0_whole"]))
+    final = [first_slice(w, h.shape) for w, h in zip(
+        card(a["params"]), card(tp["params"]))]
+    change = change_reading(final, init, card(tp["params"]))
+    del init, final
+    for r in (tp, a):
+        for k in ("init_params", "params", "grads0", "grads0_whole"):
+            r.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss0_equal = a["losses"][0] == tp["losses"][0]
+    loss_diff = max(abs(x - y) for x, y in zip(a["losses"], tp["losses"]))
+    unsplit, text = vlm_unsplit_loss(spec["config"])
+    loss_rel = max(abs(r["losses"][0] - unsplit) / abs(unsplit)
+                   for r in (tp, a))
+    _log_fsdp_model_run("8v a", a)
+    log(f"    [8v] (a) vs the same run without FSDP: the same start "
+        f"{same_start}; step 0's loss bit-equal {loss0_equal}; step 0's "
+        f"synced gradients within {grad:.3g} of each leaf's scale (tol "
+        f"{SELF_TOL}); the params' change within {change:.3g} (tol "
+        f"{TRAIN_CHANGE_TOL}); losses within {loss_diff:.3g}; steps "
+        + " ".join(f"{x:.3f}" for x in tp["step_s"]) + " s without FSDP; "
+        f"step 0's loss {a['losses'][0]:.6f} against the unsplit model's "
+        f"{unsplit:.6f} over the same {text} text positions (relative "
+        f"{loss_rel:.3g}, tol {GRAD_LOSS_TOL})")
+    if bad or not same_start or not loss0_equal or grad > SELF_TOL \
+            or change > TRAIN_CHANGE_TOL or loss_diff > TRAIN_LOSS_TOL \
+            or loss_rel > GRAD_LOSS_TOL:
+        raise AssertionError(f"[8v] (a): {bad}; launches {a['launches']},"
+                             f" {a['param_elems']} params a rank, "
+                             f"{a.get('fsdp')}")
+    spec = VLM_RUNS["4"]
+    parallel = ParallelConfig(shard_params_over_data=True,
+                              gather_in_compute_dtype=True)
+    b = train_run("8v", "(b) 4 layers, bf16 gathers",
+                  [*VLM_ARGS, "--steps", str(spec["steps"])],
+                  config=spec["config"], parallel=parallel, keep=False)
+    _log_fsdp_model_run("8v b", b)
+    _log_memory("8v b", b)
+    layers = spec["config"]["num_layers"]
+    bad = fsdp_model_checks(b, "fsdp+tp", spec["leaves"],
+                            spec["param_elems"], layers, spec["steps"])
+    rows, launches, why = hold_to_trace(
+        "8v b", ARCHITECTURES["llava-next-mistral-7b"].replace(
+            **spec["config"]),
+        ShapeConfig("8v_b", LLAVA_PREFIX, 2, "train"), parallel,
+        ((2, 2), ("data", "model")), TRACED_RANKS, b,
+        {"flash_attention": layers})
+    bad += why
+    if bad:
+        raise AssertionError(f"[8v] (b): {bad}; launches {b['launches']}, "
+                             f"{b['param_elems']} params a rank, "
+                             f"{b.get('fsdp')}")
+    keep = ("losses", "step_s", "compute_s", "sync_s", "opt_s",
+            "gather_s", "reduce_scatter_s", "model_s", "collectives",
+            "peak_mem_bytes", "peak_reserved_bytes", "mem_free_bytes",
+            "launches", "param_elems", "fsdp", "wall_s")
+    summary = {"2": {k: a[k] for k in keep},
+               "2_tp": {k: tp[k] for k in keep if k in tp},
+               "4": {k: b[k] for k in keep},
+               "vs_tp": {"loss0_equal": loss0_equal, "grad": grad,
+                         "change": change, "loss": loss_diff},
+               "vs_unsplit_loss": {"unsplit": unsplit, "rel": loss_rel,
+                                   "text_positions": text},
+               "traced": rows, "phase_s": time.perf_counter() - t0}
+    log(f"    [8v] {summary['phase_s']:.1f}s")
+    return summary, {"train_llava_fsdp_tp": a["launches"],
+                     "train_llava_tp": tp["launches"],
+                     "train_llava_fsdp_tp_4": b["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4522,6 +4847,79 @@ def accounting_cases():
                 ParallelConfig(shard_params_over_data=True), "olmoe")}
 
 
+def hold_to_trace(tag, cfg, shape, parallel, mesh, ranks, run, kernels,
+                  metrics=False):
+    """The dry-run's trace of one rank's step (`dryrun.trace_step` on
+    ``meta`` over ``group.MetaMesh(*mesh)`` at the coordinate of each
+    rank of ``ranks``) held to the same rank's step on the card
+    (``run``: ``train.py``'s result): params a rank equal, step 0's
+    collectives by kind and axis equal in count and bytes, the peak
+    within `PEAK_BAND` of the rank's step peak (``max_memory_allocated``
+    with its arguments live), the kernels' launches a rank-step traced
+    equal to ``kernels``' (`model_launches`: each forward kernel's calls
+    a rank-step) and the run's launches equal to them over its ranks and
+    steps, with no combine. ``metrics``: rank 0 through
+    `dryrun.accounting_metrics` (1 and 2 layer units and full depth, the
+    extrapolation checked exactly). Returns (a row a traced rank, the
+    launches traced, the names of the checks that fail)."""
+    import numpy as np
+    from repro_torch.configs.base import CollectiveConfig
+    from repro_torch.core.collectives import group as grp
+    from repro_torch.launch import dryrun
+    coll, rows, bad = CollectiveConfig(), [], []
+    steps_n = len(run["losses"])
+    plan = {k: v for k, v in model_launches(kernels, 1, 1).items() if v}
+    lo, hi = PEAK_BAND
+    for r in ranks:
+        m = grp.MetaMesh(*mesh, np.unravel_index(r, mesh[0]))
+        t1 = time.perf_counter()
+        if metrics and r == 0:
+            am = dryrun.accounting_metrics(cfg, shape, parallel, coll, m)
+            c = am["trace"]
+        else:
+            c, _, _ = dryrun.trace_step(cfg, shape, parallel, coll, m)
+        got_coll = c.record.by_kind()
+        peak = c.memory["peak_bytes_per_device"]
+        measured = max(run["step_peak_bytes"][r])
+        traced = dict(c.kernels)
+        rows.append({"rank": r, "params": c.params,
+                     "collectives": got_coll, "flops": c.flops,
+                     "bytes": c.bytes, "kernels": traced, "peak_bytes": peak,
+                     "measured_peak_bytes": measured,
+                     "measured_reserved_bytes":
+                     run["peak_reserved_bytes"][r],
+                     "peak_ratio": peak / measured,
+                     "trace_s": time.perf_counter() - t1})
+        if metrics and r == 0:
+            rows[-1].update(units=am["units"],
+                            per_unit_flops=am["per_unit_flops"],
+                            largest_at_peak=c.largest(10),
+                            by_op_at_peak=c.by_op(10))
+        bad += [f"{tag} rank {r} {k}" for k, ok in (
+            ("params", c.params == run["param_elems_by_rank"][r]),
+            ("collectives", got_coll == run["step_collectives"][r]),
+            ("kernels", traced == plan),
+            ("peak", lo <= peak / measured <= hi)) if not ok]
+        log(f"    [{tag}] rank {r}: params {c.params} (measured "
+            f"{run['param_elems_by_rank'][r]}); collectives "
+            + ", ".join(f"{k} {v['count']} x {v['bytes']} B"
+                        for k, v in got_coll.items())
+            + f" (equal to the card's step 0: "
+            f"{got_coll == run['step_collectives'][r]}); kernels a "
+            f"rank-step {traced}; peak {peak / 2**30:.3f} GiB predicted, "
+            f"{measured / 2**30:.3f} measured ({peak / measured:.3f}; "
+            f"{run['peak_reserved_bytes'][r] / 2**30:.3f} reserved); "
+            f"{rows[-1]['trace_s']:.1f}s")
+    want = {**model_launches(kernels, steps_n), "segment_combine": 0}
+    launches = {k: v * TRAIN_RANKS * steps_n for k, v in plan.items()}
+    got = {k: run["launches"][k] for k in want}
+    if got != want:
+        bad.append(f"{tag} launches {got} measured, {want} planned")
+    log(f"    [{tag}] launches {launches} traced over {TRAIN_RANKS} ranks "
+        f"and {steps_n} step(s) = {got} measured")
+    return rows, launches, bad
+
+
 def phase_accounting(fsdp_model, smi):
     """[9] The dry-run's trace (``launch/dryrun.py``: one rank's step on
     ``meta`` over a recording 2 x 2 mesh, ``group.MetaMesh``) of [8ft] (b)
@@ -4541,7 +4939,6 @@ def phase_accounting(fsdp_model, smi):
     import subprocess
     from repro_torch.configs.base import CollectiveConfig
     from repro_torch.core.collectives import group as grp
-    from repro_torch.kernels import attention_bwd
     from repro_torch.launch import accounting as acct
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
@@ -4557,61 +4954,17 @@ def phase_accounting(fsdp_model, smi):
     summary, bad = {}, []
     for tag, (cfg, shape, parallel, key) in accounting_cases().items():
         run = fsdp_model[key]
-        rows = []
-        for r in range(TRAIN_RANKS):
-            mesh = grp.MetaMesh((2, 2), ("data", "model"), divmod(r, 2))
-            t1 = time.perf_counter()
-            if r == 0:
-                m = dryrun.accounting_metrics(cfg, shape, parallel, coll,
-                                              mesh)
-                c = m["trace"]
-            else:
-                c, _, _ = dryrun.trace_step(cfg, shape, parallel, coll, mesh)
-            got_coll = c.record.by_kind()
-            peak = c.memory["peak_bytes_per_device"]
-            measured = max(run["step_peak_bytes"][r])
-            rows.append({"params": c.params, "collectives": got_coll,
-                         "flops": c.flops, "bytes": c.bytes,
-                         "kernels": dict(c.kernels), "peak_bytes": peak,
-                         "measured_peak_bytes": measured,
-                         "peak_ratio": peak / measured,
-                         "trace_s": time.perf_counter() - t1})
-            if r == 0:
-                rows[0].update(units=m["units"],
-                               per_unit_flops=m["per_unit_flops"],
-                               largest_at_peak=c.largest(10),
-                               by_op_at_peak=c.by_op(10))
-            lo, hi = PEAK_BAND
-            bad += [f"{tag} rank {r} {k}" for k, ok in (
-                ("params", c.params == run["param_elems_by_rank"][r]),
-                ("collectives", got_coll == run["step_collectives"][r]),
-                ("peak", lo <= peak / measured <= hi)) if not ok]
-            log(f"    [9] {tag} rank {r}: params {c.params} (measured "
-                f"{run['param_elems_by_rank'][r]}); collectives "
-                + ", ".join(f"{k} {v['count']} x {v['bytes']} B"
-                            for k, v in got_coll.items())
-                + f" (equal to the card's step 0: "
-                f"{got_coll == run['step_collectives'][r]}); peak "
-                f"{peak / 2**30:.3f} GiB predicted, {measured / 2**30:.3f} "
-                f"measured ({peak / measured:.3f}); "
-                f"{rows[-1]['trace_s']:.1f}s")
-        steps_n = len(run["losses"])
-        plan = {"flash_attention": rows[0]["kernels"]["flash_attention"]
-                * TRAIN_RANKS * steps_n,
-                "flash_attention_bwd": rows[0]["kernels"]["flash_attention"]
-                * TRAIN_RANKS * steps_n * attention_bwd.LAUNCHES_PER_CALL}
-        traced = {k: sum(row["kernels"].get(k, 0) for row in rows) * steps_n
-                  for k in plan}
-        measured = {k: run["launches"][k] for k in plan}
-        if not traced == plan == measured:
-            bad.append(f"{tag} flash launches {traced} traced, {plan} "
-                       f"planned, {measured} measured")
+        layers = cfg.num_layers + cfg.encoder_layers
+        rows, launches, why = hold_to_trace(
+            tag, cfg, shape, parallel, ((2, 2), ("data", "model")),
+            range(TRAIN_RANKS), run, {"flash_attention": layers},
+            metrics=True)
+        bad += why
         flops = sum(row["flops"] for row in rows)
         fwd_bwd = run["compute_s"][0]
         rate = flops / fwd_bwd
         mf = acct.model_flops(cfg, shape)
-        log(f"    [9] {tag}: flash launches {traced} traced = {plan} "
-            f"planned = {measured} measured; FLOPs a rank "
+        log(f"    [9] {tag}: FLOPs a rank "
             f"{rows[0]['flops']:.6g} (model_flops {mf / TRAIN_RANKS:.6g} a "
             f"rank, {mf:.6g} in all; per unit {rows[0]['per_unit_flops']} "
             f"over {rows[0]['units']} units, extrapolation exact); "
@@ -4619,7 +4972,7 @@ def phase_accounting(fsdp_model, smi):
             f"forward+backward of {fwd_bwd:.3f} s (four ranks, the "
             f"arena collectives inside), {rate / acct.PEAK_FLOPS:.3e} of "
             f"989 TFLOP/s bf16 on {smi}")
-        summary[tag] = {"ranks": rows, "launches": traced,
+        summary[tag] = {"ranks": rows, "launches": launches,
                         "model_flops": mf, "achieved_flops_per_s": rate}
     # [8ft] (b) at two rows a data rank, which ran the card out of memory
     cfg, shape, parallel, _ = accounting_cases()["8ft b"]
@@ -5004,6 +5357,13 @@ def main() -> int:
     training_ssm, ssm_paths = phase_training("mamba2-130m")
     train_paths.update(ssm_paths)
     mark("[8s], [8sc]")
+    training_hybrid, hybrid_paths = phase_training("zamba2-2.7b")
+    train_paths.update(hybrid_paths)
+    mark("[8z], [8zc]")
+    training_hybrid_fsdp, hybrid_fsdp_paths = phase_training_hybrid_fsdp(smi)
+    train_paths.update(hybrid_fsdp_paths)
+    del STEP0_ORACLE["zamba2-2.7b"]
+    mark("[8zf]")
     training_whisper, whisper_paths = phase_training("whisper-large-v3")
     train_paths.update(whisper_paths)
     mark("[8w]")
@@ -5020,6 +5380,9 @@ def main() -> int:
     mark("[8ft], [8mf]")
     accounting = phase_accounting(training_fsdp_model, smi)
     mark("[9]")
+    training_vlm, vlm_paths = phase_training_vlm()
+    train_paths.update(vlm_paths)
+    mark("[8v]")
     training_tp, tp_train_paths = phase_training_tp()
     train_paths.update(tp_train_paths)
     STEP0_ORACLE.clear()
@@ -5060,6 +5423,9 @@ def main() -> int:
                       "communicator": comm, "transport": transport,
                       "training": training,
                       "training_mamba2": training_ssm,
+                      "training_zamba2": training_hybrid,
+                      "training_zamba2_fsdp": training_hybrid_fsdp,
+                      "training_llava_fsdp_tp": training_vlm,
                       "training_olmoe_ep": training_moe,
                       "training_whisper": training_whisper,
                       "training_fsdp": training_fsdp,

@@ -198,8 +198,15 @@ class TrainStep:
     shape: Optional[ShapeConfig] = None
 
     def init(self, gen: Optional[torch.Generator]):
-        return sh.shard(self.api.init(gen), self.mesh, self.api.cfg,
+        held = sh.shard(self.api.init(gen), self.mesh, self.api.cfg,
                         self.fsdp)
+        if torch.device(self.api.device).type == "cuda" and (
+                self.fsdp or sh.model_size(self.mesh) > 1):
+            # the full draw's blocks leave the caching allocator, so the
+            # ranks sharing a card do not keep a whole model reserved
+            # each beside their steps
+            torch.cuda.empty_cache()
+        return held
 
     @property
     def model_axis(self) -> Optional[str]:
@@ -714,8 +721,15 @@ class ServeStep:
     decode_kw: dict = dataclasses.field(default_factory=dict)
 
     def init(self, gen: Optional[torch.Generator]):
-        return sh.shard(self.api.init(gen), self.mesh, self.api.cfg,
+        held = sh.shard(self.api.init(gen), self.mesh, self.api.cfg,
                         self.fsdp)
+        if torch.device(self.api.device).type == "cuda" and (
+                self.fsdp or sh.model_size(self.mesh) > 1):
+            # the full draw's blocks leave the caching allocator, so the
+            # ranks sharing a card do not keep a whole model reserved
+            # each beside their steps
+            torch.cuda.empty_cache()
+        return held
 
     def example_args(self, gen: Optional[torch.Generator] = None) -> tuple:
         cfg, dev = self.api.cfg, self.api.device

@@ -21,7 +21,10 @@ seed 0 on the device, the same in every rank.
 
 Beyond the reference's lines the launcher prints each step's split into
 forward+backward, gradient sync and optimizer seconds (the slowest
-rank's), each rank's peak device memory, the kernel launches of the
+rank's), each rank's peak device memory, allocated (``peak_mem_bytes``)
+and reserved by its caching allocator (``peak_reserved_bytes``), the
+card's free memory after the steps as each rank reads it
+(``mem_free_bytes``: free and total bytes), the kernel launches of the
 steps summed over the ranks, and whether the replicas' params stayed
 bit-identical after every step (a checksum gathered from every rank;
 a difference raises). The result also keeps, for each rank, its params
@@ -405,12 +408,14 @@ def _rank_main(opts: dict):
     for mod in COUNTERS.values():           # counts: the steps alone
         mod.launches = 0
     replay = {name: 0 for name in COUNTERS}
-    run_peak, step_peaks = 0, []
+    run_peak, run_reserved, step_peaks = 0, 0, []
     t_start = time.time()
     for i in range(args.steps):
         batch = batch_to_tensors(pipe.batch_at(i), device, rows=step.rows)
         if device.type == "cuda":        # the step's own peak, args live
             run_peak = max(run_peak, torch.cuda.max_memory_allocated(device))
+            run_reserved = max(run_reserved,
+                               torch.cuda.max_memory_reserved(device))
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.time()
         with grp.Record() as record:
@@ -492,9 +497,15 @@ def _rank_main(opts: dict):
                        for k in COUNTERS}
     res["replay_launches"] = {k: sum(c[k] for c in _gather(replay))
                               for k in COUNTERS}
+    cuda = device.type == "cuda"
     res["peak_mem_bytes"] = _gather(
-        max(run_peak, torch.cuda.max_memory_allocated(device))
-        if device.type == "cuda" else 0)
+        max(run_peak, torch.cuda.max_memory_allocated(device)) if cuda else 0)
+    res["peak_reserved_bytes"] = _gather(
+        max(run_reserved, torch.cuda.max_memory_reserved(device))
+        if cuda else 0)
+    # the card's free and total bytes after the steps, as each rank sees it
+    res["mem_free_bytes"] = _gather(
+        list(torch.cuda.mem_get_info(device)) if cuda else [0, 0])
     res["step_peak_bytes"] = _gather(step_peaks)
     say(f"done: {args.steps} steps in {done:.1f}s")
     if step.fsdp and step.model_axis:
@@ -516,9 +527,14 @@ def _rank_main(opts: dict):
     say(f"replicas: {held} after every step; launches over the steps, "
         f"summed over the ranks: "
         + ", ".join(f"{k} {v}" for k, v in res["launches"].items()))
-    if device.type == "cuda":
+    if cuda:
         say("peak device memory per rank: " + ", ".join(
-            f"{b / 2**30:.2f} GiB" for b in res["peak_mem_bytes"]))
+            f"{b / 2**30:.2f} GiB" for b in res["peak_mem_bytes"])
+            + " allocated, " + ", ".join(
+            f"{b / 2**30:.2f}" for b in res["peak_reserved_bytes"])
+            + " reserved; the card's free memory after the steps "
+            + ", ".join(f"{f / 2**30:.2f}" for f, _ in res["mem_free_bytes"])
+            + f" of {res['mem_free_bytes'][0][1] / 2**30:.2f} GiB")
     if args.ckpt:
         # whole leaves (every expert, slice or shard), on every rank
         tree = step.gather({"params": params, "opt": opt_state})
